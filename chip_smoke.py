@@ -1,0 +1,410 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
+(any failure raises and the script exits non-zero):
+
+1. environment: the card's name and power limit (nvidia-smi), CUDA version;
+2. build: compile every kernel of the path from ``lddl_tpu_torch/ops/csrc``
+   with nvcc for sm_90a;
+3. kernels: hold each kernel against its plain PyTorch version on the card
+   (forward O/LSE, backward dQ/dK/dV) at the main path's shapes, and time
+   kernel, plain version and, as a yardstick the port never calls,
+   ``F.scaled_dot_product_attention``;
+4. main path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
+   attention_dropout 0, attention_impl "auto", fp32 params, bf16
+   activations, random weights from a seed) trained for a few steps from
+   ``get_bert_pretrain_data_loader`` over synthetic balanced binned shards
+   through ``prefetch_to_device``; kernel launch counters are zeroed just
+   before and read just after, and must show every kernel on the path;
+   then a torch.profiler window of further steps (device time by kernel
+   group, idle share) and a check of the flash path against the dense
+   path on a small batch.
+
+Prints a ``{"kernels": [...]}`` line, the card line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+"""
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of each kernel.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+BINS = [128, 256, 384, 512]
+STEPS = 16           # counted main-path steps
+PROFILE_STEPS = 6    # then a profiled window of further steps
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got, ref):
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def attention_inputs(b, l, h, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, l, h, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
+    lens[0] = l
+    mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(
+        torch.int32)
+    return q, k, v, do, mask
+
+
+def check_kernels(fa):
+    """Kernel vs plain version at every checked shape; timings at the
+    main path's largest kernel bin. Returns the kernels' JSON entries
+    (launch counts filled in later)."""
+    shapes = [(16, l, 16, 64) for l in (200, 256, 384, 512, 896)]
+    shapes.append((16, 512, 16, 128))
+    max_abs = {}
+    for (b, l, h, d) in shapes:
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d)
+        qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
+            q, k, v, mask, None)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+        torch.cuda.synchronize()
+        dob = fa._prep_one(do, l_pad)
+        delta = (dob.float() * o_ref.float()).sum(-1)
+        grads = fa.onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta,
+                             scale)
+        torch.cuda.synchronize()
+        grads_ref = fa.onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob,
+                                       lse_ref, delta, scale)
+        torch.cuda.synchronize()
+        e = {"O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref)}
+        for name, got, ref in zip(("dQ", "dK", "dV"), grads, grads_ref):
+            e[name] = rel_err(got, ref)
+        bad = {n: x for n, x in e.items()
+               if not x <= (1e-3 if n == "LSE" else 2e-2)}
+        print("kernel check B={} L={} H={} D={}: {}".format(
+            b, l, h, d, " ".join("{}={:.2e}".format(n, x)
+                                 for n, x in e.items())), flush=True)
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version "
+                                 "at L={} D={}: {}".format(l, d, bad))
+        if (l, d) == (512, 64):   # the largest main-path bin
+            max_abs["fwd"] = max(
+                float((o.float() - o_ref.float()).abs().max()),
+                float((lse - lse_ref).abs().max()))
+            max_abs["bwd"] = max(float((g.float() - r.float()).abs().max())
+                                 for g, r in zip(grads, grads_ref))
+
+    # Timings at the largest main-path bin: B=16, H=16, L=512, D=64.
+    b, l, h, d = 16, 512, 16, 64
+    q, k, v, do, mask = attention_inputs(b, l, h, d, seed=7)
+    qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, mask, None)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = fa._prep_one(do, l)
+    delta = (dob.float() * o.float()).sum(-1)
+    fwd = lambda: fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)  # noqa: E731
+    fwd_plain = lambda: fa.onekv_fwd_plain(  # noqa: E731
+        qb, kb, vb, maskb, qmaskb, scale)
+    bwd = lambda: fa.onekv_bwd(  # noqa: E731
+        qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    bwd_plain = lambda: fa.onekv_bwd_plain(  # noqa: E731
+        qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    # Yardstick: PyTorch's fused attention on the same inputs and mask.
+    ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    keep = (mask[:, None, None, :] > 0)
+    lib_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+        ql, kl, vl, attn_mask=keep)
+    lib_out = lib_fwd()
+    dol = do.transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (ql, kl, vl), dol, retain_graph=True)
+    t = {}
+    # Plain, kernel, kernel, plain; each pair is averaged.
+    t["fwd_plain_a"] = cuda_time_ms(fwd_plain)
+    t["fwd"] = cuda_time_ms(fwd)
+    t["fwd_b"] = cuda_time_ms(fwd)
+    t["fwd_plain_b"] = cuda_time_ms(fwd_plain)
+    t["bwd_plain_a"] = cuda_time_ms(bwd_plain)
+    t["bwd"] = cuda_time_ms(bwd)
+    t["bwd_b"] = cuda_time_ms(bwd)
+    t["bwd_plain_b"] = cuda_time_ms(bwd_plain)
+    t["lib_fwd"] = cuda_time_ms(lib_fwd)
+    t["lib_bwd"] = cuda_time_ms(lib_bwd)
+    print("timings B=16 L=512 H=16 D=64 (ms): " + json.dumps(
+        {n: round(x, 4) for n, x in t.items()}), flush=True)
+
+    bh, n = b * h, b * h * l * d
+    fwd_bytes = 4 * n * 2 + 2 * b * l * 4 + bh * l * 4
+    fwd_flops = 2 * 2 * bh * l * l * d
+    bwd_bytes = 7 * n * 2 + 2 * b * l * 4 + 2 * bh * l * 4
+    bwd_flops = 5 * 2 * bh * l * l * d
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+    fb, fby = bound(fwd_bytes, fwd_flops)
+    bb, bby = bound(bwd_bytes, bwd_flops)
+    src = "lddl_tpu_torch/ops/csrc/onekv_attention.cu"
+    return [
+        {"name": "onekv_fwd", "route": "cuda", "source": src,
+         "replaces": "lddl_tpu/ops/flash_attention.py:441",
+         "launches": 0, "max_abs_err": max_abs["fwd"],
+         "ms": (t["fwd"] + t["fwd_b"]) / 2,
+         "plain_ms": (t["fwd_plain_a"] + t["fwd_plain_b"]) / 2,
+         "bound_ms": fb, "bound_by": fby, "library_ms": t["lib_fwd"]},
+        {"name": "onekv_bwd", "route": "cuda", "source": src,
+         "replaces": "lddl_tpu/ops/flash_attention.py:459",
+         "launches": 0, "max_abs_err": max_abs["bwd"],
+         "ms": (t["bwd"] + t["bwd_b"]) / 2,
+         "plain_ms": (t["bwd_plain_a"] + t["bwd_plain_b"]) / 2,
+         "bound_ms": bb, "bound_by": bby, "library_ms": t["lib_bwd"]},
+    ]
+
+
+def profile_window(step, batches, n):
+    """torch.profiler over ``n`` train steps: device time by kernel group
+    and the device's busy share of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    todo = [next(batches) for _ in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in todo:        # the same steps unprofiled, for the wall
+        step(batch)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in todo:
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # User annotations (e.g. Optimizer.step) also show on the device
+    # track; they have a CPU twin of the same name, kernels do not.
+    cpu_names = {e.key for e in events if e.device_type.name == "CPU"}
+    groups = {}
+    rows = []
+    for evt in events:
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if (us <= 0 or evt.device_type.name != "CUDA"
+                or evt.key in cpu_names):
+            continue
+        name = evt.key
+        low = name.lower()
+        if "onekv" in low:
+            group = "attention kernels (port)"
+        elif any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
+            group = "matmul (cuBLAS)"
+        elif "copy" in low or "memset" in low:
+            group = "copies and dtype casts"
+        elif "multi_tensor_apply" in low:
+            group = "optimizer and grad clipping (foreach)"
+        else:
+            group = "other (norms, GELU, softmax, dropout, losses)"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        rows.append((us / 1e3, evt.count, name))
+    launches = sum(r[1] for r in rows)
+    busy = sum(groups.values())
+    print("profile: {} steps, L={}, device busy {:.1f} ms; wall {:.1f} ms "
+          "unprofiled (idle share {:.1%}), {:.1f} ms profiled (idle share "
+          "{:.1%}); {} kernel launches per step".format(
+              n, [b["input_ids"].shape[1] for b in todo], busy,
+              plain_wall_ms, 1 - busy / plain_wall_ms, wall_ms,
+              1 - busy / wall_ms, launches // n), flush=True)
+    for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
+        print("profile group {:48s} {:9.2f} ms {:6.1%}".format(
+            group, ms, ms / busy), flush=True)
+    for ms, count, name in sorted(rows, reverse=True)[:12]:
+        print("profile kernel {:9.2f} ms x{:5d} {}".format(
+            ms, count, name[:100]), flush=True)
+
+
+def main_path(fa, card):
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.testing import write_balanced_shards, write_vocab
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        write_balanced_shards(os.path.join(tmp, "shards"), tokens,
+                              num_bins=len(BINS), bin_size=128,
+                              shards_per_bin=2, samples_per_shard=64,
+                              masking=True, seed=0)
+        print("data: {:.1f} s for 4 bins x 2 balanced shards x 64 samples"
+              .format(time.perf_counter() - t0), flush=True)
+        loader = get_bert_pretrain_data_loader(
+            os.path.join(tmp, "shards"), vocab_file=vocab, batch_size=16,
+            fixed_seq_lengths=BINS, shuffle_buffer_size=256,
+            shuffle_buffer_warmup_factor=4, base_seed=12345)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+
+        fa.onekv_fwd.launches = 0
+        fa.onekv_bwd.launches = 0
+        rows, it = [], iter(prefetch_to_device(loader))
+        try:
+            for i in range(STEPS):
+                batch = next(it)
+                t0 = time.perf_counter()
+                metrics = step(batch)
+                loss = float(metrics["loss"])  # syncs the device
+                dt = time.perf_counter() - t0
+                l_bin = batch["input_ids"].shape[1]
+                real = int(batch["attention_mask"].sum())
+                rows.append((l_bin, dt, real, loss))
+                print("step {:2d} L={} loss={:.4f} mlm_acc={:.4f} {:.1f} ms"
+                      .format(i, l_bin, loss, float(metrics["mlm_accuracy"]),
+                              dt * 1e3), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at step {}"
+                                         .format(i))
+        finally:
+            it.close()
+        launches = {"onekv_fwd": fa.onekv_fwd.launches,
+                    "onekv_bwd": fa.onekv_bwd.launches}
+
+        kernel_steps = sum(1 for r in rows
+                           if fa.single_block_serves(r[0], 64))
+        if not any(r[0] == 128 for r in rows):
+            raise AssertionError("the dense bin (L=128) was never drawn")
+        if kernel_steps == 0:
+            raise AssertionError("no kernel bin was drawn")
+        want = cfg.num_layers * kernel_steps
+        if launches != {"onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("launch counts {} != {} per kernel ({} "
+                                 "kernel-bin steps x {} layers)".format(
+                                     launches, want, kernel_steps,
+                                     cfg.num_layers))
+        print("launches over {} steps ({} in kernel bins): {}".format(
+            STEPS, kernel_steps, launches), flush=True)
+
+        per_bin = {}
+        seen = set()
+        for l_bin, dt, real, _ in rows:
+            if l_bin not in seen:   # first step of a bin: warm-up
+                seen.add(l_bin)
+                continue
+            per_bin.setdefault(l_bin, []).append((dt, real))
+        for l_bin in sorted(per_bin):
+            dts = [x[0] for x in per_bin[l_bin]]
+            ms = 1e3 * sum(dts) / len(dts)
+            toks = 16 * l_bin * len(dts) / sum(dts)
+            real = sum(x[1] for x in per_bin[l_bin]) / sum(dts)
+            print("bert_large step L={}: {:.2f} ms mean of {} steps, {:.0f} "
+                  "padded tokens/s, {:.0f} real tokens/s ({})".format(
+                      l_bin, ms, len(dts), toks, real, card), flush=True)
+
+        it = iter(prefetch_to_device(loader))
+        try:
+            profile_window(step, it, PROFILE_STEPS)
+        finally:
+            it.close()
+
+        # The flash path against the dense path on one small batch (the
+        # same weights, eval mode): the model's output agrees.
+        model.eval()
+        g = torch.Generator().manual_seed(1)
+        ids = torch.randint(5, cfg.vocab_size, (2, 256), generator=g).cuda()
+        typ = torch.zeros_like(ids)
+        am = torch.ones_like(ids, dtype=torch.int32)
+        am[1, 200:] = 0
+        outs = {}
+        for impl in ("flash", "dense"):
+            for i in range(cfg.num_layers):
+                getattr(model, "layer_{}".format(i)).attention \
+                    .attention_impl = impl
+            with torch.no_grad():
+                outs[impl] = model(ids, typ, am)
+        for name, a, r in zip(("mlm", "nsp"), outs["flash"], outs["dense"]):
+            if a.shape != r.shape or not torch.isfinite(a).all():
+                raise AssertionError("bad {} logits".format(name))
+            err = rel_err(a, r)
+            print("flash vs dense {} logits: rel err {:.2e}".format(name, err),
+                  flush=True)
+            if err > 5e-2:
+                raise AssertionError("flash and dense logits disagree")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = card_line()
+    print("torch {} CUDA {}".format(torch.__version__, torch.version.cuda),
+          flush=True)
+
+    from lddl_tpu_torch.ops import _build
+    from lddl_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    _build.build(["onekv_attention"])
+    print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas {}: {}".format(name, line.strip()), flush=True)
+
+    kernels = check_kernels(fa)
+    launches = main_path(fa, card)
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

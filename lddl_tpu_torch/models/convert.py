@@ -1,0 +1,65 @@
+"""Parameter trees between the reference's flax layout and the port's
+``state_dict``.
+
+The port's modules carry the flax module names, so a param path maps
+one to one: ``layer_0/attention/query/kernel`` <->
+``layer_0.attention.query.weight``. Leaves convert by kind:
+
+- ``nn.Dense`` ``kernel`` [in, out] <-> ``Linear.weight`` [out, in]
+- ``nn.Embed`` ``embedding`` <-> ``Embedding.weight``
+- ``nn.LayerNorm`` ``scale`` <-> ``weight``; ``bias`` <-> ``bias``
+
+Flax trees are nested dicts of numpy arrays (``jax.device_get`` of the
+params); state dicts hold float32 CPU tensors.
+"""
+
+import numpy as np
+import torch
+
+_EMBEDDINGS = ("word_embeddings", "position_embeddings",
+               "token_type_embeddings")
+
+
+def flax_to_state_dict(params):
+    """Nested flax param dict -> ``{name: torch.Tensor}``."""
+    out = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, prefix + (key,))
+                continue
+            arr = np.asarray(value, dtype=np.float32)
+            if key == "kernel":
+                name, arr = "weight", arr.T
+            elif key in ("embedding", "scale"):
+                name = "weight"
+            elif key == "bias":
+                name = "bias"
+            else:
+                raise KeyError("unknown flax leaf {}".format(
+                    "/".join(prefix + (key,))))
+            out[".".join(prefix + (name,))] = torch.tensor(arr)
+
+    walk(params, ())
+    return out
+
+
+def state_dict_to_flax(state_dict):
+    """``{name: tensor}`` -> nested flax param dict of float32 numpy."""
+    tree = {}
+    for name, tensor in state_dict.items():
+        *path, leaf = name.split(".")
+        arr = tensor.detach().cpu().float().numpy()
+        if leaf == "weight":
+            if arr.ndim == 1:
+                leaf = "scale"
+            elif path[-1] in _EMBEDDINGS:
+                leaf = "embedding"
+            else:
+                leaf, arr = "kernel", arr.T
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

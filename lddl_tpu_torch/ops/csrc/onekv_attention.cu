@@ -1,0 +1,497 @@
+// Single-block attention for Hopper (sm_90a): the port of the two Pallas
+// kernels of the single-block regime in lddl_tpu/ops/flash_attention.py.
+//
+//   onekv_fwd_kernel      replaces _onekv_fwd_kernel
+//   onekv_bwd_dkv_kernel  } together replace _onekv_bwd_kernel
+//   onekv_bwd_dq_kernel   }
+//
+// What they compute (identical to the TPU kernels, per (batch*head) row):
+//   S   = Q K^T * scale + bias,  bias = 0 where kmask > 0 && kmask == qmask,
+//         else -1e9 (fp32, added to the scaled fp32 score; never -inf)
+//   O   = softmax(S) V in the input dtype, LSE = m + log(max(l, 1e-30))
+//   P   = exp(S - LSE); dV = P^T dO; dP = dO V^T;
+//   dS  = P * (dP - delta) * scale, cast to the input dtype;
+//   dQ  = dS K; dK = dS^T Q     (delta = rowsum(dO * O), computed outside)
+// Layout: q/k/v/o/dO/dQ/dK/dV [B*H, L_pad, D] bf16, masks int32 [B, L_pad],
+// LSE and delta fp32 [B*H, L_pad]. L_pad is a multiple of 128.
+//
+// What bounds them on this card: at the main path's shapes (L_pad 256-512,
+// D 64) the forward moves ~67 MB and does ~17 GFLOP of bf16 products per
+// bert_large layer call (B=16, H=16, L=512), so a perfect kernel would sit
+// near the balance point of 3.35 TB/s and 989 TFLOP/s. The TPU kernel held
+// a whole [L, L] fp32 score row in VMEM; on Hopper one [512, 512] fp32 tile
+// is 1 MiB, far above the 227 KB of shared memory a block may use.
+//
+// What the design does about it: one block of 4 warps per (bh, 64-row
+// tile). The forward walks 64-wide K/V tiles with a running row max and
+// sum (online softmax), so no [L, L] tile exists and shared memory stays
+// at 70 KB (D=64) or 111 KB (D=128). The products run on the tensor cores
+// through nvcuda::wmma (bf16 x bf16 -> fp32, 16x16x16); P is cast to V's
+// dtype before P V, as the TPU kernel does. Each warp owns 16 rows, so the
+// row softmax needs only warp shuffles. The backward avoids atomics, so
+// runs are reproducible: a dK/dV kernel takes one block per (bh, KV tile)
+// and walks the Q tiles; a dQ kernel takes one block per (bh, Q tile) and
+// walks the K/V tiles. That recomputes S and dP once more than the TPU's
+// fused kernel (7 products instead of 5). This is the simple, correct
+// first version: no TMA, no wgmma, no pipelining of the tile loads.
+//
+// Padded query rows (qmask 0) see every key disallowed and average
+// uniformly over all L_pad keys, as in the reference; fully masked K/V
+// tiles are never skipped, since such rows need them.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int TILE = 64;        // rows of a Q or K/V tile
+constexpr int NTHREADS = 128;   // 4 warps, 16 tile rows each
+constexpr int PAD_H = 8;        // bf16 row padding (16 bytes)
+constexpr int PAD_F = 4;        // fp32 row padding (16 bytes)
+constexpr int LDP = TILE + PAD_H;   // ld of a bf16 [64, 64] tile
+constexpr int LDS = TILE + PAD_F;   // ld of an fp32 [64, 64] tile
+constexpr float NEG_BIG = -1e9f;
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+    AFrag;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+    BRowFrag;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+    BColFrag;
+
+// Copy rows [0, 64) x D of a row-major [*, D] bf16 matrix into shared
+// memory with row stride D + PAD_H, 16 bytes per thread per step.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
+  constexpr int VEC = 8;
+  constexpr int PER_ROW = D / VEC;
+  for (int i = threadIdx.x; i < TILE * PER_ROW; i += NTHREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
+    *reinterpret_cast<uint4*>(dst + r * (D + PAD_H) + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+  }
+}
+
+// Warp product of a 16-row strip: out[16, 64] (fp32, ld LDS) =
+// a[16, D] (bf16, ld D + PAD_H) times b^T, b being [64, D] (ld D + PAD_H).
+template <int D>
+__device__ __forceinline__ void strip_abt(float* out, const bf16* a,
+                                          const bf16* b) {
+  constexpr int LDH = D + PAD_H;
+  AccFrag acc[TILE / 16];
+#pragma unroll
+  for (int j = 0; j < TILE / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    AFrag fa;
+    wmma::load_matrix_sync(fa, a + kk, LDH);
+#pragma unroll
+    for (int j = 0; j < TILE / 16; ++j) {
+      BColFrag fb;
+      wmma::load_matrix_sync(fb, b + j * 16 * LDH + kk, LDH);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < TILE / 16; ++j)
+    wmma::store_matrix_sync(out + j * 16, acc[j], LDS, wmma::mem_row_major);
+}
+
+// acc[D/16] (a 16 x D strip) += a[16, 64] (bf16, ld LDP) times b[64, D]
+// (bf16, ld D + PAD_H).
+template <int D>
+__device__ __forceinline__ void strip_ab_acc(AccFrag* acc, const bf16* a,
+                                             const bf16* b) {
+  constexpr int LDH = D + PAD_H;
+#pragma unroll
+  for (int kk = 0; kk < TILE; kk += 16) {
+    AFrag fa;
+    wmma::load_matrix_sync(fa, a + kk, LDP);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      BRowFrag fb;
+      wmma::load_matrix_sync(fb, b + kk * LDH + j * 16, LDH);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+}
+
+// Write a 64 x D fp32 accumulator tile held as per-warp fragments to
+// global memory as bf16 (staged through shared memory).
+template <int D>
+__device__ __forceinline__ void store_acc_tile(bf16* dst, AccFrag* acc,
+                                               float* stage) {
+  constexpr int LDO = D + PAD_F;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    wmma::store_matrix_sync(stage + warp * 16 * LDO + j * 16, acc[j], LDO,
+                            wmma::mem_row_major);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) {
+    const int r = i / D, c = i % D;
+    dst[(size_t)r * D + c] = __float2bfloat16(stage[r * LDO + c]);
+  }
+}
+
+// Every region below is a multiple of 128 bytes, so each starts aligned.
+template <int D>
+constexpr size_t bf16_tile_bytes() {
+  return (size_t)TILE * (D + PAD_H) * sizeof(bf16);
+}
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 3 * bf16_tile_bytes<D>()                         // Q, K, V
+         + (size_t)TILE * LDS * sizeof(float)             // S
+         + (size_t)TILE * LDP * sizeof(bf16)              // P
+         + (size_t)TILE * (D + PAD_F) * sizeof(float)     // O accumulator
+         + 2 * TILE * sizeof(int);                        // masks
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 4 * bf16_tile_bytes<D>()                         // K, V, Q, dO
+         + 2 * (size_t)TILE * LDS * sizeof(float)         // S^T, dP^T
+         + 2 * (size_t)TILE * LDP * sizeof(bf16)          // P^T, dS^T
+         + (size_t)TILE * (D + PAD_F) * sizeof(float)     // output stage
+         + 4 * TILE * sizeof(int);                        // masks, lse, delta
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return dkv_smem_bytes<D>() - (size_t)TILE * LDP * sizeof(bf16);  // no P
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+onekv_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ kmask,
+                 const int* __restrict__ qmask, bf16* __restrict__ o,
+                 float* __restrict__ lse, int L, int H, float scale) {
+  constexpr int LDH = D + PAD_H;
+  constexpr int LDO = D + PAD_F;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + TILE * LDH;
+  bf16* sV = sK + TILE * LDH;
+  float* sS = reinterpret_cast<float*>(sV + TILE * LDH);
+  bf16* sP = reinterpret_cast<bf16*>(sS + TILE * LDS);
+  float* sO = reinterpret_cast<float*>(sP + TILE * LDP);
+  int* sKm = reinterpret_cast<int*>(sO + TILE * LDO);
+  int* sQm = sKm + TILE;
+
+  const int q0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t base = (size_t)bh * L * D;
+
+  load_tile<D>(sQ, q + base + (size_t)q0 * D);
+  if (threadIdx.x < TILE) sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
+  for (int i = threadIdx.x; i < TILE * LDO; i += NTHREADS) sO[i] = 0.0f;
+  __syncthreads();
+
+  // Lane pair (2r, 2r+1) of warp w owns tile row 16w + r; each lane takes
+  // half of the row's 64 columns.
+  const int row = warp * 16 + lane / 2, half = lane & 1;
+  const int my_qm = sQm[row];
+  float m_run = -INFINITY, l_run = 0.0f;
+
+  for (int k0 = 0; k0 < L; k0 += TILE) {
+    load_tile<D>(sK, k + base + (size_t)k0 * D);
+    load_tile<D>(sV, v + base + (size_t)k0 * D);
+    if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
+    __syncthreads();
+
+    strip_abt<D>(sS + warp * 16 * LDS, sQ + warp * 16 * LDH, sK);
+    __syncwarp();
+
+    const float* srow = sS + row * LDS + half * 32;
+    const int* km = sKm + half * 32;
+    float s[32];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const bool ok = km[c] > 0 && km[c] == my_qm;
+      s[c] = srow[c] * scale + (ok ? 0.0f : NEG_BIG);
+      tmax = fmaxf(tmax, s[c]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    const float m_new = fmaxf(m_run, tmax);
+    const float corr = expf(m_run - m_new);
+    float tsum = 0.0f;
+    bf16* prow = sP + row * LDP + half * 32;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float p = expf(s[c] - m_new);
+      tsum += p;
+      prow[c] = __float2bfloat16(p);
+    }
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
+    l_run = l_run * corr + tsum;
+    m_run = m_new;
+    float* orow = sO + row * LDO + half * (D / 2);
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
+    __syncwarp();
+
+    // O strip += P strip V (accumulated in fp32 through shared memory).
+    AccFrag acc[D / 16];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wmma::load_matrix_sync(acc[j], sO + warp * 16 * LDO + j * 16, LDO,
+                             wmma::mem_row_major);
+    strip_ab_acc<D>(acc, sP + warp * 16 * LDP, sV);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wmma::store_matrix_sync(sO + warp * 16 * LDO + j * 16, acc[j], LDO,
+                              wmma::mem_row_major);
+    __syncthreads();
+  }
+
+  const float l = fmaxf(l_run, 1e-30f);
+  const float inv = 1.0f / l;
+  const float* orow = sO + row * LDO + half * (D / 2);
+  bf16* out = o + base + (size_t)(q0 + row) * D + half * (D / 2);
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(orow[c] * inv);
+  if (half == 0) lse[(size_t)bh * L + q0 + row] = m_run + logf(l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+onekv_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const int* __restrict__ kmask,
+                     const int* __restrict__ qmask,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int L, int H, float scale) {
+  constexpr int LDH = D + PAD_H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + TILE * LDH;
+  bf16* sQ = sV + TILE * LDH;
+  bf16* sdO = sQ + TILE * LDH;
+  float* sS = reinterpret_cast<float*>(sdO + TILE * LDH);
+  float* sdP = sS + TILE * LDS;
+  bf16* sP = reinterpret_cast<bf16*>(sdP + TILE * LDS);
+  bf16* sdS = sP + TILE * LDP;
+  float* stage = reinterpret_cast<float*>(sdS + TILE * LDP);
+  int* sKm = reinterpret_cast<int*>(stage + TILE * (D + PAD_F));
+  int* sQm = sKm + TILE;
+  float* sLse = reinterpret_cast<float*>(sQm + TILE);
+  float* sDelta = sLse + TILE;
+
+  const int k0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t base = (size_t)bh * L * D;
+
+  load_tile<D>(sK, k + base + (size_t)k0 * D);
+  load_tile<D>(sV, v + base + (size_t)k0 * D);
+  if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
+
+  // Warp w owns key rows [16w, 16w + 16) of this tile; its lane pair
+  // (2r, 2r+1) owns key row 16w + r and half of the 64 query columns.
+  const int row = warp * 16 + lane / 2, half = lane & 1;
+  AccFrag dk_acc[D / 16], dv_acc[D / 16];
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    wmma::fill_fragment(dk_acc[j], 0.0f);
+    wmma::fill_fragment(dv_acc[j], 0.0f);
+  }
+
+  for (int q0 = 0; q0 < L; q0 += TILE) {
+    load_tile<D>(sQ, q + base + (size_t)q0 * D);
+    load_tile<D>(sdO, dout + base + (size_t)q0 * D);
+    if (threadIdx.x < TILE) {
+      sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
+      sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
+      sDelta[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
+    }
+    __syncthreads();
+
+    // S^T strip = K_w Q^T and dP^T strip = V_w dO^T, both [16 keys, 64 q].
+    strip_abt<D>(sS + warp * 16 * LDS, sK + warp * 16 * LDH, sQ);
+    strip_abt<D>(sdP + warp * 16 * LDS, sV + warp * 16 * LDH, sdO);
+    __syncwarp();
+
+    const int my_km = sKm[row];
+#pragma unroll 8
+    for (int c = half * 32; c < half * 32 + 32; ++c) {
+      const bool ok = my_km > 0 && my_km == sQm[c];
+      const float st = sS[row * LDS + c] * scale + (ok ? 0.0f : NEG_BIG);
+      const float pt = expf(st - sLse[c]);
+      sP[row * LDP + c] = __float2bfloat16(pt);
+      const float dst = pt * (sdP[row * LDS + c] - sDelta[c]) * scale;
+      sdS[row * LDP + c] = __float2bfloat16(dst);
+    }
+    __syncwarp();
+
+    strip_ab_acc<D>(dv_acc, sP + warp * 16 * LDP, sdO);   // dV += P^T dO
+    strip_ab_acc<D>(dk_acc, sdS + warp * 16 * LDP, sQ);   // dK += dS^T Q
+    __syncthreads();
+  }
+
+  store_acc_tile<D>(dk + base + (size_t)k0 * D, dk_acc, stage);
+  __syncthreads();
+  store_acc_tile<D>(dv + base + (size_t)k0 * D, dv_acc, stage);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+onekv_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const int* __restrict__ kmask,
+                    const int* __restrict__ qmask,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int L, int H, float scale) {
+  constexpr int LDH = D + PAD_H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + TILE * LDH;
+  bf16* sK = sdO + TILE * LDH;
+  bf16* sV = sK + TILE * LDH;
+  float* sS = reinterpret_cast<float*>(sV + TILE * LDH);
+  float* sdP = sS + TILE * LDS;
+  bf16* sdS = reinterpret_cast<bf16*>(sdP + TILE * LDS);
+  float* stage = reinterpret_cast<float*>(sdS + TILE * LDP);
+  int* sKm = reinterpret_cast<int*>(stage + TILE * (D + PAD_F));
+  int* sQm = sKm + TILE;
+  float* sLse = reinterpret_cast<float*>(sQm + TILE);
+  float* sDelta = sLse + TILE;
+
+  const int q0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t base = (size_t)bh * L * D;
+
+  load_tile<D>(sQ, q + base + (size_t)q0 * D);
+  load_tile<D>(sdO, dout + base + (size_t)q0 * D);
+  if (threadIdx.x < TILE) {
+    sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
+    sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
+    sDelta[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
+  }
+  __syncthreads();
+
+  // Lane pair (2r, 2r+1) of warp w owns query row 16w + r.
+  const int row = warp * 16 + lane / 2, half = lane & 1;
+  const int my_qm = sQm[row];
+  const float my_lse = sLse[row], my_delta = sDelta[row];
+  AccFrag dq_acc[D / 16];
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
+
+  for (int k0 = 0; k0 < L; k0 += TILE) {
+    load_tile<D>(sK, k + base + (size_t)k0 * D);
+    load_tile<D>(sV, v + base + (size_t)k0 * D);
+    if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
+    __syncthreads();
+
+    strip_abt<D>(sS + warp * 16 * LDS, sQ + warp * 16 * LDH, sK);    // S
+    strip_abt<D>(sdP + warp * 16 * LDS, sdO + warp * 16 * LDH, sV);  // dP
+    __syncwarp();
+
+#pragma unroll 8
+    for (int c = half * 32; c < half * 32 + 32; ++c) {
+      const bool ok = sKm[c] > 0 && sKm[c] == my_qm;
+      const float s = sS[row * LDS + c] * scale + (ok ? 0.0f : NEG_BIG);
+      const float p = expf(s - my_lse);
+      const float ds = p * (sdP[row * LDS + c] - my_delta) * scale;
+      sdS[row * LDP + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+
+    strip_ab_acc<D>(dq_acc, sdS + warp * 16 * LDP, sK);   // dQ += dS K
+    __syncthreads();
+  }
+
+  store_acc_tile<D>(dq + base + (size_t)q0 * D, dq_acc, stage);
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const void* km,
+               const void* qm, void* o, void* lse, int BH, int L, int H,
+               float scale, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<D>();
+  cudaError_t err = set_smem(onekv_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(L / TILE, BH);
+  onekv_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
+      (const int*)qm, (bf16*)o, (float*)lse, L, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* km,
+               const void* qm, const void* dout, const void* lse,
+               const void* delta, void* dq, void* dk, void* dv, int BH,
+               int L, int H, float scale, cudaStream_t stream) {
+  const size_t smem_dkv = dkv_smem_bytes<D>(), smem_dq = dq_smem_bytes<D>();
+  cudaError_t err = set_smem(onekv_bwd_dkv_kernel<D>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(onekv_bwd_dq_kernel<D>, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(L / TILE, BH);
+  onekv_bwd_dkv_kernel<D><<<grid, NTHREADS, smem_dkv, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
+      (const int*)qm, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, L, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  onekv_bwd_dq_kernel<D><<<grid, NTHREADS, smem_dq, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
+      (const int*)qm, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, L, H, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes). Each returns the cudaError_t of
+// its launches: 0 on success. Inputs are checked by the Python wrapper.
+extern "C" {
+
+int lddl_onekv_fwd(const void* q, const void* k, const void* v,
+                   const void* kmask, const void* qmask, void* o, void* lse,
+                   int BH, int L, int H, int D, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_fwd<64>(q, k, v, kmask, qmask, o, lse, BH, L, H, scale, s);
+  if (D == 128) return launch_fwd<128>(q, k, v, kmask, qmask, o, lse, BH, L, H, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lddl_onekv_bwd(const void* q, const void* k, const void* v,
+                   const void* kmask, const void* qmask, const void* dout,
+                   const void* lse, const void* delta, void* dq, void* dk,
+                   void* dv, int BH, int L, int H, int D, float scale,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_bwd<64>(q, k, v, kmask, qmask, dout, lse, delta, dq, dk, dv, BH, L, H, scale, s);
+  if (D == 128)
+    return launch_bwd<128>(q, k, v, kmask, qmask, dout, lse, delta, dq, dk, dv, BH, L, H, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* lddl_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,296 @@
+"""Fused attention for the single-block regime, on hand-written Hopper
+kernels.
+
+Counterpart of ``lddl_tpu/ops/flash_attention.py`` (``_prep``,
+``flash_attention_fwd`` in the single-block regime,
+``_use_onekv``, ``single_block_serves``, the ``custom_vjp`` of
+``_build_vjp`` as a ``torch.autograd.Function``, ``flash_attention``).
+
+The kernels (``csrc/onekv_attention.cu``, see its header note) replace
+``_onekv_fwd_kernel`` and ``_onekv_bwd_kernel``. Each has a plain PyTorch
+version beside it, computing the same function the same way (products of
+stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, the plain
+softmax, P cast to V's dtype before P V, dS cast to the input dtype). A
+wrapper takes the plain version only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
+
+Conventions shared with the reference: layout ``[B*H, L_pad, D]`` with L
+padded to a multiple of 128; int32 masks ``[B, L_pad]``; a query attends
+a key iff ``kmask > 0 and kmask == qmask``; scale 1/sqrt(D); padded query
+rows are computed and dropped. The online-softmax kernels of the long-L
+regime (L_pad above ``_use_onekv``'s bound) are not ported yet.
+"""
+
+import ctypes
+
+import torch
+
+# The single-block bound of the reference (its VMEM budget on a TPU); on
+# Hopper the tiled kernels have no such limit, and the bound is kept until
+# H100 measurements set the port's own.
+ONEKV_MAX_L_PAD = 896
+NEG_BIG = -1e9
+
+
+def pad_seq_len(l):
+    """L pads to the next multiple of 128."""
+    return -(-l // 128) * 128
+
+
+def _use_onekv(l_pad, d):
+    """Single-block dispatch: L_pad <= 896 at D <= 64, <= 512 up to 128."""
+    max_l = ONEKV_MAX_L_PAD if d <= 64 else 512
+    return l_pad <= max_l and d <= 128
+
+
+def single_block_serves(seq_len, head_dim):
+    """True when flash_attention dispatches the single-block kernels for
+    this shape and L_pad >= 256 (dense keeps the shortest bins). The one
+    predicate models.attention.resolve_auto_impl consults."""
+    l_pad = pad_seq_len(seq_len)
+    return l_pad >= 256 and _use_onekv(l_pad, head_dim)
+
+
+def _prep_one(t, l_pad):
+    """[B, L, H, D] -> padded [B*H, L_pad, D], contiguous."""
+    b, l, h, d = t.shape
+    if l_pad != l:
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, l_pad - l))
+    return t.permute(0, 2, 1, 3).reshape(b * h, l_pad, d).contiguous()
+
+
+def _prep_mask(m, l_pad):
+    l = m.shape[1]
+    m = m.to(torch.int32)
+    if l_pad != l:
+        m = torch.nn.functional.pad(m, (0, l_pad - l))
+    return m.contiguous()
+
+
+def _prep(q, k, v, kv_mask, q_mask):
+    """Pad L to a multiple of 128 and move to the kernel layout. Masks are
+    binary validity or per-token segment ids; q_mask defaults to all ones,
+    and then a non-binary kv_mask normalizes to 0/1."""
+    b, l, h, d = q.shape
+    l_pad = pad_seq_len(l)
+    if q_mask is None:
+        kv_mask = (kv_mask != 0).to(torch.int32)
+        q_mask = torch.ones((b, l), dtype=torch.int32, device=q.device)
+    return (_prep_one(q, l_pad), _prep_one(k, l_pad), _prep_one(v, l_pad),
+            _prep_mask(kv_mask, l_pad), _prep_mask(q_mask, l_pad),
+            (b, l, h, d, l_pad))
+
+
+def _from_bh(t, b, l, h, d):
+    return t.reshape(b, h, -1, d).permute(0, 2, 1, 3)[:, :l]
+
+
+def _scores(qb, kb, maskb, qmaskb, scale):
+    """fp32 S = Q K^T * scale + bias, [B*H, L_pad, L_pad]."""
+    b = maskb.shape[0]
+    bh, l_pad, _ = qb.shape
+    allowed = ((maskb[:, None, :] > 0)
+               & (maskb[:, None, :] == qmaskb[:, :, None]))
+    bias = torch.where(allowed, 0.0, NEG_BIG).to(torch.float32)
+    s = torch.matmul(qb.float(), kb.float().transpose(1, 2)) * scale
+    return (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
+        bh, l_pad, l_pad)
+
+
+def onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale):
+    """Plain PyTorch version of the forward kernel: (O, LSE [B*H, L_pad])."""
+    s = _scores(qb, kb, maskb, qmaskb, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(vb.dtype).float(), vb.float())
+    return (o * (1.0 / l)).to(qb.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """Plain PyTorch version of the backward kernels: (dQ, dK, dV)."""
+    s = _scores(qb, kb, maskb, qmaskb, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dob.float(), vb.float().transpose(1, 2))
+    dv = torch.matmul(p.to(dob.dtype).float().transpose(1, 2), dob.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(kb.dtype).float()
+    dq = torch.matmul(ds, kb.float())
+    dk = torch.matmul(ds.transpose(1, 2), qb.float())
+    return dq.to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype)
+
+
+def _check_cuda(tensors, masks, rows):
+    """Raise unless the operands are CUDA tensors the kernels take;
+    returns the number of heads."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise TypeError("the attention kernels run on CUDA tensors (the "
+                        "plain versions on CPU ones); got {}".format(dev))
+    return _check_operands(tensors, masks, rows)
+
+
+def _check_operands(tensors, masks, rows):
+    """Raise on what the kernels do not take: dtypes, devices, shapes,
+    layout, head dims and lengths. ``tensors`` are [B*H, L_pad, D] bf16,
+    ``masks`` [B, L_pad] int32, ``rows`` (LSE, delta) [B*H, L_pad] fp32.
+    Returns H."""
+    dev = tensors[0].device
+    bh, l_pad, d = tensors[0].shape
+    b = masks[0].shape[0]
+    for group, dtype, shape in ((tensors, torch.bfloat16, (bh, l_pad, d)),
+                                (masks, torch.int32, (b, l_pad)),
+                                (rows, torch.float32, (bh, l_pad))):
+        for t in group:
+            if t.device != dev or t.dtype != dtype:
+                raise TypeError("the attention kernels take {} operands "
+                                "on {}; got {} on {}".format(
+                                    dtype, dev, t.dtype, t.device))
+            if tuple(t.shape) != shape:
+                raise ValueError("operand of shape {}, expected {}".format(
+                    tuple(t.shape), shape))
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("kernel operands must be contiguous and "
+                                 "16-byte aligned")
+    if d not in (64, 128):
+        raise ValueError("the CUDA attention kernels take head_dim 64 or "
+                         "128, got {}".format(d))
+    if l_pad % 128 or not _use_onekv(l_pad, d):
+        raise ValueError("L_pad {} at head_dim {} is outside the "
+                         "single-block regime".format(l_pad, d))
+    if bh % b or bh > 65535:
+        raise ValueError("batch*heads ({}) must be a multiple of the mask "
+                         "batch ({}) and at most 65535".format(bh, b))
+    return bh // b
+
+
+def _lib():
+    from . import _build
+    lib = _build.load("onekv_attention")
+    if not getattr(lib, "_lddl_typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.lddl_onekv_fwd.argtypes = [vp] * 7 + [i, i, i, i, f, vp]
+        lib.lddl_onekv_fwd.restype = i
+        lib.lddl_onekv_bwd.argtypes = [vp] * 11 + [i, i, i, i, f, vp]
+        lib.lddl_onekv_bwd.restype = i
+        lib.lddl_cuda_error_string.argtypes = [i]
+        lib.lddl_cuda_error_string.restype = ctypes.c_char_p
+        lib._lddl_typed = True
+    return lib
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError("{} launch failed: CUDA error {} ({})".format(
+            what, rc, lib.lddl_cuda_error_string(rc).decode()))
+
+
+def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
+    """Single-block forward in the kernel layout: (O, LSE). Launches the
+    CUDA kernel on CUDA tensors; the plain version on CPU tensors."""
+    if qb.device.type == "cpu":
+        return onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    bh, l_pad, d = qb.shape
+    h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [])
+    o = torch.empty_like(qb)
+    lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
+    lib = _lib()
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream(qb.device).cuda_stream
+        rc = lib.lddl_onekv_fwd(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), maskb.data_ptr(),
+            qmaskb.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, l_pad, h,
+            d, scale, stream)
+    _raise_on(lib, rc, "onekv_fwd")
+    onekv_fwd.launches += 1
+    return o, lse
+
+
+onekv_fwd.launches = 0
+
+
+def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """Single-block backward in the kernel layout: (dQ, dK, dV). On CUDA
+    tensors one call launches the dK/dV kernel and the dQ kernel."""
+    if qb.device.type == "cpu":
+        return onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                               scale)
+    bh, l_pad, d = qb.shape
+    h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta])
+    dq, dk, dv = (torch.empty_like(t) for t in (qb, kb, vb))
+    lib = _lib()
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream(qb.device).cuda_stream
+        rc = lib.lddl_onekv_bwd(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), maskb.data_ptr(),
+            qmaskb.data_ptr(), dob.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, l_pad, h, d, scale, stream)
+    _raise_on(lib, rc, "onekv_bwd")
+    onekv_bwd.launches += 1
+    return dq, dk, dv
+
+
+onekv_bwd.launches = 0
+
+
+def _check_single_block(l_pad, d):
+    if not _use_onekv(l_pad, d):
+        raise NotImplementedError(
+            "L_pad {} at head_dim {} needs the online-softmax kernels, "
+            "which are not ported yet".format(l_pad, d))
+
+
+def flash_attention_fwd(q, k, v, kv_mask, q_mask=None):
+    """q/k/v [B, L, H, D], kv_mask [B, L] -> (out [B, L, H, D] in q.dtype,
+    lse [B*H, L_pad] fp32)."""
+    qb, kb, vb, maskb, qmaskb, (b, l, h, d, l_pad) = _prep(
+        q, k, v, kv_mask, q_mask)
+    _check_single_block(l_pad, d)
+    out, lse = onekv_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+    return _from_bh(out, b, l, h, d), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's custom_vjp: the forward saves the kernel-layout
+    operands, the output and the LSE; the backward runs the backward
+    kernels on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_mask):
+        qb, kb, vb, maskb, qmaskb, shape = _prep(q, k, v, kv_mask, q_mask)
+        b, l, h, d, l_pad = shape
+        _check_single_block(l_pad, d)
+        out, lse = onekv_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+        ctx.save_for_backward(qb, kb, vb, maskb, qmaskb, out, lse)
+        ctx.shape = shape
+        return _from_bh(out, b, l, h, d)
+
+    @staticmethod
+    def backward(ctx, ct):
+        qb, kb, vb, maskb, qmaskb, out, lse = ctx.saved_tensors
+        b, l, h, d, l_pad = ctx.shape
+        dob = _prep_one(ct, l_pad)
+        delta = (dob.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                               1.0 / d ** 0.5)
+        return (_from_bh(dq, b, l, h, d), _from_bh(dk, b, l, h, d),
+                _from_bh(dv, b, l, h, d), None, None)
+
+
+def flash_attention(q, k, v, kv_mask=None, q_mask=None, segments=None):
+    """Differentiable fused attention over q/k/v [B, L, H, D].
+
+    ``kv_mask`` [B, L] is a binary key-padding mask (any nonzero value
+    normalizes to 1). For packed rows pass per-token segment ids as
+    ``segments=``: it sets both sides, and attention becomes
+    block-diagonal per segment (0 = padding)."""
+    if segments is not None:
+        if kv_mask is not None or q_mask is not None:
+            raise ValueError(
+                "segments= is exclusive with kv_mask/q_mask: it defines "
+                "both sides of the block-diagonal mask")
+        kv_mask, q_mask = segments, segments
+    elif kv_mask is None:
+        raise ValueError("flash_attention needs kv_mask or segments")
+    return _FlashAttention.apply(q, k, v, kv_mask, q_mask)

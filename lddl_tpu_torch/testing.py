@@ -1,0 +1,141 @@
+"""Synthetic data for tests and the chip smoke run.
+
+- ``fake_pretrain_batch``: a numpy batch in the loader's BERT contract
+  (counterpart of ``lddl_tpu/models/testing.py``).
+- ``write_vocab``: a ``vocab.txt`` made from a seed, the five special
+  tokens first.
+- ``write_balanced_shards``: balanced, length-binned schema-v2 BERT shards
+  (``shard-<i>.parquet_<bin>`` plus ``.num_samples.json``) in the columns
+  of the README's "Data format" table, made from a seed. A data maker,
+  not a preprocessor: its samples are random ids, not text.
+"""
+
+import json
+import os
+
+import numpy as np
+
+SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def fake_pretrain_batch(vocab_size, batch, seq_len, seed=0,
+                        segment_split=False):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, vocab_size, (batch, seq_len)).astype(np.int32)
+    segment = np.zeros((batch, seq_len), np.int32)
+    if segment_split:
+        segment[:, seq_len // 2:] = 1
+    return {
+        "input_ids": ids,
+        "token_type_ids": segment,
+        "attention_mask": np.ones((batch, seq_len), np.int32),
+        "labels": np.where(rng.random((batch, seq_len)) < 0.15, ids,
+                           -1).astype(np.int32),
+        "next_sentence_labels": rng.integers(0, 2, (batch,)).astype(np.int32),
+    }
+
+
+def write_vocab(path, vocab_size=30522, seed=0):
+    """Write ``vocab_size`` unique tokens, one per line, specials first;
+    returns the token list (token id = line index)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    tokens = list(SPECIAL_TOKENS)
+    seen = set(tokens)
+    while len(tokens) < vocab_size:
+        word = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        if rng.random() < 0.3:
+            word = "##" + word
+        if word not in seen:
+            seen.add(word)
+            tokens.append(word)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    return tokens
+
+
+def _samples_of_bin(rng, n, lo, hi, vocab_size, masking, mlm_prob=0.15):
+    """``n`` samples of lo..hi tokens (specials included) as flat id
+    arrays + lengths, statically masked when ``masking``."""
+    totals = rng.integers(lo, hi + 1, n)
+    a_lens = np.array([int(rng.integers(1, t - 3)) for t in totals])
+    b_lens = totals - 3 - a_lens
+    a_ids = [rng.integers(5, vocab_size, a).astype(np.int32) for a in a_lens]
+    b_ids = [rng.integers(5, vocab_size, b).astype(np.int32) for b in b_lens]
+    positions, labels = [], []
+    if masking:
+        mask_id = SPECIAL_TOKENS.index("[MASK]")
+        for a, b in zip(a_ids, b_ids):
+            # Candidate columns of [CLS] A [SEP] B [SEP]: A then B.
+            cand = np.concatenate([1 + np.arange(len(a)),
+                                   len(a) + 2 + np.arange(len(b))])
+            k = max(1, int(round(mlm_prob * len(cand))))
+            pos = np.sort(rng.choice(cand, k, replace=False))
+            seq = np.concatenate([[0], a, [0], b, [0]]).astype(np.int32)
+            labels.append(seq[pos].copy())
+            r = rng.random(k)
+            seq[pos[r < 0.8]] = mask_id
+            rand = (r >= 0.8) & (r < 0.9)
+            seq[pos[rand]] = rng.integers(5, vocab_size, int(rand.sum()))
+            a[:] = seq[1:1 + len(a)]
+            b[:] = seq[len(a) + 2:len(a) + 2 + len(b)]
+            positions.append(pos.astype(np.int32))
+    nsp = rng.random(n) < 0.5
+    return a_ids, b_ids, nsp, totals, positions, labels
+
+
+def _int32_lists(arrays):
+    import pyarrow as pa
+    lens = np.array([len(a) for a in arrays], dtype=np.int32)
+    offsets = np.zeros(len(arrays) + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    return pa.ListArray.from_arrays(
+        pa.array(offsets), pa.array(np.concatenate(arrays), pa.int32()))
+
+
+def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
+                          shards_per_bin=2, samples_per_shard=64,
+                          masking=True, seed=0):
+    """Write ``num_bins`` x ``shards_per_bin`` balanced schema-v2 shards
+    (bin k holds samples of k*bin_size+1 .. (k+1)*bin_size tokens) and the
+    ``.num_samples.json`` cache; returns {basename: count}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray(tokens, dtype=object)
+    counts = {}
+    for k in range(num_bins):
+        lo = max(k * bin_size + 1, 8)
+        hi = (k + 1) * bin_size
+        for i in range(shards_per_bin):
+            n = samples_per_shard
+            a_ids, b_ids, nsp, totals, pos, labels = _samples_of_bin(
+                rng, n, lo, hi, len(tokens), masking)
+            cols = {
+                "A": pa.array([" ".join(vocab[a]) for a in a_ids]),
+                "B": pa.array([" ".join(vocab[b]) for b in b_ids]),
+                "is_random_next": pa.array(nsp),
+                "num_tokens": pa.array(totals.astype(np.uint16)),
+            }
+            if masking:
+                cols["masked_lm_positions"] = pa.array(
+                    [b"R<u2" + p.astype("<u2").tobytes() for p in pos],
+                    pa.binary())
+                cols["masked_lm_labels"] = pa.array(
+                    [" ".join(vocab[lab]) for lab in labels])
+            cols["A_ids"] = _int32_lists(a_ids)
+            cols["B_ids"] = _int32_lists(b_ids)
+            if masking:
+                cols["masked_lm_positions_ids"] = _int32_lists(pos)
+                cols["masked_lm_label_ids"] = _int32_lists(labels)
+            cols["bin_id"] = pa.array(np.full(n, k, dtype=np.int64))
+            name = "shard-{}.parquet_{}".format(i, k)
+            pq.write_table(pa.table(cols), os.path.join(out_dir, name),
+                           compression="lz4")
+            counts[name] = n
+    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(counts, f, sort_keys=True)
+    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
+    return counts

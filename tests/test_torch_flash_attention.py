@@ -1,0 +1,214 @@
+"""The port's single-block attention (lddl_tpu_torch.ops.flash_attention)
+against the reference's Pallas kernels in interpret mode and against the
+dense reference, forward and gradients.
+
+On the CPU the port's wrappers run the kernels' plain PyTorch versions;
+the CUDA kernels themselves are held against those plain versions on the
+card (the CUDA-gated test below, and chip_smoke.py).
+
+Tolerances (fp32 everywhere): 1e-5 for the forward and 1e-4 for the
+gradients, absolute and relative. Both sides compute the same products
+in fp32; they differ only in summation order (a few ulp, ~1e-6 on O(1)
+values), and the gradients chain three products.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from lddl_tpu.ops.ring_attention import dense_attention_reference
+from lddl_tpu_torch.ops import flash_attention as tfa
+
+# lddl_tpu.ops re-exports the function under the module's name.
+jfa = importlib.import_module("lddl_tpu.ops.flash_attention")
+
+FWD_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _inputs(b, l, h, d, seed, mask_kind="padding"):
+    g = np.random.default_rng(seed)
+    q, k, v, ct = (g.standard_normal((b, l, h, d)).astype(np.float32)
+                   for _ in range(4))
+    mask = np.ones((b, l), np.int32)
+    mask[1, l - l // 3:] = 0                   # a padded row
+    if mask_kind == "nonbinary":
+        mask = mask * g.integers(1, 4, (b, l)).astype(np.int32)
+    elif mask_kind == "all_masked":
+        mask[0] = 0                            # every key of row 0 masked
+    return q, k, v, ct, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol, err_msg=what)
+
+
+def _port_out_and_grads(q, k, v, ct, **mask_kw):
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv,
+                              **{n: _t(m) for n, m in mask_kw.items()})
+    (out * _t(ct)).sum().backward()
+    return (out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(),
+            tv.grad.numpy())
+
+
+def _jax_out_and_grads(fn, q, k, v, ct):
+    def f(q, k, v):
+        return (fn(q, k, v) * ct).sum()
+
+    q, k, v = (jnp.asarray(x) for x in (q, k, v))
+    out = fn(q, k, v)
+    grads = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    return (np.asarray(out),) + tuple(np.asarray(g) for g in grads)
+
+
+CASES = ([(l, 64, "padding") for l in (200, 256, 384, 512, 640, 896)]
+         + [(l, 128, "padding") for l in (256, 512)]
+         + [(384, 64, "nonbinary"), (256, 64, "all_masked")])
+
+
+@pytest.mark.parametrize("l,d,mask_kind", CASES)
+def test_port_matches_pallas_interpret(l, d, mask_kind):
+    """Forward O and LSE, and dq/dk/dv, against the reference's
+    single-block Pallas kernels (interpret mode on the CPU)."""
+    b, h = 2, 2
+    q, k, v, ct, mask = _inputs(b, l, h, d, seed=l + d, mask_kind=mask_kind)
+    j_out, j_lse = jfa.flash_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask))
+    t_out, t_lse = tfa.flash_attention_fwd(_t(q), _t(k), _t(v), _t(mask))
+    _close(t_out, j_out, FWD_TOL, "O")
+    _close(t_lse.reshape(b * h, 1, -1), j_lse, FWD_TOL, "LSE")
+
+    want = _jax_out_and_grads(
+        lambda q, k, v: jfa.flash_attention(q, k, v, jnp.asarray(mask)),
+        q, k, v, ct)
+    got = _port_out_and_grads(q, k, v, ct, kv_mask=mask)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(g, w, FWD_TOL if name == "out" else GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("l,d", [(200, 64), (896, 64), (512, 128)])
+def test_port_matches_dense_reference(l, d):
+    """Forward and gradients against ring_attention's unsharded dense
+    reference (the math both kernel families must reproduce)."""
+    q, k, v, ct, mask = _inputs(2, l, 2, d, seed=3 * l + d)
+    want = _jax_out_and_grads(
+        lambda q, k, v: dense_attention_reference(q, k, v,
+                                                  jnp.asarray(mask)),
+        q, k, v, ct)
+    got = _port_out_and_grads(q, k, v, ct, kv_mask=mask)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(g, w, FWD_TOL if name == "out" else GRAD_TOL, name)
+
+
+def test_masked_outlier_key_cannot_underflow_live_rows():
+    """A disallowed key whose raw score dwarfs every allowed score must not
+    drag the row max up: the -1e9 bias keeps the max on the allowed side.
+    Also the packed segments path, against the reference kernel; the
+    outlier's 100x key makes gradient terms 100x larger, so the gradient
+    tolerance is GRAD_TOL relative to max |ref| (fp32 rounding scales with
+    the terms summed)."""
+    g = np.random.default_rng(11)
+    b, l, h, d = 1, 128, 4, 64
+    q = g.standard_normal((b, l, h, d)).astype(np.float32)
+    k = g.standard_normal((b, l, h, d)).astype(np.float32)
+    k[0, 70] = 100.0 * q[0, 0]                  # raw score ~ 800
+    v = g.standard_normal((b, l, h, d)).astype(np.float32)
+    ct = g.standard_normal((b, l, h, d)).astype(np.float32)
+    segs = np.ones((b, l), np.int32)
+    segs[0, 70] = 2                              # the outlier is disallowed
+    segs[0, 100:] = 0                            # for rows in segment 1
+
+    got = _port_out_and_grads(q, k, v, ct, segments=segs)
+    assert np.abs(got[0][0, 0]).max() > 1e-3     # the row did not collapse
+    assert np.isfinite(got[1]).all() and np.abs(got[1][0, 0]).max() > 1e-6
+    want = _jax_out_and_grads(
+        lambda q, k, v: jfa.flash_attention(q, k, v,
+                                            segments=jnp.asarray(segs)),
+        q, k, v, ct)
+    _close(got[0], want[0], FWD_TOL, "out")
+    for name, gg, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        np.testing.assert_allclose(gg, w, rtol=0,
+                                   atol=GRAD_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_dispatch_bounds_match_reference():
+    """The single-block predicates agree with the reference's."""
+    for l in (100, 128, 200, 256, 512, 640, 896, 897, 1024):
+        for d in (32, 64, 96, 128, 256):
+            l_pad = jfa.pad_seq_len(l)
+            assert tfa.pad_seq_len(l) == l_pad
+            assert tfa._use_onekv(l_pad, d) == jfa._use_onekv(l_pad, d)
+            assert (tfa.single_block_serves(l, d)
+                    == jfa.single_block_serves(l, d))
+
+
+def test_mask_arguments_are_validated():
+    q = torch.zeros((1, 128, 2, 64))
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q)
+    m = torch.ones((1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, kv_mask=m, segments=m)
+    with pytest.raises(NotImplementedError):
+        big = torch.zeros((1, 1024, 2, 64))
+        tfa.flash_attention(big, big, big,
+                            kv_mask=torch.ones((1, 1024), dtype=torch.int32))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build with nvcc and "
+                    "run only on the card (chip_smoke.py checks them there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("l,d", [(200, 64), (512, 64), (896, 64),
+                                 (512, 128)])
+def test_cuda_kernels_match_plain(cuda_device, l, d):
+    """The CUDA kernels against their plain versions on the card, in bf16:
+    2e-2 of max |ref| for O and the gradients, 1e-3 for the LSE."""
+    g = torch.Generator(device=cuda_device).manual_seed(l + d)
+    q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((4, l), dtype=torch.int32, device=cuda_device)
+    mask[1, l // 2:] = 0
+    qb, kb, vb, maskb, qmaskb, shape = tfa._prep(q, k, v, mask, None)
+    scale = 1.0 / d ** 0.5
+    o, lse = tfa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
+    o_ref, lse_ref = tfa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = tfa._prep_one(do, shape[-1])
+    delta = (dob.float() * o_ref.float()).sum(-1)
+    got = tfa.onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+    want = tfa.onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta,
+                               scale)
+    torch.cuda.synchronize()
+
+    def rel(a, r):
+        return float((a.float() - r.float()).abs().max() / r.abs().max())
+
+    assert rel(o, o_ref) <= 2e-2
+    assert rel(lse, lse_ref) <= 1e-3
+    for a, r in zip(got, want):
+        assert rel(a, r) <= 2e-2
