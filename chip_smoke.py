@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
-(any failure raises and the script exits non-zero):
+Run from the repository root: ``python3 chip_smoke.py`` (``--kernels-only``
+stops after phase 3). Phases, in order (any failure raises and the script
+exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
-2. build: compile every kernel of the path from ``lddl_tpu_torch/ops/csrc``
-   with nvcc for sm_90a;
+2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
+   with nvcc for sm_90a, one nvcc per source, all started together;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   (forward O/LSE, backward dQ/dK/dV) at the main path's shapes, and time
+   (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
-   ``F.scaled_dot_product_attention``;
-4. main path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
+   ``F.scaled_dot_product_attention`` (its backward via autograd.grad):
+   the single-block kernels at bert_large's bins, the online-softmax
+   kernels at bart_base's B=8, H=12, L=1024 (plus L=2048 and D=128 at
+   L_pad 640);
+4. BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
    attention_dropout 0, attention_impl "auto", fp32 params, bf16
    activations, random weights from a seed) trained for a few steps from
    ``get_bert_pretrain_data_loader`` over synthetic balanced binned shards
    through ``prefetch_to_device``; kernel launch counters are zeroed just
-   before and read just after, and must show every kernel on the path;
+   before and read just after, and must show the single-block kernels;
    then a torch.profiler window of further steps (device time by kernel
    group, idle share) and a check of the flash path against the dense
-   path on a small batch.
+   path on a small batch;
+5. BART path: bart_base (vocab 30522, hidden 768, 6+6 layers, 12 heads,
+   max positions 1024, attention_dropout 0, attention_impl "auto") trained
+   for a few steps at L=1024, batch 8, from ``get_bart_pretrain_data_loader``
+   over synthetic balanced schema-v2 BART shards through
+   ``prefetch_to_device`` with ``bart_batch_loss``; the counters must show
+   the three online kernels 6 times per step each (one per encoder
+   layer), as must a profiled step; then the flash encoder against the
+   dense one on a batch of the loader, in eval mode.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -40,8 +52,10 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 BINS = [128, 256, 384, 512]
-STEPS = 16           # counted main-path steps
+STEPS = 16           # counted BERT steps
 PROFILE_STEPS = 6    # then a profiled window of further steps
+BART_STEPS = 8       # counted BART steps (the first is warm-up)
+BART_BATCH, BART_L = 8, 1024
 
 
 def card_line():
@@ -82,10 +96,29 @@ def attention_inputs(b, l, h, d, seed):
     return q, k, v, do, mask
 
 
+def bound(nbytes, flops):
+    """The least time (ms) the card needs for the work, and what sets it."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_BF16_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def check_errors(what, e):
+    """Print the relative errors ``e`` and raise past the bars: 2e-2 of
+    max |ref| for O and the gradients, 1e-3 for the LSE."""
+    bad = {n: x for n, x in e.items()
+           if not x <= (1e-3 if n == "LSE" else 2e-2)}
+    print("kernel check {}: {}".format(what, " ".join(
+        "{}={:.2e}".format(n, x) for n, x in e.items())), flush=True)
+    if bad:
+        raise AssertionError("kernel disagrees with its plain version at "
+                             "{}: {}".format(what, bad))
+
+
 def check_kernels(fa):
-    """Kernel vs plain version at every checked shape; timings at the
-    main path's largest kernel bin. Returns the kernels' JSON entries
-    (launch counts filled in later)."""
+    """Single-block kernels vs plain versions at every checked shape;
+    timings at the BERT path's largest kernel bin. Returns the kernels'
+    JSON entries (launch counts filled in later)."""
     shapes = [(16, l, 16, 64) for l in (200, 256, 384, 512, 896)]
     shapes.append((16, 512, 16, 128))
     max_abs = {}
@@ -109,14 +142,7 @@ def check_kernels(fa):
         e = {"O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref)}
         for name, got, ref in zip(("dQ", "dK", "dV"), grads, grads_ref):
             e[name] = rel_err(got, ref)
-        bad = {n: x for n, x in e.items()
-               if not x <= (1e-3 if n == "LSE" else 2e-2)}
-        print("kernel check B={} L={} H={} D={}: {}".format(
-            b, l, h, d, " ".join("{}={:.2e}".format(n, x)
-                                 for n, x in e.items())), flush=True)
-        if bad:
-            raise AssertionError("kernel disagrees with its plain version "
-                                 "at L={} D={}: {}".format(l, d, bad))
+        check_errors("B={} L={} H={} D={}".format(b, l, h, d), e)
         if (l, d) == (512, 64):   # the largest main-path bin
             max_abs["fwd"] = max(
                 float((o.float() - o_ref.float()).abs().max()),
@@ -169,11 +195,6 @@ def check_kernels(fa):
     fwd_flops = 2 * 2 * bh * l * l * d
     bwd_bytes = 7 * n * 2 + 2 * b * l * 4 + 2 * bh * l * 4
     bwd_flops = 5 * 2 * bh * l * l * d
-
-    def bound(nbytes, flops):
-        tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        return max(tb, tf), ("bytes" if tb >= tf else "operations")
-
     fb, fby = bound(fwd_bytes, fwd_flops)
     bb, bby = bound(bwd_bytes, bwd_flops)
     src = "lddl_tpu_torch/ops/csrc/onekv_attention.cu"
@@ -192,6 +213,117 @@ def check_kernels(fa):
          "bound_ms": bb, "bound_by": bby, "library_ms": t["lib_bwd"]},
     ]
 
+
+
+def time_turns(kernel, plain):
+    """Plain, kernel, kernel, plain: (kernel ms, plain ms), each the mean
+    of its two turns, and the four times."""
+    p_a = cuda_time_ms(plain)
+    k_a = cuda_time_ms(kernel)
+    k_b = cuda_time_ms(kernel)
+    p_b = cuda_time_ms(plain)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, [p_a, k_a, k_b, p_b]
+
+
+def check_online_kernels(fa):
+    """Online-softmax kernels vs plain versions at bart_base's shape, at
+    L=2048 and at D=128 (L_pad 640); timings at bart_base's shape.
+    Returns the kernels' JSON entries (launch counts filled in later)."""
+    main = (BART_BATCH, BART_L, 12, 64)
+    max_abs = {}
+    for (b, l, h, d) in (main, (2, 2048, 4, 64), (4, 600, 4, 128)):
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d + 1)
+        qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
+            q, k, v, mask, None)
+        if fa._use_onekv(l_pad, d):
+            raise AssertionError("L_pad {} at D={} is not in the online "
+                                 "regime".format(l_pad, d))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.online_fwd(qb, kb, vb, maskb, qmaskb, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.online_fwd_plain(qb, kb, vb, maskb, qmaskb,
+                                             scale)
+        dob = fa._prep_one(do, l_pad)
+        delta = (dob.float() * o_ref.float()).sum(-1)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+        dq = fa.online_bwd_dq(*args)
+        torch.cuda.synchronize()
+        dk, dv = fa.online_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        dq_ref = fa.online_bwd_dq_plain(*args)
+        dk_ref, dv_ref = fa.online_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        check_errors("online B={} L={} H={} D={}".format(b, l, h, d), {
+            "O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref),
+            "dQ": rel_err(dq, dq_ref), "dK": rel_err(dk, dk_ref),
+            "dV": rel_err(dv, dv_ref)})
+        if (b, l, h, d) == main:
+            def abs_err(a, r):
+                return float((a.float() - r.float()).abs().max())
+            max_abs["online_fwd"] = max(abs_err(o, o_ref),
+                                        abs_err(lse, lse_ref))
+            max_abs["online_bwd_dq"] = abs_err(dq, dq_ref)
+            max_abs["online_bwd_dkv"] = max(abs_err(dk, dk_ref),
+                                            abs_err(dv, dv_ref))
+
+    b, l, h, d = main
+    q, k, v, do, mask = attention_inputs(b, l, h, d, seed=11)
+    qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, mask, None)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.online_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = fa._prep_one(do, l)
+    delta = (dob.float() * o.float()).sum(-1)
+    fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
+    bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    t = {}
+    for name, kernel, plain, args in (
+            ("online_fwd", fa.online_fwd, fa.online_fwd_plain, fwd_in),
+            ("online_bwd_dq", fa.online_bwd_dq, fa.online_bwd_dq_plain,
+             bwd_in),
+            ("online_bwd_dkv", fa.online_bwd_dkv, fa.online_bwd_dkv_plain,
+             bwd_in)):
+        t[name] = time_turns(lambda: kernel(*args), lambda: plain(*args))
+    # Yardstick: PyTorch's fused attention on the same inputs and mask;
+    # its backward gives dQ, dK and dV together.
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    keep = (mask[:, None, None, :] > 0)
+    lib_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+        ql, kl, vl, attn_mask=keep)
+    lib_out = lib_fwd()
+    dol = do.transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (ql, kl, vl), dol, retain_graph=True)
+    lib = {"fwd": cuda_time_ms(lib_fwd), "bwd": cuda_time_ms(lib_bwd)}
+    print("timings B={} L={} H={} D={} (ms; plain, kernel, kernel, plain): "
+          "{}; library {}".format(b, l, h, d, json.dumps(
+              {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
+              json.dumps({n: round(x, 4) for n, x in lib.items()})),
+          flush=True)
+
+    bh, n = b * h, b * h * l * d
+    masks, row = 2 * b * l * 4, bh * l * 4
+    product = 2 * bh * l * l * d
+    work = {   # (bytes: each input read once, each output written once;
+               #  bf16 matmul FLOP)
+        "online_fwd": (4 * n * 2 + masks + row, 2 * product),
+        "online_bwd_dq": (5 * n * 2 + masks + 2 * row, 3 * product),
+        "online_bwd_dkv": (6 * n * 2 + masks + 2 * row, 4 * product),
+    }
+    src = "lddl_tpu_torch/ops/csrc/online_attention.cu"
+    replaces = {"online_fwd": 64, "online_bwd_dq": 104,
+                "online_bwd_dkv": 133}
+    entries = []
+    for name in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
+        bms, by = bound(*work[name])
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
+                replaces[name]),
+            "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
+            "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
+            "library_ms": lib["fwd" if name == "online_fwd" else "bwd"]})
+    return entries
 
 def profile_window(step, batches, n):
     """torch.profiler over ``n`` train steps: device time by kernel group
@@ -226,7 +358,7 @@ def profile_window(step, batches, n):
             continue
         name = evt.key
         low = name.lower()
-        if "onekv" in low:
+        if "onekv" in low or "online" in low:
             group = "attention kernels (port)"
         elif any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
             group = "matmul (cuBLAS)"
@@ -252,9 +384,23 @@ def profile_window(step, batches, n):
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         print("profile kernel {:9.2f} ms x{:5d} {}".format(
             ms, count, name[:100]), flush=True)
+    return rows
 
 
-def main_path(fa, card):
+KERNELS = ("onekv_fwd", "onekv_bwd", "online_fwd", "online_bwd_dq",
+           "online_bwd_dkv")
+
+
+def zero_launches(fa):
+    for name in KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def read_launches(fa):
+    return {name: getattr(fa, name).launches for name in KERNELS}
+
+
+def bert_path(fa, card):
     from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
@@ -286,8 +432,7 @@ def main_path(fa, card):
                              warmup_steps=4, total_steps=100)
         step = make_train_step(model, opt)
 
-        fa.onekv_fwd.launches = 0
-        fa.onekv_bwd.launches = 0
+        zero_launches(fa)
         rows, it = [], iter(prefetch_to_device(loader))
         try:
             for i in range(STEPS):
@@ -307,8 +452,7 @@ def main_path(fa, card):
                                          .format(i))
         finally:
             it.close()
-        launches = {"onekv_fwd": fa.onekv_fwd.launches,
-                    "onekv_bwd": fa.onekv_bwd.launches}
+        launches = read_launches(fa)
 
         kernel_steps = sum(1 for r in rows
                            if fa.single_block_serves(r[0], 64))
@@ -317,7 +461,8 @@ def main_path(fa, card):
         if kernel_steps == 0:
             raise AssertionError("no kernel bin was drawn")
         want = cfg.num_layers * kernel_steps
-        if launches != {"onekv_fwd": want, "onekv_bwd": want}:
+        if launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
             raise AssertionError("launch counts {} != {} per kernel ({} "
                                  "kernel-bin steps x {} layers)".format(
                                      launches, want, kernel_steps,
@@ -375,10 +520,130 @@ def main_path(fa, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def bart_path(fa, card):
+    """bart_base denoising steps at L=1024 from the port's BART loader;
+    returns the launch counts of the counted steps."""
+    from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BartConfig, BartForPreTraining,
+                                       bart_batch_loss, make_optimizer,
+                                       make_train_step)
+    from lddl_tpu_torch.testing import write_bart_shards, write_vocab
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bart_")
+    try:
+        t0 = time.perf_counter()
+        vocab = os.path.join(tmp, "vocab.txt")
+        write_vocab(vocab, 30522, seed=0)
+        write_bart_shards(os.path.join(tmp, "shards"), 30522, num_shards=2,
+                          samples_per_shard=64, seed=0)
+        print("data: {:.1f} s for 2 balanced BART shards x 64 samples"
+              .format(time.perf_counter() - t0), flush=True)
+        loader = get_bart_pretrain_data_loader(
+            os.path.join(tmp, "shards"), vocab_file=vocab,
+            batch_size=BART_BATCH, max_seq_length=BART_L,
+            fixed_seq_length=BART_L, shuffle_buffer_size=128,
+            shuffle_buffer_warmup_factor=4, base_seed=12345)
+
+        torch.manual_seed(0)
+        cfg = BartConfig.bart_base(attention_dropout=0.0,
+                                   attention_impl="auto")
+        with torch.device("cuda"):
+            model = BartForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=2, total_steps=100)
+        step = make_train_step(model, opt, batch_loss=bart_batch_loss)
+
+        zero_launches(fa)
+        rows, it = [], iter(prefetch_to_device(loader))
+        try:
+            for i in range(BART_STEPS):
+                batch = next(it)
+                t0 = time.perf_counter()
+                metrics = step(batch)
+                loss = float(metrics["loss"])  # syncs the device
+                dt = time.perf_counter() - t0
+                enc = int(batch["attention_mask"].sum())
+                rows.append((dt, enc))
+                print("bart step {} L={} loss={:.4f} acc={:.4f} encoder "
+                      "tokens {} {:.1f} ms".format(
+                          i, batch["input_ids"].shape[1], loss,
+                          float(metrics["accuracy"]), enc, dt * 1e3),
+                      flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at step {}"
+                                         .format(i))
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        want = cfg.num_encoder_layers * BART_STEPS
+        if launches != dict.fromkeys(KERNELS, 0) | {
+                "online_fwd": want, "online_bwd_dq": want,
+                "online_bwd_dkv": want}:
+            raise AssertionError("launch counts {} != {} per online kernel "
+                                 "({} steps x {} encoder layers)".format(
+                                     launches, want, BART_STEPS,
+                                     cfg.num_encoder_layers))
+        print("launches over {} bart steps: {}".format(BART_STEPS, launches),
+              flush=True)
+        dts = [r[0] for r in rows[1:]]          # the first is warm-up
+        ms = 1e3 * sum(dts) / len(dts)
+        print("bart_base step L={} B={}: {:.2f} ms mean of {} steps "
+              "(min {:.2f}, max {:.2f}), {:.0f} decoder tokens/s, {:.0f} "
+              "real encoder tokens/s ({})".format(
+                  BART_L, BART_BATCH, ms, len(dts), 1e3 * min(dts),
+                  1e3 * max(dts), BART_BATCH * BART_L / (ms / 1e3),
+                  sum(r[1] for r in rows[1:]) / sum(dts), card), flush=True)
+
+        it = iter(prefetch_to_device(loader))
+        try:
+            prof_rows = profile_window(step, it, 1)
+            batch = next(it)
+        finally:
+            it.close()
+        counts = {name: sum(c for _, c, n in prof_rows
+                            if name + "_kernel" in n)
+                  for name in KERNELS[2:]}
+        print("kernels in a profiled bart step: {}".format(counts),
+              flush=True)
+        if counts != dict.fromkeys(KERNELS[2:], cfg.num_encoder_layers):
+            raise AssertionError("a profiled step launched {} (want {} "
+                                 "each)".format(counts,
+                                                cfg.num_encoder_layers))
+
+        # The flash encoder against the dense one on a batch of the loader
+        # (the same weights, eval mode): the model's output agrees.
+        model.eval()
+        inputs = [batch[k] for k in model.BATCH_INPUTS]
+        outs = {}
+        for impl in ("flash", "dense"):
+            for i in range(cfg.num_encoder_layers):
+                getattr(model, "encoder_{}".format(i)).self_attention \
+                    .attention_impl = impl
+            with torch.no_grad():
+                outs[impl] = model(*inputs)
+        a, r = outs["flash"], outs["dense"]
+        if a.shape != (BART_BATCH, BART_L, cfg.vocab_size) or not \
+                torch.isfinite(a).all():
+            raise AssertionError("bad bart logits {}".format(tuple(a.shape)))
+        err = rel_err(a, r)
+        print("bart flash vs dense logits: rel err {:.2e}".format(err),
+              flush=True)
+        if err > 5e-2:
+            raise AssertionError("flash and dense bart logits disagree")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     card = card_line()
     print("torch {} CUDA {}".format(torch.__version__, torch.version.cuda),
           flush=True)
@@ -387,15 +652,20 @@ def main():
     from lddl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    _build.build(["onekv_attention"])
+    _build.build(["onekv_attention", "online_attention"])
     print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas {}: {}".format(name, line.strip()), flush=True)
 
-    kernels = check_kernels(fa)
-    launches = main_path(fa, card)
+    kernels = check_kernels(fa) + check_online_kernels(fa)
+    if kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        return 0
+    launches = bert_path(fa, card)
+    launches.update({k: v for k, v in bart_path(fa, card).items()
+                     if k.startswith("online")})
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of lddl_tpu for NVIDIA Hopper (H100).
 
-This first slice carries the BERT NSP+MLM pretraining main path:
-balanced, length-binned schema-v2 shards -> ``loader`` -> host-to-device
-prefetch -> ``models.BertForPreTraining`` with the hand-written
-single-block attention kernels (``ops.flash_attention``) -> ``models.train``
-(pretrain loss, clipped AdamW).
+It carries two pretraining paths: BERT NSP+MLM (balanced, length-binned
+schema-v2 shards -> ``loader`` -> host-to-device prefetch ->
+``models.BertForPreTraining`` -> ``models.train``: pretrain loss, clipped
+AdamW) and BART denoising (schema-v2 BART shards -> ``loader.bart`` ->
+prefetch -> ``models.BartForPreTraining`` -> the same step with
+``bart_batch_loss``). Attention runs on hand-written Hopper kernels
+(``ops.flash_attention``): single-block ones for short sequences,
+online-softmax ones from L_pad 1024.
 
 Module and function names follow ``lddl_tpu`` so each piece can be read
 beside its counterpart there. Nothing here imports JAX or ``lddl_tpu``:

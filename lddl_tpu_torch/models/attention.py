@@ -1,14 +1,16 @@
-"""Multi-head self-attention and the transformer MLP of the model stack.
+"""Multi-head attention and the transformer MLP of the model stack.
 
 Counterpart of ``lddl_tpu/models/attention.py`` (``resolve_auto_impl``,
-``MultiHeadAttention``, ``FeedForward``) with PyTorch modules. Parameters
-are fp32 and activations run in ``dtype`` (bf16 in training), as flax's
-``nn.Dense(dtype=...)`` does: inputs and weights are cast to ``dtype``
-before each product.
+``MultiHeadAttention``, ``FeedForward``) with PyTorch modules: one
+attention serves BERT's self-attention and BART's encoder and decoder
+self-attention and cross-attention. Parameters are fp32 and activations
+run in ``dtype`` (bf16 in training), as flax's ``nn.Dense(dtype=...)``
+does: inputs and weights are cast to ``dtype`` before each product.
 
 The dense path keeps the finite -1e9 bias (a dtype-min bias overflows to
 -inf in bf16 and turns an all-masked row into NaN). The flash path calls
-the port's single-block kernels (``ops.flash_attention``).
+the port's attention kernels (``ops.flash_attention``): the single-block
+ones up to their bound, the online-softmax ones from L_pad 1024.
 """
 
 import math
@@ -17,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention, single_block_serves
+from ..ops.flash_attention import (NEG_BIG, flash_attention, pad_seq_len,
+                                   single_block_serves)
 
 
 def resolve_auto_impl(seq_len, blockwise_ok, attention_dropout,
@@ -25,12 +28,14 @@ def resolve_auto_impl(seq_len, blockwise_ok, attention_dropout,
     """attention_impl="auto" -> "flash" | "dense". Flash only where it
     computes the same math as dense (attention-prob dropout is skipped by
     the kernels, so an effective dropout > 0 pins dense) and where the
-    single-block kernels serve the shape (L_pad 256 up to their bound;
-    dense keeps L_pad 128). Those L boundaries were measured on a TPU; the
-    port keeps them until H100 measurements set its own."""
+    kernels serve the shape: the single-block ones from L_pad 256 up to
+    their bound, the online ones from L_pad 1024 (dense keeps L_pad 128,
+    and 640-896 at head_dim 128). Those L boundaries were measured on a
+    TPU; the port keeps them until H100 measurements set its own."""
     effective_dropout = 0.0 if deterministic else attention_dropout
     return ("flash" if blockwise_ok and effective_dropout == 0.0
-            and single_block_serves(seq_len, head_dim) else "dense")
+            and (single_block_serves(seq_len, head_dim)
+                 or pad_seq_len(seq_len) >= 1024) else "dense")
 
 
 class Dense(nn.Linear):
@@ -50,10 +55,15 @@ class Dense(nn.Linear):
 
 
 class MultiHeadAttention(nn.Module):
-    """softmax(Q K^T / sqrt(d) + bias) V over a [B, L, hidden] input.
+    """softmax(Q K^T / sqrt(d) + bias) V: queries from ``q_input`` [B, Lq,
+    hidden], keys and values from ``kv_input`` [B, Lk, hidden] (the same
+    tensor for self-attention).
 
-    ``padding_mask``: [B, L] key validity (1 = attend). Children are named
-    query/key/value/output, as in the reference's param tree."""
+    ``padding_mask``: [B, Lk] key validity (1 = attend), or None.
+    ``extra_bias``: an optional additive [*, Lq, Lk] term (e.g. causal).
+    Only bidirectional self-attention with a padding mask and no extra
+    bias may take the kernels; causal and cross calls stay dense. Children
+    are named query/key/value/output, as in the reference's param tree."""
 
     def __init__(self, hidden_size, num_heads, dtype=torch.bfloat16,
                  dropout=0.0, initializer_range=0.02, attention_impl="dense"):
@@ -69,30 +79,36 @@ class MultiHeadAttention(nn.Module):
                                       initializer_range))
         self.probs_dropout = nn.Dropout(dropout)
 
-    def forward(self, x, padding_mask):
-        b, l, _ = x.shape
+    def forward(self, q_input, kv_input, padding_mask, extra_bias=None):
+        b, l, _ = q_input.shape
+        blockwise_ok = (q_input is kv_input and extra_bias is None
+                        and padding_mask is not None)
         impl = self.attention_impl
         if impl == "auto":
-            impl = resolve_auto_impl(l, padding_mask is not None,
-                                     self.dropout, not self.training,
+            impl = resolve_auto_impl(l, blockwise_ok, self.dropout,
+                                     not self.training,
                                      head_dim=self.head_dim)
 
         def split_heads(t):
-            return t.reshape(b, l, self.num_heads, self.head_dim)
+            return t.reshape(b, t.shape[1], self.num_heads, self.head_dim)
 
-        q = split_heads(self.query(x))
-        k = split_heads(self.key(x))
-        v = split_heads(self.value(x))
-        if impl == "flash" and padding_mask is not None:
+        q = split_heads(self.query(q_input))
+        k = split_heads(self.key(kv_input))
+        v = split_heads(self.value(kv_input))
+        if impl == "flash" and blockwise_ok:
             # Attention-prob dropout is skipped, as in the reference.
             ctx = flash_attention(q, k, v, padding_mask)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(
                 self.head_dim)
+            bias = None
             if padding_mask is not None:
                 bias = torch.where(padding_mask[:, None, None, :] > 0, 0.0,
-                                   -1e9).to(self.dtype)
-                scores = scores + bias
+                                   NEG_BIG)
+            if extra_bias is not None:
+                bias = extra_bias if bias is None else bias + extra_bias
+            if bias is not None:
+                scores = scores + bias.to(self.dtype)
             probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
             probs = self.probs_dropout(probs)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -134,7 +134,7 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
     def forward(self, x, attention_mask):
-        attn = self.dropout(self.attention(x, attention_mask))
+        attn = self.dropout(self.attention(x, x, attention_mask))
         x = self.attention_norm(x + attn)
         h = self.dropout(self.ffn(x))
         return self.ffn_norm(x + h)
@@ -146,6 +146,8 @@ class BertForPreTraining(nn.Module):
     Returns (mlm_logits [B, L, vocab], nsp_logits [B, 2]) in fp32; with
     ``masked_positions`` [B, P] the MLM head runs only at those columns
     (mlm_logits [B, P, vocab]). Dropout follows ``train()``/``eval()``."""
+
+    BATCH_INPUTS = ("input_ids", "token_type_ids", "attention_mask")
 
     def __init__(self, cfg):
         super().__init__()

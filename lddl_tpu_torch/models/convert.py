@@ -16,8 +16,10 @@ params); state dicts hold float32 CPU tensors.
 import numpy as np
 import torch
 
+# Modules whose 2-D weight is an ``nn.Embed`` table (BERT's three, BART's
+# shared token table and learned positions), not a Dense kernel.
 _EMBEDDINGS = ("word_embeddings", "position_embeddings",
-               "token_type_embeddings")
+               "token_type_embeddings", "shared_embeddings", "positions")
 
 
 def flax_to_state_dict(params):

@@ -1,9 +1,10 @@
 """Pretraining step: loss, clipped AdamW under a warmup-cosine schedule,
-the gathered MLM head.
+the gathered MLM head, the batch-loss adapter.
 
 Counterpart of ``lddl_tpu/models/train.py`` (``pretrain_loss``,
-``make_optimizer``, ``mlm_gather_cap``, ``_mlm_gather_of``,
-``_make_step_fn``) on one device. The optimizer keeps optax's semantics:
+``bert_batch_loss``, ``make_optimizer``, ``mlm_gather_cap``,
+``_mlm_gather_of``, ``_batch_inputs``, ``_make_step_fn``) on one
+device. The optimizer keeps optax's semantics:
 global-norm clipping (``optax.clip_by_global_norm``), then AdamW (eps
 outside the sqrt, weight decay on every parameter) at the learning rate
 ``warmup_cosine_decay_schedule(count)``, where the first update uses
@@ -45,6 +46,14 @@ def pretrain_loss(mlm_logits, nsp_logits, labels, next_sentence_labels,
         "nsp_accuracy": nsp_correct.sum() / nsp_denom,
     }
     return loss, metrics
+
+
+def bert_batch_loss(outputs, batch, ignore_index=-1):
+    """Default loss adapter: BertForPreTraining outputs -> pretrain_loss."""
+    mlm_logits, nsp_logits = outputs
+    return pretrain_loss(mlm_logits, nsp_logits, batch["labels"],
+                         batch["next_sentence_labels"],
+                         ignore_index=ignore_index)
 
 
 def warmup_cosine_decay_schedule(count, peak_value, warmup_steps,
@@ -150,28 +159,37 @@ def _mlm_gather_of(batch, ignore_index=-1):
     return pos, gathered, dropped
 
 
-def make_train_step(model, optimizer, ignore_index=-1):
+def make_train_step(model, optimizer, ignore_index=-1, batch_loss=None):
     """A train step: (batch of tensors on the model's device) -> metrics
     (device tensors; reading them syncs the device). Runs the model in
-    train mode (dropout on) with the gathered MLM head, then clip + AdamW
-    + schedule."""
+    train mode (dropout on) on the batch keys its ``BATCH_INPUTS`` names,
+    then clip + AdamW + schedule.
+
+    ``batch_loss(outputs, batch)`` -> (loss, metrics) adapts the model's
+    outputs (e.g. ``bart.bart_batch_loss``); bind its ignore_index
+    yourself. The default is BERT's loss with the gathered MLM head, which
+    rewrites the batch's labels under BERT's conventions and so is on only
+    for the default loss."""
+    if batch_loss is not None and ignore_index != -1:
+        raise ValueError(
+            "ignore_index only configures the default BERT loss; bind it "
+            "into your batch_loss instead")
+    gather_ok = batch_loss is None
+    if batch_loss is None:
+        def batch_loss(outputs, batch):
+            return bert_batch_loss(outputs, batch, ignore_index)
 
     def step(batch):
         model.train()
         kwargs, extra = {}, {}
-        gather = _mlm_gather_of(batch, ignore_index)
+        gather = _mlm_gather_of(batch, ignore_index) if gather_ok else None
         if gather is not None:
             pos, gathered_labels, dropped = gather
             kwargs = {"masked_positions": pos}
             batch = dict(batch, labels=gathered_labels)
             extra = {"mlm_dropped_labels": dropped}
-        mlm_logits, nsp_logits = model(batch["input_ids"],
-                                       batch["token_type_ids"],
-                                       batch["attention_mask"], **kwargs)
-        loss, metrics = pretrain_loss(mlm_logits, nsp_logits,
-                                      batch["labels"],
-                                      batch["next_sentence_labels"],
-                                      ignore_index=ignore_index)
+        outputs = model(*(batch[k] for k in model.BATCH_INPUTS), **kwargs)
+        loss, metrics = batch_loss(outputs, batch)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()

@@ -2,13 +2,15 @@
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface and compiles on its
 own into ``ops/_build/<name>-<hash>.so`` for ``sm_90a`` (the build
-directory is git-ignored; the hash of the source and the flags names the
-library, so an edited source rebuilds). Nothing is built when a module is
+directory is git-ignored; the hash of the source, the shared headers
+``csrc/*.cuh`` and the flags names the library, so an edited source or
+header rebuilds). Nothing is built when a module is
 imported: the first kernel call builds, or ``build()`` does it up front,
 starting one ``nvcc`` per source at once.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,9 +42,16 @@ def _nvcc():
 
 
 def _target(name):
+    """(source path, library path). The library's name hashes the source,
+    every shared header of ``csrc/`` and the flags, so an edit to any of
+    them builds a new library."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for path in [src] + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
     return src, os.path.join(BUILD_DIR, "{}-{}.so".format(
         name, digest.hexdigest()[:16]))
 

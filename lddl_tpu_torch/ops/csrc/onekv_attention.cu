@@ -39,107 +39,18 @@
 // uniformly over all L_pad keys, as in the reference; fully masked K/V
 // tiles are never skipped, since such rows need them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "attention_tiles.cuh"
 
 namespace {
 
+using namespace lddl_attn;
+
 constexpr int TILE = 64;        // rows of a Q or K/V tile
 constexpr int NTHREADS = 128;   // 4 warps, 16 tile rows each
-constexpr int PAD_H = 8;        // bf16 row padding (16 bytes)
-constexpr int PAD_F = 4;        // fp32 row padding (16 bytes)
 constexpr int LDP = TILE + PAD_H;   // ld of a bf16 [64, 64] tile
 constexpr int LDS = TILE + PAD_F;   // ld of an fp32 [64, 64] tile
-constexpr float NEG_BIG = -1e9f;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    AFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    BRowFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    BColFrag;
-
-// Copy rows [0, 64) x D of a row-major [*, D] bf16 matrix into shared
-// memory with row stride D + PAD_H, 16 bytes per thread per step.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < TILE * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD_H) + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-  }
-}
-
-// Warp product of a 16-row strip: out[16, 64] (fp32, ld LDS) =
-// a[16, D] (bf16, ld D + PAD_H) times b^T, b being [64, D] (ld D + PAD_H).
-template <int D>
-__device__ __forceinline__ void strip_abt(float* out, const bf16* a,
-                                          const bf16* b) {
-  constexpr int LDH = D + PAD_H;
-  AccFrag acc[TILE / 16];
-#pragma unroll
-  for (int j = 0; j < TILE / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    AFrag fa;
-    wmma::load_matrix_sync(fa, a + kk, LDH);
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) {
-      BColFrag fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < TILE / 16; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], LDS, wmma::mem_row_major);
-}
-
-// acc[D/16] (a 16 x D strip) += a[16, 64] (bf16, ld LDP) times b[64, D]
-// (bf16, ld D + PAD_H).
-template <int D>
-__device__ __forceinline__ void strip_ab_acc(AccFrag* acc, const bf16* a,
-                                             const bf16* b) {
-  constexpr int LDH = D + PAD_H;
-#pragma unroll
-  for (int kk = 0; kk < TILE; kk += 16) {
-    AFrag fa;
-    wmma::load_matrix_sync(fa, a + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      BRowFrag fb;
-      wmma::load_matrix_sync(fb, b + kk * LDH + j * 16, LDH);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Write a 64 x D fp32 accumulator tile held as per-warp fragments to
-// global memory as bf16 (staged through shared memory).
-template <int D>
-__device__ __forceinline__ void store_acc_tile(bf16* dst, AccFrag* acc,
-                                               float* stage) {
-  constexpr int LDO = D + PAD_F;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * LDO + j * 16, acc[j], LDO,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    dst[(size_t)r * D + c] = __float2bfloat16(stage[r * LDO + c]);
-  }
-}
 
 // Every region below is a multiple of 128 bytes, so each starts aligned.
 template <int D>
@@ -192,7 +103,7 @@ onekv_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * L * D;
 
-  load_tile<D>(sQ, q + base + (size_t)q0 * D);
+  load_tile<TILE, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
   if (threadIdx.x < TILE) sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
   for (int i = threadIdx.x; i < TILE * LDO; i += NTHREADS) sO[i] = 0.0f;
   __syncthreads();
@@ -204,12 +115,13 @@ onekv_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_run = -INFINITY, l_run = 0.0f;
 
   for (int k0 = 0; k0 < L; k0 += TILE) {
-    load_tile<D>(sK, k + base + (size_t)k0 * D);
-    load_tile<D>(sV, v + base + (size_t)k0 * D);
+    load_tile<TILE, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
+    load_tile<TILE, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
     if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
     __syncthreads();
 
-    strip_abt<D>(sS + warp * 16 * LDS, sQ + warp * 16 * LDH, sK);
+    strip_abt<D, TILE>(sS + warp * 16 * LDS, LDS, sQ + warp * 16 * LDH,
+                       sK);
     __syncwarp();
 
     const float* srow = sS + row * LDS + half * 32;
@@ -247,7 +159,7 @@ onekv_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < D / 16; ++j)
       wmma::load_matrix_sync(acc[j], sO + warp * 16 * LDO + j * 16, LDO,
                              wmma::mem_row_major);
-    strip_ab_acc<D>(acc, sP + warp * 16 * LDP, sV);
+    strip_ab_acc<D, TILE>(acc, sP + warp * 16 * LDP, LDP, sV);
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
       wmma::store_matrix_sync(sO + warp * 16 * LDO + j * 16, acc[j], LDO,
@@ -294,8 +206,8 @@ onekv_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * L * D;
 
-  load_tile<D>(sK, k + base + (size_t)k0 * D);
-  load_tile<D>(sV, v + base + (size_t)k0 * D);
+  load_tile<TILE, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
+  load_tile<TILE, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
   if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
 
   // Warp w owns key rows [16w, 16w + 16) of this tile; its lane pair
@@ -309,8 +221,8 @@ onekv_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   for (int q0 = 0; q0 < L; q0 += TILE) {
-    load_tile<D>(sQ, q + base + (size_t)q0 * D);
-    load_tile<D>(sdO, dout + base + (size_t)q0 * D);
+    load_tile<TILE, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
+    load_tile<TILE, D, NTHREADS>(sdO, dout + base + (size_t)q0 * D);
     if (threadIdx.x < TILE) {
       sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
       sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
@@ -319,8 +231,10 @@ onekv_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     // S^T strip = K_w Q^T and dP^T strip = V_w dO^T, both [16 keys, 64 q].
-    strip_abt<D>(sS + warp * 16 * LDS, sK + warp * 16 * LDH, sQ);
-    strip_abt<D>(sdP + warp * 16 * LDS, sV + warp * 16 * LDH, sdO);
+    strip_abt<D, TILE>(sS + warp * 16 * LDS, LDS, sK + warp * 16 * LDH,
+                       sQ);
+    strip_abt<D, TILE>(sdP + warp * 16 * LDS, LDS, sV + warp * 16 * LDH,
+                       sdO);
     __syncwarp();
 
     const int my_km = sKm[row];
@@ -335,14 +249,15 @@ onekv_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    strip_ab_acc<D>(dv_acc, sP + warp * 16 * LDP, sdO);   // dV += P^T dO
-    strip_ab_acc<D>(dk_acc, sdS + warp * 16 * LDP, sQ);   // dK += dS^T Q
+    // dV += P^T dO; dK += dS^T Q.
+    strip_ab_acc<D, TILE>(dv_acc, sP + warp * 16 * LDP, LDP, sdO);
+    strip_ab_acc<D, TILE>(dk_acc, sdS + warp * 16 * LDP, LDP, sQ);
     __syncthreads();
   }
 
-  store_acc_tile<D>(dk + base + (size_t)k0 * D, dk_acc, stage);
+  store_acc_tile<D, NTHREADS>(dk + base + (size_t)k0 * D, dk_acc, stage);
   __syncthreads();
-  store_acc_tile<D>(dv + base + (size_t)k0 * D, dv_acc, stage);
+  store_acc_tile<D, NTHREADS>(dv + base + (size_t)k0 * D, dv_acc, stage);
 }
 
 template <int D>
@@ -374,8 +289,8 @@ onekv_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * L * D;
 
-  load_tile<D>(sQ, q + base + (size_t)q0 * D);
-  load_tile<D>(sdO, dout + base + (size_t)q0 * D);
+  load_tile<TILE, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
+  load_tile<TILE, D, NTHREADS>(sdO, dout + base + (size_t)q0 * D);
   if (threadIdx.x < TILE) {
     sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
     sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
@@ -392,13 +307,16 @@ onekv_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
 
   for (int k0 = 0; k0 < L; k0 += TILE) {
-    load_tile<D>(sK, k + base + (size_t)k0 * D);
-    load_tile<D>(sV, v + base + (size_t)k0 * D);
+    load_tile<TILE, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
+    load_tile<TILE, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
     if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
     __syncthreads();
 
-    strip_abt<D>(sS + warp * 16 * LDS, sQ + warp * 16 * LDH, sK);    // S
-    strip_abt<D>(sdP + warp * 16 * LDS, sdO + warp * 16 * LDH, sV);  // dP
+    // S = Q K^T and dP = dO V^T.
+    strip_abt<D, TILE>(sS + warp * 16 * LDS, LDS, sQ + warp * 16 * LDH,
+                       sK);
+    strip_abt<D, TILE>(sdP + warp * 16 * LDS, LDS, sdO + warp * 16 * LDH,
+                       sV);
     __syncwarp();
 
 #pragma unroll 8
@@ -411,18 +329,12 @@ onekv_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    strip_ab_acc<D>(dq_acc, sdS + warp * 16 * LDP, sK);   // dQ += dS K
+    // dQ += dS K.
+    strip_ab_acc<D, TILE>(dq_acc, sdS + warp * 16 * LDP, LDP, sK);
     __syncthreads();
   }
 
-  store_acc_tile<D>(dq + base + (size_t)q0 * D, dq_acc, stage);
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  store_acc_tile<D, NTHREADS>(dq + base + (size_t)q0 * D, dq_acc, stage);
 }
 
 template <int D>
@@ -489,9 +401,4 @@ int lddl_onekv_bwd(const void* q, const void* k, const void* v,
     return launch_bwd<128>(q, k, v, kmask, qmask, dout, lse, delta, dq, dk, dv, BH, L, H, scale, s);
   return (int)cudaErrorInvalidValue;
 }
-
-const char* lddl_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

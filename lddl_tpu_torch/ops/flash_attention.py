@@ -1,25 +1,34 @@
-"""Fused attention for the single-block regime, on hand-written Hopper
-kernels.
+"""Fused attention on hand-written Hopper kernels, in the reference's two
+regimes.
 
 Counterpart of ``lddl_tpu/ops/flash_attention.py`` (``_prep``,
-``flash_attention_fwd`` in the single-block regime,
-``_use_onekv``, ``single_block_serves``, the ``custom_vjp`` of
-``_build_vjp`` as a ``torch.autograd.Function``, ``flash_attention``).
+``flash_attention_fwd``, ``_use_onekv``, ``single_block_serves``, the
+``custom_vjp`` of ``_build_vjp`` as a ``torch.autograd.Function``,
+``flash_attention``). ``_use_onekv(l_pad, d)`` picks the regime, as in
+the reference:
 
-The kernels (``csrc/onekv_attention.cu``, see its header note) replace
-``_onekv_fwd_kernel`` and ``_onekv_bwd_kernel``. Each has a plain PyTorch
+- single-block (L_pad <= 896 at D=64, <= 512 at D=128):
+  ``csrc/onekv_attention.cu`` replaces ``_onekv_fwd_kernel`` and
+  ``_onekv_bwd_kernel`` (``onekv_fwd``, ``onekv_bwd``);
+- online softmax (every longer L_pad): ``csrc/online_attention.cu``
+  replaces ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+  (``online_fwd``, ``online_bwd_dq``, ``online_bwd_dkv``), three kernels
+  launched on their own.
+
+The two regimes are separate kernels on purpose, so that a redesign of
+one does not move the other's numbers. Each kernel has a plain PyTorch
 version beside it, computing the same function the same way (products of
-stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, the plain
-softmax, P cast to V's dtype before P V, dS cast to the input dtype). A
-wrapper takes the plain version only for tensors on the CPU; on a CUDA
-tensor it launches its kernel or raises. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, P cast to
+V's dtype before P V, dS cast to the input dtype; the online forward
+walks the same 64-wide K/V tiles with a running max). A wrapper takes the
+plain version only for tensors on the CPU; on a CUDA tensor it launches
+its kernel or raises. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 Conventions shared with the reference: layout ``[B*H, L_pad, D]`` with L
 padded to a multiple of 128; int32 masks ``[B, L_pad]``; a query attends
 a key iff ``kmask > 0 and kmask == qmask``; scale 1/sqrt(D); padded query
-rows are computed and dropped. The online-softmax kernels of the long-L
-regime (L_pad above ``_use_onekv``'s bound) are not ported yet.
+rows are computed and dropped.
 """
 
 import ctypes
@@ -31,6 +40,10 @@ import torch
 # H100 measurements set the port's own.
 ONEKV_MAX_L_PAD = 896
 NEG_BIG = -1e9
+# Width of the K/V (fwd, dq) or Q (dkv) tiles the online kernels walk
+# (STEP in csrc/online_attention.cu); the plain forward walks the same
+# tiles, so its bf16 rounding of P matches the kernel's.
+ONLINE_STEP = 64
 
 
 def pad_seq_len(l):
@@ -46,8 +59,9 @@ def _use_onekv(l_pad, d):
 
 def single_block_serves(seq_len, head_dim):
     """True when flash_attention dispatches the single-block kernels for
-    this shape and L_pad >= 256 (dense keeps the shortest bins). The one
-    predicate models.attention.resolve_auto_impl consults."""
+    this shape and L_pad >= 256 (dense keeps the shortest bins).
+    models.attention.resolve_auto_impl consults it, and picks the online
+    kernels from L_pad 1024, as the reference does."""
     l_pad = pad_seq_len(seq_len)
     return l_pad >= 256 and _use_onekv(l_pad, head_dim)
 
@@ -87,15 +101,16 @@ def _from_bh(t, b, l, h, d):
 
 
 def _scores(qb, kb, maskb, qmaskb, scale):
-    """fp32 S = Q K^T * scale + bias, [B*H, L_pad, L_pad]."""
+    """fp32 S = Q K^T * scale + bias, [B*H, Lq, Lk] (qb [B*H, Lq, D] with
+    qmaskb [B, Lq]; kb [B*H, Lk, D] with maskb [B, Lk])."""
     b = maskb.shape[0]
-    bh, l_pad, _ = qb.shape
+    bh, lq, _ = qb.shape
+    lk = kb.shape[1]
     allowed = ((maskb[:, None, :] > 0)
                & (maskb[:, None, :] == qmaskb[:, :, None]))
     bias = torch.where(allowed, 0.0, NEG_BIG).to(torch.float32)
     s = torch.matmul(qb.float(), kb.float().transpose(1, 2)) * scale
-    return (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
-        bh, l_pad, l_pad)
+    return (s.view(b, bh // b, lq, lk) + bias[:, None]).view(bh, lq, lk)
 
 
 def onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale):
@@ -120,21 +135,77 @@ def onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     return dq.to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype)
 
 
-def _check_cuda(tensors, masks, rows):
+def online_fwd_plain(qb, kb, vb, maskb, qmaskb, scale):
+    """Plain PyTorch version of the online forward kernel: walks the K/V
+    tiles with a running max m, denominator l and fp32 accumulator, each
+    rescaled by exp(m - m_new); returns (O, LSE [B*H, L_pad])."""
+    bh, l_pad, d = qb.shape
+    m = torch.full((bh, l_pad, 1), -float("inf"), device=qb.device)
+    l = torch.zeros((bh, l_pad, 1), device=qb.device)
+    acc = torch.zeros((bh, l_pad, d), device=qb.device)
+    for j in range(0, l_pad, ONLINE_STEP):
+        t = slice(j, j + ONLINE_STEP)
+        s = _scores(qb, kb[:, t], maskb[:, t], qmaskb, scale)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(vb.dtype).float(),
+                                        vb[:, t].float())
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (acc / l).to(qb.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def online_bwd_dq_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """Plain PyTorch version of the online dQ kernel: walks the K/V tiles,
+    P = exp(S - LSE), dS = P (dP - delta) scale in the input dtype,
+    dQ += dS K."""
+    dq = torch.zeros(qb.shape, device=qb.device)
+    for j in range(0, qb.shape[1], ONLINE_STEP):
+        t = slice(j, j + ONLINE_STEP)
+        p = torch.exp(_scores(qb, kb[:, t], maskb[:, t], qmaskb, scale)
+                      - lse[..., None])
+        dp = torch.matmul(dob.float(), vb[:, t].float().transpose(1, 2))
+        ds = (p * (dp - delta[..., None]) * scale).to(kb.dtype).float()
+        dq += torch.matmul(ds, kb[:, t].float())
+    return dq.to(qb.dtype)
+
+
+def online_bwd_dkv_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                         scale):
+    """Plain PyTorch version of the online dK/dV kernel: walks the Q
+    tiles, dV += P^T dO, dK += dS^T Q; returns (dK, dV)."""
+    dk = torch.zeros(kb.shape, device=kb.device)
+    dv = torch.zeros(vb.shape, device=vb.device)
+    for i in range(0, qb.shape[1], ONLINE_STEP):
+        t = slice(i, i + ONLINE_STEP)
+        p = torch.exp(_scores(qb[:, t], kb, maskb, qmaskb[:, t], scale)
+                      - lse[:, t, None])
+        do_t = dob[:, t]
+        dv += torch.matmul(p.to(do_t.dtype).float().transpose(1, 2),
+                           do_t.float())
+        dp = torch.matmul(do_t.float(), vb.float().transpose(1, 2))
+        ds = (p * (dp - delta[:, t, None]) * scale).to(qb.dtype).float()
+        dk += torch.matmul(ds.transpose(1, 2), qb[:, t].float())
+    return dk.to(kb.dtype), dv.to(vb.dtype)
+
+def _check_cuda(tensors, masks, rows, online=False):
     """Raise unless the operands are CUDA tensors the kernels take;
     returns the number of heads."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise TypeError("the attention kernels run on CUDA tensors (the "
                         "plain versions on CPU ones); got {}".format(dev))
-    return _check_operands(tensors, masks, rows)
+    return _check_operands(tensors, masks, rows, online)
 
 
-def _check_operands(tensors, masks, rows):
+def _check_operands(tensors, masks, rows, online=False):
     """Raise on what the kernels do not take: dtypes, devices, shapes,
     layout, head dims and lengths. ``tensors`` are [B*H, L_pad, D] bf16,
     ``masks`` [B, L_pad] int32, ``rows`` (LSE, delta) [B*H, L_pad] fp32.
-    Returns H."""
+    The single-block kernels take L_pad inside ``_use_onekv``'s bound, the
+    online kernels (``online=True``) any multiple of 128. Returns H."""
     dev = tensors[0].device
     bh, l_pad, d = tensors[0].shape
     b = masks[0].shape[0]
@@ -155,7 +226,9 @@ def _check_operands(tensors, masks, rows):
     if d not in (64, 128):
         raise ValueError("the CUDA attention kernels take head_dim 64 or "
                          "128, got {}".format(d))
-    if l_pad % 128 or not _use_onekv(l_pad, d):
+    if l_pad % 128:
+        raise ValueError("L_pad {} is not a multiple of 128".format(l_pad))
+    if not online and not _use_onekv(l_pad, d):
         raise ValueError("L_pad {} at head_dim {} is outside the "
                          "single-block regime".format(l_pad, d))
     if bh % b or bh > 65535:
@@ -164,25 +237,44 @@ def _check_operands(tensors, masks, rows):
     return bh // b
 
 
-def _lib():
+# Pointer arguments of each C entry point, by source; every entry point
+# then takes (BH, L_pad, H, D, scale, stream) and returns a cudaError_t.
+_ENTRY_POINTS = {
+    "onekv_attention": {"lddl_onekv_fwd": 7, "lddl_onekv_bwd": 11},
+    "online_attention": {"lddl_online_fwd": 7, "lddl_online_bwd_dq": 9,
+                         "lddl_online_bwd_dkv": 10},
+}
+
+
+def _lib(source):
     from . import _build
-    lib = _build.load("onekv_attention")
+    lib = _build.load(source)
     if not getattr(lib, "_lddl_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lddl_onekv_fwd.argtypes = [vp] * 7 + [i, i, i, i, f, vp]
-        lib.lddl_onekv_fwd.restype = i
-        lib.lddl_onekv_bwd.argtypes = [vp] * 11 + [i, i, i, i, f, vp]
-        lib.lddl_onekv_bwd.restype = i
+        for entry, n_ptr in _ENTRY_POINTS[source].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [vp] * n_ptr + [i, i, i, i, f, vp]
+            fn.restype = i
         lib.lddl_cuda_error_string.argtypes = [i]
         lib.lddl_cuda_error_string.restype = ctypes.c_char_p
         lib._lddl_typed = True
     return lib
 
 
-def _raise_on(lib, rc, what):
+def _launch(source, entry, tensors, h, scale):
+    """Call one C entry point on the operands' device and current stream;
+    ``tensors`` are its pointer arguments, q first. Raises on a CUDA
+    error from the launch."""
+    qb = tensors[0]
+    bh, l_pad, d = qb.shape
+    lib = _lib(source)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream(qb.device).cuda_stream
+        rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), bh,
+                                 l_pad, h, d, scale, stream)
     if rc != 0:
         raise RuntimeError("{} launch failed: CUDA error {} ({})".format(
-            what, rc, lib.lddl_cuda_error_string(rc).decode()))
+            entry, rc, lib.lddl_cuda_error_string(rc).decode()))
 
 
 def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
@@ -190,18 +282,12 @@ def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
     CUDA kernel on CUDA tensors; the plain version on CPU tensors."""
     if qb.device.type == "cpu":
         return onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
-    bh, l_pad, d = qb.shape
+    bh, l_pad, _ = qb.shape
     h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [])
     o = torch.empty_like(qb)
     lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
-    lib = _lib()
-    with torch.cuda.device(qb.device):
-        stream = torch.cuda.current_stream(qb.device).cuda_stream
-        rc = lib.lddl_onekv_fwd(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), maskb.data_ptr(),
-            qmaskb.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, l_pad, h,
-            d, scale, stream)
-    _raise_on(lib, rc, "onekv_fwd")
+    _launch("onekv_attention", "lddl_onekv_fwd",
+            [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
     onekv_fwd.launches += 1
     return o, lse
 
@@ -215,18 +301,11 @@ def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     if qb.device.type == "cpu":
         return onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
                                scale)
-    bh, l_pad, d = qb.shape
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta])
     dq, dk, dv = (torch.empty_like(t) for t in (qb, kb, vb))
-    lib = _lib()
-    with torch.cuda.device(qb.device):
-        stream = torch.cuda.current_stream(qb.device).cuda_stream
-        rc = lib.lddl_onekv_bwd(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), maskb.data_ptr(),
-            qmaskb.data_ptr(), dob.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, l_pad, h, d, scale, stream)
-    _raise_on(lib, rc, "onekv_bwd")
+    _launch("onekv_attention", "lddl_onekv_bwd",
+            [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq, dk, dv], h,
+            scale)
     onekv_bwd.launches += 1
     return dq, dk, dv
 
@@ -234,11 +313,64 @@ def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
 onekv_bwd.launches = 0
 
 
-def _check_single_block(l_pad, d):
-    if not _use_onekv(l_pad, d):
-        raise NotImplementedError(
-            "L_pad {} at head_dim {} needs the online-softmax kernels, "
-            "which are not ported yet".format(l_pad, d))
+def online_fwd(qb, kb, vb, maskb, qmaskb, scale):
+    """Online-softmax forward in the kernel layout: (O, LSE). Launches the
+    CUDA kernel on CUDA tensors; the plain version on CPU tensors."""
+    if qb.device.type == "cpu":
+        return online_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    bh, l_pad, _ = qb.shape
+    h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [], online=True)
+    o = torch.empty_like(qb)
+    lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
+    _launch("online_attention", "lddl_online_fwd",
+            [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
+    online_fwd.launches += 1
+    return o, lse
+
+
+online_fwd.launches = 0
+
+
+def online_bwd_dq(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """Online-softmax dQ in the kernel layout (one kernel launch on CUDA
+    tensors; the plain version on CPU tensors)."""
+    if qb.device.type == "cpu":
+        return online_bwd_dq_plain(qb, kb, vb, maskb, qmaskb, dob, lse,
+                                   delta, scale)
+    h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
+                    online=True)
+    dq = torch.empty_like(qb)
+    _launch("online_attention", "lddl_online_bwd_dq",
+            [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq], h, scale)
+    online_bwd_dq.launches += 1
+    return dq
+
+
+online_bwd_dq.launches = 0
+
+
+def online_bwd_dkv(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """Online-softmax (dK, dV) in the kernel layout (one kernel launch on
+    CUDA tensors; the plain version on CPU tensors)."""
+    if qb.device.type == "cpu":
+        return online_bwd_dkv_plain(qb, kb, vb, maskb, qmaskb, dob, lse,
+                                    delta, scale)
+    h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
+                    online=True)
+    dk, dv = torch.empty_like(kb), torch.empty_like(vb)
+    _launch("online_attention", "lddl_online_bwd_dkv",
+            [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dk, dv], h, scale)
+    online_bwd_dkv.launches += 1
+    return dk, dv
+
+
+online_bwd_dkv.launches = 0
+
+
+def _fwd(qb, kb, vb, maskb, qmaskb, l_pad, d):
+    """The forward of the regime ``_use_onekv`` picks: (O, LSE)."""
+    fwd = onekv_fwd if _use_onekv(l_pad, d) else online_fwd
+    return fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
 
 
 def flash_attention_fwd(q, k, v, kv_mask, q_mask=None):
@@ -246,22 +378,20 @@ def flash_attention_fwd(q, k, v, kv_mask, q_mask=None):
     lse [B*H, L_pad] fp32)."""
     qb, kb, vb, maskb, qmaskb, (b, l, h, d, l_pad) = _prep(
         q, k, v, kv_mask, q_mask)
-    _check_single_block(l_pad, d)
-    out, lse = onekv_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+    out, lse = _fwd(qb, kb, vb, maskb, qmaskb, l_pad, d)
     return _from_bh(out, b, l, h, d), lse
 
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's custom_vjp: the forward saves the kernel-layout
     operands, the output and the LSE; the backward runs the backward
-    kernels on them."""
+    kernels of the same regime on them."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, q_mask):
         qb, kb, vb, maskb, qmaskb, shape = _prep(q, k, v, kv_mask, q_mask)
         b, l, h, d, l_pad = shape
-        _check_single_block(l_pad, d)
-        out, lse = onekv_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+        out, lse = _fwd(qb, kb, vb, maskb, qmaskb, l_pad, d)
         ctx.save_for_backward(qb, kb, vb, maskb, qmaskb, out, lse)
         ctx.shape = shape
         return _from_bh(out, b, l, h, d)
@@ -272,8 +402,12 @@ class _FlashAttention(torch.autograd.Function):
         b, l, h, d, l_pad = ctx.shape
         dob = _prep_one(ct, l_pad)
         delta = (dob.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
-                               1.0 / d ** 0.5)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, 1.0 / d ** 0.5)
+        if _use_onekv(l_pad, d):
+            dq, dk, dv = onekv_bwd(*args)
+        else:
+            dq = online_bwd_dq(*args)
+            dk, dv = online_bwd_dkv(*args)
         return (_from_bh(dq, b, l, h, d), _from_bh(dk, b, l, h, d),
                 _from_bh(dv, b, l, h, d), None, None)
 

@@ -1,13 +1,17 @@
 """Synthetic data for tests and the chip smoke run.
 
-- ``fake_pretrain_batch``: a numpy batch in the loader's BERT contract
-  (counterpart of ``lddl_tpu/models/testing.py``).
+- ``fake_pretrain_batch``, ``fake_bart_batch``: numpy batches in the BERT
+  and BART loaders' contracts (counterparts of
+  ``lddl_tpu/models/testing.py``).
 - ``write_vocab``: a ``vocab.txt`` made from a seed, the five special
   tokens first.
 - ``write_balanced_shards``: balanced, length-binned schema-v2 BERT shards
   (``shard-<i>.parquet_<bin>`` plus ``.num_samples.json``) in the columns
   of the README's "Data format" table, made from a seed. A data maker,
   not a preprocessor: its samples are random ids, not text.
+- ``write_bart_shards``: balanced schema-v2 BART shards
+  (``shard-<i>.parquet`` plus ``.num_samples.json``) in the columns the
+  BART preprocess writes with a tokenizer, made from a seed.
 """
 
 import json
@@ -32,6 +36,22 @@ def fake_pretrain_batch(vocab_size, batch, seq_len, seed=0,
         "labels": np.where(rng.random((batch, seq_len)) < 0.15, ids,
                            -1).astype(np.int32),
         "next_sentence_labels": rng.integers(0, 2, (batch,)).astype(np.int32),
+    }
+
+
+def fake_bart_batch(vocab_size, batch, seq_len, seed=0):
+    """A numpy batch in the BART loader's contract: input_ids,
+    attention_mask, decoder_input_ids, labels."""
+    rng = np.random.default_rng(seed)
+    dec = rng.integers(5, vocab_size, (batch, seq_len)).astype(np.int32)
+    labels = np.roll(dec, -1, axis=1).astype(np.int32)
+    labels[:, -1] = -1
+    return {
+        "input_ids": rng.integers(5, vocab_size,
+                                  (batch, seq_len)).astype(np.int32),
+        "attention_mask": np.ones((batch, seq_len), np.int32),
+        "decoder_input_ids": dec,
+        "labels": labels,
     }
 
 
@@ -134,6 +154,50 @@ def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
             pq.write_table(pa.table(cols), os.path.join(out_dir, name),
                            compression="lz4")
             counts[name] = n
+    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(counts, f, sort_keys=True)
+    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
+    return counts
+
+
+def write_bart_shards(out_dir, vocab_size, num_shards=2,
+                      samples_per_shard=64, seed=0, min_tokens=1100):
+    """Write ``num_shards`` balanced schema-v2 BART shards of
+    ``samples_per_shard`` chunks each, laid out as the BART preprocess
+    writes them with a tokenizer: ``sentences`` (the chunk's text),
+    ``sentence_ids`` (its token ids, sentence after sentence) and
+    ``sentence_lens`` (tokens per sentence); then the
+    ``.num_samples.json`` cache. Every chunk holds at least
+    ``min_tokens`` ids (5 .. vocab_size - 1), so with the default a
+    loader window of up to 1022 clean tokens is always full. Returns
+    {basename: count}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for i in range(num_shards):
+        texts, ids, lens = [], [], []
+        for _ in range(samples_per_shard):
+            sent_lens = []
+            while sum(sent_lens) < min_tokens:
+                sent_lens.append(int(rng.integers(8, 120)))
+            chunk = rng.integers(5, vocab_size,
+                                 sum(sent_lens)).astype(np.int32)
+            ends = np.cumsum(sent_lens)
+            texts.append(" ".join(
+                " ".join("w{}".format(t) for t in chunk[e - n:e]) + "."
+                for n, e in zip(sent_lens, ends)))
+            ids.append(chunk)
+            lens.append(np.asarray(sent_lens, dtype=np.int32))
+        table = pa.table({"sentences": pa.array(texts),
+                          "sentence_ids": _int32_lists(ids),
+                          "sentence_lens": _int32_lists(lens)})
+        name = "shard-{}.parquet".format(i)
+        pq.write_table(table, os.path.join(out_dir, name),
+                       compression="lz4")
+        counts[name] = samples_per_shard
     tmp = os.path.join(out_dir, ".num_samples.json.tmp")
     with open(tmp, "w") as f:
         json.dump(counts, f, sort_keys=True)

@@ -1,6 +1,7 @@
-"""The port's single-block attention (lddl_tpu_torch.ops.flash_attention)
-against the reference's Pallas kernels in interpret mode and against the
-dense reference, forward and gradients.
+"""The port's attention (lddl_tpu_torch.ops.flash_attention), in the
+single-block and the online-softmax regimes, against the reference's
+Pallas kernels in interpret mode and against the dense reference, forward
+and gradients.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions;
 the CUDA kernels themselves are held against those plain versions on the
@@ -84,12 +85,19 @@ def _jax_out_and_grads(fn, q, k, v, ct):
 CASES = ([(l, 64, "padding") for l in (200, 256, 384, 512, 640, 896)]
          + [(l, 128, "padding") for l in (256, 512)]
          + [(384, 64, "nonbinary"), (256, 64, "all_masked")])
+# The online-softmax regime: L_pad 1024 and above at D=64, and L_pad 640
+# at D=128 (above the single-block bound of 512 there).
+ONLINE_CASES = ([(l, 64, "padding") for l in (1000, 1152, 2048)]
+                + [(1024, 64, "nonbinary"), (1024, 64, "all_masked"),
+                   (600, 128, "padding")])
 
 
-@pytest.mark.parametrize("l,d,mask_kind", CASES)
+@pytest.mark.parametrize("l,d,mask_kind", CASES + ONLINE_CASES)
 def test_port_matches_pallas_interpret(l, d, mask_kind):
-    """Forward O and LSE, and dq/dk/dv, against the reference's
-    single-block Pallas kernels (interpret mode on the CPU)."""
+    """Forward O and LSE, and dq/dk/dv, against the reference's Pallas
+    kernels of the same regime (interpret mode on the CPU)."""
+    assert tfa._use_onekv(tfa.pad_seq_len(l), d) == ((l, d, mask_kind)
+                                                     in CASES)
     b, h = 2, 2
     q, k, v, ct, mask = _inputs(b, l, h, d, seed=l + d, mask_kind=mask_kind)
     j_out, j_lse = jfa.flash_attention_fwd(
@@ -152,9 +160,33 @@ def test_masked_outlier_key_cannot_underflow_live_rows():
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("l,d", [(1024, 64), (600, 128)])
+def test_online_backward_plain_versions_match_reference_bwd(l, d):
+    """The plain dQ and dK/dV versions, each alone, against
+    flash_attention_bwd's outputs on the reference's own O and LSE."""
+    b, h = 2, 2
+    q, k, v, ct, mask = _inputs(b, l, h, d, seed=5 * l + d)
+    jq, jk, jv, jct, jmask = (jnp.asarray(x) for x in (q, k, v, ct, mask))
+    j_out, j_lse = jfa.flash_attention_fwd(jq, jk, jv, jmask)
+    j_dq, j_dk, j_dv = jfa.flash_attention_bwd(jq, jk, jv, jmask, j_out,
+                                               j_lse, jct)
+    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+        _t(q), _t(k), _t(v), _t(mask), None)
+    dob = tfa._prep_one(_t(ct), l_pad)
+    ob = tfa._prep_one(_t(np.array(j_out)), l_pad)
+    lse = _t(np.array(j_lse)).reshape(b * h, l_pad)
+    delta = (dob * ob).sum(-1)
+    args = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, 1.0 / d ** 0.5)
+    dq = tfa.online_bwd_dq_plain(*args)
+    dk, dv = tfa.online_bwd_dkv_plain(*args)
+    for name, got, want in (("dq", dq, j_dq), ("dk", dk, j_dk),
+                            ("dv", dv, j_dv)):
+        _close(tfa._from_bh(got, b, l, h, d), want, GRAD_TOL, name)
+
+
 def test_dispatch_bounds_match_reference():
-    """The single-block predicates agree with the reference's."""
-    for l in (100, 128, 200, 256, 512, 640, 896, 897, 1024):
+    """The regime predicates agree with the reference's."""
+    for l in (100, 128, 200, 256, 512, 640, 896, 897, 1024, 1152, 2048):
         for d in (32, 64, 96, 128, 256):
             l_pad = jfa.pad_seq_len(l)
             assert tfa.pad_seq_len(l) == l_pad
@@ -170,10 +202,30 @@ def test_mask_arguments_are_validated():
     m = torch.ones((1, 128), dtype=torch.int32)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q, kv_mask=m, segments=m)
-    with pytest.raises(NotImplementedError):
-        big = torch.zeros((1, 1024, 2, 64))
-        tfa.flash_attention(big, big, big,
-                            kv_mask=torch.ones((1, 1024), dtype=torch.int32))
+    # Above the single-block bound the online regime serves the call.
+    big = torch.zeros((1, 1024, 2, 64))
+    out = tfa.flash_attention(big, big, big,
+                              kv_mask=torch.ones((1, 1024), dtype=torch.int32))
+    assert out.shape == big.shape
+
+
+def test_build_target_hashes_shared_headers(tmp_path, monkeypatch):
+    """The library's name covers every shared header of csrc/, so an edit
+    to one builds a new library instead of loading a stale one (no nvcc
+    needed: only the name is computed)."""
+    from lddl_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_bytes(b'#include "tiles.cuh"\n')
+    header = tmp_path / "tiles.cuh"
+    header.write_bytes(b"// v1\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    src, first = _build._target("k")
+    assert src == str(tmp_path / "k.cu")
+    assert _build._target("k")[1] == first
+    header.write_bytes(b"// v2\n")
+    second = _build._target("k")[1]
+    assert second != first
+    (tmp_path / "other.cuh").write_bytes(b"// new header\n")
+    assert _build._target("k")[1] not in (first, second)
 
 
 @pytest.fixture
@@ -185,10 +237,12 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("l,d", [(200, 64), (512, 64), (896, 64),
-                                 (512, 128)])
+                                 (512, 128), (1024, 64), (2048, 64),
+                                 (600, 128)])
 def test_cuda_kernels_match_plain(cuda_device, l, d):
-    """The CUDA kernels against their plain versions on the card, in bf16:
-    2e-2 of max |ref| for O and the gradients, 1e-3 for the LSE."""
+    """The CUDA kernels of the regime the shape takes against their plain
+    versions on the card, in bf16: 2e-2 of max |ref| for O and the
+    gradients, 1e-3 for the LSE."""
     g = torch.Generator(device=cuda_device).manual_seed(l + d)
     q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
@@ -196,13 +250,24 @@ def test_cuda_kernels_match_plain(cuda_device, l, d):
     mask[1, l // 2:] = 0
     qb, kb, vb, maskb, qmaskb, shape = tfa._prep(q, k, v, mask, None)
     scale = 1.0 / d ** 0.5
-    o, lse = tfa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
-    o_ref, lse_ref = tfa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    if tfa._use_onekv(shape[-1], d):
+        fwd, fwd_plain = tfa.onekv_fwd, tfa.onekv_fwd_plain
+        bwd, bwd_plain = tfa.onekv_bwd, tfa.onekv_bwd_plain
+    else:
+        fwd, fwd_plain = tfa.online_fwd, tfa.online_fwd_plain
+
+        def bwd(*args):
+            return (tfa.online_bwd_dq(*args),) + tfa.online_bwd_dkv(*args)
+
+        def bwd_plain(*args):
+            return ((tfa.online_bwd_dq_plain(*args),)
+                    + tfa.online_bwd_dkv_plain(*args))
+    o, lse = fwd(qb, kb, vb, maskb, qmaskb, scale)
+    o_ref, lse_ref = fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
     dob = tfa._prep_one(do, shape[-1])
     delta = (dob.float() * o_ref.float()).sum(-1)
-    got = tfa.onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
-    want = tfa.onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta,
-                               scale)
+    got = bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+    want = bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
     torch.cuda.synchronize()
 
     def rel(a, r):

@@ -124,3 +124,33 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         fa._check_operands([cpu] * 3, [torch.ones((3, 256),
                                                   dtype=torch.int32)] * 2,
                            [])
+
+
+def test_online_wrappers_refuse_what_the_kernels_do_not_take():
+    """The online kernels take any L_pad that is a multiple of 128 (the
+    single-block bound does not apply to them) and refuse the rest; their
+    wrappers, like the single-block ones, run the plain version only on
+    CPU tensors."""
+    from lddl_tpu_torch.ops import flash_attention as fa
+    m = torch.ones((2, 1024), dtype=torch.int32)
+    rows = [torch.zeros((4, 1024))] * 2
+    big = torch.zeros((4, 1024, 64), dtype=torch.bfloat16)
+    assert fa._check_operands([big] * 4, [m, m], rows, online=True) == 2
+    short = torch.zeros((4, 256, 128), dtype=torch.bfloat16)
+    m256 = torch.ones((2, 256), dtype=torch.int32)
+    assert fa._check_operands([short] * 3, [m256] * 2, [], online=True) == 2
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_operands([big[:, :, :32].contiguous()] * 3, [m, m], [],
+                           online=True)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        odd = torch.zeros((4, 1000, 64), dtype=torch.bfloat16)
+        fa._check_operands([odd] * 3, [torch.ones((2, 1000),
+                                                  dtype=torch.int32)] * 2,
+                           [], online=True)
+    q, mm = big.to("meta"), m.to("meta")
+    r = torch.zeros((4, 1024), device="meta")
+    for call in (lambda: fa.online_fwd(q, q, q, mm, mm, 0.125),
+                 lambda: fa.online_bwd_dq(q, q, q, mm, mm, q, r, r, 0.125),
+                 lambda: fa.online_bwd_dkv(q, q, q, mm, mm, q, r, r, 0.125)):
+        with pytest.raises(TypeError, match="CUDA tensors"):
+            call()

@@ -1,10 +1,12 @@
-"""The port's loader (lddl_tpu_torch.loader) against lddl_tpu's: shards
+"""The port's loaders (lddl_tpu_torch.loader) against lddl_tpu's: shards
 built live by lddl_tpu's preprocess -> balance over the tiny corpus, then
 byte-equal batches from both packages' get_bert_pretrain_data_loader over
 two epochs, for dp ranks 0 and 1 of 2 (and two workers of one group), in
-every bin, with static and dynamic masking. The reference loader gets its
-tokenizer from transformers over the same vocab file the port reads with
-its own Vocab.
+every bin, with static and dynamic masking; the same for
+get_bart_pretrain_data_loader over schema-v2 BART shards (from lddl_tpu's
+BART preprocess with a tokenizer, and from ``testing.write_bart_shards``).
+The reference loaders get their tokenizer from transformers over the same
+vocab file the port reads with its own Vocab.
 """
 
 import glob
@@ -15,7 +17,8 @@ import pytest
 
 import torch
 
-from lddl_tpu_torch.loader import (Vocab, get_bert_pretrain_data_loader,
+from lddl_tpu_torch.loader import (Vocab, get_bart_pretrain_data_loader,
+                                   get_bert_pretrain_data_loader,
                                    prefetch_to_device)
 
 
@@ -124,3 +127,81 @@ def test_prefetch_to_device_keeps_order(tmp_path):
             for k in w:
                 assert isinstance(g[k], torch.Tensor)
                 np.testing.assert_array_equal(g[k].numpy(), w[k])
+
+
+def _build_bart_shards(corpus_root, tokenized):
+    """lddl_tpu BART preprocess (schema v2 with a tokenizer, v1 without)
+    -> balance into 2 shards; returns (balanced dir, vocab file)."""
+    from lddl_tpu.balance import balance_shards
+    from lddl_tpu.preprocess import (BartPretrainConfig,
+                                     build_wordpiece_vocab, get_tokenizer,
+                                     run_bart_preprocess)
+    texts = []
+    for p in sorted(glob.glob(os.path.join(corpus_root, "source", "*.txt"))):
+        with open(p) as f:
+            texts.append(f.read())
+    vocab = build_wordpiece_vocab(texts, os.path.join(corpus_root,
+                                                      "bart_vocab.txt"),
+                                  vocab_size=300)
+    tag = "v2" if tokenized else "v1"
+    pre = os.path.join(corpus_root, "bart_pre_" + tag)
+    run_bart_preprocess(
+        {"wiki": corpus_root}, pre,
+        config=BartPretrainConfig(target_seq_length=48), num_blocks=4,
+        sample_ratio=1.0, seed=0,
+        tokenizer=get_tokenizer(vocab_file=vocab) if tokenized else None)
+    bal = os.path.join(corpus_root, "bart_bal_" + tag)
+    balance_shards(pre, bal, 2)
+    return bal, vocab
+
+
+def _assert_bart_batches_equal(path, vocab, **extra):
+    from lddl_tpu.loader import get_bart_pretrain_data_loader as j_loader
+    for dp_rank in (0, 1):
+        kw = dict(dp_rank=dp_rank, num_dp_groups=2, batch_size=4,
+                  vocab_file=vocab, shuffle_buffer_size=32,
+                  shuffle_buffer_warmup_factor=4, base_seed=11, **extra)
+        ref = j_loader(path, log_level=50, **kw)
+        port = get_bart_pretrain_data_loader(path, **kw)
+        assert len(port) == len(ref)
+        for epoch in range(2):
+            ref_batches, port_batches = list(ref), list(port)
+            assert len(port_batches) == len(ref_batches) == len(ref) > 0
+            for i, (rb, pb) in enumerate(zip(ref_batches, port_batches)):
+                assert pb.keys() == rb.keys()
+                for k in rb:
+                    assert pb[k].dtype == rb[k].dtype, k
+                    np.testing.assert_array_equal(
+                        pb[k], rb[k], err_msg="rank {} epoch {} batch {} {}"
+                        .format(dp_rank, epoch, i, k))
+
+
+def test_bart_batches_byte_equal_to_reference(tiny_corpus):
+    """Shards from lddl_tpu's BART preprocess (schema v2) + balance."""
+    path, vocab = _build_bart_shards(tiny_corpus, tokenized=True)
+    _assert_bart_batches_equal(path, vocab, max_seq_length=64)
+
+
+def test_bart_batches_byte_equal_on_written_shards(tmp_path):
+    """write_bart_shards shards at the chip run's window: every batch is
+    padded to exactly 1024 and the clean window is full."""
+    from lddl_tpu_torch.testing import write_bart_shards, write_vocab
+    write_vocab(str(tmp_path / "vocab.txt"), 512, seed=4)
+    write_bart_shards(str(tmp_path / "bal"), 512, num_shards=2,
+                      samples_per_shard=8, seed=4)
+    _assert_bart_batches_equal(str(tmp_path / "bal"),
+                               str(tmp_path / "vocab.txt"),
+                               max_seq_length=1024, fixed_seq_length=1024)
+    batch = next(iter(get_bart_pretrain_data_loader(
+        str(tmp_path / "bal"), vocab_file=str(tmp_path / "vocab.txt"),
+        batch_size=4, max_seq_length=1024, fixed_seq_length=1024)))
+    assert batch["input_ids"].shape == (4, 1024)
+    assert ((batch["labels"] != -1).sum(axis=1) == 1024).all()
+
+
+def test_bart_schema_v1_shards_are_refused(tiny_corpus):
+    path, vocab = _build_bart_shards(tiny_corpus, tokenized=False)
+    loader = get_bart_pretrain_data_loader(path, vocab_file=vocab,
+                                           batch_size=4, max_seq_length=64)
+    with pytest.raises(ValueError, match="schema-v2"):
+        next(iter(loader))

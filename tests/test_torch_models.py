@@ -112,7 +112,8 @@ def test_logits_match_flax(impl, l):
 def test_auto_selects_flash_only_where_the_reference_does():
     from lddl_tpu.models.attention import resolve_auto_impl as j_resolve
     from lddl_tpu_torch.models.attention import resolve_auto_impl
-    for l in (64, 128, 129, 256, 384, 512, 896):
+    for l in (64, 128, 129, 256, 384, 512, 600, 896, 1000, 1024, 1152,
+              2048):
         for d in (64, 128):
             for dropout, det in ((0.0, False), (0.1, False), (0.1, True)):
                 for ok in (True, False):
