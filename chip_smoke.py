@@ -7,14 +7,19 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   with nvcc for sm_90a, one nvcc per source, all started together;
+   (three sources) with nvcc for sm_90a, one nvcc per source, all started
+   together; print ptxas's register/spill lines and, from ``cuobjdump
+   -sass``, the HGMMA (wgmma) instructions of each online backward kernel,
+   which must not be 0;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
    ``F.scaled_dot_product_attention`` (its backward via autograd.grad):
    the single-block kernels at bert_large's bins, the online-softmax
    kernels at bart_base's B=8, H=12, L=1024 (plus L=2048 and D=128 at
-   L_pad 640);
+   L_pad 640), each online shape with padding masks and with segment ids
+   1-3 plus a batch row masked entirely, the two online backward kernels
+   bit-identical in two launches;
 4. BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
    attention_dropout 0, attention_impl "auto", fp32 params, bf16
    activations, random weights from a seed) trained for a few steps from
@@ -85,7 +90,11 @@ def rel_err(got, ref):
     return float((got.float() - ref).abs().max() / ref.abs().max())
 
 
-def attention_inputs(b, l, h, d, seed):
+def attention_inputs(b, l, h, d, seed, segments=False):
+    """q, k, v, dO [B, L, H, D] bf16 and an int32 [B, L] mask: padding
+    (row 0 full, the others 1 up to a random length), or with
+    ``segments`` per-token segment ids 1-3 up to that length and the last
+    batch row masked entirely (the kernels then take it as both masks)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((b, l, h, d), generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
@@ -93,6 +102,10 @@ def attention_inputs(b, l, h, d, seed):
     lens[0] = l
     mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(
         torch.int32)
+    if segments:
+        mask *= torch.randint(1, 4, (b, l), generator=g, device="cuda",
+                              dtype=torch.int32)
+        mask[-1] = 0
     return q, k, v, do, mask
 
 
@@ -227,14 +240,20 @@ def time_turns(kernel, plain):
 
 def check_online_kernels(fa):
     """Online-softmax kernels vs plain versions at bart_base's shape, at
-    L=2048 and at D=128 (L_pad 640); timings at bart_base's shape.
-    Returns the kernels' JSON entries (launch counts filled in later)."""
+    L=2048 and at D=128 (L_pad 640), each with padding masks and with
+    segment ids 1-3 plus a batch row masked entirely; the two backward
+    kernels must give bit-identical results in two launches. Timings at
+    bart_base's shape. Returns the kernels' JSON entries (launch counts
+    filled in later)."""
     main = (BART_BATCH, BART_L, 12, 64)
     max_abs = {}
-    for (b, l, h, d) in (main, (2, 2048, 4, 64), (4, 600, 4, 128)):
-        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d + 1)
+    for (b, l, h, d), segments in (
+            (shape, seg) for shape in (main, (2, 2048, 4, 64), (4, 600, 4, 128))
+            for seg in (False, True)):
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d + 1,
+                                             segments=segments)
         qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
-            q, k, v, mask, None)
+            q, k, v, mask, mask if segments else None)
         if fa._use_onekv(l_pad, d):
             raise AssertionError("L_pad {} at D={} is not in the online "
                                  "regime".format(l_pad, d))
@@ -250,14 +269,24 @@ def check_online_kernels(fa):
         torch.cuda.synchronize()
         dk, dv = fa.online_bwd_dkv(*args)
         torch.cuda.synchronize()
+        what = "online B={} L={} H={} D={} {}".format(
+            b, l, h, d, "segments" if segments else "padding")
+        again = (fa.online_bwd_dq(*args),) + fa.online_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dQ", "dK", "dV"), (dq, dk, dv), again):
+            if not torch.equal(x, y):
+                raise AssertionError("{}: two launches gave different {}"
+                                     .format(what, name))
+        print("kernel check {}: dQ, dK, dV bit-identical in two launches"
+              .format(what), flush=True)
         dq_ref = fa.online_bwd_dq_plain(*args)
         dk_ref, dv_ref = fa.online_bwd_dkv_plain(*args)
         torch.cuda.synchronize()
-        check_errors("online B={} L={} H={} D={}".format(b, l, h, d), {
+        check_errors(what, {
             "O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref),
             "dQ": rel_err(dq, dq_ref), "dK": rel_err(dk, dk_ref),
             "dV": rel_err(dv, dv_ref)})
-        if (b, l, h, d) == main:
+        if (b, l, h, d) == main and not segments:
             def abs_err(a, r):
                 return float((a.float() - r.float()).abs().max())
             max_abs["online_fwd"] = max(abs_err(o, o_ref),
@@ -300,6 +329,10 @@ def check_online_kernels(fa):
               {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
               json.dumps({n: round(x, 4) for n, x in lib.items()})),
           flush=True)
+    pair = t["online_bwd_dq"][0] + t["online_bwd_dkv"][0]
+    print("online backward pair: dQ + dK/dV {:.4f} ms, library backward "
+          "{:.4f} ms, ratio {:.2f}".format(pair, lib["bwd"],
+                                          pair / lib["bwd"]), flush=True)
 
     bh, n = b * h, b * h * l * d
     masks, row = 2 * b * l * 4, bh * l * 4
@@ -310,20 +343,53 @@ def check_online_kernels(fa):
         "online_bwd_dq": (5 * n * 2 + masks + 2 * row, 3 * product),
         "online_bwd_dkv": (6 * n * 2 + masks + 2 * row, 4 * product),
     }
-    src = "lddl_tpu_torch/ops/csrc/online_attention.cu"
+    src = {"online_fwd": "lddl_tpu_torch/ops/csrc/online_attention.cu",
+           "online_bwd_dq": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu",
+           "online_bwd_dkv": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"}
     replaces = {"online_fwd": 64, "online_bwd_dq": 104,
                 "online_bwd_dkv": 133}
     entries = []
     for name in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
         bms, by = bound(*work[name])
         entries.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": src[name],
             "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
                 replaces[name]),
             "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
             "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
             "library_ms": lib["fwd" if name == "online_fwd" else "bwd"]})
     return entries
+
+def hgmma_counts(lib_path):
+    """{kernel function: HGMMA instructions in its SASS} of a built
+    library (cuobjdump from the CUDA toolkit, or Triton's copy)."""
+    tool = shutil.which("cuobjdump")
+    candidates = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                               "bin", "cuobjdump")]
+    try:
+        import triton
+        candidates.append(os.path.join(os.path.dirname(triton.__file__),
+                                       "backends", "nvidia", "bin",
+                                       "cuobjdump"))
+    except ImportError:
+        pass
+    for c in candidates:
+        if tool is None and os.path.isfile(c):
+            tool = c
+    if tool is None:
+        raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin or "
+                           "triton/backends/nvidia/bin)")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
 
 def profile_window(step, batches, n):
     """torch.profiler over ``n`` train steps: device time by kernel group
@@ -652,12 +718,23 @@ def main():
     from lddl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    _build.build(["onekv_attention", "online_attention"])
+    libs = _build.build(["onekv_attention", "online_attention",
+                         "online_attention_bwd"])
     print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "warning", "wgmma", "setmaxnreg")):
                 print("ptxas {}: {}".format(name, line.strip()), flush=True)
+    hgmma = hgmma_counts(libs["online_attention_bwd"])
+    for fn, n in sorted(hgmma.items()):
+        print("sass online_attention_bwd: {} HGMMA in {}".format(n, fn),
+              flush=True)
+    for kernel in ("online_bwd_dq_kernel", "online_bwd_dkv_kernel"):
+        found = [n for fn, n in hgmma.items() if kernel in fn]
+        if not found or min(found) == 0:
+            raise AssertionError("no HGMMA in the SASS of {}: {}".format(
+                kernel, hgmma))
 
     kernels = check_kernels(fa) + check_online_kernels(fa)
     if kernels_only:

@@ -1,33 +1,27 @@
-// Long-sequence attention for Hopper (sm_90a): the port of the three
-// online-softmax Pallas kernels in lddl_tpu/ops/flash_attention.py, one
-// __global__ kernel and one C entry point each, launched on their own as
-// the reference makes three pallas_calls:
+// Long-sequence attention forward for Hopper (sm_90a): the port of the
+// online-softmax forward Pallas kernel in lddl_tpu/ops/flash_attention.py,
+// one __global__ kernel and one C entry point:
 //
 //   online_fwd_kernel      replaces _fwd_kernel      (lddl_online_fwd)
-//   online_bwd_dq_kernel   replaces _bwd_dq_kernel   (lddl_online_bwd_dq)
-//   online_bwd_dkv_kernel  replaces _bwd_dkv_kernel  (lddl_online_bwd_dkv)
 //
-// What they compute (identical to the TPU kernels, per (batch*head) row):
+// The two backward kernels of the regime (_bwd_dq_kernel and
+// _bwd_dkv_kernel) are in online_attention_bwd.cu.
+//
+// What it computes (identical to the TPU kernel, per (batch*head) row):
 //   S   = Q K^T * scale + bias,  bias = 0 where kmask > 0 && kmask == qmask,
 //         else -1e9 (fp32, added to the scaled fp32 score; never -inf)
-//   fwd: walk K/V tiles with a running max m, denominator l and an fp32
-//        accumulator, all rescaled by exp(m - m_new); P = exp(S - m_new) is
-//        cast to V's dtype before P V. O = acc / max(l, 1e-30) in the input
-//        dtype, LSE = m + log(max(l, 1e-30)) in fp32.
-//   dq:  walk K/V tiles: P = exp(S - LSE), dP = dO V^T,
-//        dS = P (dP - delta) scale cast to the input dtype, dQ += dS K.
-//   dkv: walk Q tiles in the transposed layout: dV += P^T dO,
-//        dS^T = P^T (dP^T - delta) scale, dK += dS^T Q.
-// Layout: q/k/v/o/dO/dQ/dK/dV [B*H, L_pad, D] bf16, masks int32 [B, L_pad],
-// LSE and delta (rowsum(dO * O), computed outside) fp32 [B*H, L_pad].
-// L_pad is a multiple of 128; D is 64 or 128 (template).
+//   walk K/V tiles with a running max m, denominator l and an fp32
+//   accumulator, all rescaled by exp(m - m_new); P = exp(S - m_new) is
+//   cast to V's dtype before P V. O = acc / max(l, 1e-30) in the input
+//   dtype, LSE = m + log(max(l, 1e-30)) in fp32.
+// Layout: q/k/v/o [B*H, L_pad, D] bf16, masks int32 [B, L_pad], LSE fp32
+// [B*H, L_pad]. L_pad is a multiple of 128; D is 64 or 128 (template).
 //
-// What bounds them on this card: at the BART path's shape (B=8, H=12,
+// What bounds it on this card: at the BART path's shape (B=8, H=12,
 // L_pad 1024, D=64) the forward needs 25.8 GFLOP of bf16 products against
-// ~51 MB of operands (26 us at 989 TFLOP/s, 15 us at 3.35 TB/s), dQ 38.7
-// GFLOP and dK/dV 51.5 GFLOP: all three are bound by the tensor cores, and
-// the cost that grows with L is the re-read of K/V (fwd, dq) or Q/dO (dkv)
-// by every block of a row, L_pad / 128 times per row.
+// ~51 MB of operands (26 us at 989 TFLOP/s, 15 us at 3.35 TB/s): it is
+// bound by the tensor cores, and the cost that grows with L is the
+// re-read of K/V by every block of a row, L_pad / 128 times per row.
 //
 // Tile sizes (the port's own; the reference's _block_sizes was tuned for
 // TPU VMEM): a block of 8 warps owns 128 rows (16 per warp) and walks the
@@ -35,13 +29,10 @@
 // block-row re-reads the streamed operand against 64-row blocks, which
 // matters at L_pad >= 1024 where that stream dominates; 64 columns keep a
 // lane pair's share of a score row at 32 registers. The fp32 score strip
-// is reused in place for the bf16 P (fwd, dkv) or dS (dq, dkv) tile, with
-// a bf16 leading dimension of twice the fp32 one, so shared memory is 105
-// KB (fwd), 90 KB (dq) and 89 KB (dkv) at D=64 (room for two blocks per SM)
-// and 169 / 138 / 137 KB at D=128; the output stage aliases tiles that are
-// dead after the loop. Simple and correct first: wmma products, no TMA, no
-// wgmma, no pipelining of the tile loads; no atomics, so results do not
-// depend on block scheduling.
+// is reused in place for the bf16 P tile, with a bf16 leading dimension
+// of twice the fp32 one, so shared memory is 105 KB at D=64 (room for two
+// blocks per SM) and 169 KB at D=128. Simple and correct first: wmma
+// products, no TMA, no wgmma, no pipelining of the tile loads.
 //
 // Padded query rows (qmask 0) see every key disallowed and average
 // uniformly over all L_pad keys, as in the reference; fully masked tiles
@@ -83,28 +74,7 @@ constexpr size_t fwd_smem_bytes() {
          + (ROWS + STEP) * sizeof(int);      // masks
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 2 * bf16_rows_bytes<D>(ROWS)        // Q, dO (then the out stage)
-         + 2 * bf16_rows_bytes<D>(STEP)      // K, V
-         + score_bytes()                     // S, then dP, then dS
-         + (STEP + 3 * ROWS) * sizeof(int);  // kmask; qmask, lse, delta
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return 2 * bf16_rows_bytes<D>(ROWS)        // K, V (then the out stage)
-         + 2 * bf16_rows_bytes<D>(STEP)      // Q, dO
-         + score_bytes()                     // S^T, P^T, dP^T, dS^T
-         + (ROWS + 3 * STEP) * sizeof(int);  // kmask; qmask, lse, delta
-}
-
-static_assert(stage_bytes<64>() <= 2 * bf16_rows_bytes<64>(ROWS) &&
-                  stage_bytes<128>() <= 2 * bf16_rows_bytes<128>(ROWS),
-              "the output stage must fit in the two dead row tiles");
-static_assert(fwd_smem_bytes<128>() <= 232448 &&
-                  dq_smem_bytes<128>() <= 232448 &&
-                  dkv_smem_bytes<128>() <= 232448,
+static_assert(fwd_smem_bytes<128>() <= 232448,
               "227 KB of shared memory per block");
 
 template <int D>
@@ -205,187 +175,6 @@ online_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-online_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const int* __restrict__ kmask,
-                     const int* __restrict__ qmask,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int L, int H, float scale) {
-  constexpr int LDH = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + ROWS * LDH;
-  bf16* sK = sdO + ROWS * LDH;
-  bf16* sV = sK + STEP * LDH;
-  float* sS = reinterpret_cast<float*>(sV + STEP * LDH);
-  int* sKm = reinterpret_cast<int*>(sS + ROWS * LDS);
-  int* sQm = sKm + STEP;
-  float* sLse = reinterpret_cast<float*>(sQm + ROWS);
-  float* sDelta = sLse + ROWS;
-
-  const int q0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)bh * L * D;
-
-  load_tile<ROWS, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
-  load_tile<ROWS, D, NTHREADS>(sdO, dout + base + (size_t)q0 * D);
-  if (threadIdx.x < ROWS) {
-    sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
-    sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
-    sDelta[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
-  }
-  __syncthreads();
-
-  // Lane pair (2r, 2r+1) of warp w owns query row 16w + r.
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int my_qm = sQm[row];
-  const float my_lse = sLse[row], my_delta = sDelta[row];
-  float* s_strip = sS + warp * 16 * LDS;
-  const bf16* ds_strip = reinterpret_cast<bf16*>(sS) + warp * 16 * LDB;
-  const float* srow = sS + row * LDS + half * 32;
-  bf16* dsrow = reinterpret_cast<bf16*>(sS) + row * LDB + half * 32;
-  AccFrag dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
-
-  for (int k0 = 0; k0 < L; k0 += STEP) {
-    load_tile<STEP, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
-    load_tile<STEP, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
-    if (threadIdx.x < STEP)
-      sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
-    __syncthreads();
-
-    // S = Q K^T, then P in registers.
-    strip_abt<D, STEP>(s_strip, LDS, sQ + warp * 16 * LDH, sK);
-    __syncwarp();
-    const int* km = sKm + half * 32;
-    float p[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool ok = km[c] > 0 && km[c] == my_qm;
-      p[c] = expf(srow[c] * scale + (ok ? 0.0f : NEG_BIG) - my_lse);
-    }
-    __syncwarp();   // S is read before dP overwrites it
-
-    // dP = dO V^T, then dS over the same strip.
-    strip_abt<D, STEP>(s_strip, LDS, sdO + warp * 16 * LDH, sV);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) p[c] = p[c] * (srow[c] - my_delta) * scale;
-    __syncwarp();   // dP is read before dS overwrites it
-#pragma unroll
-    for (int c = 0; c < 32; ++c) dsrow[c] = __float2bfloat16(p[c]);
-    __syncwarp();
-
-    strip_ab_acc<D, STEP>(dq_acc, ds_strip, LDB, sK);   // dQ += dS K
-    __syncthreads();
-  }
-
-  // Q and dO are dead: their tiles hold the output stage.
-  store_acc_tile<D, NTHREADS>(dq + base + (size_t)q0 * D, dq_acc,
-                              reinterpret_cast<float*>(smem));
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-online_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const int* __restrict__ kmask,
-                      const int* __restrict__ qmask,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
-                      int H, float scale) {
-  constexpr int LDH = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + ROWS * LDH;
-  bf16* sQ = sV + ROWS * LDH;
-  bf16* sdO = sQ + STEP * LDH;
-  float* sS = reinterpret_cast<float*>(sdO + STEP * LDH);
-  int* sKm = reinterpret_cast<int*>(sS + ROWS * LDS);
-  int* sQm = sKm + ROWS;
-  float* sLse = reinterpret_cast<float*>(sQm + STEP);
-  float* sDelta = sLse + STEP;
-
-  const int k0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)bh * L * D;
-
-  load_tile<ROWS, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
-  load_tile<ROWS, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
-  if (threadIdx.x < ROWS)
-    sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
-
-  // Warp w owns key rows [16w, 16w + 16) of this block; its lane pair
-  // (2r, 2r+1) owns key row 16w + r and half of a step's 64 query columns.
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  float* s_strip = sS + warp * 16 * LDS;
-  const bf16* b_strip = reinterpret_cast<bf16*>(sS) + warp * 16 * LDB;
-  const float* srow = sS + row * LDS + half * 32;
-  bf16* brow = reinterpret_cast<bf16*>(sS) + row * LDB + half * 32;
-  AccFrag dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
-  }
-
-  for (int q0 = 0; q0 < L; q0 += STEP) {
-    load_tile<STEP, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
-    load_tile<STEP, D, NTHREADS>(sdO, dout + base + (size_t)q0 * D);
-    if (threadIdx.x < STEP) {
-      sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
-      sLse[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
-      sDelta[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    const int my_km = sKm[row];
-    const int* qm = sQm + half * 32;
-    const float* ql = sLse + half * 32;
-    const float* qd = sDelta + half * 32;
-
-    // S^T = K Q^T, then P^T in registers and, as bf16, over the strip.
-    strip_abt<D, STEP>(s_strip, LDS, sK + warp * 16 * LDH, sQ);
-    __syncwarp();
-    float pt[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool ok = my_km > 0 && my_km == qm[c];
-      pt[c] = expf(srow[c] * scale + (ok ? 0.0f : NEG_BIG) - ql[c]);
-    }
-    __syncwarp();   // S^T is read before P^T overwrites it
-#pragma unroll
-    for (int c = 0; c < 32; ++c) brow[c] = __float2bfloat16(pt[c]);
-    __syncwarp();
-    strip_ab_acc<D, STEP>(dv_acc, b_strip, LDB, sdO);   // dV += P^T dO
-    __syncwarp();   // P^T is read before dP^T overwrites it
-
-    // dP^T = V dO^T, then dS^T over the same strip.
-    strip_abt<D, STEP>(s_strip, LDS, sV + warp * 16 * LDH, sdO);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) pt[c] = pt[c] * (srow[c] - qd[c]) * scale;
-    __syncwarp();   // dP^T is read before dS^T overwrites it
-#pragma unroll
-    for (int c = 0; c < 32; ++c) brow[c] = __float2bfloat16(pt[c]);
-    __syncwarp();
-    strip_ab_acc<D, STEP>(dk_acc, b_strip, LDB, sQ);    // dK += dS^T Q
-    __syncthreads();
-  }
-
-  // K and V are dead: their tiles hold the output stage.
-  float* stage = reinterpret_cast<float*>(smem);
-  store_acc_tile<D, NTHREADS>(dk + base + (size_t)k0 * D, dk_acc, stage);
-  __syncthreads();
-  store_acc_tile<D, NTHREADS>(dv + base + (size_t)k0 * D, dv_acc, stage);
-}
-
-template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* km,
                const void* qm, void* o, void* lse, int BH, int L, int H,
                float scale, cudaStream_t stream) {
@@ -395,36 +184,6 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* km,
   online_fwd_kernel<D><<<dim3(L / ROWS, BH), NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
       (const int*)qm, (bf16*)o, (float*)lse, L, H, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* km,
-              const void* qm, const void* dout, const void* lse,
-              const void* delta, void* dq, int BH, int L, int H, float scale,
-              cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = set_smem(online_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  online_bwd_dq_kernel<D><<<dim3(L / ROWS, BH), NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
-      (const int*)qm, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, L, H, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* km,
-               const void* qm, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int BH, int L, int H,
-               float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = set_smem(online_bwd_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  online_bwd_dkv_kernel<D><<<dim3(L / ROWS, BH), NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
-      (const int*)qm, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, L, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -443,36 +202,6 @@ int lddl_online_fwd(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_fwd<128>(q, k, v, kmask, qmask, o, lse, BH, L, H, scale,
                            s);
-  return (int)cudaErrorInvalidValue;
-}
-
-int lddl_online_bwd_dq(const void* q, const void* k, const void* v,
-                       const void* kmask, const void* qmask,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, int BH, int L, int H, int D, float scale,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dq<64>(q, k, v, kmask, qmask, dout, lse, delta, dq, BH, L,
-                         H, scale, s);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, kmask, qmask, dout, lse, delta, dq, BH,
-                          L, H, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-int lddl_online_bwd_dkv(const void* q, const void* k, const void* v,
-                        const void* kmask, const void* qmask,
-                        const void* dout, const void* lse,
-                        const void* delta, void* dk, void* dv, int BH, int L,
-                        int H, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dkv<64>(q, k, v, kmask, qmask, dout, lse, delta, dk, dv,
-                          BH, L, H, scale, s);
-  if (D == 128)
-    return launch_dkv<128>(q, k, v, kmask, qmask, dout, lse, delta, dk, dv,
-                           BH, L, H, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,9 +11,11 @@ the reference:
   ``csrc/onekv_attention.cu`` replaces ``_onekv_fwd_kernel`` and
   ``_onekv_bwd_kernel`` (``onekv_fwd``, ``onekv_bwd``);
 - online softmax (every longer L_pad): ``csrc/online_attention.cu``
-  replaces ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-  (``online_fwd``, ``online_bwd_dq``, ``online_bwd_dkv``), three kernels
-  launched on their own.
+  replaces ``_fwd_kernel`` (``online_fwd``) and
+  ``csrc/online_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel`` (``online_bwd_dq``, ``online_bwd_dkv``: wgmma with
+  the scores in registers, tiles fed by TMA), three kernels launched on
+  their own.
 
 The two regimes are separate kernels on purpose, so that a redesign of
 one does not move the other's numbers. Each kernel has a plain PyTorch
@@ -41,8 +43,9 @@ import torch
 ONEKV_MAX_L_PAD = 896
 NEG_BIG = -1e9
 # Width of the K/V (fwd, dq) or Q (dkv) tiles the online kernels walk
-# (STEP in csrc/online_attention.cu); the plain forward walks the same
-# tiles, so its bf16 rounding of P matches the kernel's.
+# (STEP in csrc/online_attention.cu and csrc/online_attention_bwd.cu);
+# the plain forward walks the same tiles, so its bf16 rounding of P
+# matches the kernel's.
 ONLINE_STEP = 64
 
 
@@ -241,8 +244,9 @@ def _check_operands(tensors, masks, rows, online=False):
 # then takes (BH, L_pad, H, D, scale, stream) and returns a cudaError_t.
 _ENTRY_POINTS = {
     "onekv_attention": {"lddl_onekv_fwd": 7, "lddl_onekv_bwd": 11},
-    "online_attention": {"lddl_online_fwd": 7, "lddl_online_bwd_dq": 9,
-                         "lddl_online_bwd_dkv": 10},
+    "online_attention": {"lddl_online_fwd": 7},
+    "online_attention_bwd": {"lddl_online_bwd_dq": 9,
+                             "lddl_online_bwd_dkv": 10},
 }
 
 
@@ -340,7 +344,7 @@ def online_bwd_dq(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
                     online=True)
     dq = torch.empty_like(qb)
-    _launch("online_attention", "lddl_online_bwd_dq",
+    _launch("online_attention_bwd", "lddl_online_bwd_dq",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq], h, scale)
     online_bwd_dq.launches += 1
     return dq
@@ -358,7 +362,7 @@ def online_bwd_dkv(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
                     online=True)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
-    _launch("online_attention", "lddl_online_bwd_dkv",
+    _launch("online_attention_bwd", "lddl_online_bwd_dkv",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dk, dv], h, scale)
     online_bwd_dkv.launches += 1
     return dk, dv

@@ -228,6 +228,27 @@ def test_build_target_hashes_shared_headers(tmp_path, monkeypatch):
     assert _build._target("k")[1] not in (first, second)
 
 
+@pytest.mark.parametrize("source", sorted(tfa._ENTRY_POINTS))
+def test_entry_points_match_c_sources(source):
+    """Each C entry point of the ctypes table is defined in its source with
+    that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
+    backward pair lives in its own source (no nvcc needed)."""
+    import os
+    import re
+    from lddl_tpu_torch.ops import _build
+    with open(os.path.join(_build._CSRC, source + ".cu")) as f:
+        text = f.read()
+    for entry, n_ptr in tfa._ENTRY_POINTS[source].items():
+        m = re.search(r"\bint {}\(([^)]*)\)".format(entry), text)
+        assert m, entry
+        params = [" ".join(x.split()) for x in m.group(1).split(",")]
+        assert all("void*" in x for x in params[:n_ptr]), params
+        assert params[n_ptr:] == ["int BH", "int L", "int H", "int D",
+                                  "float scale", "void* stream"], params
+    assert (source == "online_attention_bwd") == any(
+        e.startswith("lddl_online_bwd") for e in tfa._ENTRY_POINTS[source])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -236,21 +257,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
 @pytest.mark.parametrize("l,d", [(200, 64), (512, 64), (896, 64),
                                  (512, 128), (1024, 64), (2048, 64),
                                  (600, 128)])
-def test_cuda_kernels_match_plain(cuda_device, l, d):
+def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
     """The CUDA kernels of the regime the shape takes against their plain
     versions on the card, in bf16: 2e-2 of max |ref| for O and the
-    gradients, 1e-3 for the LSE."""
+    gradients, 1e-3 for the LSE. Masks: padding, or segment ids 1-3 with
+    padding and the last batch row masked entirely (both masks). The
+    online backward kernels give bit-identical results in two launches."""
     g = torch.Generator(device=cuda_device).manual_seed(l + d)
     q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
     mask = torch.ones((4, l), dtype=torch.int32, device=cuda_device)
     mask[1, l // 2:] = 0
-    qb, kb, vb, maskb, qmaskb, shape = tfa._prep(q, k, v, mask, None)
+    if mask_kind == "segments":
+        mask *= torch.randint(1, 4, (4, l), generator=g, device=cuda_device,
+                              dtype=torch.int32)
+        mask[-1] = 0
+    qb, kb, vb, maskb, qmaskb, shape = tfa._prep(
+        q, k, v, mask, mask if mask_kind == "segments" else None)
     scale = 1.0 / d ** 0.5
-    if tfa._use_onekv(shape[-1], d):
+    online = not tfa._use_onekv(shape[-1], d)
+    if not online:
         fwd, fwd_plain = tfa.onekv_fwd, tfa.onekv_fwd_plain
         bwd, bwd_plain = tfa.onekv_bwd, tfa.onekv_bwd_plain
     else:
@@ -277,3 +307,7 @@ def test_cuda_kernels_match_plain(cuda_device, l, d):
     assert rel(lse, lse_ref) <= 1e-3
     for a, r in zip(got, want):
         assert rel(a, r) <= 2e-2
+    if online:
+        again = bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
