@@ -7,10 +7,14 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (three sources) with nvcc for sm_90a, one nvcc per source, all started
-   together; print ptxas's register/spill lines and, from ``cuobjdump
-   -sass``, the HGMMA (wgmma) instructions of each online backward kernel,
-   which must not be 0;
+   (three sources: ``attention_fwd.cu``, both forwards;
+   ``onekv_attention.cu``, the single-block backward;
+   ``online_attention_bwd.cu``, the online backward pair) with nvcc for
+   sm_90a, one nvcc per source, all started together; print ptxas's
+   register/spill lines, a register/spill summary of each forward at D=64
+   and D=128 and, from ``cuobjdump -sass``, the HGMMA (wgmma)
+   instructions of the two forwards and the two online backward kernels,
+   none of which may be 0;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
@@ -18,8 +22,8 @@ exits non-zero):
    the single-block kernels at bert_large's bins, the online-softmax
    kernels at bart_base's B=8, H=12, L=1024 (plus L=2048 and D=128 at
    L_pad 640), each online shape with padding masks and with segment ids
-   1-3 plus a batch row masked entirely, the two online backward kernels
-   bit-identical in two launches;
+   1-3 plus a batch row masked entirely; both forwards and the two online
+   backward kernels bit-identical in two launches, at every checked shape;
 4. BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
    attention_dropout 0, attention_impl "auto", fp32 params, bf16
    activations, random weights from a seed) trained for a few steps from
@@ -128,6 +132,21 @@ def check_errors(what, e):
                              "{}: {}".format(what, bad))
 
 
+FWD_SRC = "lddl_tpu_torch/ops/csrc/attention_fwd.cu"
+
+
+def check_repeat(what, first, second):
+    """Raise unless a second launch of a forward gave bit-identical O and
+    LSE."""
+    torch.cuda.synchronize()
+    for name, x, y in zip(("O", "LSE"), first, second):
+        if not torch.equal(x, y):
+            raise AssertionError("{}: two forward launches gave different "
+                                 "{}".format(what, name))
+    print("kernel check {}: O, LSE bit-identical in two launches".format(
+        what), flush=True)
+
+
 def check_kernels(fa):
     """Single-block kernels vs plain versions at every checked shape;
     timings at the BERT path's largest kernel bin. Returns the kernels'
@@ -142,6 +161,8 @@ def check_kernels(fa):
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
+        check_repeat("B={} L={} H={} D={}".format(b, l, h, d), (o, lse),
+                     fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale))
         o_ref, lse_ref = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
         dob = fa._prep_one(do, l_pad)
@@ -210,15 +231,15 @@ def check_kernels(fa):
     bwd_flops = 5 * 2 * bh * l * l * d
     fb, fby = bound(fwd_bytes, fwd_flops)
     bb, bby = bound(bwd_bytes, bwd_flops)
-    src = "lddl_tpu_torch/ops/csrc/onekv_attention.cu"
     return [
-        {"name": "onekv_fwd", "route": "cuda", "source": src,
+        {"name": "onekv_fwd", "route": "cuda", "source": FWD_SRC,
          "replaces": "lddl_tpu/ops/flash_attention.py:441",
          "launches": 0, "max_abs_err": max_abs["fwd"],
          "ms": (t["fwd"] + t["fwd_b"]) / 2,
          "plain_ms": (t["fwd_plain_a"] + t["fwd_plain_b"]) / 2,
          "bound_ms": fb, "bound_by": fby, "library_ms": t["lib_fwd"]},
-        {"name": "onekv_bwd", "route": "cuda", "source": src,
+        {"name": "onekv_bwd", "route": "cuda",
+         "source": "lddl_tpu_torch/ops/csrc/onekv_attention.cu",
          "replaces": "lddl_tpu/ops/flash_attention.py:459",
          "launches": 0, "max_abs_err": max_abs["bwd"],
          "ms": (t["bwd"] + t["bwd_b"]) / 2,
@@ -258,8 +279,12 @@ def check_online_kernels(fa):
             raise AssertionError("L_pad {} at D={} is not in the online "
                                  "regime".format(l_pad, d))
         scale = 1.0 / math.sqrt(d)
+        what = "online B={} L={} H={} D={} {}".format(
+            b, l, h, d, "segments" if segments else "padding")
         o, lse = fa.online_fwd(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
+        check_repeat(what, (o, lse),
+                     fa.online_fwd(qb, kb, vb, maskb, qmaskb, scale))
         o_ref, lse_ref = fa.online_fwd_plain(qb, kb, vb, maskb, qmaskb,
                                              scale)
         dob = fa._prep_one(do, l_pad)
@@ -269,8 +294,6 @@ def check_online_kernels(fa):
         torch.cuda.synchronize()
         dk, dv = fa.online_bwd_dkv(*args)
         torch.cuda.synchronize()
-        what = "online B={} L={} H={} D={} {}".format(
-            b, l, h, d, "segments" if segments else "padding")
         again = (fa.online_bwd_dq(*args),) + fa.online_bwd_dkv(*args)
         torch.cuda.synchronize()
         for name, x, y in zip(("dQ", "dK", "dV"), (dq, dk, dv), again):
@@ -343,7 +366,7 @@ def check_online_kernels(fa):
         "online_bwd_dq": (5 * n * 2 + masks + 2 * row, 3 * product),
         "online_bwd_dkv": (6 * n * 2 + masks + 2 * row, 4 * product),
     }
-    src = {"online_fwd": "lddl_tpu_torch/ops/csrc/online_attention.cu",
+    src = {"online_fwd": FWD_SRC,
            "online_bwd_dq": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu",
            "online_bwd_dkv": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"}
     replaces = {"online_fwd": 64, "online_bwd_dq": 104,
@@ -359,6 +382,26 @@ def check_online_kernels(fa):
             "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
             "library_ms": lib["fwd" if name == "online_fwd" else "bwd"]})
     return entries
+
+def ptxas_summary(log):
+    """{(kernel, D): "N registers, X bytes spill stores, Y bytes spill
+    loads"} from ptxas's -v report of one build."""
+    import re
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'\S*?([a-z_]+_kernel)ILi(\d+)E", line)
+        if m:
+            key = (m.group(1), int(m.group(2)))
+            out[key] = []
+        elif key is not None:
+            m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)|"
+                          r"Used (\d+ registers)", line)
+            if m:
+                out[key].insert(0 if m.group(2) else 1,
+                                m.group(1) or m.group(2))
+    return {k: ", ".join(v) for k, v in out.items()}
+
 
 def hgmma_counts(lib_path):
     """{kernel function: HGMMA instructions in its SASS} of a built
@@ -718,7 +761,7 @@ def main():
     from lddl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    libs = _build.build(["onekv_attention", "online_attention",
+    libs = _build.build(["attention_fwd", "onekv_attention",
                          "online_attention_bwd"])
     print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
@@ -726,17 +769,32 @@ def main():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "warning", "wgmma", "setmaxnreg")):
                 print("ptxas {}: {}".format(name, line.strip()), flush=True)
-    hgmma = hgmma_counts(libs["online_attention_bwd"])
-    for fn, n in sorted(hgmma.items()):
-        print("sass online_attention_bwd: {} HGMMA in {}".format(n, fn),
-              flush=True)
-    for kernel in ("online_bwd_dq_kernel", "online_bwd_dkv_kernel"):
-        found = [n for fn, n in hgmma.items() if kernel in fn]
-        if not found or min(found) == 0:
-            raise AssertionError("no HGMMA in the SASS of {}: {}".format(
-                kernel, hgmma))
+    fwd_regs = ptxas_summary(_build.build_logs.get("attention_fwd", ""))
+    for kernel in ("onekv_fwd_kernel", "online_fwd_kernel"):
+        for d in (64, 128):
+            print("ptxas summary {}<{}>: {}".format(
+                kernel, d, fwd_regs.get((kernel, d), "not reported")),
+                flush=True)
+    for lib, wanted in (("attention_fwd", ("onekv_fwd_kernel",
+                                           "online_fwd_kernel")),
+                        ("online_attention_bwd", ("online_bwd_dq_kernel",
+                                                  "online_bwd_dkv_kernel"))):
+        hgmma = hgmma_counts(libs[lib])
+        for fn, n in sorted(hgmma.items()):
+            print("sass {}: {} HGMMA in {}".format(lib, n, fn), flush=True)
+        for kernel in wanted:
+            found = [n for fn, n in hgmma.items() if kernel in fn]
+            if not found or min(found) == 0:
+                raise AssertionError("no HGMMA in the SASS of {}: {}".format(
+                    kernel, hgmma))
 
     kernels = check_kernels(fa) + check_online_kernels(fa)
+    by_name = {e["name"]: e for e in kernels}
+    print("forward kernels: " + "; ".join(
+        "{} {:.4f} ms vs library {:.4f} ms, ratio {:.2f}".format(
+            n, by_name[n]["ms"], by_name[n]["library_ms"],
+            by_name[n]["ms"] / by_name[n]["library_ms"])
+        for n in ("online_fwd", "onekv_fwd")), flush=True)
     if kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0

@@ -1,8 +1,7 @@
-// Device helpers shared by the port's attention kernels
-// (onekv_attention.cu, online_attention.cu): the wmma fragment types, the
-// shared-memory row padding, tile loads and stores between device memory
-// and shared memory, and the two 16-row warp products every kernel is
-// built from.
+// Device helpers of the port's single-block backward kernels
+// (onekv_attention.cu): the wmma fragment types, the shared-memory row
+// padding, tile loads and stores between device memory and shared memory,
+// and the two 16-row warp products those kernels are built from.
 //
 // Conventions: bf16 tiles in shared memory are row-major with leading
 // dimension D + PAD_H (16 bytes of padding per row, so rows start on

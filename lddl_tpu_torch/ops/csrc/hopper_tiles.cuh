@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised
-// attention kernels (online_attention_bwd.cu): mbarriers, TMA tile loads
-// and stores (2-D tensor maps with the 128-byte swizzle), bulk copies,
-// wgmma shared-memory descriptors and the m64n64k16 bf16 -> fp32 wgmma in
-// its two forms (A and B from shared memory; A from registers), the
-// wgmma fence/commit/wait, setmaxnreg, named barriers, and the host-side
-// tensor-map encoder (cuTensorMapEncodeTiled, looked up through the
-// runtime so the library needs no -lcuda).
+// attention kernels (attention_fwd.cu, online_attention_bwd.cu):
+// mbarriers, TMA tile loads and stores (2-D tensor maps with the 128-byte
+// swizzle), bulk copies, wgmma shared-memory descriptors and the
+// m64n64k16 bf16 -> fp32 wgmma in its two forms (A and B from shared
+// memory; A from registers), the wgmma fence/commit/wait, setmaxnreg,
+// named barriers, and the host-side tensor-map encoder
+// (cuTensorMapEncodeTiled, looked up through the runtime so the library
+// needs no -lcuda).
 //
 // Tile convention: an operand tile is a column panel of 64 bf16 (128
 // bytes) per row, rows stored back to back, as TMA writes it with
@@ -31,6 +32,13 @@ constexpr int GROUP_BYTES = 8 * ROW_BYTES;   // an 8-row swizzle atom
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Dynamic shared memory rounded up to the 1024-byte alignment that the
+// 128-byte swizzle needs.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // ---- mbarriers -----------------------------------------------------------
@@ -334,4 +342,26 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Tensor maps over the [BH * L, D] views of `n` operands.
+inline cudaError_t make_maps(CUtensorMap* maps, const void* const* ptrs,
+                             int n, int BH, int L, int D) {
+  for (int i = 0; i < n; ++i) {
+    cudaError_t err = make_map(&maps[i], ptrs[i], (uint64_t)BH * L, D);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Lengths a grid of blocks of `rows` rows covers, and a 2-D row index
+// that fits an int.
+inline bool shape_ok(int BH, int L, int rows) {
+  return L > 0 && L % rows == 0 && BH > 0 && BH <= 65535 &&
+         (long long)BH * L < (1LL << 31);
+}
+
 }  // namespace lddl_hopper
+
+// The message of a cudaError_t returned by a C entry point (ctypes).
+extern "C" const char* lddl_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

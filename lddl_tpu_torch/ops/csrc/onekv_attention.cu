@@ -1,43 +1,40 @@
-// Single-block attention for Hopper (sm_90a): the port of the two Pallas
-// kernels of the single-block regime in lddl_tpu/ops/flash_attention.py.
+// Single-block attention backward for Hopper (sm_90a): the port of the
+// backward Pallas kernel of the single-block regime in
+// lddl_tpu/ops/flash_attention.py. The regime's forward
+// (_onekv_fwd_kernel) is onekv_fwd_kernel in attention_fwd.cu.
 //
-//   onekv_fwd_kernel      replaces _onekv_fwd_kernel
 //   onekv_bwd_dkv_kernel  } together replace _onekv_bwd_kernel
 //   onekv_bwd_dq_kernel   }
 //
-// What they compute (identical to the TPU kernels, per (batch*head) row):
+// What they compute (identical to the TPU kernel, per (batch*head) row):
 //   S   = Q K^T * scale + bias,  bias = 0 where kmask > 0 && kmask == qmask,
 //         else -1e9 (fp32, added to the scaled fp32 score; never -inf)
-//   O   = softmax(S) V in the input dtype, LSE = m + log(max(l, 1e-30))
 //   P   = exp(S - LSE); dV = P^T dO; dP = dO V^T;
 //   dS  = P * (dP - delta) * scale, cast to the input dtype;
 //   dQ  = dS K; dK = dS^T Q     (delta = rowsum(dO * O), computed outside)
-// Layout: q/k/v/o/dO/dQ/dK/dV [B*H, L_pad, D] bf16, masks int32 [B, L_pad],
+// Layout: q/k/v/dO/dQ/dK/dV [B*H, L_pad, D] bf16, masks int32 [B, L_pad],
 // LSE and delta fp32 [B*H, L_pad]. L_pad is a multiple of 128.
 //
 // What bounds them on this card: at the main path's shapes (L_pad 256-512,
-// D 64) the forward moves ~67 MB and does ~17 GFLOP of bf16 products per
-// bert_large layer call (B=16, H=16, L=512), so a perfect kernel would sit
-// near the balance point of 3.35 TB/s and 989 TFLOP/s. The TPU kernel held
-// a whole [L, L] fp32 score row in VMEM; on Hopper one [512, 512] fp32 tile
-// is 1 MiB, far above the 227 KB of shared memory a block may use.
+// D 64) the backward does ~43 GFLOP of bf16 products per bert_large layer
+// call (B=16, H=16, L=512): the tensor cores. The TPU kernel held a whole
+// [L, L] fp32 score row in VMEM; on Hopper one [512, 512] fp32 tile is
+// 1 MiB, far above the 227 KB of shared memory a block may use.
 //
 // What the design does about it: one block of 4 warps per (bh, 64-row
-// tile). The forward walks 64-wide K/V tiles with a running row max and
-// sum (online softmax), so no [L, L] tile exists and shared memory stays
-// at 70 KB (D=64) or 111 KB (D=128). The products run on the tensor cores
-// through nvcuda::wmma (bf16 x bf16 -> fp32, 16x16x16); P is cast to V's
-// dtype before P V, as the TPU kernel does. Each warp owns 16 rows, so the
-// row softmax needs only warp shuffles. The backward avoids atomics, so
-// runs are reproducible: a dK/dV kernel takes one block per (bh, KV tile)
-// and walks the Q tiles; a dQ kernel takes one block per (bh, Q tile) and
-// walks the K/V tiles. That recomputes S and dP once more than the TPU's
-// fused kernel (7 products instead of 5). This is the simple, correct
-// first version: no TMA, no wgmma, no pipelining of the tile loads.
+// tile), walking 64-wide tiles of the other side, so no [L, L] tile
+// exists. The products run on the tensor cores through nvcuda::wmma
+// (bf16 x bf16 -> fp32, 16x16x16). Each warp owns 16 rows. The backward
+// avoids atomics, so runs are reproducible: a dK/dV kernel takes one
+// block per (bh, KV tile) and walks the Q tiles; a dQ kernel takes one
+// block per (bh, Q tile) and walks the K/V tiles. That recomputes S and
+// dP once more than the TPU's fused kernel (7 products instead of 5).
+// This is the simple, correct first version: no TMA, no wgmma, no
+// pipelining of the tile loads.
 //
-// Padded query rows (qmask 0) see every key disallowed and average
-// uniformly over all L_pad keys, as in the reference; fully masked K/V
-// tiles are never skipped, since such rows need them.
+// Padded query rows (qmask 0) see every key disallowed and spread
+// uniformly over all L_pad keys, as in the reference; fully masked tiles
+// are never skipped, since such rows need them.
 
 #include <math.h>
 
@@ -59,15 +56,6 @@ constexpr size_t bf16_tile_bytes() {
 }
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return 3 * bf16_tile_bytes<D>()                         // Q, K, V
-         + (size_t)TILE * LDS * sizeof(float)             // S
-         + (size_t)TILE * LDP * sizeof(bf16)              // P
-         + (size_t)TILE * (D + PAD_F) * sizeof(float)     // O accumulator
-         + 2 * TILE * sizeof(int);                        // masks
-}
-
-template <int D>
 constexpr size_t dkv_smem_bytes() {
   return 4 * bf16_tile_bytes<D>()                         // K, V, Q, dO
          + 2 * (size_t)TILE * LDS * sizeof(float)         // S^T, dP^T
@@ -79,101 +67,6 @@ constexpr size_t dkv_smem_bytes() {
 template <int D>
 constexpr size_t dq_smem_bytes() {
   return dkv_smem_bytes<D>() - (size_t)TILE * LDP * sizeof(bf16);  // no P
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-onekv_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ kmask,
-                 const int* __restrict__ qmask, bf16* __restrict__ o,
-                 float* __restrict__ lse, int L, int H, float scale) {
-  constexpr int LDH = D + PAD_H;
-  constexpr int LDO = D + PAD_F;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + TILE * LDH;
-  bf16* sV = sK + TILE * LDH;
-  float* sS = reinterpret_cast<float*>(sV + TILE * LDH);
-  bf16* sP = reinterpret_cast<bf16*>(sS + TILE * LDS);
-  float* sO = reinterpret_cast<float*>(sP + TILE * LDP);
-  int* sKm = reinterpret_cast<int*>(sO + TILE * LDO);
-  int* sQm = sKm + TILE;
-
-  const int q0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)bh * L * D;
-
-  load_tile<TILE, D, NTHREADS>(sQ, q + base + (size_t)q0 * D);
-  if (threadIdx.x < TILE) sQm[threadIdx.x] = qmask[(size_t)b * L + q0 + threadIdx.x];
-  for (int i = threadIdx.x; i < TILE * LDO; i += NTHREADS) sO[i] = 0.0f;
-  __syncthreads();
-
-  // Lane pair (2r, 2r+1) of warp w owns tile row 16w + r; each lane takes
-  // half of the row's 64 columns.
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int my_qm = sQm[row];
-  float m_run = -INFINITY, l_run = 0.0f;
-
-  for (int k0 = 0; k0 < L; k0 += TILE) {
-    load_tile<TILE, D, NTHREADS>(sK, k + base + (size_t)k0 * D);
-    load_tile<TILE, D, NTHREADS>(sV, v + base + (size_t)k0 * D);
-    if (threadIdx.x < TILE) sKm[threadIdx.x] = kmask[(size_t)b * L + k0 + threadIdx.x];
-    __syncthreads();
-
-    strip_abt<D, TILE>(sS + warp * 16 * LDS, LDS, sQ + warp * 16 * LDH,
-                       sK);
-    __syncwarp();
-
-    const float* srow = sS + row * LDS + half * 32;
-    const int* km = sKm + half * 32;
-    float s[32];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool ok = km[c] > 0 && km[c] == my_qm;
-      s[c] = srow[c] * scale + (ok ? 0.0f : NEG_BIG);
-      tmax = fmaxf(tmax, s[c]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = expf(m_run - m_new);
-    float tsum = 0.0f;
-    bf16* prow = sP + row * LDP + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(s[c] - m_new);
-      tsum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-    l_run = l_run * corr + tsum;
-    m_run = m_new;
-    float* orow = sO + row * LDO + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O strip += P strip V (accumulated in fp32 through shared memory).
-    AccFrag acc[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::load_matrix_sync(acc[j], sO + warp * 16 * LDO + j * 16, LDO,
-                             wmma::mem_row_major);
-    strip_ab_acc<D, TILE>(acc, sP + warp * 16 * LDP, LDP, sV);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::store_matrix_sync(sO + warp * 16 * LDO + j * 16, acc[j], LDO,
-                              wmma::mem_row_major);
-    __syncthreads();
-  }
-
-  const float l = fmaxf(l_run, 1e-30f);
-  const float inv = 1.0f / l;
-  const float* orow = sO + row * LDO + half * (D / 2);
-  bf16* out = o + base + (size_t)(q0 + row) * D + half * (D / 2);
-#pragma unroll
-  for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(orow[c] * inv);
-  if (half == 0) lse[(size_t)bh * L + q0 + row] = m_run + logf(l);
 }
 
 template <int D>
@@ -338,20 +231,6 @@ onekv_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, const void* km,
-               const void* qm, void* o, void* lse, int BH, int L, int H,
-               float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>();
-  cudaError_t err = set_smem(onekv_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(L / TILE, BH);
-  onekv_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)km,
-      (const int*)qm, (bf16*)o, (float*)lse, L, H, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* km,
                const void* qm, const void* dout, const void* lse,
                const void* delta, void* dq, void* dk, void* dv, int BH,
@@ -379,15 +258,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* km,
 // Plain C interface (loaded with ctypes). Each returns the cudaError_t of
 // its launches: 0 on success. Inputs are checked by the Python wrapper.
 extern "C" {
-
-int lddl_onekv_fwd(const void* q, const void* k, const void* v,
-                   const void* kmask, const void* qmask, void* o, void* lse,
-                   int BH, int L, int H, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_fwd<64>(q, k, v, kmask, qmask, o, lse, BH, L, H, scale, s);
-  if (D == 128) return launch_fwd<128>(q, k, v, kmask, qmask, o, lse, BH, L, H, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 int lddl_onekv_bwd(const void* q, const void* k, const void* v,
                    const void* kmask, const void* qmask, const void* dout,

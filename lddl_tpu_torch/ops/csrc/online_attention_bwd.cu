@@ -81,11 +81,6 @@ constexpr size_t smem_bytes(int slices) {
 
 static_assert(smem_bytes<128>(3) <= 232448, "227 KB of shared memory");
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 __device__ __forceinline__ float bias(int km, int qm) {
   return (km > 0 && km == qm) ? 0.0f : NEG_BIG;
 }
@@ -448,27 +443,12 @@ online_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// Tensor maps over the [BH * L, D] views of `n` operands.
-cudaError_t make_maps(CUtensorMap* maps, const void* const* ptrs, int n,
-                      int BH, int L, int D) {
-  for (int i = 0; i < n; ++i) {
-    cudaError_t err = make_map(&maps[i], ptrs[i], (uint64_t)BH * L, D);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-bool shape_ok(int BH, int L) {
-  return L > 0 && L % ROWS == 0 && BH > 0 && BH <= 65535 &&
-         (long long)BH * L < (1LL << 31);
-}
-
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* km,
               const void* qm, const void* dout, const void* lse,
               const void* delta, void* dq, int BH, int L, int H, float scale,
               cudaStream_t stream) {
-  if (!shape_ok(BH, L)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(BH, L, ROWS)) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[5];
   const void* ptrs[5] = {q, k, v, dout, dq};
   cudaError_t err = make_maps(maps, ptrs, 5, BH, L, D);
@@ -489,7 +469,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* km,
                const void* qm, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BH, int L, int H,
                float scale, cudaStream_t stream) {
-  if (!shape_ok(BH, L)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(BH, L, ROWS)) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[6];
   const void* ptrs[6] = {q, k, v, dout, dk, dv};
   cudaError_t err = make_maps(maps, ptrs, 6, BH, L, D);
@@ -510,10 +490,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* km,
 // Plain C interface (loaded with ctypes). Each returns the cudaError_t of
 // its launch: 0 on success. Inputs are checked by the Python wrapper.
 extern "C" {
-
-const char* lddl_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 int lddl_online_bwd_dq(const void* q, const void* k, const void* v,
                        const void* kmask, const void* qmask,

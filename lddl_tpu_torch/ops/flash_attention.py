@@ -8,21 +8,24 @@ Counterpart of ``lddl_tpu/ops/flash_attention.py`` (``_prep``,
 the reference:
 
 - single-block (L_pad <= 896 at D=64, <= 512 at D=128):
-  ``csrc/onekv_attention.cu`` replaces ``_onekv_fwd_kernel`` and
-  ``_onekv_bwd_kernel`` (``onekv_fwd``, ``onekv_bwd``);
-- online softmax (every longer L_pad): ``csrc/online_attention.cu``
-  replaces ``_fwd_kernel`` (``online_fwd``) and
-  ``csrc/online_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel`` (``online_bwd_dq``, ``online_bwd_dkv``: wgmma with
-  the scores in registers, tiles fed by TMA), three kernels launched on
-  their own.
+  ``csrc/attention_fwd.cu`` replaces ``_onekv_fwd_kernel`` (``onekv_fwd``)
+  and ``csrc/onekv_attention.cu`` replaces ``_onekv_bwd_kernel``
+  (``onekv_bwd``);
+- online softmax (every longer L_pad): ``csrc/attention_fwd.cu`` replaces
+  ``_fwd_kernel`` (``online_fwd``) and ``csrc/online_attention_bwd.cu``
+  replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (``online_bwd_dq``,
+  ``online_bwd_dkv``), three kernels launched on their own.
 
-The two regimes are separate kernels on purpose, so that a redesign of
-one does not move the other's numbers. Each kernel has a plain PyTorch
-version beside it, computing the same function the same way (products of
-stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, P cast to
-V's dtype before P V, dS cast to the input dtype; the online forward
-walks the same 64-wide K/V tiles with a running max). A wrapper takes the
+The two forwards are one warp-specialised kernel body (wgmma with the
+scores in registers, K/V fed by a TMA ring) instantiated as two kernels,
+one per regime; the online backward pair is built the same way, the
+single-block backward with wmma. The regimes keep separate kernels on
+purpose, so that a redesign of one does not move the other's numbers.
+Each kernel has a plain PyTorch version beside it, computing the same
+function the same way (products of stored-dtype operands accumulated in
+fp32, the fp32 -1e9 bias, P cast to V's dtype before P V, dS cast to the
+input dtype; the online forward walks the same 64-wide K/V tiles with a
+running max). A wrapper takes the
 plain version only for tensors on the CPU; on a CUDA tensor it launches
 its kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
@@ -43,9 +46,9 @@ import torch
 ONEKV_MAX_L_PAD = 896
 NEG_BIG = -1e9
 # Width of the K/V (fwd, dq) or Q (dkv) tiles the online kernels walk
-# (STEP in csrc/online_attention.cu and csrc/online_attention_bwd.cu);
-# the plain forward walks the same tiles, so its bf16 rounding of P
-# matches the kernel's.
+# (STEP in csrc/attention_fwd.cu and csrc/online_attention_bwd.cu); the
+# plain forward walks the same tiles, so its bf16 rounding of P matches
+# the kernel's.
 ONLINE_STEP = 64
 
 
@@ -243,8 +246,8 @@ def _check_operands(tensors, masks, rows, online=False):
 # Pointer arguments of each C entry point, by source; every entry point
 # then takes (BH, L_pad, H, D, scale, stream) and returns a cudaError_t.
 _ENTRY_POINTS = {
-    "onekv_attention": {"lddl_onekv_fwd": 7, "lddl_onekv_bwd": 11},
-    "online_attention": {"lddl_online_fwd": 7},
+    "attention_fwd": {"lddl_onekv_fwd": 7, "lddl_online_fwd": 7},
+    "onekv_attention": {"lddl_onekv_bwd": 11},
     "online_attention_bwd": {"lddl_online_bwd_dq": 9,
                              "lddl_online_bwd_dkv": 10},
 }
@@ -290,7 +293,7 @@ def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
     h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [])
     o = torch.empty_like(qb)
     lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
-    _launch("onekv_attention", "lddl_onekv_fwd",
+    _launch("attention_fwd", "lddl_onekv_fwd",
             [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
     onekv_fwd.launches += 1
     return o, lse
@@ -326,7 +329,7 @@ def online_fwd(qb, kb, vb, maskb, qmaskb, scale):
     h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [], online=True)
     o = torch.empty_like(qb)
     lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
-    _launch("online_attention", "lddl_online_fwd",
+    _launch("attention_fwd", "lddl_online_fwd",
             [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
     online_fwd.launches += 1
     return o, lse

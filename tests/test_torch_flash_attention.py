@@ -232,7 +232,8 @@ def test_build_target_hashes_shared_headers(tmp_path, monkeypatch):
 def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
-    backward pair lives in its own source (no nvcc needed)."""
+    two forwards share one source and the online backward pair has its
+    own (no nvcc needed)."""
     import os
     import re
     from lddl_tpu_torch.ops import _build
@@ -247,6 +248,21 @@ def test_entry_points_match_c_sources(source):
                                   "float scale", "void* stream"], params
     assert (source == "online_attention_bwd") == any(
         e.startswith("lddl_online_bwd") for e in tfa._ENTRY_POINTS[source])
+    assert (source == "attention_fwd") == any(
+        e.endswith("_fwd") for e in tfa._ENTRY_POINTS[source])
+
+
+@pytest.mark.parametrize("source", ["attention_fwd", "online_attention_bwd"])
+def test_kernel_tile_width_matches_plain_walk(source):
+    """The width of the tiles a kernel walks (STEP in its source) is the
+    plain online versions' ONLINE_STEP, so their bf16 rounding of P and dS
+    stays the kernel's (no nvcc needed)."""
+    import os
+    import re
+    from lddl_tpu_torch.ops import _build
+    with open(os.path.join(_build._CSRC, source + ".cu")) as f:
+        widths = re.findall(r"constexpr int STEP = (\d+);", f.read())
+    assert widths == [str(tfa.ONLINE_STEP)]
 
 
 @pytest.fixture
@@ -266,7 +282,8 @@ def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
     versions on the card, in bf16: 2e-2 of max |ref| for O and the
     gradients, 1e-3 for the LSE. Masks: padding, or segment ids 1-3 with
     padding and the last batch row masked entirely (both masks). The
-    online backward kernels give bit-identical results in two launches."""
+    forward kernels, and the online backward kernels, give bit-identical
+    results in two launches."""
     g = torch.Generator(device=cuda_device).manual_seed(l + d)
     q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
@@ -305,6 +322,8 @@ def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
 
     assert rel(o, o_ref) <= 2e-2
     assert rel(lse, lse_ref) <= 1e-3
+    o_again, lse_again = fwd(qb, kb, vb, maskb, qmaskb, scale)
+    assert torch.equal(o, o_again) and torch.equal(lse, lse_again)
     for a, r in zip(got, want):
         assert rel(a, r) <= 2e-2
     if online:
