@@ -7,23 +7,24 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (three sources: ``attention_fwd.cu``, both forwards;
-   ``onekv_attention.cu``, the single-block backward;
-   ``online_attention_bwd.cu``, the online backward pair) with nvcc for
-   sm_90a, one nvcc per source, all started together; print ptxas's
-   register/spill lines, a register/spill summary of each forward at D=64
-   and D=128 and, from ``cuobjdump -sass``, the HGMMA (wgmma)
-   instructions of the two forwards and the two online backward kernels,
-   none of which may be 0;
+   (two sources: ``attention_fwd.cu``, both forwards;
+   ``online_attention_bwd.cu``, the backward of both regimes) with nvcc
+   for sm_90a, one nvcc per source, all started together; print ptxas's
+   register/spill lines, a register/spill summary of each of the six
+   kernels at D=64 and D=128 and, from ``cuobjdump -sass``, the HGMMA
+   (wgmma) instructions of the six kernels, none of which may be 0;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
    ``F.scaled_dot_product_attention`` (its backward via autograd.grad):
-   the single-block kernels at bert_large's bins, the online-softmax
-   kernels at bart_base's B=8, H=12, L=1024 (plus L=2048 and D=128 at
-   L_pad 640), each online shape with padding masks and with segment ids
-   1-3 plus a batch row masked entirely; both forwards and the two online
-   backward kernels bit-identical in two launches, at every checked shape;
+   the single-block kernels at bert_large's bins (plus L=128, 200, 896
+   and D=128 at L=512), the online-softmax kernels at bart_base's B=8, H=12,
+   L=1024 (plus L=2048 and D=128 at L_pad 640), each shape with padding
+   masks and with segment ids 1-3 plus a batch row masked entirely; every
+   kernel bit-identical in two launches, at every checked shape; then the
+   backward against the library's per L at B=16, H=16, D=64 (L 256-1024);
+   every time is device time (``cuda_time_ms`` holds the stream while the
+   calls queue);
 4. BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
    attention_dropout 0, attention_impl "auto", fp32 params, bf16
    activations, random weights from a seed) trained for a few steps from
@@ -76,11 +77,15 @@ def card_line():
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
+    """Device time (ms) per call of ``fn`` over ``iters`` calls. A sleep
+    holds the stream while every call is queued, so that a kernel shorter
+    than its wrapper's host path is timed on the device, not the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)     # ~50 ms; the calls queue behind it
     start.record()
     for _ in range(iters):
         fn()
@@ -133,51 +138,87 @@ def check_errors(what, e):
 
 
 FWD_SRC = "lddl_tpu_torch/ops/csrc/attention_fwd.cu"
+BWD_SRC = "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"
 
 
-def check_repeat(what, first, second):
-    """Raise unless a second launch of a forward gave bit-identical O and
-    LSE."""
+def check_repeat(what, names, first, second):
+    """Raise unless a second launch gave bit-identical outputs ``names``."""
     torch.cuda.synchronize()
-    for name, x, y in zip(("O", "LSE"), first, second):
+    for name, x, y in zip(names, first, second):
         if not torch.equal(x, y):
-            raise AssertionError("{}: two forward launches gave different "
-                                 "{}".format(what, name))
-    print("kernel check {}: O, LSE bit-identical in two launches".format(
-        what), flush=True)
+            raise AssertionError("{}: two launches gave different {}".format(
+                what, name))
+    print("kernel check {}: {} bit-identical in two launches".format(
+        what, ", ".join(names)), flush=True)
+
+
+def time_turns(kernel, plain):
+    """Plain, kernel, kernel, plain: (kernel ms, plain ms), each the mean
+    of its two turns, and the four times."""
+    p_a = cuda_time_ms(plain)
+    k_a = cuda_time_ms(kernel)
+    k_b = cuda_time_ms(kernel)
+    p_b = cuda_time_ms(plain)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, [p_a, k_a, k_b, p_b]
+
+
+def library_calls(q, k, v, do, mask):
+    """The yardstick the port never calls: PyTorch's fused attention on
+    the same inputs and padding mask, (forward, backward); the backward
+    (autograd.grad) gives dQ, dK and dV together."""
+    ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    keep = mask[:, None, None, :] > 0
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=keep)
+
+    out, dol = fwd(), do.transpose(1, 2)
+
+    def bwd():
+        return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
+
+    return fwd, bwd
 
 
 def check_kernels(fa):
-    """Single-block kernels vs plain versions at every checked shape;
-    timings at the BERT path's largest kernel bin. Returns the kernels'
-    JSON entries (launch counts filled in later)."""
-    shapes = [(16, l, 16, 64) for l in (200, 256, 384, 512, 896)]
+    """Single-block kernels vs plain versions at every checked shape, each
+    with padding masks and with segment ids 1-3 plus a batch row masked
+    entirely; both kernels bit-identical in two launches. Timings at the
+    BERT path's largest kernel bin. Returns the kernels' JSON entries
+    (launch counts filled in later)."""
+    shapes = [(16, l, 16, 64) for l in (128, 200, 256, 384, 512, 896)]
     shapes.append((16, 512, 16, 128))
     max_abs = {}
-    for (b, l, h, d) in shapes:
-        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d)
+    for (b, l, h, d), segments in ((shape, seg) for shape in shapes
+                                   for seg in (False, True)):
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d,
+                                             segments=segments)
         qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
-            q, k, v, mask, None)
+            q, k, v, mask, mask if segments else None)
         scale = 1.0 / math.sqrt(d)
+        what = "B={} L={} H={} D={} {}".format(
+            b, l, h, d, "segments" if segments else "padding")
         o, lse = fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
-        check_repeat("B={} L={} H={} D={}".format(b, l, h, d), (o, lse),
+        check_repeat(what, ("O", "LSE"), (o, lse),
                      fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale))
         o_ref, lse_ref = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
         dob = fa._prep_one(do, l_pad)
         delta = (dob.float() * o_ref.float()).sum(-1)
-        grads = fa.onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta,
-                             scale)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+        grads = fa.onekv_bwd(*args)
         torch.cuda.synchronize()
-        grads_ref = fa.onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob,
-                                       lse_ref, delta, scale)
+        check_repeat(what, ("dQ", "dK", "dV"), grads, fa.onekv_bwd(*args))
+        grads_ref = fa.onekv_bwd_plain(*args)
         torch.cuda.synchronize()
         e = {"O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref)}
         for name, got, ref in zip(("dQ", "dK", "dV"), grads, grads_ref):
             e[name] = rel_err(got, ref)
-        check_errors("B={} L={} H={} D={}".format(b, l, h, d), e)
-        if (l, d) == (512, 64):   # the largest main-path bin
+        check_errors(what, e)
+        if (l, d) == (512, 64) and not segments:   # the largest main bin
             max_abs["fwd"] = max(
                 float((o.float() - o_ref.float()).abs().max()),
                 float((lse - lse_ref).abs().max()))
@@ -192,37 +233,27 @@ def check_kernels(fa):
     o, lse = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
     dob = fa._prep_one(do, l)
     delta = (dob.float() * o.float()).sum(-1)
-    fwd = lambda: fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)  # noqa: E731
-    fwd_plain = lambda: fa.onekv_fwd_plain(  # noqa: E731
-        qb, kb, vb, maskb, qmaskb, scale)
-    bwd = lambda: fa.onekv_bwd(  # noqa: E731
-        qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
-    bwd_plain = lambda: fa.onekv_bwd_plain(  # noqa: E731
-        qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
-    # Yardstick: PyTorch's fused attention on the same inputs and mask.
-    ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
-                  for t in (q, k, v))
-    keep = (mask[:, None, None, :] > 0)
-    lib_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
-        ql, kl, vl, attn_mask=keep)
-    lib_out = lib_fwd()
-    dol = do.transpose(1, 2)
-    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        lib_out, (ql, kl, vl), dol, retain_graph=True)
-    t = {}
-    # Plain, kernel, kernel, plain; each pair is averaged.
-    t["fwd_plain_a"] = cuda_time_ms(fwd_plain)
-    t["fwd"] = cuda_time_ms(fwd)
-    t["fwd_b"] = cuda_time_ms(fwd)
-    t["fwd_plain_b"] = cuda_time_ms(fwd_plain)
-    t["bwd_plain_a"] = cuda_time_ms(bwd_plain)
-    t["bwd"] = cuda_time_ms(bwd)
-    t["bwd_b"] = cuda_time_ms(bwd)
-    t["bwd_plain_b"] = cuda_time_ms(bwd_plain)
-    t["lib_fwd"] = cuda_time_ms(lib_fwd)
-    t["lib_bwd"] = cuda_time_ms(lib_bwd)
-    print("timings B=16 L=512 H=16 D=64 (ms): " + json.dumps(
-        {n: round(x, 4) for n, x in t.items()}), flush=True)
+    fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
+    bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, mask)
+    # The library's backward in two turns, around the port's: one turn
+    # has varied by 2x between calls.
+    lib_bwd_turns = [cuda_time_ms(lib_bwd)]
+    t = {"fwd": time_turns(lambda: fa.onekv_fwd(*fwd_in),
+                           lambda: fa.onekv_fwd_plain(*fwd_in)),
+         "bwd": time_turns(lambda: fa.onekv_bwd(*bwd_in),
+                           lambda: fa.onekv_bwd_plain(*bwd_in))}
+    lib_bwd_turns.append(cuda_time_ms(lib_bwd))
+    lib = {"fwd": cuda_time_ms(lib_fwd),
+           "bwd": sum(lib_bwd_turns) / len(lib_bwd_turns)}
+    print("timings B={} L={} H={} D={} (ms; plain, kernel, kernel, plain): "
+          "{}; library fwd {:.4f}, library bwd turns {}".format(
+              b, l, h, d, json.dumps(
+                  {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
+              lib["fwd"], [round(x, 4) for x in lib_bwd_turns]), flush=True)
+    print("single-block backward: {:.4f} ms, library backward {:.4f} ms "
+          "(mean of two turns), ratio {:.2f}".format(
+              t["bwd"][0], lib["bwd"], t["bwd"][0] / lib["bwd"]), flush=True)
 
     bh, n = b * h, b * h * l * d
     fwd_bytes = 4 * n * 2 + 2 * b * l * 4 + bh * l * 4
@@ -234,29 +265,47 @@ def check_kernels(fa):
     return [
         {"name": "onekv_fwd", "route": "cuda", "source": FWD_SRC,
          "replaces": "lddl_tpu/ops/flash_attention.py:441",
-         "launches": 0, "max_abs_err": max_abs["fwd"],
-         "ms": (t["fwd"] + t["fwd_b"]) / 2,
-         "plain_ms": (t["fwd_plain_a"] + t["fwd_plain_b"]) / 2,
-         "bound_ms": fb, "bound_by": fby, "library_ms": t["lib_fwd"]},
-        {"name": "onekv_bwd", "route": "cuda",
-         "source": "lddl_tpu_torch/ops/csrc/onekv_attention.cu",
+         "launches": 0, "max_abs_err": max_abs["fwd"], "ms": t["fwd"][0],
+         "plain_ms": t["fwd"][1], "bound_ms": fb, "bound_by": fby,
+         "library_ms": lib["fwd"]},
+        {"name": "onekv_bwd", "route": "cuda", "source": BWD_SRC,
          "replaces": "lddl_tpu/ops/flash_attention.py:459",
-         "launches": 0, "max_abs_err": max_abs["bwd"],
-         "ms": (t["bwd"] + t["bwd_b"]) / 2,
-         "plain_ms": (t["bwd_plain_a"] + t["bwd_plain_b"]) / 2,
-         "bound_ms": bb, "bound_by": bby, "library_ms": t["lib_bwd"]},
+         "launches": 0, "max_abs_err": max_abs["bwd"], "ms": t["bwd"][0],
+         "plain_ms": t["bwd"][1], "bound_ms": bb, "bound_by": bby,
+         "library_ms": lib["bwd"]},
     ]
 
 
-
-def time_turns(kernel, plain):
-    """Plain, kernel, kernel, plain: (kernel ms, plain ms), each the mean
-    of its two turns, and the four times."""
-    p_a = cuda_time_ms(plain)
-    k_a = cuda_time_ms(kernel)
-    k_b = cuda_time_ms(kernel)
-    p_b = cuda_time_ms(plain)
-    return (k_a + k_b) / 2, (p_a + p_b) / 2, [p_a, k_a, k_b, p_b]
+def backward_by_length(fa):
+    """The backward at B=16, H=16, D=64 with padding masks per L: the
+    single-block ``onekv_bwd`` up to L_pad 896, the online pair at 1024,
+    between two turns of the library's backward. Prints one JSON line per
+    L with the time per streamed tile of one 128-row item (us: ms * 1e3 /
+    (B H (L / 128) (L / 64))), which shows what an item's fixed cost
+    weighs at short L."""
+    b, h, d = 16, 16, 64
+    for l in (256, 384, 512, 896, 1024):
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l)
+        qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, mask, None)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.online_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+        dob = fa._prep_one(do, l)
+        delta = (dob.float() * o.float()).sum(-1)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+        if fa._use_onekv(l, d):
+            name, port = "onekv_bwd", lambda: fa.onekv_bwd(*args)
+        else:
+            name = "online pair"
+            port = lambda: (fa.online_bwd_dq(*args), fa.online_bwd_dkv(*args))
+        _, lib_bwd = library_calls(q, k, v, do, mask)
+        ms = {"library": [cuda_time_ms(lib_bwd)], name: []}
+        ms[name] += [cuda_time_ms(port), cuda_time_ms(port)]
+        ms["library"].append(cuda_time_ms(lib_bwd))
+        tiles = b * h * (l // 128) * (l // 64)
+        print("backward by length: " + json.dumps({
+            "B": b, "H": h, "L": l, "D": d, "ms": ms,
+            "us_per_tile": {n: 1e3 * sum(t) / len(t) / tiles
+                            for n, t in ms.items()}}), flush=True)
 
 
 def check_online_kernels(fa):
@@ -283,7 +332,7 @@ def check_online_kernels(fa):
             b, l, h, d, "segments" if segments else "padding")
         o, lse = fa.online_fwd(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
-        check_repeat(what, (o, lse),
+        check_repeat(what, ("O", "LSE"), (o, lse),
                      fa.online_fwd(qb, kb, vb, maskb, qmaskb, scale))
         o_ref, lse_ref = fa.online_fwd_plain(qb, kb, vb, maskb, qmaskb,
                                              scale)
@@ -294,14 +343,8 @@ def check_online_kernels(fa):
         torch.cuda.synchronize()
         dk, dv = fa.online_bwd_dkv(*args)
         torch.cuda.synchronize()
-        again = (fa.online_bwd_dq(*args),) + fa.online_bwd_dkv(*args)
-        torch.cuda.synchronize()
-        for name, x, y in zip(("dQ", "dK", "dV"), (dq, dk, dv), again):
-            if not torch.equal(x, y):
-                raise AssertionError("{}: two launches gave different {}"
-                                     .format(what, name))
-        print("kernel check {}: dQ, dK, dV bit-identical in two launches"
-              .format(what), flush=True)
+        check_repeat(what, ("dQ", "dK", "dV"), (dq, dk, dv),
+                     (fa.online_bwd_dq(*args),) + fa.online_bwd_dkv(*args))
         dq_ref = fa.online_bwd_dq_plain(*args)
         dk_ref, dv_ref = fa.online_bwd_dkv_plain(*args)
         torch.cuda.synchronize()
@@ -327,6 +370,8 @@ def check_online_kernels(fa):
     delta = (dob.float() * o.float()).sum(-1)
     fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
     bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, mask)
+    lib_bwd_turns = [cuda_time_ms(lib_bwd)]   # two turns, around the port's
     t = {}
     for name, kernel, plain, args in (
             ("online_fwd", fa.online_fwd, fa.online_fwd_plain, fwd_in),
@@ -335,26 +380,17 @@ def check_online_kernels(fa):
             ("online_bwd_dkv", fa.online_bwd_dkv, fa.online_bwd_dkv_plain,
              bwd_in)):
         t[name] = time_turns(lambda: kernel(*args), lambda: plain(*args))
-    # Yardstick: PyTorch's fused attention on the same inputs and mask;
-    # its backward gives dQ, dK and dV together.
-    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_()
-                  for x in (q, k, v))
-    keep = (mask[:, None, None, :] > 0)
-    lib_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
-        ql, kl, vl, attn_mask=keep)
-    lib_out = lib_fwd()
-    dol = do.transpose(1, 2)
-    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        lib_out, (ql, kl, vl), dol, retain_graph=True)
-    lib = {"fwd": cuda_time_ms(lib_fwd), "bwd": cuda_time_ms(lib_bwd)}
+    lib_bwd_turns.append(cuda_time_ms(lib_bwd))
+    lib = {"fwd": cuda_time_ms(lib_fwd),
+           "bwd": sum(lib_bwd_turns) / len(lib_bwd_turns)}
     print("timings B={} L={} H={} D={} (ms; plain, kernel, kernel, plain): "
-          "{}; library {}".format(b, l, h, d, json.dumps(
-              {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
-              json.dumps({n: round(x, 4) for n, x in lib.items()})),
-          flush=True)
+          "{}; library fwd {:.4f}, library bwd turns {}".format(
+              b, l, h, d, json.dumps(
+                  {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
+              lib["fwd"], [round(x, 4) for x in lib_bwd_turns]), flush=True)
     pair = t["online_bwd_dq"][0] + t["online_bwd_dkv"][0]
     print("online backward pair: dQ + dK/dV {:.4f} ms, library backward "
-          "{:.4f} ms, ratio {:.2f}".format(pair, lib["bwd"],
+          "{:.4f} ms (mean of two turns), ratio {:.2f}".format(pair, lib["bwd"],
                                           pair / lib["bwd"]), flush=True)
 
     bh, n = b * h, b * h * l * d
@@ -366,9 +402,8 @@ def check_online_kernels(fa):
         "online_bwd_dq": (5 * n * 2 + masks + 2 * row, 3 * product),
         "online_bwd_dkv": (6 * n * 2 + masks + 2 * row, 4 * product),
     }
-    src = {"online_fwd": FWD_SRC,
-           "online_bwd_dq": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu",
-           "online_bwd_dkv": "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"}
+    src = {"online_fwd": FWD_SRC, "online_bwd_dq": BWD_SRC,
+           "online_bwd_dkv": BWD_SRC}
     replaces = {"online_fwd": 64, "online_bwd_dq": 104,
                 "online_bwd_dkv": 133}
     entries = []
@@ -436,7 +471,9 @@ def hgmma_counts(lib_path):
 
 def profile_window(step, batches, n):
     """torch.profiler over ``n`` train steps: device time by kernel group
-    and the device's busy share of the window's wall time."""
+    and the device's busy share of the window's wall time. Returns the
+    (ms, launches, name) rows of the device's kernels and the steps'
+    sequence lengths."""
     from torch.profiler import ProfilerActivity, profile
     todo = [next(batches) for _ in range(n)]
     torch.cuda.synchronize()
@@ -493,7 +530,11 @@ def profile_window(step, batches, n):
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         print("profile kernel {:9.2f} ms x{:5d} {}".format(
             ms, count, name[:100]), flush=True)
-    return rows
+    for ms, count, name in sorted(rows, reverse=True):
+        if "onekv" in name or "online" in name:
+            print("profile port kernel {:9.2f} ms x{:5d} {}".format(
+                ms, count, name[:100]), flush=True)
+    return rows, [b["input_ids"].shape[1] for b in todo]
 
 
 KERNELS = ("onekv_fwd", "onekv_bwd", "online_fwd", "online_bwd_dq",
@@ -597,9 +638,20 @@ def bert_path(fa, card):
 
         it = iter(prefetch_to_device(loader))
         try:
-            profile_window(step, it, PROFILE_STEPS)
+            prof_rows, lengths = profile_window(step, it, PROFILE_STEPS)
         finally:
             it.close()
+        want = {name: cfg.num_layers * sum(
+            1 for l_bin in lengths if fa.single_block_serves(l_bin, 64))
+            for name in ("onekv_fwd_kernel", "onekv_bwd_dkv_kernel",
+                         "onekv_bwd_dq_kernel")}
+        counts = {name: sum(c for _, c, n in prof_rows if name in n)
+                  for name in want}
+        print("kernels in the profiled bert window: {}".format(counts),
+              flush=True)
+        if counts != want:
+            raise AssertionError("the profiled window launched {} (want {})"
+                                 .format(counts, want))
 
         # The flash path against the dense path on one small batch (the
         # same weights, eval mode): the model's output agrees.
@@ -706,7 +758,7 @@ def bart_path(fa, card):
 
         it = iter(prefetch_to_device(loader))
         try:
-            prof_rows = profile_window(step, it, 1)
+            prof_rows, _ = profile_window(step, it, 1)
             batch = next(it)
         finally:
             it.close()
@@ -761,24 +813,25 @@ def main():
     from lddl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    libs = _build.build(["attention_fwd", "onekv_attention",
-                         "online_attention_bwd"])
+    libs = _build.build(["attention_fwd", "online_attention_bwd"])
     print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "warning", "wgmma", "setmaxnreg")):
                 print("ptxas {}: {}".format(name, line.strip()), flush=True)
-    fwd_regs = ptxas_summary(_build.build_logs.get("attention_fwd", ""))
-    for kernel in ("onekv_fwd_kernel", "online_fwd_kernel"):
-        for d in (64, 128):
-            print("ptxas summary {}<{}>: {}".format(
-                kernel, d, fwd_regs.get((kernel, d), "not reported")),
-                flush=True)
     for lib, wanted in (("attention_fwd", ("onekv_fwd_kernel",
                                            "online_fwd_kernel")),
                         ("online_attention_bwd", ("online_bwd_dq_kernel",
-                                                  "online_bwd_dkv_kernel"))):
+                                                  "online_bwd_dkv_kernel",
+                                                  "onekv_bwd_dq_kernel",
+                                                  "onekv_bwd_dkv_kernel"))):
+        regs = ptxas_summary(_build.build_logs.get(lib, ""))
+        for kernel in wanted:
+            for d in (64, 128):
+                print("ptxas summary {}<{}>: {}".format(
+                    kernel, d, regs.get((kernel, d), "not reported")),
+                    flush=True)
         hgmma = hgmma_counts(libs[lib])
         for fn, n in sorted(hgmma.items()):
             print("sass {}: {} HGMMA in {}".format(lib, n, fn), flush=True)
@@ -789,6 +842,7 @@ def main():
                     kernel, hgmma))
 
     kernels = check_kernels(fa) + check_online_kernels(fa)
+    backward_by_length(fa)
     by_name = {e["name"]: e for e in kernels}
     print("forward kernels: " + "; ".join(
         "{} {:.4f} ms vs library {:.4f} ms, ratio {:.2f}".format(

@@ -109,7 +109,10 @@ class MultiHeadAttention(nn.Module):
                 bias = extra_bias if bias is None else bias + extra_bias
             if bias is not None:
                 scores = scores + bias.to(self.dtype)
-            probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+            # In self.dtype, as the reference's nn.softmax: torch reduces
+            # in fp32 and writes self.dtype, so no fp32 [B, H, Lq, Lk]
+            # copy of the probabilities is made.
+            probs = torch.softmax(scores, dim=-1)
             probs = self.probs_dropout(probs)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.output(ctx.reshape(b, l, self.hidden_size))

@@ -6,8 +6,7 @@
 //   onekv_fwd_kernel   replaces _onekv_fwd_kernel  (lddl_onekv_fwd)
 //   online_fwd_kernel  replaces _fwd_kernel        (lddl_online_fwd)
 //
-// The backward kernels are in onekv_attention.cu (single-block) and
-// online_attention_bwd.cu (online softmax).
+// The backward kernels of both regimes are in online_attention_bwd.cu.
 //
 // What they compute (per (batch*head) row, as the TPU kernels):
 //   S = Q K^T * scale + bias, bias = 0 where kmask > 0 && kmask == qmask,

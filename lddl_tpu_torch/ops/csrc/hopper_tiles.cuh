@@ -135,6 +135,14 @@ __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// Commit the issued stores and wait only until they have read their
+// shared-memory source, which may then be overwritten (the global writes
+// may still be in flight; they complete before the kernel does).
+__device__ __forceinline__ void tma_store_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Orders this thread's generic shared-memory writes before later reads
 // by the async proxy (a TMA store).
 __device__ __forceinline__ void fence_proxy_async() {

@@ -9,8 +9,8 @@ the reference:
 
 - single-block (L_pad <= 896 at D=64, <= 512 at D=128):
   ``csrc/attention_fwd.cu`` replaces ``_onekv_fwd_kernel`` (``onekv_fwd``)
-  and ``csrc/onekv_attention.cu`` replaces ``_onekv_bwd_kernel``
-  (``onekv_bwd``);
+  and ``csrc/online_attention_bwd.cu`` replaces ``_onekv_bwd_kernel``
+  (``onekv_bwd``: a dK/dV kernel, then a dQ kernel);
 - online softmax (every longer L_pad): ``csrc/attention_fwd.cu`` replaces
   ``_fwd_kernel`` (``online_fwd``) and ``csrc/online_attention_bwd.cu``
   replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (``online_bwd_dq``,
@@ -18,14 +18,16 @@ the reference:
 
 The two forwards are one warp-specialised kernel body (wgmma with the
 scores in registers, K/V fed by a TMA ring) instantiated as two kernels,
-one per regime; the online backward pair is built the same way, the
-single-block backward with wmma. The regimes keep separate kernels on
-purpose, so that a redesign of one does not move the other's numbers.
-Each kernel has a plain PyTorch version beside it, computing the same
-function the same way (products of stored-dtype operands accumulated in
-fp32, the fp32 -1e9 bias, P cast to V's dtype before P V, dS cast to the
-input dtype; the online forward walks the same 64-wide K/V tiles with a
-running max). A wrapper takes the
+one per regime; the backward is built the same way, a dQ body and a
+dK/dV body instantiated once per regime, each kernel on a persistent
+grid of at most one block per SM. Given LSE and delta the
+single-block backward computes the online pair's function, so both
+regimes share the bodies; the kernels keep separate names, so that the
+profiler tells the regimes apart. Each kernel has a plain PyTorch version
+beside it, computing the same function the same way (products of
+stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, P cast to
+V's dtype before P V, dS cast to the input dtype; the online forward
+walks the same 64-wide K/V tiles with a running max). A wrapper takes the
 plain version only for tensors on the CPU; on a CUDA tensor it launches
 its kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
@@ -247,9 +249,9 @@ def _check_operands(tensors, masks, rows, online=False):
 # then takes (BH, L_pad, H, D, scale, stream) and returns a cudaError_t.
 _ENTRY_POINTS = {
     "attention_fwd": {"lddl_onekv_fwd": 7, "lddl_online_fwd": 7},
-    "onekv_attention": {"lddl_onekv_bwd": 11},
     "online_attention_bwd": {"lddl_online_bwd_dq": 9,
-                             "lddl_online_bwd_dkv": 10},
+                             "lddl_online_bwd_dkv": 10,
+                             "lddl_onekv_bwd": 11},
 }
 
 
@@ -304,13 +306,14 @@ onekv_fwd.launches = 0
 
 def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     """Single-block backward in the kernel layout: (dQ, dK, dV). On CUDA
-    tensors one call launches the dK/dV kernel and the dQ kernel."""
+    tensors one call launches the dK/dV kernel and the dQ kernel, the
+    online pair's bodies under the single-block regime's names."""
     if qb.device.type == "cpu":
         return onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
                                scale)
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta])
     dq, dk, dv = (torch.empty_like(t) for t in (qb, kb, vb))
-    _launch("onekv_attention", "lddl_onekv_bwd",
+    _launch("online_attention_bwd", "lddl_onekv_bwd",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq, dk, dv], h,
             scale)
     onekv_bwd.launches += 1

@@ -184,6 +184,41 @@ def test_online_backward_plain_versions_match_reference_bwd(l, d):
         _close(tfa._from_bh(got, b, l, h, d), want, GRAD_TOL, name)
 
 
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("l,d", [(200, 64), (512, 64), (896, 64),
+                                 (512, 128)])
+def test_onekv_backward_plain_matches_online_pair(l, d, mask_kind):
+    """Given LSE and delta, the single-block backward computes the online
+    dQ and dK/dV pair's function, which is why its kernels are the pair's
+    bodies: onekv_bwd_plain against online_bwd_{dq,dkv}_plain at
+    single-block shapes, with padding masks and with segment ids 1-3 plus
+    a batch row masked entirely. fp32 operands, so no bf16 rounding is
+    taken and only the fp32 summation order differs (whole rows against
+    64-wide tiles): 1e-5 of max |ref|."""
+    b, h = 2, 2
+    q, k, v, ct, mask = _inputs(b, l, h, d, seed=7 * l + d)
+    q_mask = None
+    if mask_kind == "segments":
+        mask = mask * np.random.default_rng(l).integers(
+            1, 4, (b, l)).astype(np.int32)
+        mask[-1] = 0
+        q_mask = _t(mask)
+    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+        _t(q), _t(k), _t(v), _t(mask), q_mask)
+    assert tfa._use_onekv(l_pad, d)
+    scale = 1.0 / d ** 0.5
+    ob, lse = tfa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = tfa._prep_one(_t(ct), l_pad)
+    delta = (dob * ob).sum(-1)
+    args = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    want = tfa.onekv_bwd_plain(*args)
+    got = (tfa.online_bwd_dq_plain(*args),) + tfa.online_bwd_dkv_plain(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   err_msg=name)
+
+
 def test_dispatch_bounds_match_reference():
     """The regime predicates agree with the reference's."""
     for l in (100, 128, 200, 256, 512, 640, 896, 897, 1024, 1152, 2048):
@@ -233,7 +268,7 @@ def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
-    own (no nvcc needed)."""
+    own with the single-block backward beside it (no nvcc needed)."""
     import os
     import re
     from lddl_tpu_torch.ops import _build
@@ -274,16 +309,15 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("mask_kind", ["padding", "segments"])
-@pytest.mark.parametrize("l,d", [(200, 64), (512, 64), (896, 64),
-                                 (512, 128), (1024, 64), (2048, 64),
-                                 (600, 128)])
+@pytest.mark.parametrize("l,d", [(128, 64), (200, 64), (512, 64),
+                                 (896, 64), (512, 128), (1024, 64),
+                                 (2048, 64), (600, 128)])
 def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
     """The CUDA kernels of the regime the shape takes against their plain
     versions on the card, in bf16: 2e-2 of max |ref| for O and the
     gradients, 1e-3 for the LSE. Masks: padding, or segment ids 1-3 with
-    padding and the last batch row masked entirely (both masks). The
-    forward kernels, and the online backward kernels, give bit-identical
-    results in two launches."""
+    padding and the last batch row masked entirely (both masks). Every
+    kernel gives bit-identical results in two launches."""
     g = torch.Generator(device=cuda_device).manual_seed(l + d)
     q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
@@ -326,7 +360,6 @@ def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
     assert torch.equal(o, o_again) and torch.equal(lse, lse_again)
     for a, r in zip(got, want):
         assert rel(a, r) <= 2e-2
-    if online:
-        again = bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
-        for a, b in zip(got, again):
-            assert torch.equal(a, b)
+    again = bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

@@ -4,8 +4,9 @@ with the same (converted) parameters.
 Tolerances: fp32 logits agree to 1e-5 (absolute and relative): both sides
 run the same fp32 products and differ only in summation order and in the
 LayerNorm variance formula. The bf16 case is held to 5e-2 of max |ref|:
-flax takes the dense softmax in bf16 while the port takes it in fp32, and
-every layer rounds its activations to bf16 at slightly different places.
+both take the dense softmax in bf16 (flax sums in bf16, torch in fp32
+before it rounds), and every layer rounds its activations to bf16 at
+slightly different places.
 """
 
 import numpy as np
@@ -134,6 +135,48 @@ def test_bf16_logits_close_to_flax():
     for got, want in ((t_mlm, j_mlm), (t_nsp, j_nsp)):
         want = np.asarray(want, np.float32)
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("b,l,hidden,heads", [(2, 64, 128, 2),
+                                              (2, 200, 256, 4)])
+def test_dense_attention_bf16_close_to_flax(b, l, hidden, heads):
+    """The dense MultiHeadAttention in bf16 against flax's on the same
+    inputs, parameters and padding mask: within 2e-2 of max |ref| (bf16
+    products and a bf16 softmax on both sides, rounded at different
+    places; flax sums the softmax in bf16, torch in fp32). The
+    probabilities the backward keeps are bf16, as flax's: no fp32
+    [B, H, L, L] copy is made."""
+    import flax.linen as nn
+    from lddl_tpu.models.attention import MultiHeadAttention as JAttention
+    from lddl_tpu_torch.models.attention import MultiHeadAttention
+
+    g = np.random.default_rng(l)
+    x = g.standard_normal((b, l, hidden)).astype(np.float32)
+    mask = np.ones((b, l), np.int32)
+    mask[1, l - l // 3:] = 0                      # a padded row
+    jattn = JAttention(hidden, heads, dtype=jnp.bfloat16)
+    params = jax.device_get(nn.meta.unbox(jattn.init(
+        jax.random.PRNGKey(l), x, x, mask, True))["params"])
+    want = np.asarray(jattn.apply({"params": params}, x, x, mask, True),
+                      np.float32)
+    attn = MultiHeadAttention(hidden, heads, dtype=torch.bfloat16)
+    attn.load_state_dict(flax_to_state_dict(params), strict=True)
+    attn.eval()
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    with torch.no_grad():
+        got = attn(xt, xt, mt).float().numpy()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+    saved = []
+
+    def keep(t):
+        saved.append((tuple(t.shape), t.dtype))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+        attn(xt, xt, mt)
+    probs = [dtype for shape, dtype in saved if shape == (b, heads, l, l)]
+    assert probs and all(dtype == torch.bfloat16 for dtype in probs), saved
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
