@@ -20,13 +20,16 @@ exits non-zero):
    the single-block kernels at bert_large's bins (plus L=128, 200, 896
    and D=128 at L=512), the online-softmax kernels at bart_base's B=8, H=12,
    L=1024 (plus L=2048 and D=128 at L_pad 640), each shape with padding
-   masks and with segment ids 1-3 plus a batch row masked entirely; every
-   kernel bit-identical in two launches, at every checked shape; then the
+   masks and with segment ids 1-3 plus a batch row masked entirely, and
+   the single-block kernels at the packed phase's shape (B=16, H=16,
+   L=512, D=64) with packed rows' segment ids 1-8, timed there too
+   against SDPA under the equivalent block-diagonal mask; every kernel
+   bit-identical in two launches, at every checked shape; then the
    backward against the library's per L at B=16, H=16, D=64 (L 256-1024);
    every time is device time (``cuda_time_ms`` holds the stream while the
    calls queue);
-4. BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16 heads,
-   attention_dropout 0, attention_impl "auto", fp32 params, bf16
+4. binned BERT path: bert_large (vocab 30522, hidden 1024, 24 layers, 16
+   heads, attention_dropout 0, attention_impl "auto", fp32 params, bf16
    activations, random weights from a seed) trained for a few steps from
    ``get_bert_pretrain_data_loader`` over synthetic balanced binned shards
    through ``prefetch_to_device``; kernel launch counters are zeroed just
@@ -34,7 +37,17 @@ exits non-zero):
    then a torch.profiler window of further steps (device time by kernel
    group, idle share) and a check of the flash path against the dense
    path on a small batch;
-5. BART path: bart_base (vocab 30522, hidden 768, 6+6 layers, 12 heads,
+5. packed BERT path: the same bert_large as ``BertForPreTrainingPacked``
+   on offline-packed rows (``testing.write_packed_shards``: 1024 samples
+   of 8-512 tokens packed into rows of 512, at most 8 a row), 16 rows a
+   step from the packed loader through ``prefetch_to_device``; the
+   counters must show ``onekv_fwd`` and ``onekv_bwd`` 24 times a step
+   each (the segment ids reach the kernels); a profiled step; an eval
+   step; on one batch, flash against dense logits and each sample's
+   logits against the sample run alone; then a checkpoint saved, restored
+   into a model and optimizer built from another seed, and one step from
+   each with the same batch and seed, which must be bit-identical;
+6. BART path: bart_base (vocab 30522, hidden 768, 6+6 layers, 12 heads,
    max positions 1024, attention_dropout 0, attention_impl "auto") trained
    for a few steps at L=1024, batch 8, from ``get_bart_pretrain_data_loader``
    over synthetic balanced schema-v2 BART shards through
@@ -43,10 +56,12 @@ exits non-zero):
    layer), as must a profiled step; then the flash encoder against the
    dense one on a batch of the loader, in eval mode.
 
-Prints a ``{"kernels": [...]}`` line, the card line, and last
+Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
+``launches_by_path`` per path), the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -66,6 +81,12 @@ STEPS = 16           # counted BERT steps
 PROFILE_STEPS = 6    # then a profiled window of further steps
 BART_STEPS = 8       # counted BART steps (the first is warm-up)
 BART_BATCH, BART_L = 8, 1024
+# Packed rows: pack_seq_length, rows per batch (the binned L=512 bin's
+# 8192 padded tokens a step) and samples per row at most (the preprocess
+# CLI's default).
+PACK_L, PACK_ROWS, PACK_PER_ROW = 512, 16, 8
+PACKED_STEPS = 8     # counted packed steps (the first is warm-up)
+PACKED_SAMPLES = 1024
 
 
 def card_line():
@@ -99,14 +120,18 @@ def rel_err(got, ref):
     return float((got.float() - ref).abs().max() / ref.abs().max())
 
 
-def attention_inputs(b, l, h, d, seed, segments=False):
+def attention_inputs(b, l, h, d, seed, segments=False, packed=False):
     """q, k, v, dO [B, L, H, D] bf16 and an int32 [B, L] mask: padding
     (row 0 full, the others 1 up to a random length), or with
     ``segments`` per-token segment ids 1-3 up to that length and the last
-    batch row masked entirely (the kernels then take it as both masks)."""
+    batch row masked entirely (the kernels then take it as both masks),
+    or with ``packed`` the segment ids of packed rows: runs of ids 1-8 at
+    random cuts and a padded tail."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((b, l, h, d), generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
+    if packed:
+        return q, k, v, do, packed_segments(b, l, g)
     lens = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
     lens[0] = l
     mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(
@@ -116,6 +141,18 @@ def attention_inputs(b, l, h, d, seed, segments=False):
                               dtype=torch.int32)
         mask[-1] = 0
     return q, k, v, do, mask
+
+
+def packed_segments(b, l, g):
+    """[B, L] int32 segment ids of packed rows: ids 1..PACK_PER_ROW in
+    runs that end at sorted random cuts, 0 from the last cut on."""
+    n = PACK_PER_ROW
+    cuts = torch.sort(torch.randint(1, l, (b, n), generator=g,
+                                    device="cuda"), dim=1).values
+    cols = torch.arange(l, device="cuda")
+    seg = 1 + (cols[None, :, None] >= cuts[:, None, :n - 1]).sum(-1)
+    return torch.where(cols[None, :] >= cuts[:, n - 1:], 0,
+                       seg).to(torch.int32)
 
 
 def bound(nbytes, flops):
@@ -162,13 +199,19 @@ def time_turns(kernel, plain):
     return (k_a + k_b) / 2, (p_a + p_b) / 2, [p_a, k_a, k_b, p_b]
 
 
-def library_calls(q, k, v, do, mask):
+def library_calls(q, k, v, do, mask, segments=False):
     """The yardstick the port never calls: PyTorch's fused attention on
-    the same inputs and padding mask, (forward, backward); the backward
-    (autograd.grad) gives dQ, dK and dV together."""
+    the same inputs and mask, (forward, backward); the backward
+    (autograd.grad) gives dQ, dK and dV together. With ``segments`` the
+    mask is the kernels' block-diagonal one as a boolean [B, 1, L, L]
+    (a padding query attends every key, which averages them uniformly,
+    as the kernels' all-masked rows do)."""
     ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     keep = mask[:, None, None, :] > 0
+    if segments:
+        keep = (keep & (mask[:, None, :, None] == mask[:, None, None, :])
+                | (mask == 0)[:, None, :, None])
 
     def fwd():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -185,21 +228,27 @@ def library_calls(q, k, v, do, mask):
 def check_kernels(fa):
     """Single-block kernels vs plain versions at every checked shape, each
     with padding masks and with segment ids 1-3 plus a batch row masked
-    entirely; both kernels bit-identical in two launches. Timings at the
-    BERT path's largest kernel bin. Returns the kernels' JSON entries
-    (launch counts filled in later)."""
+    entirely, and at the packed phase's shape with packed rows' segment
+    ids 1-8; both kernels bit-identical in two launches. Timings at the
+    BERT path's largest kernel bin, with padding and with packed rows.
+    Returns the kernels' JSON entries (launch counts filled in later)."""
     shapes = [(16, l, 16, 64) for l in (128, 200, 256, 384, 512, 896)]
     shapes.append((16, 512, 16, 128))
+    cases = [(shape, kind) for shape in shapes
+             for kind in ("padding", "segments")]
+    cases.append(((16, PACK_L, 16, 64), "packed"))
     max_abs = {}
-    for (b, l, h, d), segments in ((shape, seg) for shape in shapes
-                                   for seg in (False, True)):
-        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d,
-                                             segments=segments)
+    for (b, l, h, d), kind in cases:
+        segments = kind != "padding"
+        q, k, v, do, mask = attention_inputs(
+            b, l, h, d, seed=l + d, segments=kind == "segments",
+            packed=kind == "packed")
         qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
             q, k, v, mask, mask if segments else None)
         scale = 1.0 / math.sqrt(d)
         what = "B={} L={} H={} D={} {}".format(
-            b, l, h, d, "segments" if segments else "padding")
+            b, l, h, d, {"padding": "padding", "segments": "segments 1-3",
+                         "packed": "packed segments 1-8"}[kind])
         o, lse = fa.onekv_fwd(qb, kb, vb, maskb, qmaskb, scale)
         torch.cuda.synchronize()
         check_repeat(what, ("O", "LSE"), (o, lse),
@@ -218,7 +267,7 @@ def check_kernels(fa):
         for name, got, ref in zip(("dQ", "dK", "dV"), grads, grads_ref):
             e[name] = rel_err(got, ref)
         check_errors(what, e)
-        if (l, d) == (512, 64) and not segments:   # the largest main bin
+        if (l, d) == (512, 64) and kind == "padding":  # the largest bin
             max_abs["fwd"] = max(
                 float((o.float() - o_ref.float()).abs().max()),
                 float((lse - lse_ref).abs().max()))
@@ -262,6 +311,7 @@ def check_kernels(fa):
     bwd_flops = 5 * 2 * bh * l * l * d
     fb, fby = bound(fwd_bytes, fwd_flops)
     bb, bby = bound(bwd_bytes, bwd_flops)
+    time_packed(fa, fwd_bytes, bwd_bytes)
     return [
         {"name": "onekv_fwd", "route": "cuda", "source": FWD_SRC,
          "replaces": "lddl_tpu/ops/flash_attention.py:441",
@@ -274,6 +324,46 @@ def check_kernels(fa):
          "plain_ms": t["bwd"][1], "bound_ms": bb, "bound_by": bby,
          "library_ms": lib["bwd"]},
     ]
+
+
+def time_packed(fa, fwd_bytes, bwd_bytes):
+    """Both single-block kernels at the packed phase's shape (B=16, H=16,
+    L=512, D=64) with packed rows' segment ids 1-8, against their plain
+    versions and SDPA under the equivalent boolean block-diagonal mask.
+    The bound counts the products that the segments need: the sum over
+    segments of (length x length), not L x L."""
+    b, l, h, d = 16, PACK_L, 16, 64
+    q, k, v, do, seg = attention_inputs(b, l, h, d, seed=17, packed=True)
+    qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, seg, seg)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.onekv_fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = fa._prep_one(do, l)
+    delta = (dob.float() * o.float()).sum(-1)
+    fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
+    bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, seg, segments=True)
+    lib_bwd_turns = [cuda_time_ms(lib_bwd)]
+    t = {"fwd": time_turns(lambda: fa.onekv_fwd(*fwd_in),
+                           lambda: fa.onekv_fwd_plain(*fwd_in)),
+         "bwd": time_turns(lambda: fa.onekv_bwd(*bwd_in),
+                           lambda: fa.onekv_bwd_plain(*bwd_in))}
+    lib_bwd_turns.append(cuda_time_ms(lib_bwd))
+    lib = {"fwd": cuda_time_ms(lib_fwd),
+           "bwd": sum(lib_bwd_turns) / len(lib_bwd_turns)}
+    lens = torch.stack([(seg == i).sum(1)
+                        for i in range(1, PACK_PER_ROW + 1)])
+    pairs = int((lens.double() ** 2).sum())      # query-key pairs needed
+    row = {}
+    for name, nbytes, products in (("fwd", fwd_bytes, 2),
+                                   ("bwd", bwd_bytes, 5)):
+        bms, by = bound(nbytes, 2 * products * h * pairs * d)
+        row[name] = {"ms": t[name][0], "plain_ms": t[name][1],
+                     "library_ms": lib[name], "bound_ms": bms,
+                     "bound_by": by, "turns": t[name][2]}
+    print("packed segments 1-8 B={} L={} H={} D={} ({} of {} query-key "
+          "pairs in a segment): {}; library bwd turns {}".format(
+              b, l, h, d, pairs, b * l * l, json.dumps(row),
+              [round(x, 4) for x in lib_bwd_turns]), flush=True)
 
 
 def backward_by_length(fa):
@@ -797,6 +887,269 @@ def bart_path(fa, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def unpack(batch, l):
+    """The samples of a packed batch, one per row of an unpacked batch of
+    width ``l``: (spans [(row, slot, offset, length)], input_ids,
+    token_type_ids, attention_mask)."""
+    rows, slots = torch.nonzero(batch["next_sentence_labels"] != -1,
+                                as_tuple=True)
+    seg = batch["segments"]
+    spans = []
+    for r, s in zip(rows.tolist(), slots.tolist()):
+        spans.append((r, s, int(batch["cls_positions"][r, s]),
+                      int((seg[r] == s + 1).sum())))
+    ids = torch.zeros((len(spans), l), dtype=batch["input_ids"].dtype,
+                      device="cuda")
+    typ, am = torch.zeros_like(ids), torch.zeros_like(ids)
+    for i, (r, _, off, n) in enumerate(spans):
+        ids[i, :n] = batch["input_ids"][r, off:off + n]
+        typ[i, :n] = batch["token_type_ids"][r, off:off + n]
+        am[i, :n] = 1
+    return spans, ids, typ, am
+
+
+def check_packed_model(fa, model, batch):
+    """On one packed batch, in eval mode: the flash path against the dense
+    path, and every sample's logits against the sample run alone at L_pad
+    512 (both through the kernels)."""
+    cfg = model.cfg
+    model.eval()
+    inputs = [batch[k] for k in model.BATCH_INPUTS]
+
+    def forward(impl, *args):
+        for i in range(cfg.num_layers):
+            getattr(model, "layer_{}".format(i)).attention \
+                .attention_impl = impl
+        zero_launches(fa)
+        with torch.no_grad():
+            out = model(*args)
+        torch.cuda.synchronize()
+        return out, read_launches(fa)["onekv_fwd"]
+
+    (mlm, nsp), flash_launches = forward("auto", *inputs)
+    (mlm_d, nsp_d), dense_launches = forward("dense", *inputs)
+    if (flash_launches, dense_launches) != (cfg.num_layers, 0):
+        raise AssertionError("onekv_fwd launched {} times on the packed "
+                             "batch and {} on the dense path".format(
+                                 flash_launches, dense_launches))
+    for name, a, r in (("mlm", mlm, mlm_d), ("nsp", nsp, nsp_d)):
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            raise AssertionError("bad packed {} logits".format(name))
+        err = rel_err(a, r)
+        print("packed flash vs dense {} logits {}: rel err {:.2e}".format(
+            name, tuple(a.shape), err), flush=True)
+        if err > 5e-2:
+            raise AssertionError("packed flash and dense logits disagree")
+    del mlm_d, nsp_d
+
+    spans, ids, typ, am = unpack(batch, PACK_L)
+    (mlm_u, nsp_u), unpacked_launches = forward("auto", ids, typ, am)
+    if unpacked_launches != cfg.num_layers:
+        raise AssertionError("the unpacked samples launched onekv_fwd {} "
+                             "times".format(unpacked_launches))
+    got = torch.cat([mlm[r, off:off + n] for r, _, off, n in spans])
+    ref = torch.cat([mlm_u[i, :n] for i, (_, _, _, n) in enumerate(spans)])
+    rows = torch.tensor([sp[0] for sp in spans], device="cuda")
+    slots = torch.tensor([sp[1] for sp in spans], device="cuda")
+    errs = {"mlm": rel_err(got, ref), "nsp": rel_err(nsp[rows, slots], nsp_u)}
+    print("packed vs unpacked, {} samples of {} rows: mlm rel err {:.2e}, "
+          "nsp rel err {:.2e}".format(len(spans), PACK_ROWS, errs["mlm"],
+                                      errs["nsp"]), flush=True)
+    if max(errs.values()) > 5e-2:
+        raise AssertionError("packed and unpacked logits disagree")
+    model.train()
+
+
+def check_checkpoint(model, opt, step, batch, root, note):
+    """Save the train state, restore it into a model and optimizer built
+    from another seed, then one step from each with the same batch and
+    seed: the losses and every parameter must be bit-identical."""
+    from lddl_tpu_torch.models import (BertForPreTrainingPacked,
+                                       make_optimizer, make_train_step,
+                                       restore_train_state, save_train_state)
+    ckpt = os.path.join(root, "ckpt")
+    count = opt.step_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(ckpt, model, opt, count)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(dirpath, f))
+                 for dirpath, _, names in os.walk(ckpt) for f in names)
+    torch.manual_seed(1)
+    with torch.device("cuda"):
+        fresh = BertForPreTrainingPacked(model.cfg)
+    fresh_opt = make_optimizer(fresh.parameters(), learning_rate=1e-4,
+                               warmup_steps=4, total_steps=100)
+    if torch.equal(fresh.embeddings.word_embeddings.weight,
+                   model.embeddings.word_embeddings.weight):
+        raise AssertionError("the fresh model equals the live one")
+    t0 = time.perf_counter()
+    restored = restore_train_state(ckpt, fresh, fresh_opt)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    if restored != count or fresh_opt.step_count != count:
+        raise AssertionError("restored step {} (schedule {}) != {}".format(
+            restored, fresh_opt.step_count, count))
+    m_resumed = make_train_step(fresh, fresh_opt)(batch, seed=0)
+    m_live = step(batch, seed=0)
+    loss_r, loss_l = float(m_resumed["loss"]), float(m_live["loss"])
+    differ = [n for (n, a), b in zip(model.state_dict().items(),
+                                     fresh.state_dict().values())
+              if not torch.equal(a, b)]
+    print("checkpoint ({}): {} bytes, save {:.2f} s, restore {:.2f} s; "
+          "step {} resumed loss {!r}, live loss {!r}, {} of {} parameters "
+          "differ".format(note, nbytes, t_save, t_restore, count, loss_r,
+                          loss_l, len(differ), len(model.state_dict())),
+          flush=True)
+    if loss_r != loss_l or differ:
+        raise AssertionError("the restored step is not bit-identical to "
+                             "the live one: {}".format(differ[:5]))
+
+
+def packed_path(fa, card):
+    """bert_large on offline-packed rows: data, a few train steps through
+    the packed loader and prefetch_to_device, a profiled step, an eval
+    step, the flash-vs-dense and packed-vs-unpacked logits, and a
+    checkpoint roundtrip with a bit-identical resumed step. Returns the
+    launch counts of the counted steps."""
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTrainingPacked,
+                                       make_eval_step, make_optimizer,
+                                       make_train_step)
+    from lddl_tpu_torch.testing import write_packed_shards, write_vocab
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_packed_")
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        t0 = time.perf_counter()
+        counts, stats = write_packed_shards(
+            os.path.join(tmp, "shards"), tokens, num_samples=PACKED_SAMPLES,
+            num_shards=2, pack_seq_length=PACK_L,
+            pack_max_per_row=PACK_PER_ROW, min_tokens=8, max_tokens=512,
+            masking=True, seed=0)
+        print("packed data: {:.2f} s to pack {} samples of 8-512 tokens "
+              "into {} rows of {} ({} shards); pad ratio {:.4f}, {:.2f} "
+              "samples a row, {:.1f} samples a step of {} rows".format(
+                  time.perf_counter() - t0, stats["samples"], stats["rows"],
+                  PACK_L, len(counts), 1 - stats["tokens"] / stats["slots"],
+                  stats["samples"] / stats["rows"],
+                  PACK_ROWS * stats["samples"] / stats["rows"], PACK_ROWS),
+              flush=True)
+        loader = get_bert_pretrain_data_loader(
+            os.path.join(tmp, "shards"), vocab_file=vocab,
+            pack_seq_length=PACK_L, pack_rows=PACK_ROWS,
+            shuffle_buffer_size=256, shuffle_buffer_warmup_factor=4,
+            base_seed=12345)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTrainingPacked(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+
+        zero_launches(fa)
+        rows, it = [], iter(prefetch_to_device(loader))
+        try:
+            for i in range(PACKED_STEPS):
+                batch = next(it)
+                if batch["input_ids"].shape != (PACK_ROWS, PACK_L):
+                    raise AssertionError("packed batch of shape {}".format(
+                        tuple(batch["input_ids"].shape)))
+                t0 = time.perf_counter()
+                metrics = step(batch, seed=0)
+                loss = float(metrics["loss"])  # syncs the device
+                dt = time.perf_counter() - t0
+                real = int(batch["attention_mask"].sum())
+                samples = int((batch["next_sentence_labels"] != -1).sum())
+                rows.append((dt, real, samples))
+                print("packed step {} loss={:.4f} mlm_acc={:.4f} dropped={} "
+                      "real tokens {} samples {} max segment {} {:.1f} ms"
+                      .format(i, loss, float(metrics["mlm_accuracy"]),
+                              int(metrics["mlm_dropped_labels"]), real,
+                              samples, int(batch["segments"].max()),
+                              dt * 1e3), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at packed step {}"
+                                         .format(i))
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        want = cfg.num_layers * PACKED_STEPS
+        if launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("packed launch counts {} != {} per "
+                                 "single-block kernel ({} steps x {} "
+                                 "layers)".format(launches, want,
+                                                  PACKED_STEPS,
+                                                  cfg.num_layers))
+        print("launches over {} packed steps: {}".format(PACKED_STEPS,
+                                                         launches),
+              flush=True)
+        timed = rows[1:]                         # the first is warm-up
+        secs = sum(r[0] for r in timed)
+        print("bert_large packed step L={} rows={}: {:.2f} ms mean of {} "
+              "steps (min {:.2f}, max {:.2f}), {:.0f} padded tokens/s, "
+              "{:.0f} real tokens/s, {:.0f} samples/s ({})".format(
+                  PACK_L, PACK_ROWS, 1e3 * secs / len(timed), len(timed),
+                  1e3 * min(r[0] for r in timed),
+                  1e3 * max(r[0] for r in timed),
+                  PACK_ROWS * PACK_L * len(timed) / secs,
+                  sum(r[1] for r in timed) / secs,
+                  sum(r[2] for r in timed) / secs, card), flush=True)
+
+        it = iter(prefetch_to_device(loader))
+        try:
+            prof_rows, _ = profile_window(step, it, 1)
+            eval_batch = next(it)
+            ckpt_batch = next(it)
+        finally:
+            it.close()
+        counts = {name: sum(c for _, c, n in prof_rows if name in n)
+                  for name in ("onekv_fwd_kernel", "onekv_bwd_dkv_kernel",
+                               "onekv_bwd_dq_kernel")}
+        print("kernels in a profiled packed step: {}".format(counts),
+              flush=True)
+        if counts != dict.fromkeys(counts, cfg.num_layers):
+            raise AssertionError("a profiled packed step launched {}"
+                                 .format(counts))
+
+        metrics = make_eval_step(model)(eval_batch)
+        print("packed eval step: {}".format(json.dumps(
+            {k: float(v) for k, v in metrics.items()})), flush=True)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError("non-finite eval metrics")
+        check_packed_model(fa, model, eval_batch)
+
+        need = 3 * 4 * sum(p.numel() for p in model.parameters())
+        free = shutil.disk_usage(tmp).free
+        note = "bert_large, {} layers".format(cfg.num_layers)
+        if free < 2 * need:
+            # Not room for the full train state: bert_large widths at fewer
+            # layers, two steps from a fresh model.
+            layers = max(1, int(cfg.num_layers * free / (2 * need)))
+            note = ("bert_large widths at {} layers: {} bytes free for a "
+                    "{}-byte state".format(layers, free, need))
+            del model, opt, step
+            torch.manual_seed(0)
+            with torch.device("cuda"):
+                model = BertForPreTrainingPacked(
+                    dataclasses.replace(cfg, num_layers=layers))
+            opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                                 warmup_steps=4, total_steps=100)
+            step = make_train_step(model, opt)
+            for _ in range(2):
+                step(eval_batch, seed=0)
+        check_checkpoint(model, opt, step, ckpt_batch, tmp, note)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -852,11 +1205,13 @@ def main():
     if kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
-    launches = bert_path(fa, card)
-    launches.update({k: v for k, v in bart_path(fa, card).items()
-                     if k.startswith("online")})
+    by_path = {"bert_binned": bert_path(fa, card),
+               "bert_packed": packed_path(fa, card),
+               "bart": bart_path(fa, card)}
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,26 @@
 from .datasets import ParquetDataset, ShuffleBuffer
 from .dataloader import Binned, DataLoader, prefetch_to_device
 from .bart import BartCollate, get_bart_pretrain_data_loader
-from .bert import (BertCollate, BertPretrainBinned,
-                   get_bert_pretrain_data_loader)
+from .bert import (BertCollate, BertPackedCollate, BertPrepackedCollate,
+                   BertPretrainBinned, PackedBertLoader, PackedRow,
+                   get_bert_pretrain_data_loader, packed_shape_of_dir)
 from .vocab import Vocab
 
 __all__ = [
     "BartCollate",
     "BertCollate",
+    "BertPackedCollate",
+    "BertPrepackedCollate",
     "BertPretrainBinned",
     "Binned",
     "DataLoader",
+    "PackedBertLoader",
+    "PackedRow",
     "ParquetDataset",
     "ShuffleBuffer",
     "Vocab",
     "get_bart_pretrain_data_loader",
     "get_bert_pretrain_data_loader",
+    "packed_shape_of_dir",
     "prefetch_to_device",
 ]

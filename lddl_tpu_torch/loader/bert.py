@@ -1,23 +1,62 @@
 """BERT pretraining data loader: schema-v2 decode, collation, dynamic
-masking, factory.
+masking, sequence packing, factory.
 
 Counterpart of ``lddl_tpu/loader/bert.py`` (``_decode_columnar``,
 ``BertCollate`` with ``_mask_tokens``, ``BertPretrainBinned``,
+``packed_shape_of_dir``, ``PackedRow``, ``_decode_prepacked``,
+``BertPackedCollate``, ``BertPrepackedCollate``, ``PackedBertLoader``,
 ``get_bert_pretrain_data_loader``) for balanced schema-v2 shards, binned
 or not, with static masking (5-tuples from the stored
 ``masked_lm_*_ids`` columns) or dynamic masking (3-tuples, masked in the
-collate from the per-worker stream). Batches are numpy int32 dicts, byte
-for byte the reference loader's; ``dataloader.prefetch_to_device`` moves
-them to the card.
+collate from the per-worker stream), and for packed rows: packed at load
+time from unbinned shards (``pack_seq_length`` + ``pack_rows``) or
+offline-packed shards, detected from the manifest or a shard's footer.
+Batches are numpy int32 dicts, byte for byte the reference loader's;
+``dataloader.prefetch_to_device`` moves them to the card.
 """
+
+import json
+import os
 
 import numpy as np
 
+from ..ops.packing import StreamPacker, packed_layout_arrays
+from ..utils import rng as lrng
 from ..utils.fs import (get_all_bin_ids, get_all_parquets_under,
                         get_file_paths_for_bin_id)
 from .dataloader import Binned, DataLoader
 from .datasets import ParquetDataset
 from .vocab import Vocab
+
+# The shard directory's integrity manifest, whose ``__meta__.packed``
+# entry records an offline-packed directory's row shape.
+MANIFEST_NAME = ".manifest.json"
+
+
+def packed_shape_of_dir(path, file_paths=None):
+    """(pack_seq_length, pack_max_per_row) of an offline-packed shard
+    directory, or None. The root ``.manifest.json``'s
+    ``__meta__.packed`` entry is authoritative; without one, the first
+    shard's footer metadata is sniffed."""
+    from ..preprocess.packing import pack_shape_of_parquet
+    try:
+        with open(os.path.join(path, MANIFEST_NAME)) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        manifest = None
+    meta = manifest.get("__meta__") if isinstance(manifest, dict) else None
+    packed = meta.get("packed") if isinstance(meta, dict) else None
+    if isinstance(packed, dict):
+        try:
+            return (int(packed["pack_seq_length"]),
+                    int(packed["pack_max_per_row"]))
+        except (KeyError, TypeError, ValueError):
+            return None
+    if file_paths is None:
+        file_paths = get_all_parquets_under(path)
+    if file_paths:
+        return pack_shape_of_parquet(sorted(file_paths)[0])
+    return None
 
 
 def _list_views(col):
@@ -50,13 +89,114 @@ def _decode_columnar(b, names):
                    flat_b[off_b[i]:off_b[i + 1]], rn[i])
 
 
+class PackedRow(tuple):
+    """One offline-packed shard row decoded to views:
+    ``(ids, tok3, content, samp, mlm2)``. ``ids`` is the stored
+    interleaved row content; ``tok3`` stacks the per-token
+    ``[segments, position_ids, token_type]`` and ``samp`` the per-sample
+    ``[a_lens, b_lens, off, nsp(, mask_lens)]``, both computed once per
+    decode chunk; ``content`` marks content (not special) tokens for
+    dynamic masking; ``mlm2`` stacks ``[positions, labels]`` (row-relative
+    positions; None for dynamic masking). A type of its own, so that a
+    collate can check it was given packed rows."""
+
+    __slots__ = ()
+
+    ids = property(lambda s: s[0])
+    seg = property(lambda s: s[1][0])
+    pos = property(lambda s: s[1][1])
+    typ = property(lambda s: s[1][2])
+    content = property(lambda s: s[2])
+    a_lens = property(lambda s: s[3][0])
+    b_lens = property(lambda s: s[3][1])
+    off = property(lambda s: s[3][2])
+    nsp = property(lambda s: s[3][3])
+    mask_lens = property(lambda s: s[3][4] if len(s[3]) > 4 else None)
+    mlm_pos = property(lambda s: s[4][0] if s[4] is not None else None)
+    mlm_labels = property(lambda s: s[4][1] if s[4] is not None else None)
+
+
+# Decode-chunk token budget: the per-token arrays derived from the
+# boundary columns are materialized per chunk of rows, not per record
+# batch (a row group may span a whole shard).
+_DECODE_CHUNK_TOKENS = 1 << 20
+
+
+def _decode_prepacked(b, names):
+    """Offline-packed rows: one zero-copy buffer grab per column, the
+    per-token and per-sample arrays computed once per chunk of rows, then
+    one PackedRow of views per parquet row."""
+    ids_v, ids_off = _list_views(b.column("input_ids"))
+    al_v, al_off = _list_views(b.column("pack_a_lens"))
+    nsp_v, _ = _list_views(b.column("pack_nsp"))
+    bl_v, _ = _list_views(b.column("pack_b_lens"))
+    static = "pack_mask_lens" in names
+    if static:
+        pos_v, pos_off = _list_views(b.column("masked_lm_positions_ids"))
+        lab_v, _ = _list_views(b.column("masked_lm_label_ids"))
+        ml_v, _ = _list_views(b.column("pack_mask_lens"))
+    n = b.num_rows
+    row = 0
+    while row < n:
+        end = row + 1
+        while end < n and ids_off[end + 1] - ids_off[row] \
+                <= _DECODE_CHUNK_TOKENS:
+            end += 1
+        # Chunk-relative arrays for rows [row, end), stacked so that a row
+        # is five slices and a batch four axis-1 concatenates.
+        s0, s1 = int(al_off[row]), int(al_off[end])
+        al = al_v[s0:s1].astype(np.int64)
+        bl = bl_v[s0:s1].astype(np.int64)
+        spr = (al_off[row:end + 1] - s0).astype(np.int64)
+        samples_per_row = np.diff(spr)
+        tot = al + bl + 3
+        slot = _concat_aranges(samples_per_row)
+        pos64 = _concat_aranges(tot)
+        tok3 = np.empty((3, len(pos64)), dtype=np.int32)
+        tok3[0] = np.repeat(slot + 1, tot)                  # segments
+        tok3[1] = pos64                                     # position_ids
+        tok3[2] = pos64 >= np.repeat(2 + al, tot)           # token_type
+        content = ((pos64 != 0)
+                   & (pos64 != np.repeat(1 + al, tot))
+                   & (pos64 != np.repeat(tot - 1, tot)))
+        cum = np.cumsum(tot) - tot              # token start per sample
+        samp = np.empty((5 if static else 4, len(al)), dtype=np.int32)
+        samp[0] = al_v[s0:s1]
+        samp[1] = bl_v[s0:s1]
+        samp[2] = cum - np.repeat(cum[spr[:-1]], samples_per_row)
+        samp[3] = nsp_v[s0:s1]
+        if static:
+            samp[4] = ml_v[s0:s1]
+            m0 = int(pos_off[row])
+            mlm2 = np.empty((2, int(pos_off[end]) - m0), dtype=np.int32)
+            mlm2[0] = pos_v[m0:int(pos_off[end])]
+            mlm2[1] = lab_v[m0:int(pos_off[end])]
+            mb = (pos_off[row:end + 1] - m0).tolist()
+        # Slice bounds as plain ints, once per chunk.
+        idsb = ids_off[row:end + 1].tolist()
+        trow = (ids_off[row:end + 1] - ids_off[row]).tolist()
+        sprl = spr.tolist()
+        for i in range(end - row):
+            mlm = mlm2[:, mb[i]:mb[i + 1]] if static else None
+            yield PackedRow((
+                ids_v[idsb[i]:idsb[i + 1]],
+                tok3[:, trow[i]:trow[i + 1]], content[trow[i]:trow[i + 1]],
+                samp[:, sprl[i]:sprl[i + 1]], mlm))
+        row = end
+
+
 def decode_record_batch(b):
-    """Sample tuples from a schema-v2 parquet RecordBatch."""
+    """Samples from a parquet RecordBatch: one PackedRow per row of an
+    offline-packed shard (``pack_a_lens`` present), else schema-v2 sample
+    tuples (A_ids, B_ids, is_random_next[, positions, labels])."""
     names = b.schema.names
-    if "pack_a_lens" in names or "A_ids" not in names:
+    if "pack_a_lens" in names:
+        yield from _decode_prepacked(b, names)
+        return
+    if "A_ids" not in names:
         raise ValueError(
-            "only unpacked schema-v2 BERT shards (A_ids/B_ids columns) are "
-            "supported; found columns {}".format(names))
+            "only schema-v2 BERT shards (A_ids/B_ids columns, or packed "
+            "rows) are supported; found columns {}".format(names))
     yield from _decode_columnar(b, names)
 
 
@@ -177,10 +317,249 @@ class BertCollate:
         return out, labels
 
 
+class BertPackedCollate(BertCollate):
+    """samples + packed layout -> packed batch: several samples per row of
+    exactly ``pack_seq_length``, with per-token ``segments`` (slot + 1, 0
+    = pad) for block-diagonal attention, ``position_ids`` restarting at
+    each sample, each sample's [CLS] column in ``cls_positions`` [R, P]
+    and NSP labels [R, P] padded with ignore_index."""
+
+    def __init__(self, tokenizer, pack_seq_length, pack_rows,
+                 pack_max_per_row, ignore_index=-1, mlm_prob=0.15):
+        super().__init__(tokenizer, fixed_seq_length=pack_seq_length,
+                         ignore_index=ignore_index, mlm_prob=mlm_prob)
+        self._rows = pack_rows
+        self._max_per_row = pack_max_per_row
+
+    def __call__(self, layout_rows, samples, g=None):
+        """(batch, stats): ``stats`` counts pad tokens, total tokens and
+        samples."""
+        L, P, R = self._fixed_seq_length, self._max_per_row, self._rows
+        n = len(samples)
+        static = len(samples[0]) == 5
+        layout = packed_layout_arrays(layout_rows, L, P)
+        if layout["n_rows"] > R or n != len(layout["row_of"]):
+            raise ValueError("layout/sample mismatch: {} rows > {} or "
+                             "{} != {}".format(layout["n_rows"], R, n,
+                                               len(layout["row_of"])))
+
+        flat_a, lens_a = _flat_and_lens([s[0] for s in samples])
+        flat_b, lens_b = _flat_and_lens([s[1] for s in samples])
+        totals = lens_a + lens_b + 3
+        row_of, offset_of = layout["row_of"], layout["offset_of"]
+        slot_of = layout["slot_of"]
+
+        base = row_of * L + offset_of              # flat start per sample
+        idx_a = np.repeat(base + 1, lens_a) + _concat_aranges(lens_a)
+        idx_b = (np.repeat(base + 2 + lens_a, lens_b)
+                 + _concat_aranges(lens_b))
+        idx_all = np.repeat(base, totals) + _concat_aranges(totals)
+
+        input_ids = np.zeros((R, L), dtype=np.int32)
+        input_ids.flat[idx_a] = flat_a
+        input_ids.flat[idx_b] = flat_b
+        input_ids.flat[base] = self._cls_id
+        input_ids.flat[base + 1 + lens_a] = self._sep_id
+        input_ids.flat[base + totals - 1] = self._sep_id
+
+        token_type_ids = np.zeros((R, L), dtype=np.int32)
+        # Type 1 spans B and its trailing [SEP], as unpacked.
+        idx_b_ext = (np.repeat(base + 2 + lens_a, lens_b + 1)
+                     + _concat_aranges(lens_b + 1))
+        token_type_ids.flat[idx_b_ext] = 1
+
+        attention_mask = np.zeros((R, L), dtype=np.int32)
+        attention_mask.flat[idx_all] = 1
+        segments = np.zeros((R, L), dtype=np.int32)
+        segments.flat[idx_all] = np.repeat(slot_of + 1, totals)
+        position_ids = np.zeros((R, L), dtype=np.int32)
+        position_ids.flat[idx_all] = _concat_aranges(totals)
+
+        cls_positions = np.zeros((R, P), dtype=np.int32)
+        nsp = np.full((R, P), self._ignore_index, dtype=np.int32)
+        cls_positions[row_of, slot_of] = offset_of
+        nsp[row_of, slot_of] = np.asarray([int(s[2]) for s in samples],
+                                          dtype=np.int32)
+
+        labels = np.full((R, L), self._ignore_index, dtype=np.int32)
+        if static:
+            flat_pos = np.concatenate([s[3] for s in samples]).astype(
+                np.int64, copy=False)
+            flat_labels, lens_m = _flat_and_lens([s[4] for s in samples])
+            labels.flat[np.repeat(base, lens_m) + flat_pos] = flat_labels
+        else:
+            if g is None:
+                raise ValueError("dynamic masking needs a worker RNG")
+            special = np.ones((R, L), dtype=bool)
+            special.flat[idx_a] = False
+            special.flat[idx_b] = False
+            input_ids, labels = self._mask_tokens(input_ids, special, g)
+
+        batch = {
+            "input_ids": input_ids,
+            "token_type_ids": token_type_ids,
+            "attention_mask": attention_mask,
+            "segments": segments,
+            "position_ids": position_ids,
+            "cls_positions": cls_positions,
+            "next_sentence_labels": nsp,
+            "labels": labels,
+        }
+        stats = {"pad_tokens": int(layout["pad_tokens"]
+                                   + (R - layout["n_rows"]) * L),
+                 "total_tokens": R * L, "n_samples": n}
+        return batch, stats
+
+
+class BertPrepackedCollate(BertCollate):
+    """Collate for offline-packed shards: each input is one PackedRow
+    (``decode_record_batch``), already packed, so the encode is a few
+    concatenates and flat scatters. Batches are ``len(rows)`` x
+    ``pack_seq_length`` in the packed batch contract above."""
+
+    def __init__(self, tokenizer, pack_seq_length, pack_max_per_row,
+                 ignore_index=-1, mlm_prob=0.15):
+        super().__init__(tokenizer, fixed_seq_length=pack_seq_length,
+                         ignore_index=ignore_index, mlm_prob=mlm_prob)
+        self._max_per_row = pack_max_per_row
+
+    def __call__(self, rows, g=None):
+        if not rows or not isinstance(rows[0], PackedRow):
+            raise TypeError(
+                "BertPrepackedCollate consumes PackedRow samples from "
+                "offline-packed shards; got {}".format(
+                    type(rows[0]).__name__ if rows else "an empty batch"))
+        static = rows[0][4] is not None
+        L, P, R = self._fixed_seq_length, self._max_per_row, len(rows)
+
+        ids_rows = [r[0] for r in rows]
+        used = np.fromiter(map(len, ids_rows), dtype=np.int64, count=R)
+        bases = np.arange(R, dtype=np.int64) * L
+        idx_all = np.repeat(bases, used) + _concat_aranges(used)
+        tok3 = np.concatenate([r[1] for r in rows], axis=1)
+        samp = np.concatenate([r[3] for r in rows], axis=1)
+
+        input_ids = np.zeros((R, L), dtype=np.int32)
+        input_ids.flat[idx_all] = np.concatenate(ids_rows)
+        # The three per-token planes land in one assignment (the batch's
+        # arrays are views of one backing array); packed rows fill a
+        # prefix of each row, so the attention mask is a compare.
+        out3 = np.zeros((3, R, L), dtype=np.int32)
+        out3.reshape(3, R * L)[:, idx_all] = tok3
+        segments, position_ids, token_type_ids = out3
+        attention_mask = (np.arange(L, dtype=np.int64)[None, :]
+                          < used[:, None]).astype(np.int32)
+
+        samples_per_row = np.fromiter(
+            (r[3].shape[1] for r in rows), dtype=np.int64, count=R)
+        row_of = np.repeat(np.arange(R, dtype=np.int64), samples_per_row)
+        slot_of = _concat_aranges(samples_per_row)
+        cls_positions = np.zeros((R, P), dtype=np.int32)
+        nsp = np.full((R, P), self._ignore_index, dtype=np.int32)
+        cls_positions[row_of, slot_of] = samp[2]
+        nsp[row_of, slot_of] = samp[3]
+
+        labels = np.full((R, L), self._ignore_index, dtype=np.int32)
+        if static:
+            mlm2 = np.concatenate([r[4] for r in rows], axis=1)
+            mask_counts = np.fromiter(
+                (r[4].shape[1] for r in rows), dtype=np.int64, count=R)
+            labels.flat[np.repeat(bases, mask_counts) + mlm2[0]] = mlm2[1]
+        else:
+            if g is None:
+                raise ValueError("dynamic masking needs a worker RNG")
+            special = np.ones((R, L), dtype=bool)
+            special.flat[idx_all] = ~np.concatenate([r[2] for r in rows])
+            input_ids, labels = self._mask_tokens(input_ids, special, g)
+
+        return {
+            "input_ids": input_ids,
+            "token_type_ids": token_type_ids,
+            "attention_mask": attention_mask,
+            "segments": segments,
+            "position_ids": position_ids,
+            "cls_positions": cls_positions,
+            "next_sentence_labels": nsp,
+            "labels": labels,
+        }
+
+
+class PackedBertLoader:
+    """Streams raw samples from an inner DataLoader through a
+    StreamPacker and emits packed batches of exactly ``pack_rows`` x
+    ``pack_seq_length``. Packing is deterministic (first-fit in stream
+    order) and carries leftover samples across batch boundaries, so no
+    sample is dropped; the last batch pads with empty rows. Each batch's
+    dynamic masking draws from its own stream, keyed by (seed, epoch, dp
+    rank, batch index). ``pad_ratio`` is pad over total tokens of the
+    epoch so far."""
+
+    _PACK_RNG_TAG = 0xACED  # dynamic-masking stream domain for packed mode
+
+    def __init__(self, inner, collate, pack_seq_length, pack_rows,
+                 pack_max_per_row, pack_horizon=None):
+        self._inner = inner
+        self._collate = collate
+        self._L = pack_seq_length
+        self._R = pack_rows
+        self._P = pack_max_per_row
+        self._horizon = pack_horizon
+        self.pad_tokens = 0
+        self.total_tokens = 0
+        self.n_samples = 0
+
+    @property
+    def pad_ratio(self):
+        return self.pad_tokens / max(self.total_tokens, 1)
+
+    def __iter__(self):
+        ds = self._inner.dataset
+        inner_it = iter(self._inner)   # advances the epoch
+        packer = StreamPacker(self._L, self._R, self._P,
+                              horizon=self._horizon)
+        store = {}                     # global ordinal -> sample
+        self.pad_tokens = self.total_tokens = self.n_samples = 0
+        batch_idx = 0
+
+        def encode(rows):
+            nonlocal batch_idx
+            # Global ordinals -> batch-local 0..n-1, in stream order.
+            ordinals = sorted(o for row in rows for o, _ in row)
+            local = {o: i for i, o in enumerate(ordinals)}
+            rows_local = [[(local[o], length) for o, length in row]
+                          for row in rows]
+            samples = [store.pop(o) for o in ordinals]
+            g = lrng.sample_rng(ds.base_seed, self._PACK_RNG_TAG, ds.epoch,
+                                ds.dp_rank, batch_idx)
+            batch_idx += 1
+            batch, stats = self._collate(rows_local, samples, g=g)
+            self.pad_tokens += stats["pad_tokens"]
+            self.total_tokens += stats["total_tokens"]
+            self.n_samples += stats["n_samples"]
+            return batch
+
+        for raw_batch in inner_it:
+            for sample in raw_batch:
+                length = len(sample[0]) + len(sample[1]) + 3
+                ordinal = packer.add(length)
+                if ordinal is None:
+                    yield encode(packer.emit_fullest())
+                    ordinal = packer.add(length)
+                store[ordinal] = sample
+        while packer.open_rows:
+            yield encode(packer.emit_fullest())
+        if store:
+            raise RuntimeError("{} packed samples were never emitted"
+                               .format(len(store)))
+
+
 class BertPretrainBinned(Binned):
 
     def _get_batch_size(self, batch):
-        return len(batch["input_ids"])
+        # Encoded batches are dicts; return_raw_samples batches are lists.
+        if isinstance(batch, dict):
+            return len(batch["input_ids"])
+        return len(batch)
 
 
 def get_bert_pretrain_data_loader(
@@ -198,7 +577,13 @@ def get_bert_pretrain_data_loader(
     mlm_prob=0.15,
     base_seed=12345,
     start_epoch=0,
+    return_raw_samples=False,
     prefetch=2,
+    pack_seq_length=None,
+    pack_rows=None,
+    pack_max_per_row=8,
+    pack_horizon=None,
+    pack_allow_uneven_epochs=False,
 ):
     """The BERT pretraining loader over balanced schema-v2 shards at
     ``path``. Binned vs unbinned comes from the shard filenames, static vs
@@ -206,7 +591,26 @@ def get_bert_pretrain_data_loader(
     every batch of a bin to that bin's length (an int, or one entry per
     bin). ``dp_rank``/``num_dp_groups`` name this process's data-parallel
     group; all processes of a group receive identical batches. The
-    special-token ids and the vocabulary size come from ``vocab_file``."""
+    special-token ids and the vocabulary size come from ``vocab_file``.
+    ``return_raw_samples`` yields lists of decoded samples instead of
+    batches.
+
+    Sequence packing (``pack_seq_length`` + ``pack_rows``, over unbinned
+    shards): several samples share each row of exactly
+    ``pack_seq_length`` tokens, at most ``pack_max_per_row`` of them,
+    first-fit over the sample stream with ``pack_horizon`` rows open
+    (default 4 x ``pack_rows``); each batch holds ``pack_rows`` rows and
+    gains the keys ``segments``, ``position_ids`` and ``cls_positions``,
+    NSP labels become [rows, pack_max_per_row], and the consumer is
+    ``models.BertForPreTrainingPacked``. Packed batch counts differ
+    between dp groups, so ``num_dp_groups > 1`` needs
+    ``pack_allow_uneven_epochs=True``.
+
+    Offline-packed directories (``__meta__.packed`` in the manifest, or
+    the row shape in a shard's footer) stream their stored rows: the
+    stored row width is authoritative (``pack_seq_length``, if passed,
+    must match) and ``pack_rows`` (default ``batch_size``) sets rows per
+    batch."""
     if vocab_file is None:
         raise ValueError("need vocab_file")
     tokenizer = Vocab(vocab_file)
@@ -228,7 +632,54 @@ def get_bert_pretrain_data_loader(
             decode_record_batch=decode_record_batch,
         )
 
+    packed_shape = packed_shape_of_dir(path, file_paths)
+    if packed_shape is not None:
+        L, P = packed_shape
+        if pack_seq_length is not None and int(pack_seq_length) != L:
+            raise ValueError(
+                "shards under {} were packed offline at pack_seq_length="
+                "{}, which the stored rows fix; requested {}".format(
+                    path, L, pack_seq_length))
+        if bin_ids:
+            raise ValueError("offline-packed shards cannot be binned")
+        if return_raw_samples:
+            raise ValueError(
+                "return_raw_samples over offline-packed shards is not "
+                "supported (rows are packed training rows, not samples)")
+        if fixed_seq_lengths is not None:
+            raise ValueError(
+                "offline-packed shards fix the row width at {}; "
+                "fixed_seq_lengths does not apply".format(L))
+        rows = int(pack_rows) if pack_rows is not None else int(batch_size)
+        return DataLoader(
+            make_dataset(file_paths), rows,
+            collate_fn=BertPrepackedCollate(tokenizer, L, P,
+                                            ignore_index=ignore_index,
+                                            mlm_prob=mlm_prob),
+            prefetch=prefetch)
+
+    packing = pack_seq_length is not None or pack_rows is not None
+    if packing:
+        if pack_seq_length is None or pack_rows is None:
+            raise ValueError("packing needs BOTH pack_seq_length and "
+                             "pack_rows")
+        if num_dp_groups > 1 and not pack_allow_uneven_epochs:
+            raise ValueError(
+                "sequence packing with num_dp_groups > 1 yields uneven "
+                "per-group batch counts; pass "
+                "pack_allow_uneven_epochs=True and bound your step loop "
+                "(e.g. islice to the min batch count across groups)")
+        if bin_ids:
+            raise ValueError(
+                "packing requires unbinned shards (rows are always exactly "
+                "pack_seq_length wide, which subsumes binning); preprocess "
+                "without --bin-size")
+        if return_raw_samples:
+            raise ValueError("return_raw_samples and packing are exclusive")
+
     def make_collate(fixed_seq_length):
+        if return_raw_samples:
+            return None
         return BertCollate(
             tokenizer,
             sequence_length_alignment=sequence_length_alignment,
@@ -253,6 +704,16 @@ def get_bert_pretrain_data_loader(
         ]
         return BertPretrainBinned(loaders, base_seed=base_seed,
                                   start_epoch=start_epoch)
+    if packing:
+        inner = DataLoader(make_dataset(file_paths), batch_size,
+                           collate_fn=None, prefetch=prefetch)
+        return PackedBertLoader(
+            inner,
+            BertPackedCollate(tokenizer, pack_seq_length, pack_rows,
+                              pack_max_per_row, ignore_index=ignore_index,
+                              mlm_prob=mlm_prob),
+            pack_seq_length, pack_rows, pack_max_per_row,
+            pack_horizon=pack_horizon)
     fixed = fixed_seq_lengths
     if isinstance(fixed, (list, tuple)):
         if len(fixed) != 1:

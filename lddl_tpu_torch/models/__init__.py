@@ -1,16 +1,23 @@
 from .bart import BartConfig, BartForPreTraining, bart_batch_loss
-from .bert import BertConfig, BertForPreTraining
-from .train import (make_optimizer, make_train_step, mlm_gather_cap,
-                    pretrain_loss)
+from .bert import BertConfig, BertForPreTraining, BertForPreTrainingPacked
+from .checkpoint import latest_step, restore_train_state, save_train_state
+from .train import (make_eval_step, make_multi_step, make_optimizer,
+                    make_train_step, mlm_gather_cap, pretrain_loss)
 
 __all__ = [
     "BartConfig",
     "BartForPreTraining",
     "BertConfig",
     "BertForPreTraining",
+    "BertForPreTrainingPacked",
     "bart_batch_loss",
+    "latest_step",
+    "make_eval_step",
+    "make_multi_step",
     "make_optimizer",
     "make_train_step",
     "mlm_gather_cap",
     "pretrain_loss",
+    "restore_train_state",
+    "save_train_state",
 ]

@@ -61,6 +61,9 @@ class MultiHeadAttention(nn.Module):
 
     ``padding_mask``: [B, Lk] key validity (1 = attend), or None.
     ``extra_bias``: an optional additive [*, Lq, Lk] term (e.g. causal).
+    ``segments``: [B, L] per-token segment ids of packed rows (0 = pad),
+    or None: a query then attends only keys of its own segment
+    (block-diagonal), which subsumes the padding mask.
     Only bidirectional self-attention with a padding mask and no extra
     bias may take the kernels; causal and cross calls stay dense. Children
     are named query/key/value/output, as in the reference's param tree."""
@@ -79,7 +82,8 @@ class MultiHeadAttention(nn.Module):
                                       initializer_range))
         self.probs_dropout = nn.Dropout(dropout)
 
-    def forward(self, q_input, kv_input, padding_mask, extra_bias=None):
+    def forward(self, q_input, kv_input, padding_mask, extra_bias=None,
+                segments=None):
         b, l, _ = q_input.shape
         blockwise_ok = (q_input is kv_input and extra_bias is None
                         and padding_mask is not None)
@@ -97,12 +101,22 @@ class MultiHeadAttention(nn.Module):
         v = split_heads(self.value(kv_input))
         if impl == "flash" and blockwise_ok:
             # Attention-prob dropout is skipped, as in the reference.
-            ctx = flash_attention(q, k, v, padding_mask)
+            # Packed rows hand the kernels their segment ids as both masks.
+            if segments is not None:
+                ctx = flash_attention(q, k, v, segments=segments)
+            else:
+                ctx = flash_attention(q, k, v, padding_mask)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(
                 self.head_dim)
             bias = None
-            if padding_mask is not None:
+            if segments is not None:
+                # Block-diagonal: same-segment keys that are not padding.
+                allowed = ((segments[:, None, :, None]
+                            == segments[:, None, None, :])
+                           & (segments[:, None, None, :] > 0))
+                bias = torch.where(allowed, 0.0, NEG_BIG)
+            elif padding_mask is not None:
                 bias = torch.where(padding_mask[:, None, None, :] > 0, 0.0,
                                    NEG_BIG)
             if extra_bias is not None:

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops.flash_attention import NEG_BIG
 from .attention import Dense, FeedForward, MultiHeadAttention
-from .bert import Embed, LayerNorm
+from .bert import Embed, LayerNorm, run_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +41,9 @@ class BartConfig:
     # "auto"/"flash" engage the kernels for the ENCODER's self-attention
     # only; see models.attention.resolve_auto_impl for the auto rule.
     attention_impl: str = "auto"
+    # Recompute each encoder and decoder layer in the backward
+    # (torch.utils.checkpoint; dropout draws the same masks).
+    remat: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ("auto", "dense", "flash"):
@@ -173,13 +176,14 @@ class BartForPreTraining(nn.Module):
     def forward(self, input_ids, attention_mask, decoder_input_ids):
         x = self.encoder_embed(self.shared_embeddings, input_ids)
         for i in range(self.cfg.num_encoder_layers):
-            x = getattr(self, "encoder_{}".format(i))(x, attention_mask)
+            x = run_layer(getattr(self, "encoder_{}".format(i)),
+                          self.cfg.remat, x, attention_mask)
         self_bias = causal_bias(decoder_input_ids.shape[1],
                                 decoder_input_ids.device)
         y = self.decoder_embed(self.shared_embeddings, decoder_input_ids)
         for i in range(self.cfg.num_decoder_layers):
-            y = getattr(self, "decoder_{}".format(i))(y, x, self_bias,
-                                                      attention_mask)
+            y = run_layer(getattr(self, "decoder_{}".format(i)),
+                          self.cfg.remat, y, x, self_bias, attention_mask)
         return self.lm_head(y)
 
 

@@ -6,7 +6,10 @@ Counterpart of ``lddl_tpu/models/bert.py`` (``BertConfig`` with the
 LayerNorm eps 1e-12, tanh-approximate GELU, bf16 activations over fp32
 params, and the MLM head optionally run only at ``masked_positions`` (the
 train step's gathered head: loss and gradients equal the full head's).
-Submodules carry the reference's param-tree names (``embeddings``,
+Packed rows (several samples per row) pass ``segments``, ``position_ids``
+and ``cls_positions``; ``BertForPreTrainingPacked`` names them in its
+``BATCH_INPUTS``. ``remat`` recomputes each encoder layer in the backward
+(``torch.utils.checkpoint``). Submodules carry the reference's param-tree names (``embeddings``,
 ``layer_<i>``, ``attention``, ``ffn``, ``mlm_transform``, ...), so
 ``models.convert`` maps one tree onto the other name for name.
 """
@@ -15,6 +18,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .attention import Dense, FeedForward, MultiHeadAttention
@@ -38,6 +42,13 @@ class BertConfig:
     # L_pad 256 when attention_dropout is 0 (see resolve_auto_impl).
     # "dense" or "flash" force one path.
     attention_impl: str = "auto"
+    # Recompute each encoder layer in the backward instead of keeping its
+    # activations (torch.utils.checkpoint; dropout draws the same masks).
+    remat: bool = False
+    # Run the MLM head only at the masked positions in the train and eval
+    # steps (a static cap P per row, see train.mlm_gather_cap); labels past
+    # the cap are dropped and counted. False gives the full head.
+    mlm_gather: bool = True
 
     def __post_init__(self):
         if self.attention_impl not in ("auto", "dense", "flash"):
@@ -106,11 +117,12 @@ class Embeddings(nn.Module):
                                     cfg.dtype)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
-    def forward(self, input_ids, token_type_ids):
-        positions = torch.arange(input_ids.shape[1],
-                                 device=input_ids.device)[None, :]
+    def forward(self, input_ids, token_type_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(positions)
+             + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
@@ -133,11 +145,22 @@ class EncoderLayer(nn.Module):
                                   cfg.dtype)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
-    def forward(self, x, attention_mask):
-        attn = self.dropout(self.attention(x, x, attention_mask))
+    def forward(self, x, attention_mask, segments=None):
+        attn = self.dropout(self.attention(x, x, attention_mask,
+                                           segments=segments))
         x = self.attention_norm(x + attn)
         h = self.dropout(self.ffn(x))
         return self.ffn_norm(x + h)
+
+
+def run_layer(layer, remat, *args):
+    """``layer(*args)``, recomputed in the backward when ``remat`` and
+    autograd is recording (``use_reentrant=False`` stashes and restores
+    the RNG state, so dropout draws the same masks again)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(layer, *args,
+                                                 use_reentrant=False)
+    return layer(*args)
 
 
 class BertForPreTraining(nn.Module):
@@ -145,7 +168,13 @@ class BertForPreTraining(nn.Module):
 
     Returns (mlm_logits [B, L, vocab], nsp_logits [B, 2]) in fp32; with
     ``masked_positions`` [B, P] the MLM head runs only at those columns
-    (mlm_logits [B, P, vocab]). Dropout follows ``train()``/``eval()``."""
+    (mlm_logits [B, P, vocab]). Dropout follows ``train()``/``eval()``.
+
+    Packed rows: ``segments`` [B, L] (per-token pack slot, 0 = pad; the
+    attention becomes block-diagonal), ``position_ids`` [B, L] (restarting
+    at each sample) and ``cls_positions`` [B, P] (each sample's [CLS]
+    column); nsp_logits is then [B, P, 2]. The params are the same either
+    way."""
 
     BATCH_INPUTS = ("input_ids", "token_type_ids", "attention_mask")
 
@@ -167,10 +196,12 @@ class BertForPreTraining(nn.Module):
         self.nsp_classifier = Dense(cfg.hidden_size, 2, torch.float32, init)
 
     def forward(self, input_ids, token_type_ids, attention_mask,
+                segments=None, position_ids=None, cls_positions=None,
                 masked_positions=None):
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
         for i in range(self.cfg.num_layers):
-            x = getattr(self, "layer_{}".format(i))(x, attention_mask)
+            x = run_layer(getattr(self, "layer_{}".format(i)),
+                          self.cfg.remat, x, attention_mask, segments)
         xm = x
         if masked_positions is not None:
             idx = masked_positions.long()[:, :, None].expand(
@@ -178,6 +209,20 @@ class BertForPreTraining(nn.Module):
             xm = torch.gather(x, 1, idx)
         h = F.gelu(self.mlm_transform(xm), approximate="tanh")
         mlm_logits = self.mlm_decoder(self.mlm_norm(h))
-        pooled = torch.tanh(self.pooler(x[:, 0]))
+        if cls_positions is None:
+            cls_states = x[:, 0]                                # [B, H]
+        else:
+            idx = cls_positions.long()[:, :, None].expand(
+                -1, -1, x.shape[-1])
+            cls_states = torch.gather(x, 1, idx)                # [B, P, H]
+        pooled = torch.tanh(self.pooler(cls_states))
         nsp_logits = self.nsp_classifier(pooled)
         return mlm_logits, nsp_logits
+
+
+class BertForPreTrainingPacked(BertForPreTraining):
+    """BertForPreTraining bound to the packed batch's keys (the same
+    params; see the base class)."""
+
+    BATCH_INPUTS = ("input_ids", "token_type_ids", "attention_mask",
+                    "segments", "position_ids", "cls_positions")

@@ -11,6 +11,11 @@ one to one: ``layer_0/attention/query/kernel`` <->
 
 Flax trees are nested dicts of numpy arrays (``jax.device_get`` of the
 params); state dicts hold float32 CPU tensors.
+
+``load_flax_train_state`` carries a whole reference ``TrainState``
+(params, and the optax ``chain(clip_by_global_norm, adamw)`` moments and
+count) into a port model and its ``make_optimizer`` optimizer, so that a
+run trained by the reference resumes in the port.
 """
 
 import numpy as np
@@ -65,3 +70,23 @@ def state_dict_to_flax(state_dict):
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def load_flax_train_state(model, optimizer, params, mu, nu, count):
+    """Load a reference train state into ``model`` and ``optimizer`` (a
+    ``models.train.make_optimizer``): ``params``, adam's ``mu`` and
+    ``nu`` (flax trees of numpy, like the params) and ``count``, the
+    updates applied so far (adam's and the schedule's count, which is
+    the reference's ``TrainState.step``). Moments convert like their
+    params; AdamW's ``step`` and the schedule take ``count``."""
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    exp_avg, exp_avg_sq = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    names = {p: n for n, p in model.named_parameters()}
+    for p in optimizer.params:
+        name = names[p]
+        optimizer.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device, p.dtype),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device, p.dtype),
+        }
+    optimizer.set_step_count(int(count))

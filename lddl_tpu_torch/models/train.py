@@ -3,8 +3,11 @@ the gathered MLM head, the batch-loss adapter.
 
 Counterpart of ``lddl_tpu/models/train.py`` (``pretrain_loss``,
 ``bert_batch_loss``, ``make_optimizer``, ``mlm_gather_cap``,
-``_mlm_gather_of``, ``_batch_inputs``, ``_make_step_fn``) on one
-device. The optimizer keeps optax's semantics:
+``_mlm_gather_prologue``, ``_mlm_gather_of``, ``_batch_inputs``,
+``_make_step_fn``, ``make_sharded_multi_step``, ``make_eval_step``) on
+one device. Dropout is a function of (seed, optimizer step) alone, as in
+the reference, so a run restored from a checkpoint continues bit for bit
+like the uninterrupted one. The optimizer keeps optax's semantics:
 global-norm clipping (``optax.clip_by_global_norm``), then AdamW (eps
 outside the sqrt, weight decay on every parameter) at the learning rate
 ``warmup_cosine_decay_schedule(count)``, where the first update uses
@@ -12,9 +15,12 @@ count 0, whose rate is 0.
 """
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.rng import dropout_seed
 
 
 def pretrain_loss(mlm_logits, nsp_logits, labels, next_sentence_labels,
@@ -119,6 +125,22 @@ class ClippedAdamW:
     def get_last_lr(self):
         return self.scheduler.get_last_lr()[0]
 
+    @property
+    def step_count(self):
+        """Updates applied so far (the schedule's count)."""
+        return self.scheduler.last_epoch
+
+    def set_step_count(self, count):
+        """Put the schedule where it stands after ``count`` updates (a
+        restore); the learning rate is computed as the scheduler does."""
+        sched = self.scheduler
+        sched.last_epoch = int(count)
+        lrs = [base * f(sched.last_epoch)
+               for base, f in zip(sched.base_lrs, sched.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        sched._last_lr = lrs
+
 
 def make_optimizer(params, learning_rate=1e-4, weight_decay=0.01,
                    warmup_steps=100, total_steps=10000, b1=0.9, b2=0.999,
@@ -141,13 +163,17 @@ def mlm_gather_cap(seq_len, n_samples_per_row=1):
 
 def _mlm_gather_of(batch, ignore_index=-1):
     """(masked_positions [B, P], gathered labels [B, P], dropped count),
-    or None when the cap would not shrink the head. Positions
-    are the first P masked columns per row in ascending order; rows with
-    fewer than P pad with unmasked columns, whose labels are
-    ``ignore_index``."""
+    or None when the cap would not shrink the head. Packed rows
+    (``cls_positions`` [B, n_per_row] in the batch) cap at
+    ``mlm_gather_cap(L, n_per_row)``. Positions are the first P masked
+    columns per row in ascending order; rows with fewer than P pad with
+    unmasked columns, whose labels are ``ignore_index``."""
     labels = batch["labels"]
     seq_len = labels.shape[-1]
-    p = mlm_gather_cap(seq_len)
+    n_per_row = 1
+    if "cls_positions" in batch:
+        n_per_row = batch["cls_positions"].shape[-1]
+    p = mlm_gather_cap(seq_len, n_per_row)
     if p >= seq_len:
         return None
     mask = labels != ignore_index
@@ -159,41 +185,128 @@ def _mlm_gather_of(batch, ignore_index=-1):
     return pos, gathered, dropped
 
 
-def make_train_step(model, optimizer, ignore_index=-1, batch_loss=None):
-    """A train step: (batch of tensors on the model's device) -> metrics
-    (device tensors; reading them syncs the device). Runs the model in
-    train mode (dropout on) on the batch keys its ``BATCH_INPUTS`` names,
-    then clip + AdamW + schedule.
+def _mlm_gather_prologue(model, batch, ignore_index, enabled):
+    """(model kwargs, batch, extra metrics) of the train and eval steps:
+    when ``enabled`` (the default loss), the model's config asks for the
+    gathered head (``cfg.mlm_gather``) and the cap shrinks it, the batch's
+    labels become the gathered [B, P] labels and the dropped-label count
+    is reported; else ({}, batch, {})."""
+    cfg = getattr(model, "cfg", None)
+    gather = None
+    if enabled and getattr(cfg, "mlm_gather", False) and "labels" in batch:
+        gather = _mlm_gather_of(batch, ignore_index)
+    if gather is None:
+        return {}, batch, {}
+    pos, gathered_labels, dropped = gather
+    return ({"masked_positions": pos}, dict(batch, labels=gathered_labels),
+            {"mlm_dropped_labels": dropped})
 
-    ``batch_loss(outputs, batch)`` -> (loss, metrics) adapts the model's
-    outputs (e.g. ``bart.bart_batch_loss``); bind its ignore_index
-    yourself. The default is BERT's loss with the gathered MLM head, which
-    rewrites the batch's labels under BERT's conventions and so is on only
-    for the default loss."""
+
+def _resolve_batch_loss(batch_loss, ignore_index):
+    """(batch_loss, gather_ok): the default BERT loss (and with it the
+    gathered MLM head, which rewrites the labels under BERT's
+    conventions) unless the caller brings a loss of their own."""
     if batch_loss is not None and ignore_index != -1:
         raise ValueError(
             "ignore_index only configures the default BERT loss; bind it "
             "into your batch_loss instead")
-    gather_ok = batch_loss is None
-    if batch_loss is None:
-        def batch_loss(outputs, batch):
-            return bert_batch_loss(outputs, batch, ignore_index)
+    if batch_loss is not None:
+        return batch_loss, False
 
-    def step(batch):
+    def default_loss(outputs, batch):
+        return bert_batch_loss(outputs, batch, ignore_index)
+
+    return default_loss, True
+
+
+def make_train_step(model, optimizer, ignore_index=-1, batch_loss=None):
+    """A train step: ``step(batch, seed=0)`` on a batch of tensors on the
+    model's device -> metrics (device tensors; reading them syncs the
+    device). Runs the model in train mode on the batch keys its
+    ``BATCH_INPUTS`` names, then clip + AdamW + schedule.
+
+    Dropout draws its masks under ``torch.manual_seed(dropout_seed(seed,
+    n))``, n the optimizer's update count, in a forked RNG state: the
+    masks depend on (seed, n) alone, and the global generators are left
+    as they were.
+
+    ``batch_loss(outputs, batch)`` -> (loss, metrics) adapts the model's
+    outputs (e.g. ``bart.bart_batch_loss``); bind its ignore_index
+    yourself. The default is BERT's loss with the gathered MLM head
+    (``cfg.mlm_gather``), on only for the default loss."""
+    batch_loss, gather_ok = _resolve_batch_loss(batch_loss, ignore_index)
+    device = next(model.parameters()).device
+    rng_devices = [device] if device.type == "cuda" else []
+
+    def step(batch, seed=0):
         model.train()
-        kwargs, extra = {}, {}
-        gather = _mlm_gather_of(batch, ignore_index) if gather_ok else None
-        if gather is not None:
-            pos, gathered_labels, dropped = gather
-            kwargs = {"masked_positions": pos}
-            batch = dict(batch, labels=gathered_labels)
-            extra = {"mlm_dropped_labels": dropped}
-        outputs = model(*(batch[k] for k in model.BATCH_INPUTS), **kwargs)
-        loss, metrics = batch_loss(outputs, batch)
-        optimizer.zero_grad()
-        loss.backward()
+        kwargs, batch, extra = _mlm_gather_prologue(model, batch,
+                                                    ignore_index, gather_ok)
+        with torch.random.fork_rng(devices=rng_devices,
+                                   device_type=device.type):
+            torch.manual_seed(dropout_seed(seed, optimizer.step_count))
+            outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
+                            **kwargs)
+            loss, metrics = batch_loss(outputs, batch)
+            optimizer.zero_grad()
+            loss.backward()
         optimizer.step()
         metrics.update(extra)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_multi_step(model, optimizer, n_steps, ignore_index=-1,
+                    batch_loss=None):
+    """``n_steps`` train steps in one call, the counterpart of the
+    reference's ``make_sharded_multi_step``: ``multi(batches, seed=0)``
+    takes batch tensors with a leading ``[n_steps]`` axis, runs one train
+    step per slice and returns the metrics stacked over the steps.
+    Dropout still varies per step: each step folds the seed with its own
+    update count."""
+    step = make_train_step(model, optimizer, ignore_index, batch_loss)
+
+    def multi(batches, seed=0):
+        per_step = [step({k: v[i] for k, v in batches.items()}, seed)
+                    for i in range(n_steps)]
+        return {k: torch.stack([m[k] for m in per_step])
+                for k in per_step[0]}
+
+    return multi
+
+
+def make_eval_step(model, ignore_index=-1, batch_loss=None):
+    """A forward-only step: ``eval_step(batch)`` -> metrics, with the
+    model in eval mode (no dropout) under ``torch.no_grad`` and the train
+    step's gather prologue. The first step that drops masked labels past
+    the gather's cap raises a ``RuntimeWarning``: eval numbers are read
+    as exact, and ``cfg.mlm_gather=False`` gives them so."""
+    batch_loss, gather_ok = _resolve_batch_loss(batch_loss, ignore_index)
+    warned = [False]
+
+    def eval_step(batch):
+        was_training = model.training
+        model.eval()
+        try:
+            kwargs, batch, extra = _mlm_gather_prologue(
+                model, batch, ignore_index, gather_ok)
+            with torch.no_grad():
+                outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
+                                **kwargs)
+                _, metrics = batch_loss(outputs, batch)
+        finally:
+            model.train(was_training)
+        metrics.update(extra)
+        if not warned[0] and "mlm_dropped_labels" in metrics:
+            if int(metrics["mlm_dropped_labels"]) > 0:
+                warned[0] = True
+                warnings.warn(
+                    "mlm_gather dropped masked labels in an eval step: the "
+                    "reported loss excludes them. Labels exceeded the "
+                    "4-sigma cap (mlm_gather_cap); evaluate with "
+                    "config.mlm_gather=False for exact loss.",
+                    RuntimeWarning, stacklevel=2)
+        return metrics
+
+    return eval_step

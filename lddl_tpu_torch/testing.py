@@ -9,6 +9,10 @@
   (``shard-<i>.parquet_<bin>`` plus ``.num_samples.json``) in the columns
   of the README's "Data format" table, made from a seed. A data maker,
   not a preprocessor: its samples are random ids, not text.
+- ``write_unbinned_shards``: the same samples unbinned
+  (``shard-<i>.parquet``), the input of load-time packing.
+- ``write_packed_shards``: offline-packed balanced shards, the samples
+  packed into rows by the port's ``preprocess.packing.pack_columns``.
 - ``write_bart_shards``: balanced schema-v2 BART shards
   (``shard-<i>.parquet`` plus ``.num_samples.json``) in the columns the
   BART preprocess writes with a tokenizer, made from a seed.
@@ -18,6 +22,8 @@ import json
 import os
 
 import numpy as np
+
+from .preprocess.arrowcols import int32_list_array
 
 SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
 
@@ -105,12 +111,43 @@ def _samples_of_bin(rng, n, lo, hi, vocab_size, masking, mlm_prob=0.15):
 
 
 def _int32_lists(arrays):
+    return int32_list_array(
+        np.concatenate(arrays) if arrays else np.zeros(0, np.int32),
+        [len(a) for a in arrays])
+
+
+def _bert_columns(rng, n, lo, hi, tokens, masking):
+    """Schema-v2 columns of ``n`` samples of lo..hi tokens: the text
+    columns and the token-id columns, statically masked when
+    ``masking``."""
     import pyarrow as pa
-    lens = np.array([len(a) for a in arrays], dtype=np.int32)
-    offsets = np.zeros(len(arrays) + 1, dtype=np.int32)
-    np.cumsum(lens, out=offsets[1:])
-    return pa.ListArray.from_arrays(
-        pa.array(offsets), pa.array(np.concatenate(arrays), pa.int32()))
+    vocab = np.asarray(tokens, dtype=object)
+    a_ids, b_ids, nsp, totals, pos, labels = _samples_of_bin(
+        rng, n, lo, hi, len(tokens), masking)
+    cols = {
+        "A": pa.array([" ".join(vocab[a]) for a in a_ids]),
+        "B": pa.array([" ".join(vocab[b]) for b in b_ids]),
+        "is_random_next": pa.array(nsp),
+        "num_tokens": pa.array(totals.astype(np.uint16)),
+    }
+    if masking:
+        cols["masked_lm_positions"] = pa.array(
+            [b"R<u2" + p.astype("<u2").tobytes() for p in pos], pa.binary())
+        cols["masked_lm_labels"] = pa.array(
+            [" ".join(vocab[lab]) for lab in labels])
+    cols["A_ids"] = _int32_lists(a_ids)
+    cols["B_ids"] = _int32_lists(b_ids)
+    if masking:
+        cols["masked_lm_positions_ids"] = _int32_lists(pos)
+        cols["masked_lm_label_ids"] = _int32_lists(labels)
+    return cols
+
+
+def _write_num_samples(out_dir, counts):
+    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(counts, f, sort_keys=True)
+    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
 
 
 def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
@@ -123,42 +160,83 @@ def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
     import pyarrow.parquet as pq
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
-    vocab = np.asarray(tokens, dtype=object)
     counts = {}
     for k in range(num_bins):
         lo = max(k * bin_size + 1, 8)
         hi = (k + 1) * bin_size
         for i in range(shards_per_bin):
             n = samples_per_shard
-            a_ids, b_ids, nsp, totals, pos, labels = _samples_of_bin(
-                rng, n, lo, hi, len(tokens), masking)
-            cols = {
-                "A": pa.array([" ".join(vocab[a]) for a in a_ids]),
-                "B": pa.array([" ".join(vocab[b]) for b in b_ids]),
-                "is_random_next": pa.array(nsp),
-                "num_tokens": pa.array(totals.astype(np.uint16)),
-            }
-            if masking:
-                cols["masked_lm_positions"] = pa.array(
-                    [b"R<u2" + p.astype("<u2").tobytes() for p in pos],
-                    pa.binary())
-                cols["masked_lm_labels"] = pa.array(
-                    [" ".join(vocab[lab]) for lab in labels])
-            cols["A_ids"] = _int32_lists(a_ids)
-            cols["B_ids"] = _int32_lists(b_ids)
-            if masking:
-                cols["masked_lm_positions_ids"] = _int32_lists(pos)
-                cols["masked_lm_label_ids"] = _int32_lists(labels)
+            cols = _bert_columns(rng, n, lo, hi, tokens, masking)
             cols["bin_id"] = pa.array(np.full(n, k, dtype=np.int64))
             name = "shard-{}.parquet_{}".format(i, k)
             pq.write_table(pa.table(cols), os.path.join(out_dir, name),
                            compression="lz4")
             counts[name] = n
-    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump(counts, f, sort_keys=True)
-    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
+    _write_num_samples(out_dir, counts)
     return counts
+
+
+def write_unbinned_shards(out_dir, tokens, num_shards=2,
+                          samples_per_shard=64, min_tokens=8,
+                          max_tokens=512, masking=True, seed=0):
+    """Write ``num_shards`` balanced unbinned schema-v2 shards
+    (``shard-<i>.parquet``) of samples of ``min_tokens`` ..
+    ``max_tokens`` tokens (specials included) and the
+    ``.num_samples.json`` cache; returns {basename: count}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for i in range(num_shards):
+        cols = _bert_columns(rng, samples_per_shard, min_tokens, max_tokens,
+                             tokens, masking)
+        name = "shard-{}.parquet".format(i)
+        pq.write_table(pa.table(cols), os.path.join(out_dir, name),
+                       compression="lz4")
+        counts[name] = samples_per_shard
+    _write_num_samples(out_dir, counts)
+    return counts
+
+
+def write_packed_shards(out_dir, tokens, num_samples=1024, num_shards=2,
+                        pack_seq_length=512, pack_max_per_row=8,
+                        min_tokens=8, max_tokens=512, masking=True, seed=0):
+    """Write offline-packed balanced shards: ``num_samples`` samples of
+    ``min_tokens`` .. ``max_tokens`` tokens packed first-fit-decreasing
+    into rows of ``pack_seq_length`` by the port's ``pack_columns``, the
+    rows dealt round-robin over ``num_shards`` ``shard-<i>.parquet``
+    files (row counts equal or one apart) with the row shape stamped into
+    each footer, and the ``.num_samples.json`` cache of row counts.
+    Returns (counts {basename: rows}, stats of ``pack_columns``)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from .preprocess.packing import pack_columns, packed_schema
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    a_ids, b_ids, nsp, totals, pos, labels = _samples_of_bin(
+        rng, num_samples, min_tokens, max_tokens, len(tokens), masking)
+    cols = {"A_ids": _int32_lists(a_ids), "B_ids": _int32_lists(b_ids),
+            "is_random_next": nsp, "num_tokens": totals}
+    if masking:
+        cols["masked_lm_positions_ids"] = _int32_lists(pos)
+        cols["masked_lm_label_ids"] = _int32_lists(labels)
+    packed, n_rows, stats = pack_columns(
+        cols, num_samples, pack_seq_length, pack_max_per_row,
+        cls_id=SPECIAL_TOKENS.index("[CLS]"),
+        sep_id=SPECIAL_TOKENS.index("[SEP]"), masking=masking)
+    schema = packed_schema(masking, pack_seq_length, pack_max_per_row)
+    table = pa.table({name: packed[name] for name in schema.names},
+                     schema=schema)
+    counts = {}
+    for i in range(num_shards):
+        name = "shard-{}.parquet".format(i)
+        rows = table.take(np.arange(i, n_rows, num_shards))
+        pq.write_table(rows, os.path.join(out_dir, name),
+                       compression="lz4")
+        counts[name] = rows.num_rows
+    _write_num_samples(out_dir, counts)
+    return counts, stats
 
 
 def write_bart_shards(out_dir, vocab_size, num_shards=2,
@@ -198,8 +276,5 @@ def write_bart_shards(out_dir, vocab_size, num_shards=2,
         pq.write_table(table, os.path.join(out_dir, name),
                        compression="lz4")
         counts[name] = samples_per_shard
-    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump(counts, f, sort_keys=True)
-    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
+    _write_num_samples(out_dir, counts)
     return counts

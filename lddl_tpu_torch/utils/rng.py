@@ -11,6 +11,9 @@ generator whose 128-bit key is the blake2b digest of the scope tuple.
   one stream per (dp group, worker), shared by every peer of a group.
 - ``sample_rng(seed, *scope)``: a one-off stream (per-worker dynamic
   masking in the collate).
+
+``dropout_seed(seed, step)`` is the port's own: the torch seed of one
+train step's dropout masks, a function of (seed, step) alone.
 """
 
 import hashlib
@@ -22,6 +25,9 @@ import numpy as np
 _WORLD_TAG = 0x1DD1_0001
 _WORKER_TAG = 0x1DD1_0002
 _SAMPLE_TAG = 0x1DD1_0003
+# The port's own tag (no counterpart: the reference folds the step into a
+# JAX PRNG key).
+_DROPOUT_TAG = 0x1DD1_0D70
 
 
 def _key_bytes(*scope):
@@ -81,3 +87,11 @@ def choices(rng, population, weights, k=1):
         raise ValueError("weights must sum to a positive value")
     idx = rng.choice(len(population), size=k, replace=True, p=w / total)
     return [population[int(i)] for i in idx]
+
+
+def dropout_seed(seed, step):
+    """A 63-bit ``torch.manual_seed`` value for the dropout of train step
+    ``step`` under ``seed``, the counterpart of the reference's
+    ``fold_in(PRNGKey(seed), step)``."""
+    digest = _key_bytes(_DROPOUT_TAG, seed, step)[:8]
+    return int.from_bytes(digest, "little") >> 1

@@ -327,8 +327,31 @@ def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
         mask *= torch.randint(1, 4, (4, l), generator=g, device=cuda_device,
                               dtype=torch.int32)
         mask[-1] = 0
+    _check_cuda_kernels(q, k, v, do, mask, mask_kind == "segments")
+
+
+def test_cuda_kernels_match_plain_packed_rows(cuda_device):
+    """Packed rows at L=512, D=64: each row holds up to 8 samples as runs
+    of segment ids 1-8 and a padded tail, the ids taken as both masks."""
+    b, l, h, d = 4, 512, 4, 64
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, do = (torch.randn((b, l, h, d), generator=g, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    seg = torch.zeros((b, l), dtype=torch.int32, device=cuda_device)
+    for r in range(b):
+        cuts = torch.sort(torch.randint(1, l, (8,), generator=g,
+                                        device=cuda_device)).values
+        cols = torch.arange(l, device=cuda_device)
+        seg[r] = 1 + (cols[:, None] >= cuts[None, :7]).sum(-1)
+        seg[r, cuts[7]:] = 0
+    assert int(seg.max()) == 8
+    _check_cuda_kernels(q, k, v, do, seg, True)
+
+
+def _check_cuda_kernels(q, k, v, do, mask, segments):
+    d = q.shape[-1]
     qb, kb, vb, maskb, qmaskb, shape = tfa._prep(
-        q, k, v, mask, mask if mask_kind == "segments" else None)
+        q, k, v, mask, mask if segments else None)
     scale = 1.0 / d ** 0.5
     online = not tfa._use_onekv(shape[-1], d)
     if not online:

@@ -60,6 +60,8 @@ def test_no_forbidden_imports():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, lddl_tpu_torch, lddl_tpu_torch.loader, "
             "lddl_tpu_torch.models, lddl_tpu_torch.models.convert, "
+            "lddl_tpu_torch.models.checkpoint, lddl_tpu_torch.ops.packing, "
+            "lddl_tpu_torch.preprocess.packing, lddl_tpu_torch.utils.io, "
             "lddl_tpu_torch.ops.flash_attention, lddl_tpu_torch.testing; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu')); "
