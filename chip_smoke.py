@@ -54,7 +54,26 @@ exits non-zero):
    ``prefetch_to_device`` with ``bart_batch_loss``; the counters must show
    the three online kernels 6 times per step each (one per encoder
    layer), as must a profiled step; then the flash encoder against the
-   dense one on a batch of the loader, in eval mode.
+   dense one on a batch of the loader, in eval mode;
+7. distributed BERT path: the port's multi-device entry points as a world
+   of 1 over NCCL on cuda:0 (``init_distributed``; RANK, WORLD_SIZE,
+   LOCAL_RANK, MASTER_ADDR and a free MASTER_PORT set where the launcher
+   did not set them): the communicator rule, an int64 all_reduce past
+   2^31, ``make_mesh({"dp": 1, "fsdp": 1, "tp": 1, "sp": 1})``,
+   ``create_train_state`` of bert_large (every parameter a DTensor on
+   cuda:0), the binned loader with ``process_dp_info``'s dp_rank, then
+   3 batches of 16 in each of the L=256 and L=512 bins through
+   ``to_device_batch`` and ``make_sharded_train_step``, each beside the
+   unsharded ``make_train_step`` from the same weights on the same batch
+   and seed: the losses must agree within DIST_LOSS_RTOL and every
+   parameter after the steps within DIST_PARAM_ATOL, and each sharded
+   step must launch ``onekv_fwd`` and ``onekv_bwd`` 24 times; a second
+   unsharded model repeats the unsharded steps, and the parameters and
+   first-step gradients that differ are printed for both pairs;
+   host-clock step times of both, and of the plan on a mesh of tp alone
+   and of fsdp alone; a sharded eval step; a sharded checkpoint saved,
+   restored into a model from another seed and a bit-identical next
+   step; ``entry.dryrun_multichip(1)``.
 
 Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
@@ -62,6 +81,7 @@ Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -87,6 +107,15 @@ BART_BATCH, BART_L = 8, 1024
 PACK_L, PACK_ROWS, PACK_PER_ROW = 512, 16, 8
 PACKED_STEPS = 8     # counted packed steps (the first is warm-up)
 PACKED_SAMPLES = 1024
+# The distributed phase: sharded and unsharded steps, DIST_STEPS in each
+# bin, and the bars on their difference at a world of 1, where the plan
+# changes no arithmetic: each step's loss (relative), and every parameter
+# after the steps (absolute), far below one AdamW update (~1e-4 x the
+# schedule), far above an ulp of a parameter (~1e-9).
+DIST_BINS = [256, 512]
+DIST_STEPS = 3
+DIST_LOSS_RTOL = 1e-6
+DIST_PARAM_ATOL = 1e-6
 
 
 def card_line():
@@ -960,13 +989,14 @@ def check_packed_model(fa, model, batch):
     model.train()
 
 
-def check_checkpoint(model, opt, step, batch, root, note):
-    """Save the train state, restore it into a model and optimizer built
-    from another seed, then one step from each with the same batch and
-    seed: the losses and every parameter must be bit-identical."""
-    from lddl_tpu_torch.models import (BertForPreTrainingPacked,
-                                       make_optimizer, make_train_step,
-                                       restore_train_state, save_train_state)
+def check_checkpoint(model, opt, step, batch, root, note, rebuild,
+                     make_step):
+    """Save the train state, restore it into the model and optimizer
+    ``rebuild()`` makes from another seed, then one step from each
+    (``make_step(model, opt)`` for the restored one) with the same batch
+    and seed: the losses and every parameter (every local shard of a
+    sharded model) must be bit-identical."""
+    from lddl_tpu_torch.models import restore_train_state, save_train_state
     ckpt = os.path.join(root, "ckpt")
     count = opt.step_count
     torch.cuda.synchronize()
@@ -975,13 +1005,13 @@ def check_checkpoint(model, opt, step, batch, root, note):
     t_save = time.perf_counter() - t0
     nbytes = sum(os.path.getsize(os.path.join(dirpath, f))
                  for dirpath, _, names in os.walk(ckpt) for f in names)
-    torch.manual_seed(1)
-    with torch.device("cuda"):
-        fresh = BertForPreTrainingPacked(model.cfg)
-    fresh_opt = make_optimizer(fresh.parameters(), learning_rate=1e-4,
-                               warmup_steps=4, total_steps=100)
-    if torch.equal(fresh.embeddings.word_embeddings.weight,
-                   model.embeddings.word_embeddings.weight):
+    fresh, fresh_opt = rebuild()
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    if torch.equal(local(fresh.embeddings.word_embeddings.weight),
+                   local(model.embeddings.word_embeddings.weight)):
         raise AssertionError("the fresh model equals the live one")
     t0 = time.perf_counter()
     restored = restore_train_state(ckpt, fresh, fresh_opt)
@@ -990,12 +1020,12 @@ def check_checkpoint(model, opt, step, batch, root, note):
     if restored != count or fresh_opt.step_count != count:
         raise AssertionError("restored step {} (schedule {}) != {}".format(
             restored, fresh_opt.step_count, count))
-    m_resumed = make_train_step(fresh, fresh_opt)(batch, seed=0)
+    m_resumed = make_step(fresh, fresh_opt)(batch, seed=0)
     m_live = step(batch, seed=0)
     loss_r, loss_l = float(m_resumed["loss"]), float(m_live["loss"])
     differ = [n for (n, a), b in zip(model.state_dict().items(),
                                      fresh.state_dict().values())
-              if not torch.equal(a, b)]
+              if not torch.equal(local(a), local(b))]
     print("checkpoint ({}): {} bytes, save {:.2f} s, restore {:.2f} s; "
           "step {} resumed loss {!r}, live loss {!r}, {} of {} parameters "
           "differ".format(note, nbytes, t_save, t_restore, count, loss_r,
@@ -1004,6 +1034,13 @@ def check_checkpoint(model, opt, step, batch, root, note):
     if loss_r != loss_l or differ:
         raise AssertionError("the restored step is not bit-identical to "
                              "the live one: {}".format(differ[:5]))
+
+
+def adamw(params):
+    """The optimizer of the model phases."""
+    from lddl_tpu_torch.models import make_optimizer
+    return make_optimizer(params, learning_rate=1e-4, warmup_steps=4,
+                          total_steps=100)
 
 
 def packed_path(fa, card):
@@ -1144,10 +1181,281 @@ def packed_path(fa, card):
             step = make_train_step(model, opt)
             for _ in range(2):
                 step(eval_batch, seed=0)
-        check_checkpoint(model, opt, step, ckpt_batch, tmp, note)
+        def rebuild():
+            torch.manual_seed(1)
+            with torch.device("cuda"):
+                fresh = BertForPreTrainingPacked(model.cfg)
+            return fresh, adamw(fresh.parameters())
+
+        check_checkpoint(model, opt, step, ckpt_batch, tmp, note, rebuild,
+                         make_train_step)
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def host_profile(step, batch):
+    """Where a sharded step's host time goes: one step under
+    torch.profiler, CPU self time of DTensor's dispatch (the
+    ``PythonSubclass`` rows), of the optimizer step and in all, beside
+    the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, seed=0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cpu = {e.key: e for e in events if e.device_type.name == "CPU"}
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in events
+               if e.device_type.name == "CUDA" and e.key not in cpu) / 1e3
+    self_ms = sum(e.self_cpu_time_total for e in cpu.values()) / 1e3
+    dispatch = cpu.get("PythonSubclass")
+    opt = [e for k, e in cpu.items() if k.startswith("Optimizer.step")]
+    print("host profile of a sharded step: wall {:.1f} ms, device busy "
+          "{:.1f} ms; CPU self time {:.1f} ms, of it DTensor dispatch "
+          "{:.1f} ms in {} calls; the optimizer step {:.1f} ms in all"
+          .format(wall, busy, self_ms,
+                  dispatch.self_cpu_time_total / 1e3 if dispatch else 0.0,
+                  dispatch.count if dispatch else 0,
+                  sum(e.cpu_time_total for e in opt) / 1e3), flush=True)
+    for e in sorted(cpu.values(), key=lambda e: -e.self_cpu_time_total)[:6]:
+        print("host profile op {:9.2f} ms self x{:6d} {}".format(
+            e.self_cpu_time_total / 1e3, e.count, e.key[:80]), flush=True)
+
+
+def differing(names, ref, got):
+    """{name: max |diff|} of the tensors of ``got`` (local shards of
+    DTensors) that differ from ``ref``'s."""
+    out = {}
+    with torch.no_grad():
+        for name, a, b in zip(names, ref, got):
+            b = b.to_local() if hasattr(b, "to_local") else b
+            if not torch.equal(a, b):
+                out[name] = float((a - b).abs().max())
+    return out
+
+
+def style_overhead(cfg, state, batches, make_mesh, card):
+    """Host-clock sharded steps of the plan on a mesh of tp alone and of
+    fsdp alone, at a world of 1, on ``batches`` (the first one warm-up):
+    which style costs what of the four-axis mesh's overhead."""
+    from lddl_tpu_torch.models import (create_train_state,
+                                       make_sharded_train_step)
+    for axes in ({"tp": 1}, {"fsdp": 1}):
+        mesh = make_mesh(axes)
+        model, opt = create_train_state(cfg, mesh, params=state,
+                                        optimizer=adamw)
+        step = make_sharded_train_step(mesh, model, opt)
+        times = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(batch, seed=0)["loss"])
+            times.append(time.perf_counter() - t0)
+        print("bert_large sharded step at world 1 on mesh {}, L={} B=16: "
+              "{:.2f} ms, mean of {} steps, host clock ({})".format(
+                  axes, batches[0]["input_ids"].shape[1],
+                  1e3 * sum(times[1:]) / len(times[1:]), len(times) - 1,
+                  card), flush=True)
+        del model, opt, step
+
+
+def distributed_path(fa, card):
+    """The port's multi-device entry points on the card as a world of 1
+    over NCCL: the process group, the communicator rule, the mesh, the
+    sharded train state, the binned loader's rank rule and batch
+    placement, sharded train steps against the unsharded step from the
+    same weights on the same batches and seeds, a sharded eval step, a
+    sharded checkpoint and the dryrun. Returns the launch counts of the
+    sharded steps."""
+    import torch.distributed as dist
+
+    from lddl_tpu_torch.entry import dryrun_multichip
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.loader.sharding import (process_dp_info,
+                                                to_device_batch)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       create_train_state, make_eval_step,
+                                       make_sharded_train_step,
+                                       make_train_step)
+    from lddl_tpu_torch.parallel import (LocalCommunicator,
+                                         get_communicator, init_distributed,
+                                         make_mesh)
+    from lddl_tpu_torch.testing import write_balanced_shards, write_vocab
+
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(free_port()))):
+        os.environ.setdefault(key, value)
+    device = init_distributed()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        print("distributed: backend {} world {} device {}".format(
+            dist.get_backend(), dist.get_world_size(), device), flush=True)
+        if dist.get_backend() != "nccl" or device != torch.device("cuda", 0):
+            raise AssertionError("want nccl on cuda:0")
+        comm = get_communicator()
+        if not isinstance(comm, LocalCommunicator):
+            raise AssertionError("a world of 1 got {}".format(comm))
+        big = torch.tensor([2**31 + 7, 2**40 + 3], dtype=torch.int64,
+                           device=device)
+        dist.all_reduce(big)
+        if big.tolist() != [2**31 + 7, 2**40 + 3]:
+            raise AssertionError("int64 all_reduce gave {}".format(
+                big.tolist()))
+        mesh = make_mesh({"dp": 1, "fsdp": 1, "tp": 1, "sp": 1})
+        dp_rank, groups = process_dp_info(mesh)
+        print("mesh {}; communicator {}; int64 all_reduce exact past 2^31; "
+              "dp_rank {} of {}".format(mesh, type(comm).__name__, dp_rank,
+                                        groups), flush=True)
+
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        write_balanced_shards(os.path.join(tmp, "shards"), tokens,
+                              num_bins=len(BINS), bin_size=128,
+                              shards_per_bin=2, samples_per_shard=64,
+                              masking=True, seed=1)
+        loader = get_bert_pretrain_data_loader(
+            os.path.join(tmp, "shards"), vocab_file=vocab, batch_size=16,
+            fixed_seq_lengths=BINS, shuffle_buffer_size=256,
+            shuffle_buffer_warmup_factor=4, base_seed=54321,
+            dp_rank=dp_rank, num_dp_groups=groups)
+        picked = {l_bin: [] for l_bin in DIST_BINS}
+        it = iter(prefetch_to_device(loader))
+        try:
+            while any(len(v) < DIST_STEPS for v in picked.values()):
+                batch = next(it)
+                l_bin = batch["input_ids"].shape[1]
+                if l_bin in picked and len(picked[l_bin]) < DIST_STEPS:
+                    picked[l_bin].append(batch)
+        finally:
+            it.close()
+        batches = [b for l_bin in DIST_BINS for b in picked[l_bin]]
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            plain = BertForPreTraining(cfg)
+            again = BertForPreTraining(cfg)
+        again.load_state_dict(plain.state_dict())
+        names = [n for n, _ in plain.named_parameters()]
+
+        plain_step = make_train_step(plain, adamw(plain.parameters()))
+        again_step = make_train_step(again, adamw(again.parameters()))
+        model, opt = create_train_state(cfg, mesh,
+                                        params=plain.state_dict(),
+                                        optimizer=adamw)
+        kinds = {(type(p).__name__, str(p.device))
+                 for p in model.parameters()}
+        print("sharded parameters: {}".format(sorted(kinds)), flush=True)
+        if kinds != {("DTensor", "cuda:0")}:
+            raise AssertionError("parameters are not all DTensors on cuda:0")
+        step = make_sharded_train_step(mesh, model, opt)
+
+        zero_launches(fa)
+        launches = dict.fromkeys(KERNELS, 0)
+        rows = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_u = float(plain_step(batch, seed=0)["loss"])
+            dt_u = time.perf_counter() - t0
+            if i == 0:
+                first = [p.grad.clone() for p in plain.parameters()]
+            zero_launches(fa)
+            t0 = time.perf_counter()
+            metrics = step(to_device_batch(batch, mesh), seed=0)
+            loss_s = float(metrics["loss"])
+            dt_s = time.perf_counter() - t0
+            got = read_launches(fa)
+            for name in KERNELS:
+                launches[name] += got[name]
+            loss_a = float(again_step(batch, seed=0)["loss"])
+            if i == 0:
+                for what, other in (("sharded", model), ("repeat", again)):
+                    grads = differing(names, first, [p.grad for p in
+                                                     other.parameters()])
+                    print("first step's clipped gradients, {} vs unsharded: "
+                          "{} of {} differ (max |diff|): {}".format(
+                              what, len(grads), len(names), grads),
+                          flush=True)
+                del first
+            l_bin = batch["input_ids"].shape[1]
+            diff = abs(loss_s - loss_u)
+            rows.append((l_bin, dt_s, dt_u))
+            print("sharded step {} L={} loss {!r} unsharded {!r} |diff| {:.3e}"
+                  " ({}; the unsharded repeat {!r}) {:.1f} ms vs {:.1f} ms; "
+                  "launches {}".format(
+                      i, l_bin, loss_s, loss_u, diff,
+                      "bit-identical" if loss_s == loss_u else "differ",
+                      loss_a, dt_s * 1e3, dt_u * 1e3, got), flush=True)
+            if not math.isfinite(loss_s) or diff > DIST_LOSS_RTOL * abs(
+                    loss_u):
+                raise AssertionError("sharded loss {} vs unsharded {}"
+                                     .format(loss_s, loss_u))
+            if got != dict.fromkeys(KERNELS, 0) | {
+                    "onekv_fwd": cfg.num_layers,
+                    "onekv_bwd": cfg.num_layers}:
+                raise AssertionError("a sharded step launched {}".format(got))
+        ref = list(plain.parameters())
+        for what, other in (("sharded", model), ("repeat", again)):
+            differ = differing(names, ref, list(other.parameters()))
+            print("after {} steps {} of {} parameters differ between the "
+                  "{} and unsharded models (max |diff|): {}".format(
+                      len(batches), len(differ), len(names), what, differ),
+                  flush=True)
+            if what == "sharded" and max(differ.values(),
+                                         default=0.0) > DIST_PARAM_ATOL:
+                raise AssertionError("sharded parameters off by more than "
+                                     "{}".format(DIST_PARAM_ATOL))
+        del again, again_step
+        for l_bin in DIST_BINS:
+            timed = [r for r in rows if r[0] == l_bin][1:]   # warm-up out
+            ms_s = 1e3 * sum(r[1] for r in timed) / len(timed)
+            ms_u = 1e3 * sum(r[2] for r in timed) / len(timed)
+            print("bert_large sharded step at world 1, L={} B=16: {:.2f} ms "
+                  "vs unsharded {:.2f} ms, ratio {:.3f}, mean of {} steps "
+                  "each, host clock ({})".format(
+                      l_bin, ms_s, ms_u, ms_s / ms_u, len(timed), card),
+                  flush=True)
+
+        style_overhead(cfg, plain.state_dict(), batches[:DIST_STEPS],
+                       make_mesh, card)
+        host_profile(step, to_device_batch(batches[-1], mesh))
+        metrics = make_eval_step(model, mesh=mesh)(
+            to_device_batch(batches[0], mesh))
+        print("sharded eval step: {}".format(json.dumps(
+            {k: float(v) for k, v in metrics.items()})), flush=True)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError("non-finite sharded eval metrics")
+        del plain, plain_step
+        need = 3 * 4 * sum(p.numel() for p in model.parameters())
+        if shutil.disk_usage(tmp).free < 2 * need:
+            raise AssertionError("no room for the {}-byte sharded state"
+                                 .format(need))
+        check_checkpoint(
+            model, opt, step, to_device_batch(batches[-1], mesh), tmp,
+            "sharded, bert_large, {} layers".format(cfg.num_layers),
+            lambda: create_train_state(cfg, mesh, seed=1, optimizer=adamw),
+            functools.partial(make_sharded_train_step, mesh))
+        print("dryrun_multichip(1): {}".format(dryrun_multichip(1)),
+              flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
 
 
 def main():
@@ -1207,7 +1515,8 @@ def main():
         return 0
     by_path = {"bert_binned": bert_path(fa, card),
                "bert_packed": packed_path(fa, card),
-               "bart": bart_path(fa, card)}
+               "bart": bart_path(fa, card),
+               "bert_sharded": distributed_path(fa, card)}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}

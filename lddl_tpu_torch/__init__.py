@@ -9,6 +9,11 @@ prefetch -> ``models.BartForPreTraining`` -> the same step with
 (``ops.flash_attention``): single-block ones for short sequences,
 online-softmax ones from L_pad 1024.
 
+On several GPUs (``parallel``: ``init_distributed``, ``make_mesh``) the
+same steps run sharded over a dp/fsdp/tp/sp ``DeviceMesh``
+(``models.create_train_state``, ``models.make_sharded_train_step``;
+``loader.process_dp_info`` and ``loader.to_device_batch`` feed them).
+
 Module and function names follow ``lddl_tpu`` so each piece can be read
 beside its counterpart there. Nothing here imports JAX or ``lddl_tpu``:
 the package keeps its own copy of everything it needs.

@@ -4,6 +4,8 @@ from .bart import BartCollate, get_bart_pretrain_data_loader
 from .bert import (BertCollate, BertPackedCollate, BertPrepackedCollate,
                    BertPretrainBinned, PackedBertLoader, PackedRow,
                    get_bert_pretrain_data_loader, packed_shape_of_dir)
+from .sharding import (dp_info_of_process, process_dp_info, to_device_batch,
+                       to_device_step_batches)
 from .vocab import Vocab
 
 __all__ = [
@@ -21,6 +23,10 @@ __all__ = [
     "Vocab",
     "get_bart_pretrain_data_loader",
     "get_bert_pretrain_data_loader",
+    "dp_info_of_process",
     "packed_shape_of_dir",
     "prefetch_to_device",
+    "process_dp_info",
+    "to_device_batch",
+    "to_device_step_batches",
 ]

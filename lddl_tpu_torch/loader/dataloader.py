@@ -238,7 +238,8 @@ class _DevicePrefetcher:
 def prefetch_to_device(loader, device=None, depth=2):
     """Double-buffered host->device pipeline: a background thread drains
     ``loader`` and copies each numpy batch dict to ``device`` (default
-    ``cuda``; ``device="cpu"`` gives CPU tensors) up to ``depth`` batches
+    ``cuda``, ``cuda:LOCAL_RANK`` once a process group is up;
+    ``device="cpu"`` gives CPU tensors) up to ``depth`` batches
     ahead of the consumer. On CUDA the copy runs from pinned memory on a
     side stream; the consumer's current stream waits on an event recorded
     after the copy, so a step never reads a batch before it lands.

@@ -10,18 +10,23 @@ bidirectional self-attention reaches the attention kernels through
 ``attention_impl``; the decoder's causal self-attention and the
 cross-attention stay dense, as in the reference. Submodules carry the
 reference's param-tree names, so ``models.convert`` maps one tree onto
-the other name for name.
+the other name for name. Under the sharding plan (``models.sharding``)
+BART takes BERT's: every projection is tensor-parallel as in BERT, the
+decoder's causal self-attention and the cross-attention stay dense, and
+under sp both stacks run sequence-sharded, gathered before the LM head.
 """
 
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import NEG_BIG
-from .attention import Dense, FeedForward, MultiHeadAttention
+from ..parallel.mesh import get_abstract_mesh
+from .attention import (Dense, FeedForward, MultiHeadAttention, gather_seq,
+                        seq_chunk)
 from .bert import Embed, LayerNorm, run_layer
+from .sharding import data_sum, token_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +45,15 @@ class BartConfig:
     dtype: torch.dtype = torch.bfloat16  # activations; params stay fp32
     # "auto"/"flash" engage the kernels for the ENCODER's self-attention
     # only; see models.attention.resolve_auto_impl for the auto rule.
+    # "ring" puts it on the sp ring under a mesh with sp > 1.
     attention_impl: str = "auto"
     # Recompute each encoder and decoder layer in the backward
     # (torch.utils.checkpoint; dropout draws the same masks).
     remat: bool = False
 
     def __post_init__(self):
-        if self.attention_impl not in ("auto", "dense", "flash"):
-            raise ValueError("attention_impl must be auto|dense|flash")
+        if self.attention_impl not in ("auto", "dense", "flash", "ring"):
+            raise ValueError("attention_impl must be auto|dense|flash|ring")
 
     @staticmethod
     def bart_base(**kw):
@@ -96,9 +102,7 @@ class Embeddings(nn.Module):
         self.layer_norm = _norm(cfg)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
-    def forward(self, token_embed, input_ids):
-        positions = torch.arange(input_ids.shape[1],
-                                 device=input_ids.device)[None, :]
+    def forward(self, token_embed, input_ids, positions):
         x = token_embed(input_ids) + self.positions(positions)
         return self.dropout(self.layer_norm(x))
 
@@ -158,6 +162,8 @@ class BartForPreTraining(nn.Module):
     ``train()``/``eval()``."""
 
     BATCH_INPUTS = ("input_ids", "attention_mask", "decoder_input_ids")
+    # Logical axes (in, out) of the head's kernel (see MultiHeadAttention).
+    LOGICAL_AXES = {"lm_head": ("embed", "vocab")}
 
     def __init__(self, cfg):
         super().__init__()
@@ -174,30 +180,38 @@ class BartForPreTraining(nn.Module):
                              cfg.initializer_range)
 
     def forward(self, input_ids, attention_mask, decoder_input_ids):
-        x = self.encoder_embed(self.shared_embeddings, input_ids)
+        mesh = get_abstract_mesh()
+
+        def embed(module, ids):
+            positions = torch.arange(ids.shape[1], device=ids.device)[None]
+            return module(self.shared_embeddings, seq_chunk(ids, mesh),
+                          seq_chunk(positions, mesh))
+
+        x = embed(self.encoder_embed, input_ids)
         for i in range(self.cfg.num_encoder_layers):
             x = run_layer(getattr(self, "encoder_{}".format(i)),
                           self.cfg.remat, x, attention_mask)
         self_bias = causal_bias(decoder_input_ids.shape[1],
                                 decoder_input_ids.device)
-        y = self.decoder_embed(self.shared_embeddings, decoder_input_ids)
+        y = embed(self.decoder_embed, decoder_input_ids)
         for i in range(self.cfg.num_decoder_layers):
             y = run_layer(getattr(self, "decoder_{}".format(i)),
                           self.cfg.remat, y, x, self_bias, attention_mask)
-        return self.lm_head(y)
+        return self.lm_head(gather_seq(y, mesh))
 
 
 def bart_batch_loss(logits, batch, ignore_index=-1):
     """Denoising cross entropy over the clean labels (``ignore_index`` on
     padding) -> (loss, metrics). The batch-loss adapter for
-    ``models.train.make_train_step``."""
+    ``models.train.make_train_step``. Under a mesh the denominator is the
+    global batch's, the loss this rank's share and the metrics global
+    (as ``train.pretrain_loss``)."""
     labels = batch["labels"]
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0).long()
-    ll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                         safe.reshape(-1), reduction="none").reshape(
-                             labels.shape)
-    denom = mask.sum().clamp_min(1)
+    ll, pred = token_cross_entropy(logits, safe)
+    denom, = (c.clamp_min(1) for c in data_sum(mask.sum()))
     loss = torch.where(mask, ll, 0.0).sum() / denom
-    correct = mask & (logits.argmax(dim=-1) == safe)
-    return loss, {"loss": loss, "accuracy": correct.sum() / denom}
+    total, = data_sum(loss)
+    correct, = data_sum((mask & (pred == safe)).sum())
+    return loss, {"loss": total, "accuracy": correct / denom}

@@ -12,8 +12,14 @@ and ``cls_positions``; ``BertForPreTrainingPacked`` names them in its
 (``torch.utils.checkpoint``). Submodules carry the reference's param-tree names (``embeddings``,
 ``layer_<i>``, ``attention``, ``ffn``, ``mlm_transform``, ...), so
 ``models.convert`` maps one tree onto the other name for name.
+
+Under an ambient mesh with sp > 1 (the sharded steps), the embeddings and
+the encoder layers run on this rank's chunk of the sequence (Megatron-SP,
+``models.attention``), and the hidden states are gathered over sp before
+the heads, whose MLM gather and [CLS] states index the full sequence.
 """
 
+import contextlib
 import dataclasses
 
 import torch
@@ -21,7 +27,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from .attention import Dense, FeedForward, MultiHeadAttention
+from ..parallel.mesh import get_abstract_mesh, set_mesh
+from .attention import (Dense, FeedForward, MultiHeadAttention, gather_seq,
+                        seq_chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +48,8 @@ class BertConfig:
     dtype: torch.dtype = torch.bfloat16  # activations; params stay fp32
     # "auto": dense at the shortest bins, the single-block kernels from
     # L_pad 256 when attention_dropout is 0 (see resolve_auto_impl).
-    # "dense" or "flash" force one path.
+    # "dense" or "flash" force one path. "ring": K/V rotate over the sp
+    # ring under a mesh with sp > 1 (dense otherwise).
     attention_impl: str = "auto"
     # Recompute each encoder layer in the backward instead of keeping its
     # activations (torch.utils.checkpoint; dropout draws the same masks).
@@ -51,8 +60,8 @@ class BertConfig:
     mlm_gather: bool = True
 
     def __post_init__(self):
-        if self.attention_impl not in ("auto", "dense", "flash"):
-            raise ValueError("attention_impl must be auto|dense|flash")
+        if self.attention_impl not in ("auto", "dense", "flash", "ring"):
+            raise ValueError("attention_impl must be auto|dense|flash|ring")
 
     @staticmethod
     def bert_base(**kw):
@@ -156,10 +165,14 @@ class EncoderLayer(nn.Module):
 def run_layer(layer, remat, *args):
     """``layer(*args)``, recomputed in the backward when ``remat`` and
     autograd is recording (``use_reentrant=False`` stashes and restores
-    the RNG state, so dropout draws the same masks again)."""
+    the RNG state, so dropout draws the same masks again; the ambient
+    mesh is entered again for the recomputation, which may run on the
+    autograd engine's own thread)."""
     if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(layer, *args,
-                                                 use_reentrant=False)
+        mesh = get_abstract_mesh()
+        return torch.utils.checkpoint.checkpoint(
+            layer, *args, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), set_mesh(mesh)))
     return layer(*args)
 
 
@@ -177,6 +190,11 @@ class BertForPreTraining(nn.Module):
     way."""
 
     BATCH_INPUTS = ("input_ids", "token_type_ids", "attention_mask")
+    # Logical axes (in, out) of the heads' kernels (see MultiHeadAttention).
+    LOGICAL_AXES = {"mlm_transform": ("embed", "embed_out"),
+                    "mlm_decoder": ("embed", "vocab"),
+                    "pooler": ("embed", "embed_out"),
+                    "nsp_classifier": ("embed", None)}
 
     def __init__(self, cfg):
         super().__init__()
@@ -198,10 +216,17 @@ class BertForPreTraining(nn.Module):
     def forward(self, input_ids, token_type_ids, attention_mask,
                 segments=None, position_ids=None, cls_positions=None,
                 masked_positions=None):
-        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        mesh = get_abstract_mesh()
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None, :]
+        x = self.embeddings(seq_chunk(input_ids, mesh),
+                            seq_chunk(token_type_ids, mesh),
+                            seq_chunk(position_ids, mesh))
         for i in range(self.cfg.num_layers):
             x = run_layer(getattr(self, "layer_{}".format(i)),
                           self.cfg.remat, x, attention_mask, segments)
+        x = gather_seq(x, mesh)
         xm = x
         if masked_positions is not None:
             idx = masked_positions.long()[:, :, None].expand(

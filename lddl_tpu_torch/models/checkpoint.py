@@ -2,11 +2,14 @@
 
 Counterpart of ``lddl_tpu/models/checkpoint.py`` (``save_train_state``,
 ``latest_step``, ``restore_train_state``) on
-``torch.distributed.checkpoint`` in its single-process mode (no process
-group). Each save writes one directory named by its step under
-``ckpt_dir``, built in a hidden temporary directory and published
-atomically (``utils.io.atomic_publish``), so a crash mid-save leaves the
-previous step intact; ``keep`` prunes the oldest steps.
+``torch.distributed.checkpoint``: in its single-process mode without a
+process group, and collectively from every rank of a world once one is
+up, each rank writing and reading its own shards of a sharded model
+(``create_train_state``). Each save writes one directory named by its
+step under ``ckpt_dir`` (a filesystem every rank sees), built in a hidden
+temporary directory and published atomically by rank 0
+(``utils.io.atomic_publish``), so a crash mid-save leaves the previous
+step intact; ``keep`` prunes the oldest steps.
 
 The payload: the params, AdamW's ``exp_avg``/``exp_avg_sq`` and ``step``
 per parameter, the schedule's update count and the train step counter.
@@ -25,6 +28,7 @@ import warnings
 import torch
 
 from ..utils.io import atomic_publish
+from .sharding import reshard
 
 _TMP_PREFIX = ".tmp-"
 
@@ -43,7 +47,9 @@ def _dcp():
 def _payload(model, optimizer, step):
     """The state dict that is saved and restored in place: tensors of the
     live model and optimizer, so a restore writes straight into them.
-    Optimizer state a fresh optimizer has not made yet is made as zeros."""
+    Optimizer state a fresh optimizer has not made yet is made as zeros;
+    a sharded model gives its shards."""
+    reshard(model)
     opt = optimizer.optimizer
     names = {p: n for n, p in model.named_parameters()}
     moments = {}
@@ -66,6 +72,20 @@ def _payload(model, optimizer, step):
     }
 
 
+def _world():
+    """(rank, world size) of the process group; (0, 1) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier(world):
+    if world > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
 def _steps(ckpt_dir):
     return sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
 
@@ -75,22 +95,33 @@ def save_train_state(ckpt_dir, model, optimizer, step, keep=3):
     as step ``step`` under ``ckpt_dir``; prune to the ``keep`` newest
     steps. Returns the saved step. A step saved already raises."""
     step = int(step)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    rank, world = _world()
     final = os.path.join(ckpt_dir, str(step))
     if os.path.exists(final):
         raise FileExistsError("step {} is already saved under {}".format(
             step, ckpt_dir))
-    tmp = os.path.join(ckpt_dir, "{}{}.{}".format(_TMP_PREFIX, step,
-                                                  os.getpid()))
-    shutil.rmtree(tmp, ignore_errors=True)
+    pid = [os.getpid()]
+    if world > 1:
+        import torch.distributed as dist
+        dist.broadcast_object_list(pid, src=0)
+    tmp = os.path.join(ckpt_dir, "{}{}.{}".format(_TMP_PREFIX, step, pid[0]))
+    if rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    _barrier(world)
     try:
         with _dcp() as dcp:
             dcp.save(_payload(model, optimizer, step), checkpoint_id=tmp)
-        atomic_publish(tmp, final)
+        _barrier(world)
+        if rank == 0:
+            atomic_publish(tmp, final)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for old in _steps(ckpt_dir)[:-keep] if keep else []:
-        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if rank == 0:
+        for old in _steps(ckpt_dir)[:-keep] if keep else []:
+            shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    _barrier(world)
     return step
 
 

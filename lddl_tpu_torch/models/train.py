@@ -1,13 +1,23 @@
 """Pretraining step: loss, clipped AdamW under a warmup-cosine schedule,
-the gathered MLM head, the batch-loss adapter.
+the gathered MLM head, the batch-loss adapter, on one device or sharded
+over a mesh.
 
 Counterpart of ``lddl_tpu/models/train.py`` (``pretrain_loss``,
 ``bert_batch_loss``, ``make_optimizer``, ``mlm_gather_cap``,
 ``_mlm_gather_prologue``, ``_mlm_gather_of``, ``_batch_inputs``,
-``_make_step_fn``, ``make_sharded_multi_step``, ``make_eval_step``) on
-one device. Dropout is a function of (seed, optimizer step) alone, as in
-the reference, so a run restored from a checkpoint continues bit for bit
-like the uninterrupted one. The optimizer keeps optax's semantics:
+``_make_step_fn``, ``create_train_state``, ``make_sharded_train_step``,
+``make_sharded_multi_step``, ``make_eval_step``). Dropout is a function
+of (seed, optimizer step) alone, as in the reference, so a run restored
+from a checkpoint continues bit for bit like the uninterrupted one; on a
+mesh the seed also folds in the rank's data and sp coordinates (never tp:
+tp peers hold replicated activations and must draw the same masks).
+
+On a mesh (``create_train_state`` + the sharded steps) each rank runs its
+local rows: the loss's denominators are the global batch's (all-reduced
+over the data axes), each rank's loss is its share of the global loss,
+gradients are summed (``models.sharding``), and the clip takes the norm
+of the unsharded gradients, so one step equals the unsharded step on the
+global batch. The optimizer keeps optax's semantics:
 global-norm clipping (``optax.clip_by_global_norm``), then AdamW (eps
 outside the sqrt, weight decay on every parameter) at the learning rate
 ``warmup_cosine_decay_schedule(count)``, where the first update uses
@@ -19,37 +29,48 @@ import warnings
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..parallel.mesh import (AXIS_SP, axis_rank, axis_size, data_index,
+                             set_mesh)
 from ..utils.rng import dropout_seed
+from .sharding import (data_sum, reduce_replicated_grads,
+                       replication_counts, reshard, shard_model,
+                       token_cross_entropy)
 
 
 def pretrain_loss(mlm_logits, nsp_logits, labels, next_sentence_labels,
                   ignore_index=-1):
     """Masked-LM cross entropy (mean over masked positions) + NSP cross
-    entropy. Returns (loss, metrics)."""
+    entropy. Returns (loss, metrics).
+
+    Under a mesh with data axes (the sharded steps) the batch is this
+    rank's rows: the denominators are the global batch's counts, the
+    returned loss is this rank's share of the global loss (the shares sum
+    to it) and the metrics are the global batch's."""
     mask = labels != ignore_index
     safe_labels = torch.where(mask, labels, 0).long()
-    mlm_ll = F.cross_entropy(
-        mlm_logits.float().reshape(-1, mlm_logits.shape[-1]),
-        safe_labels.reshape(-1), reduction="none").reshape(labels.shape)
-    denom = mask.sum().clamp_min(1)
-    mlm_loss = torch.where(mask, mlm_ll, 0.0).sum() / denom
+    mlm_ll, mlm_pred = token_cross_entropy(mlm_logits, safe_labels)
     nsp_mask = next_sentence_labels != ignore_index
     nsp_safe = torch.where(nsp_mask, next_sentence_labels, 0).long()
     nsp_ll = F.cross_entropy(
         nsp_logits.float().reshape(-1, nsp_logits.shape[-1]),
         nsp_safe.reshape(-1), reduction="none").reshape(nsp_safe.shape)
-    nsp_denom = nsp_mask.sum().clamp_min(1)
+    denom, nsp_denom = (c.clamp_min(1) for c in data_sum(mask.sum(),
+                                                         nsp_mask.sum()))
+    mlm_loss = torch.where(mask, mlm_ll, 0.0).sum() / denom
     nsp_loss = torch.where(nsp_mask, nsp_ll, 0.0).sum() / nsp_denom
     loss = mlm_loss + nsp_loss
-    mlm_correct = mask & (mlm_logits.argmax(dim=-1) == safe_labels)
-    nsp_correct = nsp_mask & (nsp_logits.argmax(dim=-1) == nsp_safe)
+    mlm_correct, nsp_correct = data_sum(
+        (mask & (mlm_pred == safe_labels)).sum(),
+        (nsp_mask & (nsp_logits.argmax(dim=-1) == nsp_safe)).sum())
+    total, mlm_total, nsp_total = data_sum(loss, mlm_loss, nsp_loss)
     metrics = {
-        "loss": loss,
-        "mlm_loss": mlm_loss,
-        "nsp_loss": nsp_loss,
-        "mlm_accuracy": mlm_correct.sum() / denom,
-        "nsp_accuracy": nsp_correct.sum() / nsp_denom,
+        "loss": total,
+        "mlm_loss": mlm_total,
+        "nsp_loss": nsp_total,
+        "mlm_accuracy": mlm_correct / denom,
+        "nsp_accuracy": nsp_correct / nsp_denom,
     }
     return loss, metrics
 
@@ -78,10 +99,24 @@ def warmup_cosine_decay_schedule(count, peak_value, warmup_steps,
     return peak_value * ((1.0 - alpha) * cosine + alpha)
 
 
+def _param_groups(params):
+    """``params`` split into AdamW parameter groups whose tensors its
+    multi-tensor (foreach) kernels can take together: the plain tensors,
+    and the ``DTensor``s of each mesh (a tp plan without fsdp leaves both
+    kinds in one model, and one foreach op refuses a mix)."""
+    groups = {}
+    for p in params:
+        key = p.device_mesh if isinstance(p, DTensor) else None
+        groups.setdefault(key, []).append(p)
+    return [{"params": group} for group in groups.values()]
+
+
 class ClippedAdamW:
     """Global-norm clipping, then ``torch.optim.AdamW`` under a
     ``LambdaLR`` stepped after every update — optax's
-    ``chain(clip_by_global_norm, adamw(schedule))``."""
+    ``chain(clip_by_global_norm, adamw(schedule))``. AdamW takes its
+    multi-tensor path on every device, the one it takes by default on
+    CUDA, so a run on the CPU goes through the same code."""
 
     def __init__(self, params, learning_rate, weight_decay, warmup_steps,
                  total_steps, b1, b2, clip_norm):
@@ -89,8 +124,8 @@ class ClippedAdamW:
         self.clip_norm = clip_norm
         decay_steps = max(total_steps, warmup_steps + 1)
         self.optimizer = torch.optim.AdamW(
-            self.params, lr=learning_rate, betas=(b1, b2), eps=1e-8,
-            weight_decay=weight_decay)
+            _param_groups(self.params), lr=learning_rate, betas=(b1, b2),
+            eps=1e-8, weight_decay=weight_decay, foreach=True)
 
         def factor(count):
             if learning_rate == 0:
@@ -107,14 +142,40 @@ class ClippedAdamW:
 
     def clip_grads(self):
         """optax.clip_by_global_norm: g / norm * clip_norm when the global
-        norm is at least clip_norm. Returns the norm (a device tensor)."""
+        norm is at least clip_norm. Returns the norm (a device tensor).
+
+        Sharded gradients (``DTensor``s) give the norm of the unsharded
+        ones: each rank's squares, each tensor counted once over the
+        ranks that hold the same values, summed over the world, so every
+        rank clips alike."""
         grads = [p.grad for p in self.params if p.grad is not None]
+        if any(isinstance(g, DTensor) for g in grads):
+            return self._clip_sharded(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self._scale(grads, norm)
+        return norm
+
+    def _clip_sharded(self, grads):
+        import torch.distributed as dist
+        counts = replication_counts(grads)
+        grads = [g.to_local() if isinstance(g, DTensor) else g
+                 for g in grads]
+        norms = torch._foreach_norm(grads)
+        if any(c != 1 for c in counts):
+            norms = torch._foreach_div(norms, [math.sqrt(c) for c in counts])
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+        if dist.get_world_size() > 1:
+            square = norm.square()
+            dist.all_reduce(square)
+            norm = square.sqrt()
+        self._scale(grads, norm)
+        return norm
+
+    def _scale(self, grads, norm):
         keep = norm < self.clip_norm
         torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
         torch._foreach_mul_(grads, torch.where(keep, 1.0, self.clip_norm)
                             .to(norm.dtype))
-        return norm
 
     def step(self):
         norm = self.clip_grads()
@@ -219,6 +280,47 @@ def _resolve_batch_loss(batch_loss, ignore_index):
     return default_loss, True
 
 
+def _mesh_totals(extra):
+    """The prologue's counts summed over the data axes."""
+    return dict(zip(extra, data_sum(*extra.values()))) if extra else extra
+
+
+def _make_step(model, optimizer, ignore_index, batch_loss, mesh):
+    batch_loss, gather_ok = _resolve_batch_loss(batch_loss, ignore_index)
+    device = next(model.parameters()).device
+    rng_devices = [device] if device.type == "cuda" else []
+    sp = axis_size(mesh, AXIS_SP)
+    # The dropout stream: the rank's data block and sp chunk (0 on one
+    # device), never its tp coordinate.
+    stream = 0 if mesh is None else (data_index(mesh) * sp
+                                     + axis_rank(mesh, AXIS_SP))
+
+    def step(batch, seed=0):
+        model.train()
+        with set_mesh(mesh):
+            kwargs, batch, extra = _mlm_gather_prologue(
+                model, batch, ignore_index, gather_ok)
+            with torch.random.fork_rng(devices=rng_devices,
+                                       device_type=device.type):
+                torch.manual_seed(dropout_seed(seed, optimizer.step_count,
+                                               stream))
+                outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
+                                **kwargs)
+                loss, metrics = batch_loss(outputs, batch)
+                optimizer.zero_grad()
+                # Every sp rank computes the whole loss of its rows after
+                # the heads' gather; the sum over sp counts it once.
+                (loss / sp if sp > 1 else loss).backward()
+            extra = _mesh_totals(extra)
+        if mesh is not None:
+            reduce_replicated_grads(model, mesh)
+        optimizer.step()
+        metrics.update(extra)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 def make_train_step(model, optimizer, ignore_index=-1, batch_loss=None):
     """A train step: ``step(batch, seed=0)`` on a batch of tensors on the
     model's device -> metrics (device tensors; reading them syncs the
@@ -234,27 +336,29 @@ def make_train_step(model, optimizer, ignore_index=-1, batch_loss=None):
     outputs (e.g. ``bart.bart_batch_loss``); bind its ignore_index
     yourself. The default is BERT's loss with the gathered MLM head
     (``cfg.mlm_gather``), on only for the default loss."""
-    batch_loss, gather_ok = _resolve_batch_loss(batch_loss, ignore_index)
-    device = next(model.parameters()).device
-    rng_devices = [device] if device.type == "cuda" else []
+    return _make_step(model, optimizer, ignore_index, batch_loss, None)
 
-    def step(batch, seed=0):
-        model.train()
-        kwargs, batch, extra = _mlm_gather_prologue(model, batch,
-                                                    ignore_index, gather_ok)
-        with torch.random.fork_rng(devices=rng_devices,
-                                   device_type=device.type):
-            torch.manual_seed(dropout_seed(seed, optimizer.step_count))
-            outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
-                            **kwargs)
-            loss, metrics = batch_loss(outputs, batch)
-            optimizer.zero_grad()
-            loss.backward()
-        optimizer.step()
-        metrics.update(extra)
-        return {k: v.detach() for k, v in metrics.items()}
 
-    return step
+def make_sharded_train_step(mesh, model, optimizer, ignore_index=-1,
+                            batch_loss=None):
+    """``make_train_step`` over ``mesh`` for a model and optimizer from
+    ``create_train_state``: ``step(batch, seed=0)`` -> the global batch's
+    metrics on every rank. ``batch`` is this rank's rows (tensors on its
+    device, ``loader.to_device_batch``), the same on tp and sp peers.
+    Each rank's dropout seed folds in its data and sp coordinates. A
+    custom ``batch_loss`` returns this rank's share of the
+    global loss (``pretrain_loss`` and ``bart_batch_loss`` do)."""
+    return _make_step(model, optimizer, ignore_index, batch_loss, mesh)
+
+
+def _make_multi(step, n_steps):
+    def multi(batches, seed=0):
+        per_step = [step({k: v[i] for k, v in batches.items()}, seed)
+                    for i in range(n_steps)]
+        return {k: torch.stack([m[k] for m in per_step])
+                for k in per_step[0]}
+
+    return multi
 
 
 def make_multi_step(model, optimizer, n_steps, ignore_index=-1,
@@ -265,21 +369,25 @@ def make_multi_step(model, optimizer, n_steps, ignore_index=-1,
     step per slice and returns the metrics stacked over the steps.
     Dropout still varies per step: each step folds the seed with its own
     update count."""
-    step = make_train_step(model, optimizer, ignore_index, batch_loss)
-
-    def multi(batches, seed=0):
-        per_step = [step({k: v[i] for k, v in batches.items()}, seed)
-                    for i in range(n_steps)]
-        return {k: torch.stack([m[k] for m in per_step])
-                for k in per_step[0]}
-
-    return multi
+    return _make_multi(make_train_step(model, optimizer, ignore_index,
+                                       batch_loss), n_steps)
 
 
-def make_eval_step(model, ignore_index=-1, batch_loss=None):
+def make_sharded_multi_step(mesh, model, optimizer, n_steps, ignore_index=-1,
+                            batch_loss=None):
+    """``make_multi_step`` over ``mesh``: ``multi(batches, seed=0)`` on
+    this rank's stacked rows (``loader.to_device_step_batches``)."""
+    return _make_multi(make_sharded_train_step(mesh, model, optimizer,
+                                               ignore_index, batch_loss),
+                       n_steps)
+
+
+def make_eval_step(model, ignore_index=-1, batch_loss=None, mesh=None):
     """A forward-only step: ``eval_step(batch)`` -> metrics, with the
     model in eval mode (no dropout) under ``torch.no_grad`` and the train
-    step's gather prologue. The first step that drops masked labels past
+    step's gather prologue. With ``mesh`` (a model from
+    ``create_train_state``) the batch is this rank's rows and the metrics
+    the global batch's. The first step that drops masked labels past
     the gather's cap raises a ``RuntimeWarning``: eval numbers are read
     as exact, and ``cfg.mlm_gather=False`` gives them so."""
     batch_loss, gather_ok = _resolve_batch_loss(batch_loss, ignore_index)
@@ -289,14 +397,18 @@ def make_eval_step(model, ignore_index=-1, batch_loss=None):
         was_training = model.training
         model.eval()
         try:
-            kwargs, batch, extra = _mlm_gather_prologue(
-                model, batch, ignore_index, gather_ok)
-            with torch.no_grad():
-                outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
-                                **kwargs)
-                _, metrics = batch_loss(outputs, batch)
+            with set_mesh(mesh):
+                kwargs, batch, extra = _mlm_gather_prologue(
+                    model, batch, ignore_index, gather_ok)
+                with torch.no_grad():
+                    outputs = model(*(batch[k] for k in model.BATCH_INPUTS),
+                                    **kwargs)
+                    _, metrics = batch_loss(outputs, batch)
+                extra = _mesh_totals(extra)
         finally:
             model.train(was_training)
+            if mesh is not None:
+                reshard(model)
         metrics.update(extra)
         if not warned[0] and "mlm_dropped_labels" in metrics:
             if int(metrics["mlm_dropped_labels"]) > 0:
@@ -310,3 +422,32 @@ def make_eval_step(model, ignore_index=-1, batch_loss=None):
         return metrics
 
     return eval_step
+
+
+def create_train_state(config, mesh, seed=0, optimizer=None, model=None,
+                       params=None):
+    """A model and optimizer sharded over ``mesh`` (``models.sharding``'s
+    plan): returns (model, optimizer).
+
+    The model is ``model`` or ``BertForPreTraining(config)`` built on the
+    rank's device under ``torch.manual_seed(seed)`` (the same weights on
+    every rank), then loaded from ``params`` (a state dict, e.g.
+    ``convert.flax_to_state_dict`` of a reference param tree) when given,
+    and sharded. ``optimizer(params)`` builds the optimizer
+    (``make_optimizer`` by default); AdamW's moments take their
+    parameters' placements."""
+    from .bert import BertForPreTraining
+    device = torch.device(mesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if model is None:
+        with torch.random.fork_rng(
+                devices=[device] if device.type == "cuda" else [],
+                device_type=device.type):
+            torch.manual_seed(seed)
+            with device:
+                model = BertForPreTraining(config)
+    if params is not None:
+        model.load_state_dict(params)
+    shard_model(model.to(device), mesh)
+    return model, (optimizer or make_optimizer)(model.parameters())

@@ -1,0 +1,28 @@
+from .distributed import (Communicator, LocalCommunicator,
+                          ThreadGroupCommunicator, TorchCommunicator,
+                          get_communicator, init_distributed, node_info,
+                          run_world)
+from .mesh import (AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_SP, AXIS_TP, DATA_AXES,
+                   data_parallel_size, get_abstract_mesh, make_mesh,
+                   set_mesh)
+
+__all__ = [
+    "AXIS_DP",
+    "AXIS_FSDP",
+    "AXIS_PP",
+    "AXIS_SP",
+    "AXIS_TP",
+    "Communicator",
+    "DATA_AXES",
+    "LocalCommunicator",
+    "ThreadGroupCommunicator",
+    "TorchCommunicator",
+    "data_parallel_size",
+    "get_abstract_mesh",
+    "get_communicator",
+    "init_distributed",
+    "make_mesh",
+    "node_info",
+    "run_world",
+    "set_mesh",
+]

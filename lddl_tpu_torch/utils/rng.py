@@ -12,8 +12,9 @@ generator whose 128-bit key is the blake2b digest of the scope tuple.
 - ``sample_rng(seed, *scope)``: a one-off stream (per-worker dynamic
   masking in the collate).
 
-``dropout_seed(seed, step)`` is the port's own: the torch seed of one
-train step's dropout masks, a function of (seed, step) alone.
+``dropout_seed(seed, step, stream)`` is the port's own: the torch seed of
+one train step's dropout masks, a function of (seed, step) and, on a
+mesh, of the rank's stream alone.
 """
 
 import hashlib
@@ -89,9 +90,12 @@ def choices(rng, population, weights, k=1):
     return [population[int(i)] for i in idx]
 
 
-def dropout_seed(seed, step):
+def dropout_seed(seed, step, stream=0):
     """A 63-bit ``torch.manual_seed`` value for the dropout of train step
     ``step`` under ``seed``, the counterpart of the reference's
-    ``fold_in(PRNGKey(seed), step)``."""
-    digest = _key_bytes(_DROPOUT_TAG, seed, step)[:8]
+    ``fold_in(PRNGKey(seed), step)``. ``stream`` separates the ranks of a
+    mesh that must draw different masks (the sharded steps pass the
+    rank's data and sp coordinates); stream 0 is the one-device seed."""
+    scope = (_DROPOUT_TAG, seed, step) + ((stream,) if stream else ())
+    digest = _key_bytes(*scope)[:8]
     return int.from_bytes(digest, "little") >> 1

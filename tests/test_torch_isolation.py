@@ -62,7 +62,10 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.models, lddl_tpu_torch.models.convert, "
             "lddl_tpu_torch.models.checkpoint, lddl_tpu_torch.ops.packing, "
             "lddl_tpu_torch.preprocess.packing, lddl_tpu_torch.utils.io, "
-            "lddl_tpu_torch.ops.flash_attention, lddl_tpu_torch.testing; "
+            "lddl_tpu_torch.ops.flash_attention, lddl_tpu_torch.testing, "
+            "lddl_tpu_torch.parallel, lddl_tpu_torch.parallel.testing, "
+            "lddl_tpu_torch.loader.sharding, lddl_tpu_torch.models.sharding, "
+            "lddl_tpu_torch.ops.ring_attention, lddl_tpu_torch.entry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
