@@ -73,7 +73,29 @@ exits non-zero):
    host-clock step times of both, and of the plan on a mesh of tp alone
    and of fsdp alone; a sharded eval step; a sharded checkpoint saved,
    restored into a model from another seed and a bit-identical next
-   step; ``entry.dryrun_multichip(1)``.
+   step; ``entry.dryrun_multichip(1)``;
+8. offline BERT data path, at the README Quickstart's phase-2 setting:
+   the native engine built with g++ (its committed ``unicode_tables.h``
+   must be calibrated for this Python's ``unicodedata``); the torch
+   maskers on the card against the same maskers on the CPU at 4096 x 512
+   (token and whole-word: masks and selections bit-identical, the
+   counts, candidates, whole words and the 80/10/10 split held); a
+   128 MiB text corpus from a seed (64 files of documents of 5-60
+   sentences over bert_large's 30522-token vocab) through the port's
+   preprocess CLI (target length 512, bins of 64, static masking,
+   duplicate factor 5, sample ratio 0.9, 64 blocks, schema v2, up to 16
+   spawned workers) with ``--engine torch`` on the card and then
+   ``--engine numpy``: wall time, MB/s, the CUDA contexts and device
+   memory the workers held; the two runs' shard names, row counts and
+   every unmasked column equal and, with the labels put back, every id
+   sequence equal; instances per bin; one bucket's masking by each
+   engine; ``balance_shards`` to 64 shards a bin (each within 1 of its
+   bin's mean, ``.num_samples.json`` and ``.manifest.json`` written);
+   the loader alone (batch 16, the 8 bins' lengths): batches/s and
+   tokens/s; then bert_large steps from the loader through
+   ``prefetch_to_device``, 2 in each bin reached, with finite losses and
+   ``onekv_fwd``/``onekv_bwd`` 24 times in each step of a bin with
+   L_pad >= 256.
 
 Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
@@ -116,6 +138,27 @@ DIST_BINS = [256, 512]
 DIST_STEPS = 3
 DIST_LOSS_RTOL = 1e-6
 DIST_PARAM_ATOL = 1e-6
+
+# The offline BERT data path (phase 8), at the README Quickstart's
+# phase-2 setting: a corpus of DATA_CORPUS_BYTES in DATA_FILES files ->
+# preprocess at target length 512, 64-token bins, static masking ->
+# DATA_SHARDS balanced shards a bin -> the loader -> bert_large.
+DATA_CORPUS_BYTES = 128 << 20
+DATA_FILES = 64
+DATA_TARGET, DATA_BIN = 512, 64
+DATA_BINS = [DATA_BIN * (i + 1) for i in range(DATA_TARGET // DATA_BIN)]
+DATA_SHARDS = 64
+DATA_LOADER_BATCHES = 400    # loader alone: batches timed after the first
+DATA_STEPS_PER_BIN = 2       # bert_large steps in each bin reached
+DATA_MAX_BATCHES = 400       # batches drawn, at most, to reach the bins
+MASK_ROWS, MASK_WIDTH = 4096, 512
+BUCKET_MIN_ROWS = 2048       # the bucket whose masking is timed, at least
+# Columns the masks change (masked tokens) or are (positions, labels):
+# the only ones the torch and numpy engines may disagree on.
+MASKED_COLUMNS = {"A", "B", "A_ids", "B_ids", "masked_lm_positions",
+                  "masked_lm_labels", "masked_lm_positions_ids",
+                  "masked_lm_label_ids"}
+
 
 
 def card_line():
@@ -1458,6 +1501,450 @@ def distributed_path(fa, card):
         dist.destroy_process_group()
 
 
+class DeviceWatch:
+    """Polls every 0.25 s while a command runs: the device memory in use
+    (``torch.cuda.mem_get_info``, the most seen beyond what was in use
+    at the start) and the command's processes that have mapped the CUDA
+    driver library (``/proc/<pid>/maps``), i.e. that opened a CUDA
+    context."""
+
+    def __init__(self, root_pid):
+        import threading
+        self.root, self.cuda_pids, self.procs, self.used = root_pid, set(), \
+            set(), 0
+        free, total = torch.cuda.mem_get_info()
+        self.base = total - free
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _descendants(self):
+        parent = {}
+        for pid in os.listdir("/proc"):
+            if pid.isdigit():
+                try:
+                    with open("/proc/{}/stat".format(pid)) as f:
+                        parent[int(pid)] = int(
+                            f.read().rsplit(")", 1)[1].split()[1])
+                except (OSError, IndexError, ValueError):
+                    continue
+        out = set()
+        for pid in parent:
+            p = pid
+            while p in parent and p != self.root and p > 1:
+                p = parent[p]
+            if p == self.root:
+                out.add(pid)
+        return out
+
+    def _run(self):
+        while not self._stop.wait(0.25):
+            free, total = torch.cuda.mem_get_info()
+            self.used = max(self.used, total - free)
+            for pid in self._descendants() - self.cuda_pids:
+                self.procs.add(pid)
+                try:
+                    with open("/proc/{}/maps".format(pid)) as f:
+                        if "libcuda.so" in f.read():
+                            self.cuda_pids.add(pid)
+                except OSError:
+                    continue
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        return {"cuda_procs": len(self.cuda_pids - {self.root}),
+                "procs": len(self.procs - {self.root}),
+                "held_mib": (self.used - self.base) / 2**20}
+
+
+def preprocess_cli(corpus, vocab, out, engine, workers, card):
+    """The port's preprocess CLI in a process of its own (its spawned
+    workers then import the CLI module, not this script); returns
+    (seconds, device watch)."""
+    cmd = [sys.executable, "-m", "lddl_tpu_torch.cli.preprocess_bert_pretrain",
+           "--wikipedia", corpus, "--sink", out, "--vocab-file", vocab,
+           "--target-seq-length", str(DATA_TARGET), "--bin-size",
+           str(DATA_BIN), "--masking", "--duplicate-factor", "5",
+           "--sample-ratio", "0.9", "--seed", "12345", "--num-blocks", "64",
+           "--schema-version", "2", "--local-workers", str(workers),
+           "--engine", engine] + (["--device", "cuda"] if engine == "torch"
+                                  else [])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=root,
+                            env=env)
+    watch = DeviceWatch(proc.pid)
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        seen = watch.stop()
+    secs = time.perf_counter() - t0
+    for line in stdout.splitlines()[-4:]:
+        print("preprocess {}: {}".format(engine, line), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError("preprocess --engine {} failed ({}):\n{}".format(
+            engine, proc.returncode, stderr[-4000:]))
+    return secs, seen
+
+
+def shard_tables(out):
+    import pyarrow.parquet as pq
+    names = sorted(n for n in os.listdir(out) if ".parquet" in n)
+    return {n: pq.read_table(os.path.join(out, n)) for n in names}
+
+
+def unmasked_ids(table):
+    """The [CLS] A [SEP] B [SEP] id sequences of a masked shard with every
+    label put back at its position, flat: what the masks were drawn on."""
+    import numpy as np
+    from lddl_tpu_torch.preprocess.arrowcols import concat_aranges
+
+    def flat(name):
+        col = table.column(name).combine_chunks()
+        offs = col.offsets.to_numpy()
+        return (col.values.to_numpy()[offs[0]:offs[-1]],
+                np.diff(offs).astype(np.int64))
+
+    a, a_lens = flat("A_ids")
+    b, b_lens = flat("B_ids")
+    pos, p_lens = flat("masked_lm_positions_ids")
+    lab, _ = flat("masked_lm_label_ids")
+    lens = a_lens + b_lens + 3
+    start = np.cumsum(lens) - lens
+    seq = np.full(int(lens.sum()), -1, dtype=np.int64)
+    seq[np.repeat(start + 1, a_lens) + concat_aranges(a_lens)] = a
+    seq[np.repeat(start + 2 + a_lens, b_lens) + concat_aranges(b_lens)] = b
+    seq[np.repeat(start, p_lens) + pos] = lab
+    return seq, p_lens, lens
+
+
+def mask_invariants(what, ids, cand, num, out, sel, mask_id, groups=None):
+    """The maskers' invariants on [N, L] numpy arrays: rows take
+    min(num, candidates) positions (at most num for whole words), only
+    candidates, unselected positions unchanged, whole words atomic, and
+    the 80/10/10 split within 6 standard deviations."""
+    import numpy as np
+    if (sel & ~cand).any():
+        raise AssertionError("{}: a non-candidate was selected".format(what))
+    if (out[~sel] != ids[~sel]).any():
+        raise AssertionError("{}: an unselected position changed"
+                             .format(what))
+    taken = sel.sum(1)
+    if groups is None:
+        want = np.minimum(num, cand.sum(1))
+        if (taken != want).any():
+            raise AssertionError("{}: per-row counts differ".format(what))
+    else:
+        if (taken > num).any() or taken.sum() < 0.9 * num.sum():
+            raise AssertionError("{}: per-row counts {} vs budgets {}"
+                                 .format(what, taken.sum(), num.sum()))
+        cont = groups
+        if (sel[:, 1:][cont[:, 1:]] != sel[:, :-1][cont[:, 1:]]).any():
+            raise AssertionError("{}: a whole word was split".format(what))
+    n = int(sel.sum())
+    frac = {"mask": float((out[sel] == mask_id).sum()) / n,
+            "kept": float((out[sel] == ids[sel]).sum()) / n}
+    frac["random"] = 1 - frac["mask"] - frac["kept"]
+    for key, p in (("mask", 0.8), ("kept", 0.1), ("random", 0.1)):
+        if abs(frac[key] - p) > 6 * math.sqrt(p * (1 - p) / n):
+            raise AssertionError("{}: {} share {:.4f} over {} selections"
+                                 .format(what, key, frac[key], n))
+    return n, frac
+
+
+def check_maskers(tok_info, card):
+    """The torch maskers on the card against the same maskers on the CPU
+    at MASK_ROWS x MASK_WIDTH: masks and selections bit-identical, the
+    invariants held on both; device times of the card's."""
+    import numpy as np
+    from lddl_tpu_torch.ops import masking
+    g = np.random.default_rng(5)
+    n, w, vocab = MASK_ROWS, MASK_WIDTH, tok_info.vocab_size
+    lens = g.integers(8, w + 1, n)
+    a_lens = (g.random(n) * (lens - 3)).astype(np.int64).clip(1)
+    ids = g.integers(5, vocab, (n, w)).astype(np.int32)
+    cand = np.arange(w)[None] < lens[:, None]
+    cand[:, 0] = False
+    cand[np.arange(n), a_lens + 1] = False
+    cand[np.arange(n), lens - 1] = False
+    num = masking.plan_num_to_predict(lens, 0.15, 77)
+    is_sub = tok_info.is_subword
+    cont = np.zeros_like(cand)
+    cont[:, 1:] = cand[:, 1:] & cand[:, :-1] & is_sub[ids[:, 1:]]
+    for wwm in (False, True):
+        name = "whole-word" if wwm else "token"
+        make = (functools.partial(masking.make_torch_whole_word_masker,
+                                  tok_info.mask_id, vocab, is_sub)
+                if wwm else functools.partial(masking.make_torch_masker,
+                                              tok_info.mask_id, vocab))
+        card_run, cpu_run = make(device="cuda"), make(device="cpu")
+        got = card_run(ids, cand, num, 12345)
+        ref = cpu_run(ids, cand, num, 12345)
+        for label, x, y in zip(("masks", "selections"), got, ref):
+            if not np.array_equal(x, y):
+                raise AssertionError("{} masker: card and CPU {} differ in "
+                                     "{} places".format(name, label,
+                                                        int((x != y).sum())))
+        for where, (out, sel) in (("card", got), ("cpu", ref)):
+            k, frac = mask_invariants(
+                "{} masker on the {}".format(name, where), ids, cand, num,
+                out, sel, tok_info.mask_id, cont if wwm else None)
+        fn = (masking.mask_whole_word_batch_torch if wwm
+              else masking.mask_batch_torch)
+        extra = ({"is_subword": torch.as_tensor(is_sub, device="cuda")}
+                 if wwm else {})
+        ids_t = torch.as_tensor(ids, device="cuda")
+        cand_t = torch.as_tensor(cand, device="cuda")
+        num_t = torch.as_tensor(num, device="cuda")
+        ms = cuda_time_ms(lambda: fn(ids_t, cand_t, num_t, 12345,
+                                     tok_info.mask_id, vocab, **extra),
+                          iters=5, warmup=1)
+        t0 = time.perf_counter()
+        card_run(ids, cand, num, 12345)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        print("{} masker {}x{}: card == cpu bit for bit; {} selections, "
+              "shares mask {:.4f} kept {:.4f} random {:.4f}; {:.3f} ms "
+              "event-timed on the card, {:.2f} ms with the host copies "
+              "({})".format(
+                  name, n, w, k, frac["mask"], frac["kept"], frac["random"],
+                  ms, host_ms, card), flush=True)
+
+
+def time_bucket_masking(root, tok_info, card):
+    """One bucket's static masking as the preprocess runs it: block 0's
+    documents -> instances (native) -> apply_static_masking with the
+    numpy engine (the native Philox replay, at the workers' native thread
+    budget) and with the torch engine on the card."""
+    import numpy as np
+    from lddl_tpu_torch.preprocess.bert import (
+        BertPretrainConfig, apply_static_masking, instances_from_texts)
+    from lddl_tpu_torch.preprocess.readers import (
+        discover_source_files, plan_blocks, read_documents)
+    blocks = plan_blocks(discover_source_files({"w": root}), 64)
+    texts = [t for _, t in read_documents(blocks[0], 0.9, 12345)]
+    times = {}
+    for engine in ("numpy", "torch", "torch", "numpy"):
+        cfg = BertPretrainConfig(max_seq_length=DATA_TARGET, masking=True,
+                                 engine=engine, device="cuda")
+        batch = instances_from_texts(texts, tok_info, cfg, 12345, 0)
+        t0 = time.perf_counter()
+        masked, _, ids, _, _ = apply_static_masking(batch, cfg, tok_info,
+                                                    12345, (0x3A5C, 0))
+        times.setdefault(engine, []).append(time.perf_counter() - t0)
+    if len(batch) < BUCKET_MIN_ROWS or ids.shape[1] != DATA_TARGET:
+        raise AssertionError("bucket of {} rows x {}".format(len(batch),
+                                                             ids.shape[1]))
+    print("bucket masking, {} rows x {} (native threads {}): numpy engine "
+          "{:.2f} ms, torch engine on the card {:.2f} ms (means of 2 "
+          "turns; {})".format(
+              len(batch), ids.shape[1],
+              os.environ.get("LDDL_TPU_NATIVE_THREADS", "1"),
+              1e3 * np.mean(times["numpy"]), 1e3 * np.mean(times["torch"]),
+              card), flush=True)
+
+
+def data_path(fa, card):
+    """The offline BERT data path on the card: corpus -> preprocess
+    (torch engine on the card, then numpy) -> balance -> loader ->
+    bert_large steps. Returns the launch counts of the counted steps."""
+    import unicodedata
+
+    import numpy as np
+    from lddl_tpu_torch import native
+    from lddl_tpu_torch.balance import balance_shards
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.native import build as native_build
+    from lddl_tpu_torch.native.gen_tables import header_calibration
+    from lddl_tpu_torch.ops.masking import plan_num_to_predict
+    from lddl_tpu_torch.preprocess import get_tokenizer
+    from lddl_tpu_torch.preprocess.bert import TokenizerInfo
+    from lddl_tpu_torch.testing import write_text_corpus, write_vocab
+    from lddl_tpu_torch.utils.cpus import usable_cpu_count
+    from lddl_tpu_torch.utils.fs import read_num_samples_cache
+
+    tag = header_calibration(native_build.TABLES)
+    want = "unicodedata=" + unicodedata.unidata_version
+    if want not in tag.split(";"):
+        raise AssertionError("unicode_tables.h is calibrated for {} but "
+                             "this Python has {}".format(tag, want))
+    t0 = time.perf_counter()
+    native._load()
+    print("native engine: built and loaded in {:.1f} s; tables {}".format(
+        time.perf_counter() - t0, tag), flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        t0 = time.perf_counter()
+        nbytes = write_text_corpus(tmp, tokens, DATA_CORPUS_BYTES,
+                                   num_files=DATA_FILES, seed=0)
+        print("corpus: {} bytes in {} files in {:.1f} s".format(
+            nbytes, DATA_FILES, time.perf_counter() - t0), flush=True)
+        tok_info = TokenizerInfo(get_tokenizer(vocab))
+        check_maskers(tok_info, card)
+
+        workers = min(16, usable_cpu_count())
+        outs, runs = {}, {}
+        for engine in ("torch", "numpy"):
+            outs[engine] = os.path.join(tmp, "pre_" + engine)
+            secs, seen = preprocess_cli(tmp, vocab, outs[engine], engine,
+                                        workers, card)
+            runs[engine] = secs
+            print("preprocess --engine {}: {:.1f} s for {} bytes, {:.2f} "
+                  "MB/s, {} workers; {} of the run's {} processes opened a "
+                  "CUDA context, device memory held beyond this process's "
+                  "at most {:.0f} MiB ({})".format(
+                      engine, secs, nbytes, nbytes / 1e6 / secs, workers,
+                      seen["cuda_procs"], seen["procs"], seen["held_mib"],
+                      card), flush=True)
+            if (engine == "torch") != (seen["cuda_procs"] > 0):
+                raise AssertionError("--engine {}: {} processes opened a "
+                                     "CUDA context".format(
+                                         engine, seen["cuda_procs"]))
+        t0 = time.perf_counter()
+        tables = {e: shard_tables(outs[e]) for e in outs}
+        n_shards = len(tables["numpy"])
+        if list(tables["torch"]) != list(tables["numpy"]):
+            raise AssertionError("the engines wrote different shard names")
+        per_bin, rows_masked = {}, 0
+        for name, t in tables["torch"].items():
+            r = tables["numpy"][name]
+            if t.num_rows != r.num_rows or t.schema != r.schema:
+                raise AssertionError("{}: rows or schema differ".format(name))
+            for col in t.column_names:
+                if col not in MASKED_COLUMNS and not t.column(col).equals(
+                        r.column(col)):
+                    raise AssertionError("{}: column {} differs".format(
+                        name, col))
+            seq_t, n_t, lens = unmasked_ids(t)
+            seq_r, _, _ = unmasked_ids(r)
+            if not np.array_equal(seq_t, seq_r):
+                raise AssertionError("{}: the unmasked sequences differ"
+                                     .format(name))
+            if not np.array_equal(n_t, plan_num_to_predict(lens, 0.15, 77)):
+                raise AssertionError("{}: masked counts differ from the plan"
+                                     .format(name))
+            rows_masked += int(n_t.sum())
+            b = int(name.rsplit("_", 1)[1])
+            per_bin[b] = per_bin.get(b, 0) + t.num_rows
+        del tables
+        print("engines agree: {} shards, every unmasked column and every "
+              "unmasked sequence equal, {} masked positions at the planned "
+              "counts ({:.1f} s)".format(n_shards, rows_masked,
+                                         time.perf_counter() - t0),
+              flush=True)
+        print("instances per bin: {}".format(json.dumps(
+            {str(DATA_BINS[b]): n for b, n in sorted(per_bin.items())})),
+            flush=True)
+        shutil.rmtree(outs["numpy"])
+        time_bucket_masking(tmp, tok_info, card)
+
+        bal = os.path.join(tmp, "balanced")
+        t0 = time.perf_counter()
+        counts = balance_shards(outs["torch"], bal, DATA_SHARDS)
+        secs = time.perf_counter() - t0
+        for b in per_bin:
+            got = [n for k, n in counts.items()
+                   if k.endswith("_{}".format(b))]
+            if (len(got) != DATA_SHARDS or sum(got) != per_bin[b]
+                    or max(got) - min(got) > 1):
+                raise AssertionError("bin {}: {} shards, {} rows, spread "
+                                     "{}".format(b, len(got), sum(got),
+                                                 max(got) - min(got)))
+        for name in (".num_samples.json", ".manifest.json"):
+            if not os.path.isfile(os.path.join(bal, name)):
+                raise AssertionError("balance wrote no " + name)
+        if read_num_samples_cache(bal) != counts:
+            raise AssertionError(".num_samples.json disagrees")
+        print("balance: {} shards ({} a bin) in {:.1f} s ({})".format(
+            len(counts), DATA_SHARDS, secs, card), flush=True)
+        shutil.rmtree(outs["torch"])
+
+        def loader():
+            return get_bert_pretrain_data_loader(
+                bal, vocab_file=vocab, batch_size=16,
+                fixed_seq_lengths=DATA_BINS, base_seed=12345)
+
+        it = iter(loader())
+        t0 = time.perf_counter()
+        next(it)
+        first = time.perf_counter() - t0
+        padded = real = 0
+        t0 = time.perf_counter()
+        for _ in range(DATA_LOADER_BATCHES):
+            batch = next(it)
+            padded += int(np.prod(batch["input_ids"].shape))
+            real += int(batch["attention_mask"].sum())
+        secs = time.perf_counter() - t0
+        print("loader alone: first batch {:.2f} s, then {} batches of 16 in "
+              "{:.2f} s: {:.1f} batches/s, {:.0f} padded tokens/s, {:.0f} "
+              "real tokens/s ({})".format(
+                  first, DATA_LOADER_BATCHES, secs,
+                  DATA_LOADER_BATCHES / secs, padded / secs, real / secs,
+                  card), flush=True)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+        steps = {}
+        zero_launches(fa)
+        it = iter(prefetch_to_device(loader()))
+        try:
+            for _ in range(DATA_MAX_BATCHES):
+                batch = next(it)
+                l_bin = batch["input_ids"].shape[1]
+                if steps.get(l_bin, 0) >= DATA_STEPS_PER_BIN:
+                    continue
+                t0 = time.perf_counter()
+                metrics = step(batch, seed=0)
+                loss = float(metrics["loss"])  # syncs the device
+                dt = time.perf_counter() - t0
+                steps[l_bin] = steps.get(l_bin, 0) + 1
+                print("data step L={} loss={:.4f} mlm_acc={:.4f} {:.1f} ms "
+                      "({})".format(l_bin, loss,
+                                    float(metrics["mlm_accuracy"]),
+                                    dt * 1e3, card), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at L={}".format(
+                        l_bin))
+                if len(steps) == len(DATA_BINS) and min(
+                        steps.values()) >= DATA_STEPS_PER_BIN:
+                    break
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        kernel_steps = sum(n for l_bin, n in steps.items()
+                           if fa.single_block_serves(l_bin, 64))
+        want = cfg.num_layers * kernel_steps
+        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("data-path launch counts {} != {} per "
+                                 "single-block kernel ({} steps)".format(
+                                     launches, want, steps))
+        print("bins reached {} (steps a bin); launches: {}".format(
+            json.dumps({str(k): v for k, v in sorted(steps.items())}),
+            launches), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1516,7 +2003,8 @@ def main():
     by_path = {"bert_binned": bert_path(fa, card),
                "bert_packed": packed_path(fa, card),
                "bart": bart_path(fa, card),
-               "bert_sharded": distributed_path(fa, card)}
+               "bert_sharded": distributed_path(fa, card),
+               "bert_data": data_path(fa, card)}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}

@@ -1,5 +1,10 @@
 """PyTorch/CUDA port of lddl_tpu for NVIDIA Hopper (H100).
 
+The offline BERT data path makes the shards: a text corpus ->
+``preprocess.run_bert_preprocess`` (the native C++ engine, static
+masking with numpy or the torch maskers of ``ops.masking``) ->
+``balance.balance_shards``; ``cli`` runs both as commands.
+
 It carries two pretraining paths: BERT NSP+MLM (balanced, length-binned
 schema-v2 shards -> ``loader`` -> host-to-device prefetch ->
 ``models.BertForPreTraining`` -> ``models.train``: pretrain loss, clipped

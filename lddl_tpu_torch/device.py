@@ -7,14 +7,13 @@ the CPU must not pass for a device number.
 
 import os
 
-import torch
-
 
 def resolve_device(device=None):
     """``torch.device`` for an entry point: ``cuda`` when ``device`` is None
     (``cuda:LOCAL_RANK`` once a process group is up); raises when CUDA is
     requested (explicitly or by default) and no card is present. Pass
     ``device="cpu"`` to run on the CPU."""
+    import torch
     if device is None:
         import torch.distributed as dist
         device = "cuda"

@@ -4,8 +4,8 @@ The port's own copy of the pure part of
 ``lddl_tpu/preprocess/packing.py``: ``ffd_pack``, ``pack_columns``,
 ``pack_meta_of``, ``pack_shape_of_schema``, ``pack_shape_of_parquet``
 (local files) and the ``PACK_META_*`` keys, plus ``packed_schema``
-(``binning.make_packed_schema`` there). The rest of the preprocess stage
-(observability, remote storage, the atomic shard sink) is not ported yet.
+(``binning.make_packed_schema`` there) and ``write_packed_shard``, the
+offline-packed shard sink (without the reference's fill telemetry).
 
 A packed row is one training row, stored as (all ``list<int32>`` but
 ``num_tokens``):
@@ -23,6 +23,8 @@ The row shape ``(pack_seq_length, pack_max_per_row)`` is stamped into the
 parquet schema metadata. FFD is pure sorting and first-fit (no RNG, no
 clock), so packed bytes are a function of the input columns.
 """
+
+import os
 
 import numpy as np
 
@@ -207,6 +209,35 @@ def pack_shape_of_parquet(path):
         return None
 
 
+def write_packed_shard(columns, n, out_dir, part_id, pack_seq_length,
+                       max_per_row, cls_id, sep_id, masking=False,
+                       compression=None):
+    """Pack one bucket's columns and publish ``part.<id>.parquet`` whose
+    rows are budget-sized packed sequences (schema metadata stamps the
+    row shape). Empty buckets produce no file, like the binned sink.
+    Returns {written_path: packed_row_count}."""
+    import pyarrow as pa
+
+    from ..utils.io import write_table_atomic
+    from . import binning as binning_mod
+    if compression is None:
+        compression = binning_mod.DEFAULT_PARQUET_COMPRESSION
+    if n == 0:
+        return {}
+    packed, n_rows, _ = pack_columns(
+        columns, n, pack_seq_length, max_per_row, cls_id, sep_id,
+        masking=masking)
+    schema = packed_schema(masking, pack_seq_length, max_per_row)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "part.{}.parquet".format(part_id))
+    write_table_atomic(
+        pa.table({name: packed[name] for name in schema.names},
+                 schema=schema),
+        path, compression=compression,
+        **binning_mod.write_options_for_names(schema.names))
+    return {path: n_rows}
+
+
 __all__ = [
     "PACK_META_MAX_PER_ROW",
     "PACK_META_SEQ_LENGTH",
@@ -216,4 +247,5 @@ __all__ = [
     "pack_shape_of_parquet",
     "pack_shape_of_schema",
     "packed_schema",
+    "write_packed_shard",
 ]

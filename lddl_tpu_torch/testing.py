@@ -16,6 +16,9 @@
 - ``write_bart_shards``: balanced schema-v2 BART shards
   (``shard-<i>.parquet`` plus ``.num_samples.json``) in the columns the
   BART preprocess writes with a tokenizer, made from a seed.
+- ``write_text_corpus``: a raw text corpus in the downloaders' contract
+  (``source/<i>.txt``, one ``<doc-id> <text>`` document per line) made
+  from a seed over a vocab's words: the input of the preprocess.
 """
 
 import json
@@ -278,3 +281,77 @@ def write_bart_shards(out_dir, vocab_size, num_shards=2,
         counts[name] = samples_per_shard
     _write_num_samples(out_dir, counts)
     return counts
+
+
+# Words the rules splitter must not split after, and decimals it must
+# not split inside.
+_ABBREVIATIONS = ("Dr.", "Mr.", "e.g.", "i.e.", "etc.", "U.S.", "vs.",
+                  "No.", "Jan.", "approx.")
+_ACCENTED = str.maketrans("aeiouc", "àéîöüç")
+
+
+def write_text_corpus(root, tokens, total_bytes, num_files=64, seed=0,
+                      sentences=(5, 60), words=(4, 24)):
+    """Write about ``total_bytes`` of text under ``root/source/`` in
+    ``num_files`` files, one document per line (``<doc-id> <text>``), each
+    document ``sentences`` (inclusive range) sentences of ``words`` words;
+    returns the bytes written.
+
+    Words are the vocab's whole-word tokens (``tokens`` as
+    ``write_vocab`` returns them), drawn with Zipf-like weights
+    (1 / (rank + 10)). Some carry a glued ``##`` continuation piece, some
+    are capitalised and some accented (WordPiece splitting and the
+    normaliser's case and accent folds); sentences end in ``.``, ``?`` or
+    ``!`` and hold some abbreviations and decimals (the rules splitter's
+    guards)."""
+    rng = np.random.default_rng(seed)
+    whole = np.array([t for t in tokens[len(SPECIAL_TOKENS):]
+                      if not t.startswith("##")], dtype=object)
+    pieces = np.array([t[2:] for t in tokens if t.startswith("##")],
+                      dtype=object)
+    weights = 1.0 / (np.arange(len(whole)) + 10.0)
+    weights /= weights.sum()
+    caps = np.array([w.capitalize() for w in whole], dtype=object)
+    accented = np.array([w.translate(_ACCENTED) for w in whole],
+                        dtype=object)
+    source = os.path.join(root, "source")
+    os.makedirs(source, exist_ok=True)
+    per_file = max(1, total_bytes // num_files)
+    written = 0
+    doc = 0
+    for f in range(num_files):
+        lines, size = [], 0
+        while size < per_file:
+            n_sent = int(rng.integers(sentences[0], sentences[1] + 1))
+            lens = rng.integers(words[0], words[1] + 1, n_sent)
+            n = int(lens.sum())
+            idx = rng.choice(len(whole), n, p=weights)
+            form = rng.random(n)
+            ws = np.where(form < 0.04, caps[idx],
+                          np.where(form < 0.06, accented[idx], whole[idx]))
+            glue = rng.random(n) < 0.05
+            ws[glue] = ws[glue] + pieces[rng.integers(0, len(pieces),
+                                                      int(glue.sum()))]
+            extra = rng.random(n)
+            ws[extra < 0.01] = np.array(_ABBREVIATIONS, dtype=object)[
+                rng.integers(0, len(_ABBREVIATIONS),
+                             int((extra < 0.01).sum()))]
+            dec = (extra >= 0.01) & (extra < 0.015)
+            ws[dec] = ["{}.{}".format(a, b) for a, b in zip(
+                rng.integers(0, 100, int(dec.sum())),
+                rng.integers(0, 100, int(dec.sum())))]
+            ends = np.cumsum(lens)
+            starts = ends - lens
+            ws[starts] = [w.capitalize() for w in ws[starts]]
+            ws[ends - 1] = ws[ends - 1] + np.array(
+                [".", ".", ".", "?", "!"], dtype=object)[
+                    rng.integers(0, 5, n_sent)]
+            line = "doc-{} {}\n".format(doc, " ".join(ws))
+            doc += 1
+            lines.append(line)
+            size += len(line.encode("utf-8"))
+        with open(os.path.join(source, "{}.txt".format(f)), "w",
+                  encoding="utf-8") as fh:
+            fh.write("".join(lines))
+        written += size
+    return written

@@ -1,19 +1,34 @@
-"""Shard discovery and sample counts (the loader's subset).
+"""Filesystem, shard-naming and sample-count helpers.
 
-Counterpart of ``lddl_tpu/utils/fs.py``. The bin-id filename protocol: a
-shard of sequence-length bin ``k`` carries the extension
-``.parquet_<k>``, and bin ids are contiguous from 0. The balancer writes
-``.num_samples.json`` ({basename: count}) beside the shards so loader
-startup need not read every parquet footer.
+Counterpart of ``lddl_tpu/utils/fs.py`` (local files only). The bin-id
+filename protocol: a shard of sequence-length bin ``k`` carries the
+extension ``.parquet_<k>``, and bin ids are contiguous from 0. The
+balancer writes ``.num_samples.json`` ({basename: count}) beside the
+shards so loader startup need not read every parquet footer.
 """
 
+import io
 import json
 import os
+
+import numpy as np
+
+from .io import atomic_write
 
 # Cache of per-shard sample counts written by the balancer.
 NUM_SAMPLES_CACHE_NAME = ".num_samples.json"
 # Reserved cache key holding {basename: byte_length} (growing directories).
 NUM_SAMPLES_SIZES_KEY = "__sizes__"
+
+
+def mkdir(d):
+    os.makedirs(d, exist_ok=True)
+
+
+def expand_outdir_and_mkdir(outdir):
+    outdir = os.path.abspath(os.path.expanduser(outdir))
+    mkdir(outdir)
+    return outdir
 
 
 def get_all_files_paths_under(root):
@@ -119,3 +134,51 @@ def trusted_num_samples_entries(dir_path, cache):
         else:
             untrusted.add(name)
     return trusted, untrusted
+
+
+def write_num_samples_cache(dir_path, counts):
+    """Store {basename: count} next to the shards, durably and atomically
+    (``utils.io.atomic_write``)."""
+    atomic_write(os.path.join(dir_path, NUM_SAMPLES_CACHE_NAME),
+                 json.dumps(dict(counts), sort_keys=True))
+
+
+def serialize_np_array(a):
+    """numpy 1-D array -> bytes for a parquet column: a 4-byte tag
+    (``R`` + the dtype code, e.g. ``R<u2``) and the raw little-endian
+    payload; other shapes and dtypes use the ``.npy`` container."""
+    a = np.ascontiguousarray(a)
+    code = a.dtype.str.encode()
+    if len(code) != 3 or a.ndim != 1:
+        buf = io.BytesIO()
+        np.save(buf, a, allow_pickle=False)
+        return buf.getvalue()
+    return b"R" + code + a.tobytes()
+
+
+def deserialize_np_array(b):
+    """Inverse of ``serialize_np_array``; raises ``ValueError`` on a
+    truncated or corrupt payload."""
+    if b[:1] == b"R":
+        if len(b) < 4:
+            raise ValueError(
+                "truncated array payload: {} byte(s) with 'R' tag, need at "
+                "least 4 (1-byte tag + 3-byte dtype code)".format(len(b)))
+        try:
+            dtype = np.dtype(b[1:4].decode())
+        except (TypeError, UnicodeDecodeError) as e:
+            raise ValueError(
+                "corrupt array payload: 'R' tag with invalid dtype code "
+                "{!r} ({} bytes total)".format(bytes(b[1:4]), len(b))) from e
+        if (len(b) - 4) % dtype.itemsize:
+            raise ValueError(
+                "truncated array payload: {} data byte(s) after the "
+                "'R{}' tag is not a multiple of itemsize {}".format(
+                    len(b) - 4, dtype.str, dtype.itemsize))
+        return np.frombuffer(b, dtype=dtype, offset=4)
+    if not bytes(b[:6]) == b"\x93NUMPY":
+        raise ValueError(
+            "array payload of {} byte(s) has neither the 'R' raw tag nor "
+            "the .npy magic; the shard bytes are likely truncated or "
+            "corrupt".format(len(b)))
+    return np.load(io.BytesIO(b), allow_pickle=False)

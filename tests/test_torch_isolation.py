@@ -1,7 +1,10 @@
 """The port stands alone: no module of lddl_tpu_torch (nor chip_smoke.py)
-imports JAX, flax, optax, orbax or lddl_tpu, importing the package loads
-no JAX, and entry points refuse to fall back to the CPU when CUDA is
-asked for (explicitly or by default) and absent."""
+imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
+package loads no JAX and no HF package (``tokenizers`` is imported only
+lazily, by ``native/gen_tables.py`` when the tables are regenerated by
+hand), the preprocess workers import no torch, and entry points refuse
+to fall back to the CPU when CUDA is asked for (explicitly or by
+default) and absent."""
 
 import ast
 import os
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lddl_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lddl_tpu", "transformers")
 
 
 def _port_sources():
@@ -65,9 +68,36 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.ops.flash_attention, lddl_tpu_torch.testing, "
             "lddl_tpu_torch.parallel, lddl_tpu_torch.parallel.testing, "
             "lddl_tpu_torch.loader.sharding, lddl_tpu_torch.models.sharding, "
-            "lddl_tpu_torch.ops.ring_attention, lddl_tpu_torch.entry; "
+            "lddl_tpu_torch.ops.ring_attention, lddl_tpu_torch.entry, "
+            "lddl_tpu_torch.preprocess, lddl_tpu_torch.preprocess.runner, "
+            "lddl_tpu_torch.native, lddl_tpu_torch.native.build, "
+            "lddl_tpu_torch.native.gen_tables, lddl_tpu_torch.ops.masking, "
+            "lddl_tpu_torch.balance, lddl_tpu_torch.resilience.integrity, "
+            "lddl_tpu_torch.cli.preprocess_bert_pretrain, "
+            "lddl_tpu_torch.cli.balance_shards, "
+            "lddl_tpu_torch.cli.generate_num_samples_cache; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu')); "
+            "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
+            "'tokenizers')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_preprocess_workers_import_no_torch():
+    """What a spawned preprocess worker imports (the runner, to unpickle
+    its processor and vocab table, and the CLI module as its main) loads
+    no torch, no JAX and no HF package: a numpy-engine worker pays no
+    torch import."""
+    code = ("import sys, lddl_tpu_torch.preprocess.runner, "
+            "lddl_tpu_torch.cli.preprocess_bert_pretrain, pickle; "
+            "from lddl_tpu_torch.preprocess import get_tokenizer; "
+            "from lddl_tpu_torch.preprocess.runner import "
+            "BertBucketProcessor, BertPretrainConfig; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lddl_tpu', 'transformers', 'tokenizers')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

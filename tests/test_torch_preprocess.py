@@ -1,0 +1,290 @@
+"""The port's BERT preprocess (lddl_tpu_torch.preprocess) against
+lddl_tpu's, run live in the test on the same corpus, vocab file and seeds:
+the same file names, parquet tables equal column by column and the same
+.manifest.json bytes (so the same shard bytes' CRCs), for
+
+- unbinned; binned + statically masked (numpy engine); schema v1 and v2;
+  whole-word masking; global shuffle off; offline packing; the learned
+  splitter; txt output;
+- the reference tokenizing with its native engine and with its HF
+  engine (BertTokenizerFast on the vocab file);
+- 2 spawned workers, and a worker that dies mid-unit (the pool is
+  rebuilt and the unit redone); a 2-rank ThreadGroupCommunicator run;
+- a run stopped after some units and resumed, equal to an uninterrupted
+  one;
+
+and the "torch" masking engine (device="cpu") structurally equal to
+"numpy": the same names, row counts and unmasked columns, and with the
+labels put back the same id sequences. Exact equality throughout.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+import lddl_tpu.preprocess as R
+from lddl_tpu_torch import preprocess as T
+from lddl_tpu_torch.parallel import ThreadGroupCommunicator
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """48 documents of 2-8 sentences in 4 files (tests/conftest.py's
+    tiny_corpus, with capitals, accents, abbreviations and decimals)."""
+    root = tmp_path_factory.mktemp("tcorpus")
+    (root / "source").mkdir()
+    words = ("alpha beta gamma delta epsilon zeta eta theta iota kappa "
+             "lambda mu nu xi omicron pi rho sigma tau upsilon Café naïve "
+             "Dr. U.S. 3.14 e.g.").split()
+    g = np.random.Generator(np.random.Philox(key=[0, 7]))
+    docs = []
+    for d in range(48):
+        sents = []
+        for _ in range(int(g.integers(2, 9))):
+            picks = [words[int(g.integers(0, len(words)))]
+                     for _ in range(int(g.integers(4, 14)))]
+            sents.append(" ".join(picks).capitalize()
+                         + ".?!"[int(g.integers(0, 3))])
+        docs.append("doc-{} {}".format(d, " ".join(sents)))
+    for shard in range(4):
+        with open(root / "source" / "{}.txt".format(shard), "w") as f:
+            f.write("".join(line + "\n" for line in docs[shard::4]))
+    texts = [p.read_text() for p in sorted((root / "source").iterdir())]
+    vocab = T.build_wordpiece_vocab(texts, str(root / "vocab.txt"),
+                                    vocab_size=120)
+    return str(root), vocab
+
+
+def _files(out):
+    return sorted(os.listdir(out))
+
+
+def _assert_same_output(got, want):
+    assert _files(got) == _files(want) and _files(got)
+    for name in _files(want):
+        a, b = os.path.join(got, name), os.path.join(want, name)
+        if ".parquet" in name:
+            ta, tb = pq.read_table(a), pq.read_table(b)
+            assert ta.schema == tb.schema, name
+            for col in tb.column_names:
+                assert ta.column(col).equals(tb.column(col)), (name, col)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), name
+
+
+def _reference(corpus, out, run_kw, cfg_kw, tokenizer_engine="native"):
+    root, vocab = corpus
+    R.run_bert_preprocess(
+        {"w": root}, out, R.get_tokenizer(vocab_file=vocab),
+        config=R.BertPretrainConfig(max_seq_length=64, duplicate_factor=2,
+                                    tokenizer_engine=tokenizer_engine,
+                                    **cfg_kw),
+        num_blocks=6, sample_ratio=0.9, seed=3, **run_kw)
+    return out
+
+
+def _port(corpus, out, run_kw, cfg_kw, **kw):
+    root, vocab = corpus
+    return T.run_bert_preprocess(
+        {"w": root}, out, T.get_tokenizer(vocab),
+        config=T.BertPretrainConfig(max_seq_length=64, duplicate_factor=2,
+                                    **cfg_kw),
+        num_blocks=6, sample_ratio=0.9, seed=3, **run_kw, **kw)
+
+
+CASES = {
+    "unbinned": ({}, {}),
+    "binned_masked": ({"bin_size": 16}, {"masking": True}),
+    "binned_masked_v1": ({"bin_size": 16},
+                         {"masking": True, "schema_version": 1}),
+    "unbinned_masked_v1": ({}, {"masking": True, "schema_version": 1}),
+    "whole_word": ({"bin_size": 16},
+                   {"masking": True, "whole_word_masking": True}),
+    "no_global_shuffle": ({"global_shuffle": False, "bin_size": 32},
+                          {"masking": True}),
+    "packed": ({"pack_seq_length": 64}, {"masking": True}),
+    "txt_binned_masked": ({"output_format": "txt", "bin_size": 16},
+                          {"masking": True}),
+    "txt_unbinned": ({"output_format": "txt"}, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_preprocess_matches_reference(corpus, tmp_path, case):
+    run_kw, cfg_kw = CASES[case]
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    _port(corpus, str(tmp_path / "port"), run_kw, cfg_kw)
+    _assert_same_output(str(tmp_path / "port"), want)
+
+
+@pytest.mark.parametrize("case", ["unbinned", "binned_masked",
+                                  "whole_word"])
+def test_preprocess_matches_reference_hf_engine(corpus, tmp_path, case):
+    """The reference tokenizing with BertTokenizerFast (its "hf" engine)
+    on the same vocab file gives the port's native output too."""
+    run_kw, cfg_kw = CASES[case]
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw,
+                      tokenizer_engine="hf")
+    _port(corpus, str(tmp_path / "port"), run_kw, cfg_kw)
+    _assert_same_output(str(tmp_path / "port"), want)
+
+
+def test_learned_splitter_matches_reference(corpus, tmp_path):
+    pytest.importorskip("nltk", reason="training the learned splitter "
+                        "needs nltk, as in the reference")
+    cfg_kw = {"masking": True, "splitter": "learned"}
+    want = _reference(corpus, str(tmp_path / "ref"), {"bin_size": 32},
+                      cfg_kw)
+    _port(corpus, str(tmp_path / "port"), {"bin_size": 32}, cfg_kw)
+    _assert_same_output(str(tmp_path / "port"), want)
+
+
+def test_two_workers_match_reference(corpus, tmp_path):
+    run_kw, cfg_kw = CASES["binned_masked"]
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    _port(corpus, str(tmp_path / "port"), run_kw, cfg_kw, num_workers=2)
+    _assert_same_output(str(tmp_path / "port"), want)
+
+
+class _DiesOnce:
+    """A processor whose pool worker dies (hard exit) the first time it
+    reaches ``bucket``, as an OOM kill would; a marker file makes the
+    retry survive."""
+
+    def __init__(self, inner, marker, bucket):
+        self.inner, self.marker, self.bucket = inner, marker, bucket
+
+    def fingerprint(self):
+        return self.inner.fingerprint()
+
+    def prepare(self, texts, bucket):
+        if bucket == self.bucket and not os.path.exists(self.marker):
+            open(self.marker, "w").close()
+            os._exit(9)
+        return self.inner.prepare(texts, bucket)
+
+
+def test_dead_worker_is_retried_to_the_same_output(corpus, tmp_path):
+    """A pool worker that dies mid-unit breaks the pool; the runner
+    rebuilds it and redoes the unfinished units, and the output equals
+    the reference's uninterrupted run (no debris left)."""
+    from lddl_tpu_torch.preprocess import runner
+    run_kw, cfg_kw = CASES["no_global_shuffle"]  # one pool, not two
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    root, vocab = corpus
+    out = str(tmp_path / "port")
+    cfg = T.BertPretrainConfig(max_seq_length=64, duplicate_factor=2,
+                               **cfg_kw)
+    proc = runner.BertBucketProcessor(T.get_tokenizer(vocab), cfg, 3, out,
+                                      run_kw["bin_size"], "parquet")
+    logs = []
+    runner.run_sharded_pipeline(
+        {"w": root}, out, _DiesOnce(proc, str(tmp_path / "died"), 3),
+        num_blocks=6, sample_ratio=0.9, seed=3, global_shuffle=False,
+        num_workers=2, log=logs.append)
+    assert os.path.exists(str(tmp_path / "died"))
+    assert any("worker died; rebuilding pool" in line for line in logs)
+    _assert_same_output(out, want)
+
+
+def test_two_rank_run_equals_one_rank(corpus, tmp_path):
+    run_kw, cfg_kw = CASES["binned_masked"]
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    out = str(tmp_path / "port2")
+    written = ThreadGroupCommunicator.spawn(
+        2, lambda comm: _port(corpus, out, run_kw, cfg_kw, comm=comm))
+    # Ranks own disjoint units; together they wrote every shard.
+    assert not set(written[0]) & set(written[1])
+    assert sorted(os.path.basename(p) for w in written for p in w) == \
+        [n for n in _files(want) if ".parquet" in n]
+    _assert_same_output(out, want)
+
+
+def test_resume_after_failed_units_equals_uninterrupted(corpus, tmp_path,
+                                                        monkeypatch):
+    from lddl_tpu_torch.preprocess import runner
+    run_kw, cfg_kw = {"bin_size": 16, "spool_groups": 4}, {"masking": True}
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    out = str(tmp_path / "port")
+    prepare = runner.BertBucketProcessor.prepare
+    failed = {1, 4}  # buckets of spool groups 1 and 0 (bucket % 4)
+
+    def flaky(self, texts, bucket):
+        if bucket in failed:
+            raise OSError("disk full while writing bucket {}".format(bucket))
+        return prepare(self, texts, bucket)
+
+    monkeypatch.setattr(runner.BertBucketProcessor, "prepare", flaky)
+    with pytest.raises(RuntimeError, match="2 unit"):
+        _port(corpus, out, run_kw, cfg_kw)
+    done = sorted(os.listdir(os.path.join(out, "_done")))
+    assert done == ["group-2.json", "group-3.json", "manifest.json"]
+    with pytest.raises(ValueError, match="already contains"):
+        _port(corpus, out, run_kw, cfg_kw)
+    with pytest.raises(ValueError, match="fingerprint mismatch"):
+        _port(corpus, out, run_kw, dict(cfg_kw, masked_lm_ratio=0.2),
+              resume=True)
+    monkeypatch.setattr(runner.BertBucketProcessor, "prepare", prepare)
+    _port(corpus, out, run_kw, cfg_kw, resume=True)
+    _assert_same_output(out, want)
+
+
+def _unmasked(table):
+    """[CLS] A [SEP] B [SEP] id sequences with each label put back at its
+    position, one list per row."""
+    rows = []
+    for a, b, pos, lab in zip(*(table.column(c).to_pylist() for c in (
+            "A_ids", "B_ids", "masked_lm_positions_ids",
+            "masked_lm_label_ids"))):
+        seq = [None] + a + [None] + b + [None]
+        for p, x in zip(pos, lab):
+            seq[p] = x
+        rows.append(seq)
+    return rows
+
+
+@pytest.mark.parametrize("wwm", [False, True])
+def test_torch_engine_structurally_equals_numpy(corpus, tmp_path, wwm):
+    """Same pairs, other masks (the reference's tests/test_ops.py:80-110
+    criterion, and stronger: the unmasked sequences are equal)."""
+    run_kw = {"bin_size": 16}
+    outs = {}
+    for engine in ("numpy", "torch"):
+        outs[engine] = str(tmp_path / engine)
+        _port(corpus, outs[engine], run_kw,
+              {"masking": True, "whole_word_masking": wwm,
+               "engine": engine, "device": "cpu"})
+    names = [n for n in _files(outs["numpy"]) if ".parquet" in n]
+    assert names == [n for n in _files(outs["torch"]) if ".parquet" in n]
+    differs = 0
+    for name in names:
+        t, n = (pq.read_table(os.path.join(outs[e], name))
+                for e in ("torch", "numpy"))
+        assert t.num_rows == n.num_rows and t.schema == n.schema
+        for col in ("is_random_next", "num_tokens", "bin_id"):
+            assert t.column(col).equals(n.column(col)), (name, col)
+        assert _unmasked(t) == _unmasked(n), name
+        lens = np.asarray(t.column("num_tokens"))
+        counts = [len(p) for p in
+                  t.column("masked_lm_positions_ids").to_pylist()]
+        plan = T.bert.plan_num_to_predict(lens, 0.15, 10)
+        assert (np.asarray(counts) <= plan).all()
+        if not wwm:
+            np.testing.assert_array_equal(counts, plan)
+        differs += not t.column("masked_lm_positions_ids").equals(
+            n.column("masked_lm_positions_ids"))
+    assert differs  # the engines draw different masks
+    assert glob.glob(os.path.join(outs["torch"], ".manifest.json"))
