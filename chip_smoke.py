@@ -95,7 +95,27 @@ exits non-zero):
    tokens/s; then bert_large steps from the loader through
    ``prefetch_to_device``, 2 in each bin reached, with finite losses and
    ``onekv_fwd``/``onekv_bwd`` 24 times in each step of a bin with
-   L_pad >= 256.
+   L_pad >= 256;
+9. the loader's runtime under load, on phase 8's balanced shards (4
+   workers a bin, telemetry on through ``LDDL_TPU_METRICS_DIR``): the
+   SHA-256 of each of the first 128 batches of epoch 0 equal with thread
+   workers, process workers (every bin's pool started at once), and
+   process workers whose worker 1 in the bin drawn most is killed at its
+   5th batch (``LDDL_TPU_FAULTS``, armed while that pool spawns; exactly
+   one restart), with the process runs' queue bytes a batch; startup
+   verification of a truncated shard (``on_corrupt="fail"`` refuses it
+   by name, ``"quarantine"`` excludes, logs and serves the rest); then
+   phase 8's bert_large under the thread and then the process loader,
+   continuing their epochs, through ``prefetch_to_device`` (depth 2),
+   each step ending in a device sync (``float(loss)``, so the
+   prefetcher's gap is the step): 24 counted steps a mode after 2 with
+   step ms, batches/s consumed, the attribution report and its stage
+   seconds, the processes holding a CUDA context (this one alone; no
+   worker with torch mapped) and the launch counts (24 of each
+   single-block kernel a step of L_pad >= 256); last, the process loader
+   alone, batches/s and tokens/s beside phase 8's. Phase 8 also times
+   its loader alone with synchronous shard reads and with read-ahead,
+   in turns.
 
 Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
@@ -104,6 +124,7 @@ Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -112,8 +133,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
-import torch
+# torch is imported in main(): the loader's spawned workers re-import this
+# script as their main module and must import no torch.
+torch = None
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of each kernel.
 PEAK_BF16_FLOPS = 989e12
@@ -155,6 +179,14 @@ MASK_ROWS, MASK_WIDTH = 4096, 512
 BUCKET_MIN_ROWS = 2048       # the bucket whose masking is timed, at least
 # Columns the masks change (masked tokens) or are (positions, labels):
 # the only ones the torch and numpy engines may disagree on.
+# The loader runtime under load (phase 9), on phase 8's balanced shards.
+LOADER_WORKERS = 4           # workers a bin, thread or process
+LOADER_ID_BATCHES = 128      # batches hashed in each of the three runs
+LOADER_STEPS = 24            # counted bert_large steps a worker mode
+LOADER_WARM_STEPS = 2        # steps before the counted ones
+LOADER_KILL = "worker:kill:nth=5:path=w1:flag={}"
+LOADER_STAGES = ("shard_fetch", "shard_read", "decode", "collate", "ipc",
+                 "h2d", "prefetch_wait", "prefetch_gap")
 MASKED_COLUMNS = {"A", "B", "A_ids", "B_ids", "masked_lm_positions",
                   "masked_lm_labels", "masked_lm_positions_ids",
                   "masked_lm_label_ids"}
@@ -1501,6 +1533,36 @@ def distributed_path(fa, card):
         dist.destroy_process_group()
 
 
+def descendants(root):
+    """The pids of ``root`` and of every process below it."""
+    parent = {}
+    for pid in os.listdir("/proc"):
+        if pid.isdigit():
+            try:
+                with open("/proc/{}/stat".format(pid)) as f:
+                    parent[int(pid)] = int(
+                        f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+    out = set()
+    for pid in parent:
+        p = pid
+        while p in parent and p != root and p > 1:
+            p = parent[p]
+        if p == root:
+            out.add(pid)
+    return out
+
+
+def maps_library(pid, name):
+    """True when process ``pid`` has mapped a library named ``name``."""
+    try:
+        with open("/proc/{}/maps".format(pid)) as f:
+            return name in f.read()
+    except OSError:
+        return False
+
+
 class DeviceWatch:
     """Polls every 0.25 s while a command runs: the device memory in use
     (``torch.cuda.mem_get_info``, the most seen beyond what was in use
@@ -1518,37 +1580,14 @@ class DeviceWatch:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def _descendants(self):
-        parent = {}
-        for pid in os.listdir("/proc"):
-            if pid.isdigit():
-                try:
-                    with open("/proc/{}/stat".format(pid)) as f:
-                        parent[int(pid)] = int(
-                            f.read().rsplit(")", 1)[1].split()[1])
-                except (OSError, IndexError, ValueError):
-                    continue
-        out = set()
-        for pid in parent:
-            p = pid
-            while p in parent and p != self.root and p > 1:
-                p = parent[p]
-            if p == self.root:
-                out.add(pid)
-        return out
-
     def _run(self):
         while not self._stop.wait(0.25):
             free, total = torch.cuda.mem_get_info()
             self.used = max(self.used, total - free)
-            for pid in self._descendants() - self.cuda_pids:
+            for pid in descendants(self.root) - self.cuda_pids:
                 self.procs.add(pid)
-                try:
-                    with open("/proc/{}/maps".format(pid)) as f:
-                        if "libcuda.so" in f.read():
-                            self.cuda_pids.add(pid)
-                except OSError:
-                    continue
+                if maps_library(pid, "libcuda.so"):
+                    self.cuda_pids.add(pid)
 
     def stop(self):
         self._stop.set()
@@ -1876,23 +1915,40 @@ def data_path(fa, card):
                 bal, vocab_file=vocab, batch_size=16,
                 fixed_seq_lengths=DATA_BINS, base_seed=12345)
 
-        it = iter(loader())
-        t0 = time.perf_counter()
-        next(it)
-        first = time.perf_counter() - t0
-        padded = real = 0
-        t0 = time.perf_counter()
-        for _ in range(DATA_LOADER_BATCHES):
-            batch = next(it)
-            padded += int(np.prod(batch["input_ids"].shape))
-            real += int(batch["attention_mask"].sum())
-        secs = time.perf_counter() - t0
-        print("loader alone: first batch {:.2f} s, then {} batches of 16 in "
-              "{:.2f} s: {:.1f} batches/s, {:.0f} padded tokens/s, {:.0f} "
-              "real tokens/s ({})".format(
-                  first, DATA_LOADER_BATCHES, secs,
-                  DATA_LOADER_BATCHES / secs, padded / secs, real / secs,
-                  card), flush=True)
+        def loader_alone(label):
+            it = iter(loader())
+            t0 = time.perf_counter()
+            next(it)
+            first = time.perf_counter() - t0
+            padded = real = 0
+            t0 = time.perf_counter()
+            for _ in range(DATA_LOADER_BATCHES):
+                batch = next(it)
+                padded += int(np.prod(batch["input_ids"].shape))
+                real += int(batch["attention_mask"].sum())
+            secs = time.perf_counter() - t0
+            it.close()
+            print("loader alone{}: first batch {:.2f} s, then {} batches of "
+                  "16 in {:.2f} s: {:.1f} batches/s, {:.0f} padded "
+                  "tokens/s, {:.0f} real tokens/s ({})".format(
+                      label, first, DATA_LOADER_BATCHES, secs,
+                      DATA_LOADER_BATCHES / secs, padded / secs,
+                      real / secs, card), flush=True)
+            return DATA_LOADER_BATCHES / secs, padded / secs
+
+        alone = loader_alone("")
+        # The shard read-ahead (default) against synchronous reads, in
+        # turns: sync, default, sync.
+        sync = {"LDDL_TPU_LOADER_PREFETCH_SHARDS": "0",
+                "LDDL_TPU_LOADER_CACHE_BYTES": "0"}
+        for label in ("sync", "default", "sync"):
+            if label == "sync":
+                os.environ.update(sync)
+            try:
+                loader_alone(", shard reads {}".format(label))
+            finally:
+                for k in sync:
+                    os.environ.pop(k, None)
 
         torch.manual_seed(0)
         cfg = BertConfig.bert_large(attention_dropout=0.0,
@@ -1940,12 +1996,330 @@ def data_path(fa, card):
         print("bins reached {} (steps a bin); launches: {}".format(
             json.dumps({str(k): v for k, v in sorted(steps.items())}),
             launches), flush=True)
-        return launches
+        return launches, loader_path(fa, card, tmp, bal, vocab, tokens,
+                                     step, cfg, alone)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def batch_hashes(batches):
+    """SHA-256 of each batch's arrays, keys in order."""
+    out = []
+    for batch in batches:
+        h = hashlib.sha256()
+        for key in sorted(batch):
+            h.update(key.encode())
+            h.update(batch[key].tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def runtime_loader(bal, vocab, mode, **kw):
+    """Phase 8's binned loader with LOADER_WORKERS workers a bin in
+    ``mode``; raises if process mode fell back to threads."""
+    from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+    loader = get_bert_pretrain_data_loader(
+        bal, vocab_file=vocab, batch_size=16, fixed_seq_lengths=DATA_BINS,
+        base_seed=12345, num_workers=LOADER_WORKERS, worker_mode=mode, **kw)
+    modes = {dl._worker_mode for dl in loader._dataloaders}
+    if modes != {mode}:
+        raise AssertionError("worker_mode {} ran as {}".format(mode, modes))
+    return loader
+
+
+def worker_pids(loader):
+    return [p.pid for dl in loader._dataloaders for p in (dl._procs or ())]
+
+
+def worker_stage_seconds(metrics_dir, pids):
+    """{stage: seconds} summed over the per-pid exports of ``pids``."""
+    from lddl_tpu_torch.observability import attribution
+    out = {}
+    for pid in pids:
+        path = os.path.join(metrics_dir, "metrics-rank0-pid{}.jsonl".format(
+            pid))
+        if not os.path.isfile(path):
+            continue
+        with open(path) as f:
+            last = json.loads(f.read().splitlines()[-1])
+        values = last["metrics"].get(attribution.STAGE_METRIC, {}).get(
+            "values", {})
+        for label, v in values.items():
+            stage = label.partition("=")[2]
+            out[stage] = out.get(stage, 0.0) + v
+    return out
+
+
+def cuda_holders():
+    """(processes below this one, those that mapped the CUDA driver)."""
+    procs = descendants(os.getpid())
+    return procs, sorted(p for p in procs if maps_library(p, "libcuda.so"))
+
+
+class Continue:
+    """A loader whose ``iter()`` continues an epoch already under way, so
+    that ``prefetch_to_device`` draws from a running iterator instead of
+    starting an epoch (which would tear the process pools down). Closing
+    what ``iter()`` gives leaves the running iterator open."""
+
+    def __init__(self, it, n):
+        self._it, self._n = it, n
+
+    def __iter__(self):
+        for batch in self._it:
+            yield batch
+
+    def __len__(self):
+        return self._n
+
+
+def kill_target(bins, n_workers, worker, nth):
+    """The bin whose ``worker`` dies at its ``nth`` batch in the first
+    batches ``bins`` (their lengths, in draw order): the bin with the most
+    draws. The death shows when the consumer asks for the worker's
+    ``nth`` batch, its bin's batch number (nth - 1) * n_workers + worker
+    (counting from 0), which must lie within the draws."""
+    counts = {}
+    for l in bins:
+        counts[l] = counts.get(l, 0) + 1
+    target = max(counts, key=counts.get)
+    need = (nth - 1) * n_workers + worker + 1
+    if counts[target] < need:
+        raise AssertionError("bin {} has {} of the first {} batches; the "
+                             "kill needs {}".format(target, counts[target],
+                                                    len(bins), need))
+    return target
+
+
+def steps_under_loader(fa, cfg, step, it, n, mode, card):
+    """``n`` bert_large steps (after LOADER_WARM_STEPS) from the prefetcher
+    ``it``, each ending in a device sync; returns the launch counts.
+    Prints step ms, batches/s consumed and the attribution of the
+    counted steps' window."""
+    from lddl_tpu_torch.observability import attribution
+    zero_launches(fa)
+    times, losses, bins = [], [], []
+    for i in range(LOADER_WARM_STEPS + n):
+        if i == LOADER_WARM_STEPS:
+            base = attribution.stage_seconds()
+            t_start = time.perf_counter()
+        batch = next(it)
+        t0 = time.perf_counter()
+        loss = float(step(batch, seed=0)["loss"])  # syncs the device
+        if i >= LOADER_WARM_STEPS:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        bins.append(batch["input_ids"].shape[1])
+    rate = n / (time.perf_counter() - t_start)
+    stages = attribution.stage_seconds()
+    launches = read_launches(fa)
+    want = cfg.num_layers * sum(fa.single_block_serves(l, 64) for l in bins)
+    if launches != dict.fromkeys(KERNELS, 0) | {"onekv_fwd": want,
+                                                "onekv_bwd": want}:
+        raise AssertionError("{} workers: launches {} != {} per "
+                             "single-block kernel".format(mode, launches,
+                                                          want))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("{} workers: non-finite loss".format(mode))
+    window = {k: v - base.get(k, 0.0) for k, v in stages.items()}
+    print("loader under bert_large, {} workers: step {:.2f} ms mean "
+          "({:.2f}-{:.2f}) of {} steps after {}, {:.2f} batches/s consumed, "
+          "bins {}, losses {:.4f}..{:.4f} ({})".format(
+              mode, sum(times) / len(times), min(times), max(times), n,
+              LOADER_WARM_STEPS, rate, sorted(set(bins)), min(losses),
+              max(losses), card), flush=True)
+    print(attribution.format_report(
+        attribution.from_stage_seconds(window), indent="  "), flush=True)
+    print("  stage seconds over the {} counted steps ({} batches): {}".format(
+        n, n, json.dumps({k: round(window.get(k, 0.0), 6)
+                          for k in LOADER_STAGES})), flush=True)
+    return launches
+
+
+def loader_path(fa, card, tmp, bal, vocab, tokens, step, cfg, alone):
+    """Phase 9, the loader's runtime under load, with telemetry on:
+    the same batches from thread workers, process workers and a
+    killed-and-replayed process worker; startup verification of a
+    truncated shard; bert_large steps continuing the thread and the
+    process loaders' epochs (step ms, attribution, CUDA contexts, kernel
+    launches); the process loader alone. Returns the launch counts of
+    the counted steps."""
+    import numpy as np
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.resilience import integrity
+    from lddl_tpu_torch.testing import write_balanced_shards
+
+    metrics_dir = os.path.join(tmp, "metrics")
+    os.environ["LDDL_TPU_METRICS_DIR"] = metrics_dir
+    loaders = {}
+    try:
+        # 1. identity: thread, process, process with worker 1 killed once
+        # (its pool alone armed, in the bin with the most early draws).
+        # Every bin's pool is started up front, all at once: a bin's pool
+        # otherwise spawns at its first draw, one after another.
+        its, runs = {}, {}
+        flag = os.path.join(tmp, "kill.flag")
+        for name in ("thread", "process", "process+kill"):
+            mode = name.split("+")[0]
+            loader = loaders[name] = runtime_loader(bal, vocab, mode)
+            t0 = time.perf_counter()
+            if name == "process+kill":
+                target = kill_target(runs["thread"][1], LOADER_WORKERS, 1, 5)
+                dl = loader._dataloaders[DATA_BINS.index(target)]
+                os.environ["LDDL_TPU_FAULTS"] = LOADER_KILL.format(flag)
+                try:
+                    dl._ensure_worker_pool()   # spawns with the fault armed
+                finally:
+                    os.environ.pop("LDDL_TPU_FAULTS")
+            if mode == "process":
+                for dl in loader._dataloaders:
+                    dl._ensure_worker_pool()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                it = its[name] = iter(loader)
+                batches = [next(it)]
+                first = time.perf_counter() - t0
+                batches += [next(it) for _ in range(LOADER_ID_BATCHES - 1)]
+            restarts = sum("died" in str(w.message) for w in caught)
+            qb = sum(dl.queue_bytes for dl in loader._dataloaders)
+            qn = sum(dl.queue_batches for dl in loader._dataloaders)
+            runs[name] = (batch_hashes(batches),
+                          [b["input_ids"].shape[1] for b in batches])
+            print("loader identity {}: first batch {:.2f} s (spawn "
+                  "included), {} batches in {:.2f} s, {} restart(s), queue "
+                  "{} bytes / {} batches = "
+                  "{:.0f} bytes a batch ({})".format(
+                      name, first, len(batches), time.perf_counter() - t0,
+                      restarts, qb, qn, qb / max(qn, 1), card), flush=True)
+            if restarts != (1 if name == "process+kill" else 0):
+                raise AssertionError("{}: {} worker restarts".format(
+                    name, restarts))
+        if not os.path.exists(flag):
+            raise AssertionError("the worker kill never fired")
+        if not (runs["thread"][0] == runs["process"][0]
+                == runs["process+kill"][0]):
+            raise AssertionError("batch hashes differ across worker modes")
+        t0 = time.perf_counter()
+        its.pop("process+kill").close()
+        killed = loaders.pop("process+kill")
+        t1 = time.perf_counter()
+        alive = [p for p in worker_pids(killed) if os.path.exists(
+            "/proc/{}".format(p))]
+        killed.shutdown_workers()
+        print("loader identity: the killed run's iterator closed in {:.2f} "
+              "s ({} of its workers still there), its loader shut down in "
+              "{:.2f} s".format(t1 - t0, len(alive),
+                                time.perf_counter() - t1), flush=True)
+        print("loader identity: the {} batch hashes equal across thread, "
+              "process and killed-worker runs (the kill in bin {})".format(
+                  LOADER_ID_BATCHES, target), flush=True)
+
+        # 2. startup verification of a truncated shard.
+        vdir = os.path.join(tmp, "verify")
+        write_balanced_shards(vdir, tokens, num_bins=2, shards_per_bin=2,
+                              samples_per_shard=64, seed=9)
+        integrity.build_manifest(vdir)
+        victim = os.path.join(vdir, "shard-1.parquet_0")
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        try:
+            get_bert_pretrain_data_loader(vdir, vocab_file=vocab,
+                                          batch_size=16)
+        except integrity.ShardIntegrityError as e:
+            if "shard-1.parquet_0" not in str(e):
+                raise AssertionError("the refusal does not name the shard: "
+                                     "{}".format(e)) from e
+        else:
+            raise AssertionError("on_corrupt='fail' loaded a truncated "
+                                 "shard")
+        logs = os.path.join(tmp, "verify_logs")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loader = get_bert_pretrain_data_loader(
+                vdir, vocab_file=vocab, batch_size=16,
+                on_corrupt="quarantine", log_dir=logs)
+        files = [f.path for dl in loader._dataloaders
+                 for f in dl.dataset._files]
+        served = sum(len(b["input_ids"]) for b in loader)
+        with open(os.path.join(logs, "rank-rank0-worker0.log")) as f:
+            logged = f.read()
+        if (victim in files or len(files) != 3 or served != 3 * 64
+                or not any(victim in str(w.message) for w in caught)
+                or victim not in logged):
+            raise AssertionError("quarantine: files {}, {} samples served, "
+                                 "warned/logged {}/{}".format(
+                                     files, served, len(caught),
+                                     victim in logged))
+        print("startup verification: on_corrupt='fail' refused the "
+              "truncated shard by name; 'quarantine' excluded exactly it, "
+              "logged it and served the {} samples of the 3 "
+              "survivors".format(served), flush=True)
+
+        # 3. bert_large under the loaders, continuing their epochs.
+        total = dict.fromkeys(KERNELS, 0)
+        for mode in ("thread", "process"):
+            it = iter(prefetch_to_device(Continue(its[mode], LOADER_STEPS),
+                                         depth=2))
+            try:
+                launches = steps_under_loader(fa, cfg, step, it,
+                                              LOADER_STEPS, mode, card)
+                procs, holders = cuda_holders()
+                pids = worker_pids(loaders[mode])
+                torch_pids = [p for p in pids
+                              if maps_library(p, "libtorch")]
+                smi = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60).stdout.split()
+            finally:
+                it.close()
+            print("  processes holding a CUDA context: {} of {} (this one "
+                  "is {}; {} loader workers, {} of them with torch mapped); "
+                  "nvidia-smi compute apps: {}; launches {}".format(
+                      holders, len(procs), os.getpid(), len(pids),
+                      len(torch_pids), smi or "none listed", launches),
+                  flush=True)
+            if holders != [os.getpid()] or torch_pids:
+                raise AssertionError("CUDA contexts in {}, torch in {} "
+                                     "(this process is {})".format(
+                                         holders, torch_pids, os.getpid()))
+            for k in total:
+                total[k] += launches[k]
+
+        # 4. the process loader alone, continuing its epoch.
+        it = its["process"]
+        padded = 0
+        t0 = time.perf_counter()
+        for _ in range(DATA_LOADER_BATCHES):
+            padded += int(np.prod(next(it)["input_ids"].shape))
+        secs = time.perf_counter() - t0
+        print("loader alone, process workers ({} a bin), continuing the "
+              "epoch: {} batches of 16 in {:.2f} s: {:.1f} batches/s, {:.0f} "
+              "padded tokens/s; phase 8's one thread worker a bin: {:.1f} "
+              "batches/s, {:.0f} padded tokens/s ({})".format(
+                  LOADER_WORKERS, DATA_LOADER_BATCHES, secs,
+                  DATA_LOADER_BATCHES / secs, padded / secs, alone[0],
+                  alone[1], card), flush=True)
+        pids = worker_pids(loaders["process"])
+    finally:
+        t0 = time.perf_counter()
+        for name, it in its.items():
+            it.close()
+        for loader in loaders.values():
+            loader.shutdown_workers()
+        os.environ.pop("LDDL_TPU_METRICS_DIR", None)
+    print("loaders closed in {:.2f} s; process workers' own stage seconds, "
+          "whole run (their exports on exit): {}".format(
+              time.perf_counter() - t0, json.dumps({
+              k: round(v, 6) for k, v in sorted(worker_stage_seconds(
+                  metrics_dir, pids).items())})), flush=True)
+    return total
+
+
 def main():
+    global torch
+    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2003,8 +2377,8 @@ def main():
     by_path = {"bert_binned": bert_path(fa, card),
                "bert_packed": packed_path(fa, card),
                "bart": bart_path(fa, card),
-               "bert_sharded": distributed_path(fa, card),
-               "bert_data": data_path(fa, card)}
+               "bert_sharded": distributed_path(fa, card)}
+    by_path["bert_data"], by_path["bert_loader"] = data_path(fa, card)
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}

@@ -1,14 +1,16 @@
-"""BART denoising data loader: schema-v2 decode, text infilling and
-sentence permutation, factory.
+"""BART denoising data loader: decode, text infilling and sentence
+permutation, factory.
 
 Counterpart of ``lddl_tpu/loader/bart.py`` (``decode_record_batch``,
-``BartCollate``, ``get_bart_pretrain_data_loader``) for schema-v2 BART
-shards, whose ``sentence_ids``/``sentence_lens`` columns hold each chunk's
-per-sentence token ids. Schema-v1 shards (the ``sentences`` text column
-alone) need a sentence splitter and a tokenizer at load time and are
-refused. The noise draws from the per-(epoch, dp group, worker) stream
-that ``DataLoader`` binds into the collate, in the reference's order, so
-batches are numpy int32 dicts byte for byte the reference loader's:
+``BartCollate``, ``get_bart_pretrain_data_loader``). Schema-v2 shards
+store each chunk's per-sentence token ids (``sentence_ids``/
+``sentence_lens``) and decode to int32 views; schema-v1 shards store the
+chunk text (``sentences``), which the collate splits into sentences
+(``preprocess.sentences.split_sentences``) and tokenizes with the native
+engine, every epoch, as the reference does with its tokenizer. The noise
+draws from the per-(epoch, dp group, worker) stream that ``DataLoader``
+binds into the collate, in the reference's order, so batches are numpy
+int32 dicts byte for byte the reference loader's:
 
 - sentence permutation: the chunk's sentences are shuffled;
 - text infilling: token spans with Poisson(lambda=3) lengths are each
@@ -22,12 +24,14 @@ padding).
 
 import numpy as np
 
+from .. import observability as obs
 from ..utils import rng as lrng
 from ..utils.fs import get_all_parquets_under
+from ..utils.logging import DatasetLogger
 from .bert import _list_views
 from .dataloader import DataLoader
-from .datasets import ParquetDataset
-from .vocab import Vocab
+from .datasets import (ParquetDataset, annotate_quarantine,
+                       verified_shard_paths)
 
 
 def round_up(n, multiple):
@@ -35,18 +39,20 @@ def round_up(n, multiple):
 
 
 def decode_record_batch(b):
-    """Schema-v2 BART rows as ``(flat_ids, sent_lens)`` int32 ndarray-view
-    pairs; raises on a schema-v1 (text-only) shard."""
+    """Schema-v2 BART rows as ``(flat_ids, sent_lens)`` int32 view pairs;
+    schema-v1 rows as their chunk strings. The schema is read per
+    shard."""
     names = b.schema.names
-    if "sentence_ids" not in names or "sentence_lens" not in names:
-        raise ValueError(
-            "only schema-v2 BART shards (sentence_ids/sentence_lens "
-            "columns, written by a preprocess run with a tokenizer) are "
-            "supported; found columns {}".format(names))
-    flat, off = _list_views(b.column("sentence_ids"))
-    lens_v, lens_off = _list_views(b.column("sentence_lens"))
-    for i in range(len(off) - 1):
-        yield (flat[off[i]:off[i + 1]], lens_v[lens_off[i]:lens_off[i + 1]])
+    if "sentence_ids" in names:
+        obs.inc("loader_decode_columnar_batches_total")
+        flat, off = _list_views(b.column("sentence_ids"))
+        lens_v, lens_off = _list_views(b.column("sentence_lens"))
+        for i in range(len(off) - 1):
+            yield (flat[off[i]:off[i + 1]],
+                   lens_v[lens_off[i]:lens_off[i + 1]])
+        return
+    obs.inc("loader_decode_legacy_batches_total")
+    yield from b.column("sentences").to_pylist()
 
 
 class BartCollate:
@@ -59,6 +65,8 @@ class BartCollate:
                  poisson_lambda=3.0, permute_sentences=True,
                  sequence_length_alignment=8, fixed_seq_length=None,
                  ignore_index=-1, decoder_start_token_id=None):
+        self._tokenizer = tokenizer
+        self._native = None   # built at the first schema-v1 batch
         self._max_seq_length = max_seq_length
         self._mask_ratio = mask_ratio
         self._poisson_lambda = poisson_lambda
@@ -73,6 +81,57 @@ class BartCollate:
         self._decoder_start = (decoder_start_token_id
                                if decoder_start_token_id is not None
                                else self._cls_id)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_native"] = None   # rebuilt where it is used
+        return state
+
+    def _tokenize_sentences(self, sentences):
+        """Token ids of each sentence, as a vocab-file BertTokenizerFast
+        gives them without special tokens. The native engine re-splits
+        each sentence it is given; tokens never cross a sentence boundary
+        (it falls on whitespace), so joining a sentence's pieces gives its
+        ids."""
+        if self._native is None:
+            from ..native import NativeTokenizer
+            vocab = self._tokenizer.get_vocab()
+            id_to_token = [""] * (max(vocab.values()) + 1)
+            for tok, i in vocab.items():
+                id_to_token[i] = tok
+            self._native = NativeTokenizer(
+                id_to_token, self._tokenizer.convert_tokens_to_ids("[UNK]"),
+                getattr(self._tokenizer, "do_lower_case", True))
+        ids, sent_lens, doc_counts = self._native.tokenize_docs(sentences)
+        pieces = np.split(ids, np.cumsum(sent_lens)[:-1]) if len(
+            sent_lens) else []
+        out, k = [], 0
+        for n in doc_counts.tolist():
+            out.append([int(t) for p in pieces[k:k + n] for t in p])
+            k += n
+        return out
+
+    def _sentence_ids(self, samples):
+        """Per sample, its sentences' token-id sequences: slices of the
+        stored ids (schema v2), or split and tokenized chunk text (v1)."""
+        per_sample = [None] * len(samples)
+        strings = [i for i, c in enumerate(samples) if isinstance(c, str)]
+        for i, c in enumerate(samples):
+            if not isinstance(c, str):
+                flat_ids, sent_lens = c
+                ends = np.cumsum(sent_lens)
+                per_sample[i] = [flat_ids[e - l:e]
+                                 for l, e in zip(sent_lens, ends)]
+        if strings:
+            from ..preprocess.sentences import split_sentences
+            per_sent = [split_sentences(samples[i]) for i in strings]
+            enc = self._tokenize_sentences(
+                [s for sents in per_sent for s in sents])
+            k = 0
+            for i, sents in zip(strings, per_sent):
+                per_sample[i] = enc[k:k + len(sents)]
+                k += len(sents)
+        return per_sample
 
     def _noise_ids(self, ids, g):
         """Text infilling over one id list; returns the noised list."""
@@ -120,16 +179,15 @@ class BartCollate:
             raise ValueError("BART noising needs a worker RNG")
         limit = self._max_seq_length - 2
         clean, noisy = [], []
-        for flat_ids, sent_lens in samples:
+        for sample_ids in self._sentence_ids(samples):
             # Truncate to the clean window first, then permute and infill:
             # encoder input and labels cover the same tokens.
-            ends = np.cumsum(sent_lens)
             sent_ids = []
             budget = limit
-            for l, e in zip(sent_lens, ends):
+            for ids in sample_ids:
                 if budget <= 0:
                     break
-                ids = flat_ids[e - l:e][:budget]
+                ids = ids[:budget]
                 if len(ids):
                     sent_ids.append(ids)
                     budget -= len(ids)
@@ -183,7 +241,9 @@ def get_bart_pretrain_data_loader(
     num_workers=1,
     shuffle_buffer_size=16384,
     shuffle_buffer_warmup_factor=16,
+    tokenizer=None,
     vocab_file=None,
+    tokenizer_name=None,
     max_seq_length=128,
     mask_ratio=0.3,
     poisson_lambda=3.0,
@@ -193,33 +253,58 @@ def get_bart_pretrain_data_loader(
     ignore_index=-1,
     base_seed=12345,
     start_epoch=0,
+    log_dir=None,
+    log_level=None,
+    return_raw_samples=False,
     prefetch=2,
+    comm=None,
+    worker_mode="thread",
+    on_corrupt=None,
 ):
-    """The BART denoising loader over balanced schema-v2 shards at
-    ``path``. ``dp_rank``/``num_dp_groups`` name this process's
+    """The BART denoising loader over balanced BART shards at ``path``
+    (schema v1 or v2). ``dp_rank``/``num_dp_groups`` name this process's
     data-parallel group; all processes of a group receive identical
-    batches. The special-token ids come from ``vocab_file``, which must be
-    the vocabulary the shards were tokenized with. ``fixed_seq_length``
-    pads every batch to that length (it must cover ``max_seq_length``'s
-    window)."""
-    if vocab_file is None:
-        raise ValueError("need vocab_file")
-    tokenizer = Vocab(vocab_file)
+    batches. The vocabulary comes from ``tokenizer``, ``vocab_file`` or
+    ``tokenizer_name`` (see get_bert_pretrain_data_loader) and must be
+    the one the shards were tokenized with. ``fixed_seq_length`` pads
+    every batch to that length (it must cover ``max_seq_length``'s
+    window). ``worker_mode``, ``on_corrupt``, ``comm``, ``log_dir`` and
+    ``log_level`` are as for the BERT loader."""
+    import logging
+    if tokenizer is None:
+        from ..preprocess.tokenizer import get_tokenizer
+        tokenizer = get_tokenizer(vocab_file=vocab_file,
+                                  pretrained_model_name=tokenizer_name)
+    logger = DatasetLogger(
+        log_dir=log_dir,
+        log_level=log_level if log_level is not None else logging.WARNING,
+        rank=dp_rank)
     file_paths = get_all_parquets_under(path)
     if not file_paths:
         raise ValueError("no parquet shards under {}".format(path))
-    dataset = ParquetDataset(
-        file_paths,
-        base_seed=base_seed,
-        start_epoch=start_epoch,
-        dp_rank=dp_rank,
-        num_dp_groups=num_dp_groups,
-        num_workers=num_workers,
-        shuffle_buffer_size=shuffle_buffer_size,
-        shuffle_buffer_warmup_factor=shuffle_buffer_warmup_factor,
-        decode_record_batch=decode_record_batch,
-    )
-    collate = BartCollate(
+    n_before = len(file_paths)
+    file_paths = verified_shard_paths(path, file_paths,
+                                      on_corrupt=on_corrupt, logger=logger,
+                                      comm=comm)
+    n_quarantined = n_before - len(file_paths)
+    try:
+        dataset = ParquetDataset(
+            file_paths,
+            base_seed=base_seed,
+            start_epoch=start_epoch,
+            dp_rank=dp_rank,
+            num_dp_groups=num_dp_groups,
+            num_workers=num_workers,
+            shuffle_buffer_size=shuffle_buffer_size,
+            shuffle_buffer_warmup_factor=shuffle_buffer_warmup_factor,
+            decode_record_batch=decode_record_batch,
+            comm=comm,
+            logger=logger)
+    except ValueError as e:
+        if n_quarantined:
+            raise annotate_quarantine(e, n_quarantined) from e
+        raise
+    collate = None if return_raw_samples else BartCollate(
         tokenizer,
         max_seq_length=max_seq_length,
         mask_ratio=mask_ratio,
@@ -230,4 +315,4 @@ def get_bart_pretrain_data_loader(
         ignore_index=ignore_index,
     )
     return DataLoader(dataset, batch_size, collate_fn=collate,
-                      prefetch=prefetch)
+                      prefetch=prefetch, worker_mode=worker_mode)

@@ -1,36 +1,54 @@
-"""BERT pretraining data loader: schema-v2 decode, collation, dynamic
-masking, sequence packing, factory.
+"""BERT pretraining data loader: decode, collation, dynamic masking,
+sequence packing, generation following, factory.
 
-Counterpart of ``lddl_tpu/loader/bert.py`` (``_decode_columnar``,
-``BertCollate`` with ``_mask_tokens``, ``BertPretrainBinned``,
-``packed_shape_of_dir``, ``PackedRow``, ``_decode_prepacked``,
-``BertPackedCollate``, ``BertPrepackedCollate``, ``PackedBertLoader``,
-``get_bert_pretrain_data_loader``) for balanced schema-v2 shards, binned
-or not, with static masking (5-tuples from the stored
-``masked_lm_*_ids`` columns) or dynamic masking (3-tuples, masked in the
-collate from the per-worker stream), and for packed rows: packed at load
-time from unbinned shards (``pack_seq_length`` + ``pack_rows``) or
-offline-packed shards, detected from the manifest or a shard's footer.
-Batches are numpy int32 dicts, byte for byte the reference loader's;
+Counterpart of ``lddl_tpu/loader/bert.py``. Shards of schema v2 decode to
+int32 views of their token-id columns; shards of schema v1 decode to the
+stored strings (space-joined tokens, serialized masked positions), which
+the collate maps to ids through the vocab. Binned or not, static masking
+(5-tuples) or dynamic (3-tuples, masked in the collate from the
+per-worker stream), and packed rows: packed at load time from unbinned
+shards (``pack_seq_length`` + ``pack_rows``) or offline-packed shards,
+detected from the manifest or a shard's footer. Batches are numpy int32
+dicts, byte for byte the reference loader's;
 ``dataloader.prefetch_to_device`` moves them to the card.
-"""
 
-import json
-import os
+``follow_generations=True`` serves a streaming-ingestion directory as a
+growing dataset: each epoch boundary re-reads the root manifest's
+generation gate (``generation_gate_filter``) and picks up newly published
+``gen-<NNNN>/`` shards.
+
+Nothing here imports torch: process-mode workers unpickle the decode and
+the collates.
+"""
 
 import numpy as np
 
+from .. import observability as obs
 from ..ops.packing import StreamPacker, packed_layout_arrays
 from ..utils import rng as lrng
-from ..utils.fs import (get_all_bin_ids, get_all_parquets_under,
-                        get_file_paths_for_bin_id)
+from ..utils.fs import (deserialize_np_array, get_all_bin_ids,
+                        get_all_parquets_under, get_file_paths_for_bin_id,
+                        get_generation_of_path)
+from ..utils.logging import DatasetLogger
 from .dataloader import Binned, DataLoader
-from .datasets import ParquetDataset
-from .vocab import Vocab
+from .datasets import (ParquetDataset, annotate_quarantine,
+                       verified_shard_paths)
 
-# The shard directory's integrity manifest, whose ``__meta__.packed``
-# entry records an offline-packed directory's row shape.
-MANIFEST_NAME = ".manifest.json"
+
+def generation_gate_filter(root, paths):
+    """The generation pickup gate: the root ``.manifest.json``'s
+    ``__meta__`` generation is the last thing an ingest publish writes,
+    so shards under newer generation directories are excluded even when
+    their files exist (a generation mid-publish is never visible). A
+    directory without a generation in its meta gates nothing. Returns
+    (filtered_paths, gate)."""
+    from ..resilience.integrity import read_manifest
+    manifest = read_manifest(root)
+    meta = manifest.get("__meta__") if manifest else None
+    gate = meta.get("generation") if isinstance(meta, dict) else None
+    if gate is not None:
+        paths = [p for p in paths if get_generation_of_path(root, p) <= gate]
+    return paths, gate
 
 
 def packed_shape_of_dir(path, file_paths=None):
@@ -39,13 +57,10 @@ def packed_shape_of_dir(path, file_paths=None):
     ``__meta__.packed`` entry is authoritative; without one, the first
     shard's footer metadata is sniffed."""
     from ..preprocess.packing import pack_shape_of_parquet
-    try:
-        with open(os.path.join(path, MANIFEST_NAME)) as f:
-            manifest = json.load(f)
-    except (OSError, ValueError):
-        manifest = None
-    meta = manifest.get("__meta__") if isinstance(manifest, dict) else None
-    packed = meta.get("packed") if isinstance(meta, dict) else None
+    from ..resilience.integrity import read_manifest
+    manifest = read_manifest(path)
+    meta = (manifest.get("__meta__") if manifest else None) or {}
+    packed = meta.get("packed")
     if isinstance(packed, dict):
         try:
             return (int(packed["pack_seq_length"]),
@@ -57,6 +72,57 @@ def packed_shape_of_dir(path, file_paths=None):
     if file_paths:
         return pack_shape_of_parquet(sorted(file_paths)[0])
     return None
+
+
+class GenerationSnapshot:
+    """One gate + listing read shared by every bin's follower within one
+    epoch boundary (keyed by the boundary's epoch), so a publish landing
+    between two bins' refreshes cannot give one epoch a mixed view."""
+
+    def __init__(self, root):
+        self.root = root
+        self._key = None
+        self._value = None
+
+    def get(self, key):
+        if key is None or key != self._key:
+            self._value = generation_gate_filter(
+                self.root, get_all_parquets_under(self.root))
+            self._key = key
+        return self._value
+
+
+class GenerationFollower:
+    """Picklable refresh callable of a generation-following dataset (one
+    bin, or the unbinned whole): the currently published, verified shard
+    list."""
+
+    def __init__(self, root, bin_id=None, on_corrupt=None, snapshot=None):
+        self.root = root
+        self.bin_id = bin_id
+        self.on_corrupt = on_corrupt
+        self.snapshot = snapshot or GenerationSnapshot(root)
+        self.last_gate = None
+        self._epoch_key = None
+        self._last = None  # (gated bin paths, verified result)
+
+    def set_epoch_key(self, key):
+        """The boundary's epoch, set by the dataset before the refresh."""
+        self._epoch_key = key
+
+    def __call__(self):
+        paths, gate = self.snapshot.get(self._epoch_key)
+        self.last_gate = gate
+        # Filter the bin before verifying, and serve an unchanged set from
+        # the memo: verification is a startup/pickup check, not a CRC
+        # re-scan every epoch.
+        paths = get_file_paths_for_bin_id(paths, self.bin_id)
+        if self._last is not None and self._last[0] == paths:
+            return list(self._last[1])
+        verified = verified_shard_paths(self.root, paths,
+                                        on_corrupt=self.on_corrupt)
+        self._last = (paths, verified)
+        return list(verified)
 
 
 def _list_views(col):
@@ -187,17 +253,25 @@ def _decode_prepacked(b, names):
 
 def decode_record_batch(b):
     """Samples from a parquet RecordBatch: one PackedRow per row of an
-    offline-packed shard (``pack_a_lens`` present), else schema-v2 sample
-    tuples (A_ids, B_ids, is_random_next[, positions, labels])."""
+    offline-packed shard (``pack_a_lens`` present); schema-v2 tuples
+    (A_ids, B_ids, is_random_next[, positions, labels]) of int32 views;
+    or, for schema v1, the stored strings (A, B, is_random_next[,
+    masked_lm_positions, masked_lm_labels]). The schema is read per
+    shard, so a directory may mix them."""
     names = b.schema.names
     if "pack_a_lens" in names:
+        obs.inc("loader_decode_packed_batches_total")
         yield from _decode_prepacked(b, names)
         return
-    if "A_ids" not in names:
-        raise ValueError(
-            "only schema-v2 BERT shards (A_ids/B_ids columns, or packed "
-            "rows) are supported; found columns {}".format(names))
-    yield from _decode_columnar(b, names)
+    if "A_ids" in names:
+        obs.inc("loader_decode_columnar_batches_total")
+        yield from _decode_columnar(b, names)
+        return
+    obs.inc("loader_decode_legacy_batches_total")
+    cols = ["A", "B", "is_random_next"]
+    if "masked_lm_positions" in names:
+        cols += ["masked_lm_positions", "masked_lm_labels"]
+    yield from zip(*(b.column(c).to_pylist() for c in cols))
 
 
 def _concat_aranges(lens):
@@ -209,31 +283,31 @@ def _concat_aranges(lens):
     return np.arange(total, dtype=np.int64) - np.repeat(starts, lens)
 
 
-def _flat_and_lens(seqs):
-    """One flat int32 array + per-item lengths of a list of id views."""
-    lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
-    flat = np.concatenate(seqs) if seqs else np.zeros(0, dtype=np.int32)
-    return np.ascontiguousarray(flat, dtype=np.int32), lens
-
-
 class BertCollate:
     """samples -> encoded numpy batch dict with keys input_ids,
-    token_type_ids, attention_mask, next_sentence_labels, labels. Static
-    masking (5-tuples) places the stored labels; dynamic masking
+    token_type_ids, attention_mask, next_sentence_labels, labels, and
+    with ``emit_loss_mask`` also ``loss_mask`` (1 where a label is set).
+    Static masking (5-tuples) places the stored labels; dynamic masking
     (3-tuples) masks with the worker stream."""
 
     needs_rng = True
 
     def __init__(self, tokenizer, sequence_length_alignment=8,
-                 fixed_seq_length=None, ignore_index=-1, mlm_prob=0.15):
+                 fixed_seq_length=None, ignore_index=-1, mlm_prob=0.15,
+                 emit_loss_mask=False):
         self._align = sequence_length_alignment
         self._fixed_seq_length = fixed_seq_length
         self._ignore_index = ignore_index
         self._mlm_prob = mlm_prob
+        self._emit_loss_mask = emit_loss_mask
         self._mask_id = tokenizer.convert_tokens_to_ids("[MASK]")
         self._cls_id = tokenizer.convert_tokens_to_ids("[CLS]")
         self._sep_id = tokenizer.convert_tokens_to_ids("[SEP]")
         self._vocab_size = len(tokenizer)
+        # Schema-v1 token strings map to ids with one dict lookup each.
+        self._vocab = dict(tokenizer.get_vocab())
+        self._unk_id = tokenizer.convert_tokens_to_ids(
+            getattr(tokenizer, "unk_token", None) or "[UNK]")
 
     def _batch_seq_len(self, longest):
         if self._fixed_seq_length is not None:
@@ -244,11 +318,41 @@ class BertCollate:
             return self._fixed_seq_length
         return ((longest - 1) // self._align + 1) * self._align
 
+    def _token_ids_and_lens(self, seqs):
+        """One flat int32 id array + per-item lengths. Items are int32
+        id views (schema v2) or space-joined token strings (schema v1),
+        freely mixed."""
+        vocab_get, unk = self._vocab.get, self._unk_id
+        arrs = [s if not isinstance(s, str) else
+                np.fromiter((vocab_get(t, unk) for t in s.split()),
+                            dtype=np.int32)
+                for s in seqs]
+        lens = np.fromiter(map(len, arrs), dtype=np.int64, count=len(arrs))
+        flat = np.concatenate(arrs) if arrs else np.zeros(0, dtype=np.int32)
+        return np.ascontiguousarray(flat, dtype=np.int32), lens
+
+    @staticmethod
+    def _positions_and_lens(samples):
+        """Flat masked-lm positions + per-sample counts: int32 views
+        (schema v2) or ``serialize_np_array`` bytes (schema v1)."""
+        pos = [s[3] if not isinstance(s[3], (bytes, bytearray))
+               else deserialize_np_array(s[3]) for s in samples]
+        lens = np.fromiter(map(len, pos), dtype=np.int64, count=len(pos))
+        flat = (np.concatenate(pos).astype(np.int64, copy=False) if pos
+                else np.zeros(0, dtype=np.int64))
+        return flat, lens
+
+    def _finish(self, batch):
+        if self._emit_loss_mask:
+            batch["loss_mask"] = (batch["labels"] != self._ignore_index
+                                  ).astype(np.int32)
+        return batch
+
     def __call__(self, samples, g=None):
         n = len(samples)
         static = len(samples[0]) == 5
-        flat_a, lens_a = _flat_and_lens([s[0] for s in samples])
-        flat_b, lens_b = _flat_and_lens([s[1] for s in samples])
+        flat_a, lens_a = self._token_ids_and_lens([s[0] for s in samples])
+        flat_b, lens_b = self._token_ids_and_lens([s[1] for s in samples])
         ends = lens_a + lens_b + 3
         seq_len = self._batch_seq_len(int(ends.max()))
 
@@ -273,10 +377,9 @@ class BertCollate:
 
         labels = np.full((n, seq_len), self._ignore_index, dtype=np.int32)
         if static:
-            pos = [s[3] for s in samples]
-            pos_lens = np.fromiter(map(len, pos), dtype=np.int64, count=n)
-            flat_pos = np.concatenate(pos).astype(np.int64, copy=False)
-            flat_labels, lens_m = _flat_and_lens([s[4] for s in samples])
+            flat_pos, pos_lens = self._positions_and_lens(samples)
+            flat_labels, lens_m = self._token_ids_and_lens(
+                [s[4] for s in samples])
             if not np.array_equal(pos_lens, lens_m):
                 raise ValueError(
                     "masked_lm_positions/masked_lm_labels length mismatch "
@@ -292,14 +395,14 @@ class BertCollate:
             input_ids, labels = self._mask_tokens(
                 input_ids, special_tokens_mask, g)
 
-        return {
+        return self._finish({
             "input_ids": input_ids,
             "token_type_ids": token_type_ids,
             "attention_mask": attention_mask,
             "next_sentence_labels": np.asarray(
                 [int(s[2]) for s in samples], dtype=np.int32),
             "labels": labels,
-        }
+        })
 
     def _mask_tokens(self, input_ids, special_tokens_mask, g):
         """Vectorized dynamic masking: select ~mlm_prob of non-special
@@ -325,9 +428,11 @@ class BertPackedCollate(BertCollate):
     and NSP labels [R, P] padded with ignore_index."""
 
     def __init__(self, tokenizer, pack_seq_length, pack_rows,
-                 pack_max_per_row, ignore_index=-1, mlm_prob=0.15):
+                 pack_max_per_row, ignore_index=-1, mlm_prob=0.15,
+                 emit_loss_mask=False):
         super().__init__(tokenizer, fixed_seq_length=pack_seq_length,
-                         ignore_index=ignore_index, mlm_prob=mlm_prob)
+                         ignore_index=ignore_index, mlm_prob=mlm_prob,
+                         emit_loss_mask=emit_loss_mask)
         self._rows = pack_rows
         self._max_per_row = pack_max_per_row
 
@@ -343,8 +448,8 @@ class BertPackedCollate(BertCollate):
                              "{} != {}".format(layout["n_rows"], R, n,
                                                len(layout["row_of"])))
 
-        flat_a, lens_a = _flat_and_lens([s[0] for s in samples])
-        flat_b, lens_b = _flat_and_lens([s[1] for s in samples])
+        flat_a, lens_a = self._token_ids_and_lens([s[0] for s in samples])
+        flat_b, lens_b = self._token_ids_and_lens([s[1] for s in samples])
         totals = lens_a + lens_b + 3
         row_of, offset_of = layout["row_of"], layout["offset_of"]
         slot_of = layout["slot_of"]
@@ -383,9 +488,9 @@ class BertPackedCollate(BertCollate):
 
         labels = np.full((R, L), self._ignore_index, dtype=np.int32)
         if static:
-            flat_pos = np.concatenate([s[3] for s in samples]).astype(
-                np.int64, copy=False)
-            flat_labels, lens_m = _flat_and_lens([s[4] for s in samples])
+            flat_pos, _ = self._positions_and_lens(samples)
+            flat_labels, lens_m = self._token_ids_and_lens(
+                [s[4] for s in samples])
             labels.flat[np.repeat(base, lens_m) + flat_pos] = flat_labels
         else:
             if g is None:
@@ -395,7 +500,7 @@ class BertPackedCollate(BertCollate):
             special.flat[idx_b] = False
             input_ids, labels = self._mask_tokens(input_ids, special, g)
 
-        batch = {
+        batch = self._finish({
             "input_ids": input_ids,
             "token_type_ids": token_type_ids,
             "attention_mask": attention_mask,
@@ -404,7 +509,7 @@ class BertPackedCollate(BertCollate):
             "cls_positions": cls_positions,
             "next_sentence_labels": nsp,
             "labels": labels,
-        }
+        })
         stats = {"pad_tokens": int(layout["pad_tokens"]
                                    + (R - layout["n_rows"]) * L),
                  "total_tokens": R * L, "n_samples": n}
@@ -418,9 +523,10 @@ class BertPrepackedCollate(BertCollate):
     ``pack_seq_length`` in the packed batch contract above."""
 
     def __init__(self, tokenizer, pack_seq_length, pack_max_per_row,
-                 ignore_index=-1, mlm_prob=0.15):
+                 ignore_index=-1, mlm_prob=0.15, emit_loss_mask=False):
         super().__init__(tokenizer, fixed_seq_length=pack_seq_length,
-                         ignore_index=ignore_index, mlm_prob=mlm_prob)
+                         ignore_index=ignore_index, mlm_prob=mlm_prob,
+                         emit_loss_mask=emit_loss_mask)
         self._max_per_row = pack_max_per_row
 
     def __call__(self, rows, g=None):
@@ -472,7 +578,7 @@ class BertPrepackedCollate(BertCollate):
             special.flat[idx_all] = ~np.concatenate([r[2] for r in rows])
             input_ids, labels = self._mask_tokens(input_ids, special, g)
 
-        return {
+        return self._finish({
             "input_ids": input_ids,
             "token_type_ids": token_type_ids,
             "attention_mask": attention_mask,
@@ -481,7 +587,7 @@ class BertPrepackedCollate(BertCollate):
             "cls_positions": cls_positions,
             "next_sentence_labels": nsp,
             "labels": labels,
-        }
+        })
 
 
 class PackedBertLoader:
@@ -536,16 +642,32 @@ class PackedBertLoader:
             self.pad_tokens += stats["pad_tokens"]
             self.total_tokens += stats["total_tokens"]
             self.n_samples += stats["n_samples"]
+            if obs_on:
+                # Packed batches bypass the DataLoader's padding counters:
+                # account them from the packer's layout.
+                obs.inc("loader_real_tokens_total",
+                        stats["total_tokens"] - stats["pad_tokens"])
+                obs.inc("loader_padded_slots_total", stats["total_tokens"])
+                obs.set_gauge("loader_padding_efficiency",
+                              1.0 - self.pad_ratio)
             return batch
 
-        for raw_batch in inner_it:
-            for sample in raw_batch:
-                length = len(sample[0]) + len(sample[1]) + 3
-                ordinal = packer.add(length)
-                if ordinal is None:
-                    yield encode(packer.emit_fullest())
+        def seg_len(v):
+            # v2: an id view; v1: a space-joined token string.
+            return len(v) if not isinstance(v, str) else len(v.split())
+
+        obs_on = obs.enabled()
+        try:
+            for raw_batch in inner_it:
+                for sample in raw_batch:
+                    length = seg_len(sample[0]) + seg_len(sample[1]) + 3
                     ordinal = packer.add(length)
-                store[ordinal] = sample
+                    if ordinal is None:
+                        yield encode(packer.emit_fullest())
+                        ordinal = packer.add(length)
+                    store[ordinal] = sample
+        finally:
+            inner_it.close()   # an abandoned epoch ends its workers now
         while packer.open_rows:
             yield encode(packer.emit_fullest())
         if store:
@@ -570,30 +692,58 @@ def get_bert_pretrain_data_loader(
     num_workers=1,
     shuffle_buffer_size=16384,
     shuffle_buffer_warmup_factor=16,
+    tokenizer=None,
     vocab_file=None,
+    tokenizer_name=None,
     sequence_length_alignment=8,
     fixed_seq_lengths=None,
     ignore_index=-1,
     mlm_prob=0.15,
+    emit_loss_mask=False,
     base_seed=12345,
     start_epoch=0,
+    log_dir=None,
+    log_level=None,
     return_raw_samples=False,
     prefetch=2,
+    comm=None,
     pack_seq_length=None,
     pack_rows=None,
     pack_max_per_row=8,
     pack_horizon=None,
     pack_allow_uneven_epochs=False,
+    worker_mode="thread",
+    on_corrupt=None,
+    follow_generations=False,
 ):
-    """The BERT pretraining loader over balanced schema-v2 shards at
-    ``path``. Binned vs unbinned comes from the shard filenames, static vs
-    dynamic masking from the parquet schema. ``fixed_seq_lengths`` pads
-    every batch of a bin to that bin's length (an int, or one entry per
-    bin). ``dp_rank``/``num_dp_groups`` name this process's data-parallel
-    group; all processes of a group receive identical batches. The
-    special-token ids and the vocabulary size come from ``vocab_file``.
-    ``return_raw_samples`` yields lists of decoded samples instead of
-    batches.
+    """The BERT pretraining loader over balanced shards at ``path``.
+
+    Binned vs unbinned comes from the shard filenames, static vs dynamic
+    masking and schema v1 vs v2 from the parquet schema.
+    ``fixed_seq_lengths`` pads every batch of a bin to that bin's length
+    (an int, or one entry per bin). ``dp_rank``/``num_dp_groups`` name
+    this process's data-parallel group; all processes of a group receive
+    identical batches. ``return_raw_samples`` yields lists of decoded
+    samples instead of batches; ``emit_loss_mask`` adds ``loss_mask`` (1
+    where a label is set) to every batch.
+
+    The vocabulary: ``tokenizer`` (any object with the ``Vocab``
+    interface), else ``vocab_file``, else ``tokenizer_name``, a local
+    directory holding ``vocab.txt`` (what ``from_pretrained`` reads from a
+    directory; the port downloads nothing).
+
+    ``worker_mode``: ``"thread"`` (default) or ``"process"`` (persistent
+    spawned workers; falls back to threads, with a warning, without two
+    spare cores unless ``LDDL_TPU_FORCE_PROCESS_WORKERS`` is set).
+    ``on_corrupt``: the startup shard-integrity policy, ``"fail"`` or
+    ``"quarantine"`` (None defers to ``LDDL_TPU_ON_CORRUPT``, then
+    ``"fail"``), checked against the ``.manifest.json`` the producer
+    published. ``follow_generations=True``: pick up newly published
+    generations of a streaming-ingestion directory at each epoch boundary
+    (never mid-epoch). ``log_dir``/``log_level``: the dataset logger's
+    files and level (default WARNING). ``comm``: a ``parallel``
+    communicator for the census and the startup verification across
+    ranks.
 
     Sequence packing (``pack_seq_length`` + ``pack_rows``, over unbinned
     shards): several samples share each row of exactly
@@ -610,27 +760,64 @@ def get_bert_pretrain_data_loader(
     the row shape in a shard's footer) stream their stored rows: the
     stored row width is authoritative (``pack_seq_length``, if passed,
     must match) and ``pack_rows`` (default ``batch_size``) sets rows per
-    batch."""
-    if vocab_file is None:
-        raise ValueError("need vocab_file")
-    tokenizer = Vocab(vocab_file)
+    batch.
+
+    Shards are read through ``shardcache`` (``LDDL_TPU_LOADER_PREFETCH_
+    SHARDS`` read-ahead depth, ``LDDL_TPU_LOADER_CACHE_BYTES`` cache
+    budget); batches are the same with it on or off."""
+    import logging
+    if tokenizer is None:
+        from ..preprocess.tokenizer import get_tokenizer
+        tokenizer = get_tokenizer(vocab_file=vocab_file,
+                                  pretrained_model_name=tokenizer_name)
+    logger = DatasetLogger(
+        log_dir=log_dir,
+        log_level=log_level if log_level is not None else logging.WARNING,
+        rank=dp_rank)
     file_paths = get_all_parquets_under(path)
     if not file_paths:
         raise ValueError("no parquet shards under {}".format(path))
-    bin_ids = get_all_bin_ids(file_paths)
+    if follow_generations:
+        # The startup set obeys the gate a refresh does.
+        file_paths, _ = generation_gate_filter(path, file_paths)
+    n_before = len(file_paths)
+    file_paths = verified_shard_paths(path, file_paths,
+                                      on_corrupt=on_corrupt, logger=logger,
+                                      comm=comm)
+    n_quarantined = n_before - len(file_paths)
+    try:
+        bin_ids = get_all_bin_ids(file_paths)
+    except ValueError as e:
+        if n_quarantined:
+            raise annotate_quarantine(e, n_quarantined) from e
+        raise
+    # One snapshot for the whole loader: every bin's follower reads the
+    # gate and listing from the same per-epoch cache.
+    gen_snapshot = GenerationSnapshot(path) if follow_generations else None
 
-    def make_dataset(paths):
-        return ParquetDataset(
-            paths,
-            base_seed=base_seed,
-            start_epoch=start_epoch,
-            dp_rank=dp_rank,
-            num_dp_groups=num_dp_groups,
-            num_workers=num_workers,
-            shuffle_buffer_size=shuffle_buffer_size,
-            shuffle_buffer_warmup_factor=shuffle_buffer_warmup_factor,
-            decode_record_batch=decode_record_batch,
-        )
+    def make_dataset(paths, bin_id=None):
+        try:
+            return ParquetDataset(
+                paths,
+                base_seed=base_seed,
+                start_epoch=start_epoch,
+                dp_rank=dp_rank,
+                num_dp_groups=num_dp_groups,
+                num_workers=num_workers,
+                shuffle_buffer_size=shuffle_buffer_size,
+                shuffle_buffer_warmup_factor=shuffle_buffer_warmup_factor,
+                decode_record_batch=decode_record_batch,
+                comm=comm,
+                logger=logger,
+                refresh=(GenerationFollower(path, bin_id=bin_id,
+                                            on_corrupt=on_corrupt,
+                                            snapshot=gen_snapshot)
+                         if follow_generations else None))
+        except ValueError as e:
+            # Divisibility/balance errors after a quarantine name it.
+            if n_quarantined:
+                raise annotate_quarantine(e, n_quarantined) from e
+            raise
 
     packed_shape = packed_shape_of_dir(path, file_paths)
     if packed_shape is not None:
@@ -653,10 +840,10 @@ def get_bert_pretrain_data_loader(
         rows = int(pack_rows) if pack_rows is not None else int(batch_size)
         return DataLoader(
             make_dataset(file_paths), rows,
-            collate_fn=BertPrepackedCollate(tokenizer, L, P,
-                                            ignore_index=ignore_index,
-                                            mlm_prob=mlm_prob),
-            prefetch=prefetch)
+            collate_fn=BertPrepackedCollate(
+                tokenizer, L, P, ignore_index=ignore_index,
+                mlm_prob=mlm_prob, emit_loss_mask=emit_loss_mask),
+            prefetch=prefetch, worker_mode=worker_mode)
 
     packing = pack_seq_length is not None or pack_rows is not None
     if packing:
@@ -686,6 +873,7 @@ def get_bert_pretrain_data_loader(
             fixed_seq_length=fixed_seq_length,
             ignore_index=ignore_index,
             mlm_prob=mlm_prob,
+            emit_loss_mask=emit_loss_mask,
         )
 
     if bin_ids:
@@ -696,22 +884,25 @@ def get_bert_pretrain_data_loader(
                 "fixed_seq_lengths has {} entries for {} bins".format(
                     len(fixed_seq_lengths), len(bin_ids)))
         loaders = [
-            DataLoader(make_dataset(get_file_paths_for_bin_id(file_paths, b)),
+            DataLoader(make_dataset(get_file_paths_for_bin_id(file_paths, b),
+                                    bin_id=b),
                        batch_size,
                        collate_fn=make_collate(fixed_seq_lengths[b]),
-                       prefetch=prefetch)
+                       prefetch=prefetch, worker_mode=worker_mode)
             for b in bin_ids
         ]
         return BertPretrainBinned(loaders, base_seed=base_seed,
-                                  start_epoch=start_epoch)
+                                  start_epoch=start_epoch, logger=logger)
     if packing:
         inner = DataLoader(make_dataset(file_paths), batch_size,
-                           collate_fn=None, prefetch=prefetch)
+                           collate_fn=None, prefetch=prefetch,
+                           worker_mode=worker_mode)
         return PackedBertLoader(
             inner,
             BertPackedCollate(tokenizer, pack_seq_length, pack_rows,
                               pack_max_per_row, ignore_index=ignore_index,
-                              mlm_prob=mlm_prob),
+                              mlm_prob=mlm_prob,
+                              emit_loss_mask=emit_loss_mask),
             pack_seq_length, pack_rows, pack_max_per_row,
             pack_horizon=pack_horizon)
     fixed = fixed_seq_lengths
@@ -720,4 +911,5 @@ def get_bert_pretrain_data_loader(
             raise ValueError("unbinned data takes a single fixed_seq_length")
         fixed = fixed[0]
     return DataLoader(make_dataset(file_paths), batch_size,
-                      collate_fn=make_collate(fixed), prefetch=prefetch)
+                      collate_fn=make_collate(fixed), prefetch=prefetch,
+                      worker_mode=worker_mode)

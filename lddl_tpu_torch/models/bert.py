@@ -87,6 +87,14 @@ class BertConfig:
         return BertConfig(**kw)
 
 
+# Tables of at most this many rows (the token types) look up by a one-hot
+# product: the CUDA gather's backward sums each row's thousands of
+# repeats in a varying order, so two identical steps differed in the last
+# bits; the product's backward is a matmul, deterministic, and its
+# forward returns the rows exactly.
+ONE_HOT_ROWS = 16
+
+
 class Embed(nn.Embedding):
     """Lookup table (fp32) whose rows are returned in ``dtype``."""
 
@@ -96,6 +104,10 @@ class Embed(nn.Embedding):
         nn.init.normal_(self.weight, std=initializer_range)
 
     def forward(self, ids):
+        if self.num_embeddings <= ONE_HOT_ROWS:
+            one_hot = F.one_hot(ids.long(), self.num_embeddings)
+            return (one_hot.to(self.weight.dtype) @ self.weight).to(
+                self.dtype)
         return F.embedding(ids, self.weight).to(self.dtype)
 
 

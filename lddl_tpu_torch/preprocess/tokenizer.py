@@ -1,13 +1,15 @@
 """Tokenizer provisioning.
 
 Counterpart of ``lddl_tpu/preprocess/tokenizer.py``. The reference
-provisions a ``transformers.BertTokenizerFast`` over a vocab file; the
-port reads the vocab file itself (``utils.vocab.Vocab``) and tokenizes
-with its native engine, whose semantics are exactly a vocab-file
-``BertTokenizerFast``'s (WordPiece with the default BertNormalizer and
-BertPreTokenizer). Hub names are not taken: the port needs no
-``transformers``. ``build_wordpiece_vocab`` is a copy of the reference's
-deterministic trainer.
+provisions a ``transformers.BertTokenizerFast`` over a vocab file or a
+pretrained name; the port reads the vocab file itself
+(``utils.vocab.Vocab``) and tokenizes with its native engine, whose
+semantics are exactly a vocab-file ``BertTokenizerFast``'s (WordPiece with
+the default BertNormalizer and BertPreTokenizer). A pretrained name is
+taken as a local directory holding ``vocab.txt`` (the layout
+``from_pretrained`` reads from a directory); the port downloads nothing
+and needs no ``transformers``. ``build_wordpiece_vocab`` is a copy of the
+reference's deterministic trainer.
 """
 
 import collections
@@ -17,10 +19,21 @@ import unicodedata
 from ..utils.vocab import Vocab
 
 
-def get_tokenizer(vocab_file, do_lower_case=True):
-    """The vocab table of ``vocab_file`` (token id = line index) with its
+def get_tokenizer(vocab_file=None, do_lower_case=True,
+                  pretrained_model_name=None):
+    """The vocab table (token id = line index) of ``vocab_file``, or of
+    ``<pretrained_model_name>/vocab.txt`` for a local directory, with its
     ``do_lower_case``: what ``preprocess.bert.TokenizerInfo`` builds
-    from."""
+    from and what the loaders' collates read."""
+    if vocab_file is None and pretrained_model_name is not None:
+        if not os.path.isdir(pretrained_model_name):
+            raise ValueError(
+                "tokenizer name {!r} is not a local directory: the port "
+                "reads <name>/vocab.txt and downloads nothing".format(
+                    pretrained_model_name))
+        vocab_file = os.path.join(pretrained_model_name, "vocab.txt")
+    if vocab_file is None:
+        raise ValueError("need vocab_file or pretrained_model_name")
     if not os.path.isfile(vocab_file):
         raise FileNotFoundError("vocab file not found: {}".format(vocab_file))
     return Vocab(vocab_file, do_lower_case=do_lower_case)

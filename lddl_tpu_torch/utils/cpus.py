@@ -3,9 +3,7 @@
 Counterpart of ``lddl_tpu/utils/cpus.py``. ``os.cpu_count()`` reports the
 machine's cores, not this process's allowance: inside a cgroup-limited
 container or after ``sched_setaffinity`` it overcounts, so every pool
-sized from it oversubscribes the host. The reference's
-``loader_io_threads`` has no counterpart: the port's loader reads shards
-synchronously and starts no shard-I/O threads to reserve cores for.
+sized from it oversubscribes the host.
 """
 
 import os
@@ -19,6 +17,15 @@ def usable_cpu_count():
         return max(1, len(os.sched_getaffinity(0)))
     except (AttributeError, OSError):  # non-Linux / restricted proc
         return max(1, os.cpu_count() or 1)
+
+
+def loader_io_threads():
+    """Threads ONE loader worker stream adds for shard I/O when the
+    read-ahead pipeline is on (fetchers + decode-ahead, see
+    ``loader/shardcache.py``); 0 with ``LDDL_TPU_LOADER_PREFETCH_SHARDS=0``.
+    Pool sizing subtracts it through :func:`pool_cpu_budget`."""
+    from ..loader.shardcache import io_thread_count
+    return io_thread_count()
 
 
 def pool_cpu_budget(reserve=0):

@@ -10,6 +10,7 @@ shards so loader startup need not read every parquet footer.
 import io
 import json
 import os
+import re
 
 import numpy as np
 
@@ -19,6 +20,9 @@ from .io import atomic_write
 NUM_SAMPLES_CACHE_NAME = ".num_samples.json"
 # Reserved cache key holding {basename: byte_length} (growing directories).
 NUM_SAMPLES_SIZES_KEY = "__sizes__"
+# A streaming-ingestion generation's shard directory under the dataset
+# root; generation 0 is the root itself.
+GENERATION_DIR_RE = re.compile(r"^gen-(\d{4,})$")
 
 
 def mkdir(d):
@@ -76,6 +80,14 @@ def get_all_bin_ids(file_paths):
 
 def get_file_paths_for_bin_id(file_paths, bin_id):
     return [p for p in file_paths if get_bin_id_of_path(p) == bin_id]
+
+
+def get_generation_of_path(root, path):
+    """The ingest generation a shard belongs to: N under
+    ``<root>/gen-<NNNN>/``, 0 directly in the root."""
+    rel = os.path.relpath(os.path.abspath(path), os.path.abspath(root))
+    m = GENERATION_DIR_RE.match(rel.split(os.sep, 1)[0])
+    return int(m.group(1)) if m else 0
 
 
 def get_num_samples_of_parquet(path):

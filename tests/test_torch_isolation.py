@@ -2,9 +2,9 @@
 imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
 package loads no JAX and no HF package (``tokenizers`` is imported only
 lazily, by ``native/gen_tables.py`` when the tables are regenerated by
-hand), the preprocess workers import no torch, and entry points refuse
-to fall back to the CPU when CUDA is asked for (explicitly or by
-default) and absent."""
+hand), the preprocess workers and the loader's process workers import no
+torch, and entry points refuse to fall back to the CPU when CUDA is asked
+for (explicitly or by default) and absent."""
 
 import ast
 import os
@@ -75,7 +75,11 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.balance, lddl_tpu_torch.resilience.integrity, "
             "lddl_tpu_torch.cli.preprocess_bert_pretrain, "
             "lddl_tpu_torch.cli.balance_shards, "
-            "lddl_tpu_torch.cli.generate_num_samples_cache; "
+            "lddl_tpu_torch.cli.generate_num_samples_cache, "
+            "lddl_tpu_torch.observability, lddl_tpu_torch.resilience.io, "
+            "lddl_tpu_torch.resilience.backend, "
+            "lddl_tpu_torch.resilience.faults, "
+            "lddl_tpu_torch.loader.qserde, lddl_tpu_torch.loader.shardcache; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
             "'tokenizers')); "
@@ -96,6 +100,32 @@ def test_preprocess_workers_import_no_torch():
             "from lddl_tpu_torch.preprocess import get_tokenizer; "
             "from lddl_tpu_torch.preprocess.runner import "
             "BertBucketProcessor, BertPretrainConfig; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lddl_tpu', 'transformers', 'tokenizers')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_loader_worker_modules_import_no_torch():
+    """What a spawned process-mode loader worker imports (the loader
+    modules, to unpickle its dataset, decode and collate, and run its
+    stream; the telemetry and resilience layers they report into) loads
+    no torch, no JAX and no HF package."""
+    code = ("import sys, pickle, lddl_tpu_torch.loader, "
+            "lddl_tpu_torch.loader.datasets, lddl_tpu_torch.loader.bert, "
+            "lddl_tpu_torch.loader.bart, lddl_tpu_torch.loader.qserde, "
+            "lddl_tpu_torch.loader.shardcache, "
+            "lddl_tpu_torch.loader.dataloader, "
+            "lddl_tpu_torch.observability, lddl_tpu_torch.resilience.io, "
+            "lddl_tpu_torch.resilience.faults, "
+            "lddl_tpu_torch.resilience.integrity, "
+            "lddl_tpu_torch.utils.logging, lddl_tpu_torch.utils.cpus; "
+            "from lddl_tpu_torch.loader.dataloader import "
+            "_persistent_worker_main; "
+            "lddl_tpu_torch.utils.cpus.loader_io_threads(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'lddl_tpu', 'transformers', 'tokenizers')); "
             "print(bad); sys.exit(1 if bad else 0)")

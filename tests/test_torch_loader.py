@@ -3,8 +3,9 @@ built live by lddl_tpu's preprocess -> balance over the tiny corpus, then
 byte-equal batches from both packages' get_bert_pretrain_data_loader over
 two epochs, for dp ranks 0 and 1 of 2 (and two workers of one group), in
 every bin, with static and dynamic masking; the same for
-get_bart_pretrain_data_loader over schema-v2 BART shards (from lddl_tpu's
-BART preprocess with a tokenizer, and from ``testing.write_bart_shards``).
+get_bart_pretrain_data_loader over BART shards (schema v2 from lddl_tpu's
+BART preprocess with a tokenizer and from ``testing.write_bart_shards``,
+schema v1 from the preprocess without one).
 The reference loaders get their tokenizer from transformers over the same
 vocab file the port reads with its own Vocab.
 """
@@ -200,8 +201,8 @@ def test_bart_batches_byte_equal_on_written_shards(tmp_path):
 
 
 def test_bart_schema_v1_shards_are_refused(tiny_corpus):
+    """Text-only (schema-v1) BART shards were once refused by the port;
+    they now load, split and tokenized in the collate, to the reference's
+    batches byte for byte."""
     path, vocab = _build_bart_shards(tiny_corpus, tokenized=False)
-    loader = get_bart_pretrain_data_loader(path, vocab_file=vocab,
-                                           batch_size=4, max_seq_length=64)
-    with pytest.raises(ValueError, match="schema-v2"):
-        next(iter(loader))
+    _assert_bart_batches_equal(path, vocab, max_seq_length=64)
