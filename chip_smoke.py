@@ -115,9 +115,34 @@ exits non-zero):
    single-block kernel a step of L_pad >= 256); last, the process loader
    alone, batches/s and tokens/s beside phase 8's. Phase 8 also times
    its loader alone with synchronous shard reads and with read-ahead,
-   in turns.
+   in turns;
+10. offline BART data path: a 32 MiB corpus from a seed (16 files,
+   phase 8's generator) through the port's BART preprocess CLI (chunks
+   of at least 877 words, 32 blocks, sample ratio 0.9, up to 8 spawned
+   workers), schema v2 (``--vocab-file``) and then v1: wall time, MB/s,
+   no process with a CUDA context, the two runs' chunk text equal row
+   for row, the chunk-token quartiles; ``balance_shards`` to 16 shards
+   (each within 1 of the mean); the BART loader alone (batch 8, fixed
+   L=1024), batches/s; then bart_base at B=8, L=1024 from the v2 shards
+   through ``prefetch_to_device``: 8 steps with finite losses, the
+   encoder tokens and pad share of each batch, and 6 launches of each
+   online kernel a step;
+11. streaming ingest under bert_large: a landing directory grown in three
+   rounds (1 MiB, then 256 KiB twice, of one seeded corpus) at phase
+   8's setting (target 512, bins of 64, static masking, numpy engine, 4
+   shards a bin) -> ``ingest_once`` after each round (generation 0 in
+   the root, then ``gen-0001`` and ``gen-0002``; every bin's counts
+   within 1 of its row budget, the rows carried, seconds a round), and
+   a rescan of the unchanged landing that must be a no-op; a
+   ``follow_generations`` thread loader (batch 16) drains epoch 0 while
+   round 2 publishes mid-epoch (it must serve generation 0 alone) and
+   serves all three generations in epoch 1, from which bert_large
+   steps through ``prefetch_to_device``, 2 in each bin reached, with
+   finite losses and 24 launches of each single-block kernel a step of
+   L_pad >= 256; then a replay of the three rounds into a second root,
+   byte-equal in every file.
 
-Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
+Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
@@ -190,6 +215,30 @@ LOADER_STAGES = ("shard_fetch", "shard_read", "decode", "collate", "ipc",
 MASKED_COLUMNS = {"A", "B", "A_ids", "B_ids", "masked_lm_positions",
                   "masked_lm_labels", "masked_lm_positions_ids",
                   "masked_lm_label_ids"}
+# The offline BART data path (phase 10): a corpus of BART_DATA_BYTES in
+# BART_DATA_FILES files (phase 8's generator) -> the BART preprocess CLI,
+# schema v2 and v1 -> BART_DATA_SHARDS balanced shards -> the BART
+# loader -> bart_base at L=1024. Chunks close at BART_DATA_TARGET words:
+# ~1.15 WordPiece tokens a word puts a full chunk near L - 2 = 1022
+# tokens. Documents of BART_DATA_SENTENCES sentences (~4,500 words) hold
+# about five chunks each, so most chunks are full and only a document's
+# last one (and the short_seq_prob draws) end shorter.
+BART_DATA_BYTES = 32 << 20
+BART_DATA_FILES = 16
+BART_DATA_TARGET = 880
+BART_DATA_SENTENCES = (240, 400)
+BART_DATA_BLOCKS = 32
+BART_DATA_SHARDS = 16
+BART_LOADER_BATCHES = 100    # loader alone: batches timed after the first
+# Streaming ingest (phase 11): a landing directory grown in rounds of
+# these sizes (one seeded corpus, INGEST_FILES files of 256 KiB), at
+# phase 8's setting, INGEST_SHARDS shards a bin in generation 0.
+INGEST_ROUND_FILES = (4, 5, 6)
+INGEST_FILES = 6
+INGEST_FILE_BYTES = 256 << 10
+INGEST_SHARDS = 4
+INGEST_BATCH = 16
+INGEST_STEPS_PER_BIN = 2
 
 
 
@@ -1563,12 +1612,43 @@ def maps_library(pid, name):
         return False
 
 
+def process_image(pid):
+    """``(exe, cmdline, parent pid)`` of process ``pid``, or None once it
+    is gone."""
+    try:
+        with open("/proc/{}/cmdline".format(pid), "rb") as f:
+            cmdline = f.read()
+        with open("/proc/{}/stat".format(pid)) as f:
+            ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        return os.readlink("/proc/{}/exe".format(pid)), cmdline, ppid
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def not_yet_execed(pid):
+    """True while ``pid`` still runs its parent's image: a child between
+    its fork and its exec shows its parent's maps (libcuda included
+    where the parent imported torch), though it opens nothing. Read
+    before the maps: once this is False, the maps read after it are the
+    child's own."""
+    mine = process_image(pid)
+    if mine is None:
+        return True
+    parent = process_image(mine[2])
+    return parent is not None and mine[:2] == parent[:2]
+
+
 class DeviceWatch:
     """Polls every 0.25 s while a command runs: the device memory in use
     (``torch.cuda.mem_get_info``, the most seen beyond what was in use
     at the start) and the command's processes that have mapped the CUDA
     driver library (``/proc/<pid>/maps``), i.e. that opened a CUDA
-    context."""
+    context. One poll that sees libcuda mapped counts a process, unless
+    it has not exec'd yet (``not_yet_execed``): the port's CLIs import
+    torch, which maps libcuda on a CUDA build, and a worker they spawn
+    shows their maps for the few ms before its exec.
+    ``chip_cuda_watch.py`` holds this rule to a 2 ms poll of the BART
+    CLI."""
 
     def __init__(self, root_pid):
         import threading
@@ -1584,10 +1664,11 @@ class DeviceWatch:
         while not self._stop.wait(0.25):
             free, total = torch.cuda.mem_get_info()
             self.used = max(self.used, total - free)
-            for pid in descendants(self.root) - self.cuda_pids:
-                self.procs.add(pid)
-                if maps_library(pid, "libcuda.so"):
-                    self.cuda_pids.add(pid)
+            pids = descendants(self.root)
+            self.procs |= pids
+            self.cuda_pids |= {pid for pid in pids - self.cuda_pids
+                               if not not_yet_execed(pid)
+                               and maps_library(pid, "libcuda.so")}
 
     def stop(self):
         self._stop.set()
@@ -1609,6 +1690,12 @@ def preprocess_cli(corpus, vocab, out, engine, workers, card):
            "--schema-version", "2", "--local-workers", str(workers),
            "--engine", engine] + (["--device", "cuda"] if engine == "torch"
                                   else [])
+    return run_cli(cmd, "preprocess --engine " + engine)
+
+
+def run_cli(cmd, label):
+    """One of the port's CLIs in a process of its own, watched by a
+    ``DeviceWatch``; returns (seconds, what the watch saw)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -1626,10 +1713,10 @@ def preprocess_cli(corpus, vocab, out, engine, workers, card):
         seen = watch.stop()
     secs = time.perf_counter() - t0
     for line in stdout.splitlines()[-4:]:
-        print("preprocess {}: {}".format(engine, line), flush=True)
+        print("{}: {}".format(label, line), flush=True)
     if proc.returncode != 0:
-        raise AssertionError("preprocess --engine {} failed ({}):\n{}".format(
-            engine, proc.returncode, stderr[-4000:]))
+        raise AssertionError("{} failed ({}):\n{}".format(
+            label, proc.returncode, stderr[-4000:]))
     return secs, seen
 
 
@@ -2051,9 +2138,11 @@ def worker_stage_seconds(metrics_dir, pids):
 
 
 def cuda_holders():
-    """(processes below this one, those that mapped the CUDA driver)."""
+    """(processes below this one, those that mapped the CUDA driver; a
+    child not yet exec'd is not counted, as in ``DeviceWatch``)."""
     procs = descendants(os.getpid())
-    return procs, sorted(p for p in procs if maps_library(p, "libcuda.so"))
+    return procs, sorted(p for p in procs if not not_yet_execed(p)
+                         and maps_library(p, "libcuda.so"))
 
 
 class Continue:
@@ -2317,6 +2406,361 @@ def loader_path(fa, card, tmp, bal, vocab, tokens, step, cfg, alone):
     return total
 
 
+def bart_data_path(fa, card):
+    """Phase 10, the offline BART data path on the card: corpus -> the
+    port's BART preprocess CLI (schema v2, then v1) -> balance -> the
+    BART loader -> bart_base steps at L=1024. Returns the launch counts
+    of the counted steps."""
+    import numpy as np
+    from lddl_tpu_torch.balance import balance_shards
+    from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BartConfig, BartForPreTraining,
+                                       bart_batch_loss, make_optimizer,
+                                       make_train_step)
+    from lddl_tpu_torch.testing import write_text_corpus, write_vocab
+    from lddl_tpu_torch.utils.cpus import usable_cpu_count
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bart_data_")
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        t0 = time.perf_counter()
+        nbytes = write_text_corpus(tmp, tokens, BART_DATA_BYTES,
+                                   num_files=BART_DATA_FILES, seed=0,
+                                   sentences=BART_DATA_SENTENCES)
+        print("bart corpus: {} bytes in {} files in {:.1f} s".format(
+            nbytes, BART_DATA_FILES, time.perf_counter() - t0), flush=True)
+        workers = min(8, usable_cpu_count())
+        outs = {}
+        for schema in ("v2", "v1"):
+            outs[schema] = os.path.join(tmp, "pre_" + schema)
+            cmd = [sys.executable, "-m",
+                   "lddl_tpu_torch.cli.preprocess_bart_pretrain",
+                   "--wikipedia", tmp, "--sink", outs[schema],
+                   "--target-seq-length", str(BART_DATA_TARGET),
+                   "--num-blocks", str(BART_DATA_BLOCKS),
+                   "--sample-ratio", "0.9", "--seed", "12345",
+                   "--local-workers", str(workers)]
+            if schema == "v2":
+                cmd += ["--vocab-file", vocab]
+            secs, seen = run_cli(cmd, "bart preprocess " + schema)
+            print("bart preprocess {}: {:.1f} s for {} bytes, {:.2f} MB/s, "
+                  "{} workers, {} of {} processes opened a CUDA context "
+                  "({})".format(schema, secs, nbytes, nbytes / 1e6 / secs,
+                                workers, seen["cuda_procs"], seen["procs"],
+                                card), flush=True)
+            if seen["cuda_procs"]:
+                raise AssertionError("a BART preprocess process opened a "
+                                     "CUDA context")
+        t0 = time.perf_counter()
+        tables = {k: shard_tables(v) for k, v in outs.items()}
+        if list(tables["v2"]) != list(tables["v1"]) or not tables["v2"]:
+            raise AssertionError("the two schemas wrote different shards")
+        lens, rows = [], 0
+        for name, t2 in tables["v2"].items():
+            t1 = tables["v1"][name]
+            if t1.column_names != ["sentences"] or t2.column_names != [
+                    "sentences", "sentence_ids", "sentence_lens"]:
+                raise AssertionError("{}: columns {} / {}".format(
+                    name, t2.column_names, t1.column_names))
+            if not t2.column("sentences").equals(t1.column("sentences")):
+                raise AssertionError("{}: v2 and v1 chunk text differ"
+                                     .format(name))
+            lens += [sum(x) for x in t2.column("sentence_lens").to_pylist()]
+            rows += t2.num_rows
+        n_shards = len(tables["v2"])
+        del tables
+        lens = np.asarray(lens)
+        q = np.percentile(lens, [0, 25, 50, 75, 100])
+        print("bart chunks: {} in {} shards, v2 and v1 text equal row for "
+              "row; chunk tokens min/q1/median/q3/max {}; {:.2%} over "
+              "L - 2 = {} ({:.1f} s)".format(
+                  rows, n_shards, "/".join(str(int(x)) for x in q),
+                  float((lens > BART_L - 2).mean()), BART_L - 2,
+                  time.perf_counter() - t0), flush=True)
+        shutil.rmtree(outs["v1"])
+
+        bal = os.path.join(tmp, "balanced")
+        t0 = time.perf_counter()
+        counts = balance_shards(outs["v2"], bal, BART_DATA_SHARDS)
+        vals = list(counts.values())
+        mean = sum(vals) / len(vals)
+        if (len(vals) != BART_DATA_SHARDS or sum(vals) != rows
+                or max(abs(v - mean) for v in vals) > 1):
+            raise AssertionError("bart balance: {}".format(counts))
+        print("bart balance: {} shards of {}-{} chunks in {:.1f} s ({})"
+              .format(len(vals), min(vals), max(vals),
+                      time.perf_counter() - t0, card), flush=True)
+        shutil.rmtree(outs["v2"])
+
+        def loader():
+            return get_bart_pretrain_data_loader(
+                bal, vocab_file=vocab, batch_size=BART_BATCH,
+                max_seq_length=BART_L, fixed_seq_length=BART_L,
+                base_seed=12345)
+
+        it = iter(loader())
+        t0 = time.perf_counter()
+        next(it)
+        first = time.perf_counter() - t0
+        real = 0
+        t0 = time.perf_counter()
+        for _ in range(BART_LOADER_BATCHES):
+            real += int(next(it)["attention_mask"].sum())
+        secs = time.perf_counter() - t0
+        it.close()
+        print("bart loader alone: first batch {:.2f} s, then {} batches of "
+              "{} in {:.2f} s: {:.1f} batches/s, {:.0f} real encoder "
+              "tokens/s ({})".format(first, BART_LOADER_BATCHES, BART_BATCH,
+                                     secs, BART_LOADER_BATCHES / secs,
+                                     real / secs, card), flush=True)
+
+        torch.manual_seed(0)
+        cfg = BartConfig.bart_base(attention_dropout=0.0,
+                                   attention_impl="auto")
+        with torch.device("cuda"):
+            model = BartForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=2, total_steps=100)
+        step = make_train_step(model, opt, batch_loss=bart_batch_loss)
+        zero_launches(fa)
+        dts, it = [], iter(prefetch_to_device(loader()))
+        try:
+            for i in range(BART_STEPS):
+                batch = next(it)
+                t0 = time.perf_counter()
+                loss = float(step(batch)["loss"])  # syncs the device
+                dts.append(time.perf_counter() - t0)
+                enc = int(batch["attention_mask"].sum())
+                print("bart data step {} L={} loss={:.4f} encoder tokens {} "
+                      "pad share {:.3f} {:.1f} ms ({})".format(
+                          i, batch["input_ids"].shape[1], loss, enc,
+                          1 - enc / (BART_BATCH * BART_L), dts[-1] * 1e3,
+                          card), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite bart loss at step {}"
+                                         .format(i))
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        want = cfg.num_encoder_layers * BART_STEPS
+        if launches != dict.fromkeys(KERNELS, 0) | {
+                "online_fwd": want, "online_bwd_dq": want,
+                "online_bwd_dkv": want}:
+            raise AssertionError("bart data launch counts {} != {} per "
+                                 "online kernel".format(launches, want))
+        ms = 1e3 * sum(dts[1:]) / len(dts[1:])     # the first is warm-up
+        print("bart_base on preprocessed shards: {:.2f} ms mean of {} steps "
+              "(min {:.2f}, max {:.2f}); launches {} ({})".format(
+                  ms, len(dts) - 1, 1e3 * min(dts[1:]), 1e3 * max(dts[1:]),
+                  launches, card), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def file_tree(root):
+    """{relpath: bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(dirpath, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def ingest_path(fa, card):
+    """Phase 11, streaming ingest under bert_large: a landing directory
+    grown in three rounds -> ``ingest_once`` after each (generation 0,
+    gen-0001, gen-0002; the delta balancer appends) -> a
+    ``follow_generations`` loader that picks the new generations up at
+    the epoch boundary -> bert_large steps; then a replay of the rounds
+    into a second root, byte for byte. Returns the launch counts of the
+    counted steps."""
+    from lddl_tpu_torch.ingest import ingest_once
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.preprocess import BertPretrainConfig, get_tokenizer
+    from lddl_tpu_torch.testing import write_text_corpus, write_vocab
+    from lddl_tpu_torch.utils.fs import (generation_dir_name,
+                                         get_all_parquets_under,
+                                         get_bin_id_of_path,
+                                         read_num_samples_cache)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        corpus = os.path.join(tmp, "corpus")
+        nbytes = write_text_corpus(corpus, tokens,
+                                   INGEST_FILES * INGEST_FILE_BYTES,
+                                   num_files=INGEST_FILES, seed=1)
+        tok = get_tokenizer(vocab)
+        cfg_pre = BertPretrainConfig(max_seq_length=DATA_TARGET,
+                                     masking=True, engine="numpy")
+
+        def ingest_round(root, landing, n_files):
+            src = os.path.join(landing, "source")
+            os.makedirs(src, exist_ok=True)
+            for i in range(n_files):
+                shutil.copy(os.path.join(corpus, "source",
+                                         "{}.txt".format(i)), src)
+            t0 = time.perf_counter()
+            rep = ingest_once(root, tok, landing=landing, config=cfg_pre,
+                              num_shards=INGEST_SHARDS, bin_size=DATA_BIN,
+                              seed=12345)
+            return rep, time.perf_counter() - t0
+
+        def generation_counts(root, gen):
+            d = root if gen == 0 else os.path.join(
+                root, generation_dir_name(gen))
+            cache = read_num_samples_cache(d) or {}
+            return {k: v for k, v in cache.items() if k != "__sizes__"}
+
+        def counts_by_bin(root, latest):
+            by_bin = {}
+            for gen in range(latest + 1):
+                for name, n in generation_counts(root, gen).items():
+                    by_bin.setdefault(get_bin_id_of_path(name), []).append(n)
+            return by_bin
+
+        def epoch_samples(root, latest):
+            """Samples an epoch over generations 0..latest serves: one
+            rank, one worker, each shard of a bin cut to the bin's
+            smallest (the loader's equalization)."""
+            return sum(min(ns) * len(ns)
+                       for ns in counts_by_bin(root, latest).values())
+
+        def check_budgets(root, latest):
+            by_bin = counts_by_bin(root, latest)
+            for b, ns in by_bin.items():
+                if max(ns) - min(ns) > 1:
+                    raise AssertionError("bin {}: counts {} outside the "
+                                         "row budget".format(b, sorted(ns)))
+            return {str(DATA_BINS[b]): "{}x{}-{}".format(len(ns), min(ns),
+                                                         max(ns))
+                    for b, ns in sorted(by_bin.items())}
+
+        root = os.path.join(tmp, "root")
+        landing = os.path.join(tmp, "landing")
+        t_phase = time.perf_counter()
+        reps = []
+
+        def report(rep, secs):
+            reps.append(rep)
+            print("ingest generation {}: {} docs, {} samples visible, {} "
+                  "new shards, {} carry rows, {:.2f} s; bins (shards x "
+                  "rows, within 1 of the budget) {} ({})".format(
+                      rep["generation"], rep["docs"], rep["samples_visible"],
+                      rep["new_shards"], rep["carry_rows"], secs,
+                      json.dumps(check_budgets(root, rep["generation"])),
+                      card), flush=True)
+            if rep["noop"] or rep["touched_prior_shards"]:
+                raise AssertionError("ingest round: {}".format(rep))
+
+        report(*ingest_round(root, landing, INGEST_ROUND_FILES[0]))
+        gen0 = epoch_samples(root, 0)
+        bins = sorted({get_bin_id_of_path(p)
+                       for p in get_all_parquets_under(root)})
+        if bins != list(range(len(DATA_BINS))):
+            raise AssertionError("generation 0 has bins {}".format(bins))
+
+        loader = get_bert_pretrain_data_loader(
+            root, vocab_file=vocab, batch_size=INGEST_BATCH,
+            fixed_seq_lengths=DATA_BINS, base_seed=12345,
+            follow_generations=True)
+        it = iter(loader)
+        served = sum(len(next(it)["input_ids"]) for _ in range(2))
+        # Round 2 publishes gen-0001 mid-epoch: epoch 0 must not see it.
+        report(*ingest_round(root, landing, INGEST_ROUND_FILES[1]))
+        served += sum(len(b["input_ids"]) for b in it)
+        print("follow loader epoch 0: {} samples served, generation 0 "
+              "holds {} ({} before the loader's equalization)".format(
+                  served, gen0, sum(generation_counts(root, 0).values())),
+              flush=True)
+        if served != gen0:
+            raise AssertionError("epoch 0 served {} != generation 0's {}"
+                                 .format(served, gen0))
+        report(*ingest_round(root, landing, INGEST_ROUND_FILES[2]))
+        rep, secs = ingest_round(root, landing, INGEST_ROUND_FILES[2])
+        if not rep["noop"]:
+            raise AssertionError("a rescan of an unchanged landing ingested "
+                                 "{}".format(rep))
+        print("ingest rescan of an unchanged landing: no-op in {:.2f} s"
+              .format(secs), flush=True)
+        total = epoch_samples(root, 2)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+        steps, served = {}, 0
+        zero_launches(fa)
+        it = iter(prefetch_to_device(loader))
+        try:
+            for batch in it:
+                served += batch["input_ids"].shape[0]
+                l_bin = batch["input_ids"].shape[1]
+                if steps.get(l_bin, 0) >= INGEST_STEPS_PER_BIN:
+                    continue
+                t0 = time.perf_counter()
+                loss = float(step(batch, seed=0)["loss"])  # syncs
+                dt = time.perf_counter() - t0
+                steps[l_bin] = steps.get(l_bin, 0) + 1
+                print("ingest step L={} loss={:.4f} {:.1f} ms ({})".format(
+                    l_bin, loss, dt * 1e3, card), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at L={}".format(
+                        l_bin))
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        print("follow loader epoch 1: {} samples served, generations 0-2 "
+              "hold {}".format(served, total), flush=True)
+        if served != total:
+            raise AssertionError("epoch 1 served {} != the three "
+                                 "generations' {}".format(served, total))
+        kernel_steps = sum(n for l_bin, n in steps.items()
+                           if fa.single_block_serves(l_bin, 64))
+        want = cfg.num_layers * kernel_steps
+        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("ingest launch counts {} != {} per "
+                                 "single-block kernel ({} steps)".format(
+                                     launches, want, steps))
+        print("ingest bins reached {} (steps a bin); launches: {}".format(
+            json.dumps({str(k): v for k, v in sorted(steps.items())}),
+            launches), flush=True)
+        del model, opt, step
+
+        replay = os.path.join(tmp, "replay")
+        t0 = time.perf_counter()
+        for n_files in INGEST_ROUND_FILES:
+            ingest_round(replay, os.path.join(tmp, "landing_replay"),
+                         n_files)
+        got, want_tree = file_tree(replay), file_tree(root)
+        if got != want_tree:
+            raise AssertionError("the replay differs in {}".format(sorted(
+                k for k in set(got) | set(want_tree)
+                if got.get(k) != want_tree.get(k))[:8]))
+        print("ingest replay: {} files byte-equal (shards, .num_samples."
+              "json, manifests, journal) in {:.1f} s; corpus {} bytes; "
+              "phase rounds {:.1f} s".format(
+                  len(got), time.perf_counter() - t0, nbytes,
+                  t0 - t_phase), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     global torch
     import torch
@@ -2374,11 +2818,24 @@ def main():
     if kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
-    by_path = {"bert_binned": bert_path(fa, card),
-               "bert_packed": packed_path(fa, card),
-               "bart": bart_path(fa, card),
-               "bert_sharded": distributed_path(fa, card)}
-    by_path["bert_data"], by_path["bert_loader"] = data_path(fa, card)
+    by_path = {}
+    phases = [("4", "bert_binned", lambda: bert_path(fa, card)),
+              ("5", "bert_packed", lambda: packed_path(fa, card)),
+              ("6", "bart", lambda: bart_path(fa, card)),
+              ("7", "bert_sharded", lambda: distributed_path(fa, card)),
+              ("8-9", ("bert_data", "bert_loader"),
+               lambda: data_path(fa, card)),
+              ("10", "bart_data", lambda: bart_data_path(fa, card)),
+              ("11", "bert_ingest", lambda: ingest_path(fa, card))]
+    for number, path, run in phases:
+        t0 = time.perf_counter()
+        if isinstance(path, tuple):
+            by_path.update(zip(path, run()))
+        else:
+            by_path[path] = run()
+        print("phase {} ({}): {:.1f} s".format(
+            number, path if isinstance(path, str) else "+".join(path),
+            time.perf_counter() - t0), flush=True)
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}

@@ -1,6 +1,6 @@
 """Shard balancing: ``balance_shards`` and ``generate_num_samples_cache``
-(counterpart of ``lddl_tpu/balance``; the delta balancer is not ported
-yet)."""
+(counterpart of ``lddl_tpu/balance``), and the ingest service's delta
+balancer (``balance.delta``)."""
 
 from .balancer import balance_shards, generate_num_samples_cache
 

@@ -6,7 +6,9 @@ Counterpart of ``lddl_tpu/cli/balance_shards.py``; run as
 """
 
 from ..balance import balance_shards
-from .common import attach_multihost_arg, communicator_of, make_parser
+from .common import (apply_storage_backend, arm_fleet_if_requested,
+                     attach_fleet_arg, attach_multihost_arg,
+                     attach_storage_arg, communicator_of, make_parser)
 
 
 def attach_args(parser=None):
@@ -18,11 +20,15 @@ def attach_args(parser=None):
                         help="shard count; choose a multiple of "
                              "(num data-parallel groups x loader workers)")
     attach_multihost_arg(parser)
+    attach_storage_arg(parser)
+    attach_fleet_arg(parser)
     return parser
 
 
 def main(args=None):
     args = args if args is not None else attach_args().parse_args()
+    apply_storage_backend(args)
+    arm_fleet_if_requested(args, args.outdir)
     with communicator_of(args) as comm:
         counts = balance_shards(args.indir, args.outdir, args.num_shards,
                                 comm=comm, log=print)

@@ -1,12 +1,16 @@
-"""Shared CLI plumbing: corpus path flags and the multihost process group.
+"""Shared CLI plumbing: corpus path flags, the multihost process group,
+and the storage, elastic and fleet flags.
 
-Counterpart of the argument helpers of ``lddl_tpu/cli/common.py`` that
-the preprocess and balance CLIs need. Storage, fleet and elastic flags
-are not offered. ``--multihost`` joins a ``torch.distributed`` gloo group
+Counterpart of the argument helpers of ``lddl_tpu/cli/common.py``.
+``--multihost`` joins a ``torch.distributed`` gloo group
 (``parallel.init_distributed(device="cpu")``): the host-side collectives
 of the preprocess and the balancer are small int64 vectors, and gloo
 serves a CPU-only preprocess cluster, as the reference's gloo CPU
-collectives do.
+collectives do. ``--storage-backend`` selects the storage backend as
+the reference's does. The elastic flags parse as the reference's do and
+reach the runner, which refuses ``elastic=True`` (lease-based work
+stealing is not ported yet). ``--fleet-telemetry`` parses and exits
+with a message: fleet telemetry is not ported yet either.
 """
 
 import argparse
@@ -50,6 +54,89 @@ def attach_multihost_arg(parser):
                         help="world size (with --coordinator-address)")
     parser.add_argument("--process-id", type=int, default=None,
                         help="this host's rank (with --coordinator-address)")
+
+
+def attach_elastic_args(parser):
+    parser.add_argument(
+        "--elastic", action="store_true",
+        help="lease-based work-stealing multi-host mode: launch this SAME "
+             "command on N independent hosts sharing --sink (no "
+             "coordinator, no barriers); hosts claim scatter/gather units "
+             "via lease files, any host may die mid-unit and be reclaimed "
+             "by the survivors, output is byte-identical to a single-host "
+             "run. Mutually exclusive with --multihost")
+    parser.add_argument(
+        "--lease-ttl", type=float, default=30.0, metavar="SECONDS",
+        help="elastic lease TTL: a dead host's in-flight unit is stolen "
+             "after at most this long; must exceed the renewal round-trip "
+             "on your shared filesystem (renewals run at ttl/3)")
+    parser.add_argument(
+        "--elastic-host-id", default=None,
+        help="stable holder id for lease files (default: auto "
+             "hostname-pid-nonce)")
+    parser.add_argument(
+        "--scatter-units", type=int, default=None,
+        help="fixed elastic scatter work-unit count (block slices). "
+             "Default: ADAPTIVE — a few probe slices measure per-block "
+             "wall, then a journaled plan sizes the remaining units "
+             "toward a target wall of ~64x the measured lease overhead; "
+             "give an explicit count to pin the classic fixed stride "
+             "(the unit plan rides the resume fingerprint either way)")
+
+
+def elastic_kwargs_of(args):
+    if getattr(args, "elastic", False) and getattr(args, "multihost", False):
+        raise SystemExit(
+            "--elastic and --multihost are mutually exclusive: elastic "
+            "hosts coordinate through lease files in the output dir, not "
+            "torch.distributed")
+    return {
+        "elastic": getattr(args, "elastic", False),
+        "lease_ttl": args.lease_ttl,
+        "holder_id": args.elastic_host_id,
+        "scatter_units": args.scatter_units,
+    }
+
+
+def attach_storage_arg(parser):
+    parser.add_argument(
+        "--storage-backend", choices=("local", "mock"), default=None,
+        help="durable-IO/coordination backend (resilience/backend.py): "
+             "'local' = the POSIX shared filesystem (default; atomic-"
+             "rename leases, rename publishes), 'mock' = the in-process "
+             "object store with CAS leases and multipart-upload-then-"
+             "commit publishes (chaos/CI validation only). Equivalent to "
+             "LDDL_TPU_STORAGE_BACKEND; inherited by worker processes")
+
+
+def apply_storage_backend(args):
+    """Pin the selected backend into the environment before any run
+    kwargs are taken or workers spawn (spawned children inherit it)."""
+    name = getattr(args, "storage_backend", None)
+    if name:
+        from ..resilience import backend as storage
+        storage.set_backend(name)
+
+
+def attach_fleet_arg(parser):
+    parser.add_argument(
+        "--fleet-telemetry", action="store_true",
+        help="publish per-host telemetry spools under "
+             "<sink>/.telemetry/<holder>/ (not ported yet: the flag "
+             "exits with a message rather than run without the "
+             "telemetry it asks for)")
+
+
+def arm_fleet_if_requested(args, sink):
+    """Refuse ``--fleet-telemetry``: the fleet telemetry layer
+    (``observability/fleet.py``) is not ported yet, and a run must not
+    go on without the telemetry it asked for."""
+    if getattr(args, "fleet_telemetry", False):
+        raise SystemExit(
+            "--fleet-telemetry: fleet telemetry (observability/fleet.py) "
+            "is not ported to lddl_tpu_torch yet (ROADMAP.md, Queue 1 "
+            "item 4); drop the flag, or use lddl_tpu for a run that "
+            "needs it ({})".format(sink))
 
 
 @contextlib.contextmanager

@@ -6,19 +6,26 @@ Counterpart of ``lddl_tpu/cli/preprocess_bert_pretrain.py``; run as
 the static-masking engine (``numpy``: the native Philox replay, the
 reference's shard bytes; ``torch``: the torch maskers on ``--device``,
 the card unless ``cpu``). Tokenization is the native engine's
-(``--tokenizer-engine native``).
+(``--tokenizer-engine native``). ``--elastic`` reaches the runner, which
+refuses it (not ported yet); ``--fleet-telemetry`` exits with a message.
 """
 
 from ..preprocess import BertPretrainConfig, get_tokenizer, run_bert_preprocess
 from ..utils.args import attach_bool_arg
-from .common import (attach_corpus_args, attach_multihost_arg,
-                     communicator_of, corpus_paths_of, make_parser)
+from .common import (apply_storage_backend, arm_fleet_if_requested,
+                     attach_corpus_args, attach_elastic_args,
+                     attach_fleet_arg, attach_multihost_arg,
+                     attach_storage_arg, communicator_of,
+                     corpus_paths_of, elastic_kwargs_of, make_parser)
 
 
 def attach_args(parser=None):
     parser = parser or make_parser(__doc__)
     attach_corpus_args(parser)
     attach_multihost_arg(parser)
+    attach_elastic_args(parser)
+    attach_fleet_arg(parser)
+    attach_storage_arg(parser)
     parser.add_argument("--sink", "--outdir", dest="sink", required=True,
                         help="output directory for the parquet shards")
     parser.add_argument("--vocab-file", required=True)
@@ -78,6 +85,9 @@ def attach_args(parser=None):
 
 def main(args=None):
     args = args if args is not None else attach_args().parse_args()
+    apply_storage_backend(args)
+    arm_fleet_if_requested(args, args.sink)
+    elastic_kwargs = elastic_kwargs_of(args)
     config = BertPretrainConfig(
         max_seq_length=args.target_seq_length,
         short_seq_prob=args.short_seq_prob,
@@ -112,6 +122,7 @@ def main(args=None):
             log=print,
             spool_groups=args.spool_groups,
             resume=args.resume,
+            **elastic_kwargs,
         )
 
 

@@ -89,12 +89,10 @@ class BartCollate:
 
     def _tokenize_sentences(self, sentences):
         """Token ids of each sentence, as a vocab-file BertTokenizerFast
-        gives them without special tokens. The native engine re-splits
-        each sentence it is given; tokens never cross a sentence boundary
-        (it falls on whitespace), so joining a sentence's pieces gives its
-        ids."""
+        gives them without special tokens: ``native.tokenize_sentences``,
+        the function the BART preprocess stores schema-v2 ids with."""
+        from ..native import NativeTokenizer, tokenize_sentences
         if self._native is None:
-            from ..native import NativeTokenizer
             vocab = self._tokenizer.get_vocab()
             id_to_token = [""] * (max(vocab.values()) + 1)
             for tok, i in vocab.items():
@@ -102,14 +100,10 @@ class BartCollate:
             self._native = NativeTokenizer(
                 id_to_token, self._tokenizer.convert_tokens_to_ids("[UNK]"),
                 getattr(self._tokenizer, "do_lower_case", True))
-        ids, sent_lens, doc_counts = self._native.tokenize_docs(sentences)
-        pieces = np.split(ids, np.cumsum(sent_lens)[:-1]) if len(
-            sent_lens) else []
-        out, k = [], 0
-        for n in doc_counts.tolist():
-            out.append([int(t) for p in pieces[k:k + n] for t in p])
-            k += n
-        return out
+        ids, lens = tokenize_sentences(self._native, sentences)
+        ends = np.cumsum(lens)
+        return [ids[e - n:e].tolist() for n, e in zip(lens.tolist(),
+                                                       ends.tolist())]
 
     def _sentence_ids(self, samples):
         """Per sample, its sentences' token-id sequences: slices of the

@@ -7,6 +7,8 @@ surface:
         .tokenize_docs(texts) -> (ids, sent_lens, doc_sent_counts) np arrays
         .bert_instances(docs, ...) -> packed instance arrays in ONE pass
         .bert_instances_masked(docs, ...) -> the same, statically masked
+    tokenize_sentences(tokenizer, sentences) -> (ids, sentence_lens)
+    segment_sums(values, counts) -> sums of consecutive runs
     bert_pairs(...)  -> NSP pairs over tokenize_docs output (staged rung)
     mask_batch(key, ids, candidate, ...) -> numpy-Philox-replay masking
     join_tokens(...) -> space-joined token strings as Arrow buffers
@@ -480,6 +482,28 @@ class NativeTokenizer:
             lib.lddl_masked_inst_free(res)  # see tokenize_docs: leak-free
         return (a_lens, seq_lens, rn, flat_a, flat_b, sel_pos, sel_lens,
                 label_ids)
+
+
+def segment_sums(values, counts):
+    """Sums of consecutive runs of ``values``, run ``i`` being
+    ``counts[i]`` long (int64)."""
+    ends = np.cumsum(counts, dtype=np.int64)
+    csum = np.zeros(len(values) + 1, dtype=np.int64)
+    np.cumsum(values, out=csum[1:])
+    return csum[ends] - csum[ends - counts]
+
+
+def tokenize_sentences(tokenizer, sentences):
+    """Token ids of sentences, without special tokens, as a vocab-file
+    ``BertTokenizerFast`` gives them: ``(flat_ids, sentence_lens)``, int32.
+    ``tokenizer`` is a ``NativeTokenizer``. The engine re-splits each
+    sentence it is given; tokens never cross a sentence boundary (it
+    falls on whitespace), so a sentence's ids are its pieces joined.
+    The BART preprocess stores schema-v2 ids with it and the BART
+    collate tokenizes schema-v1 chunk text with it, so the two agree by
+    construction."""
+    ids, piece_lens, piece_counts = tokenizer.tokenize_docs(sentences)
+    return ids, segment_sums(piece_lens, piece_counts).astype(np.int32)
 
 
 def bert_pairs(ids, sent_lens, doc_sent_counts, max_seq_length,

@@ -467,16 +467,6 @@ def _candidate_mask(valid, a_lens, seq_lens):
     return candidate
 
 
-def _candidate_mask(valid, a_lens, seq_lens):
-    """Positions eligible for masking: valid, not [CLS]/[SEP]."""
-    candidate = valid.copy()
-    rows = np.arange(valid.shape[0])
-    candidate[:, 0] = False
-    candidate[rows, a_lens + 1] = False
-    candidate[rows, seq_lens - 1] = False
-    return candidate
-
-
 def apply_static_masking(batch, config, tok_info, seed, scope):
     """Batch-mask all instances of a bucket (an InstanceBatch or a list of
     (a, b, is_random_next) pairs); returns batch arrays (masked ids,

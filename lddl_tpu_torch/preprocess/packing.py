@@ -199,11 +199,18 @@ def pack_shape_of_schema(schema):
 
 
 def pack_shape_of_parquet(path):
-    """Packed row shape off one local shard's footer, or None (an
-    unreadable footer is not the sniffer's to report)."""
+    """Packed row shape off one shard's footer, or None (an unreadable
+    footer is not the sniffer's to report). On a non-local storage
+    backend the footer arrives by ranged reads (``utils.fs``), so the
+    sniff never fetches a whole object."""
     import pyarrow as pa
     import pyarrow.parquet as pq
+    from ..resilience.io import backend_if_nonlocal
     try:
+        if backend_if_nonlocal() is not None:
+            from ..utils.fs import read_footer_metadata
+            return pack_shape_of_schema(read_footer_metadata(path).schema
+                                        .to_arrow_schema())
         return pack_shape_of_schema(pq.read_schema(path))
     except (OSError, RuntimeError, pa.ArrowInvalid):
         return None

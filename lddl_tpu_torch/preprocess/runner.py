@@ -304,39 +304,6 @@ def _num_spool_groups(nbuckets):
     return min(nbuckets, max(64, nbuckets // 8))
 
 
-def _buckets_of_group(group, nbuckets, ngroups):
-    return range(group, nbuckets, ngroups)
-
-
-def splitter_digest(splitter_params):
-    """Digest of learned splitter params in resume fingerprints."""
-    if splitter_params is None:
-        return "none"
-    return hashlib.sha256(splitter_params.serialize()).hexdigest()[:16]
-
-
-def processor_fingerprint(*fields):
-    """Shared digest skeleton for processor resume fingerprints: joins the
-    stringified fields (dataclass configs serialize as sorted json) and
-    hashes."""
-    import dataclasses
-
-    def canon(f):
-        if dataclasses.is_dataclass(f) and not isinstance(f, type):
-            return json.dumps(dataclasses.asdict(f), sort_keys=True,
-                              default=str)
-        return str(f)
-
-    return hashlib.sha256(
-        "|".join(canon(f) for f in fields).encode()).hexdigest()[:16]
-
-
-def _num_spool_groups(nbuckets):
-    """Default coarse-group count: enough groups for gather parallelism,
-    few enough that spool files stay O(groups x writers)."""
-    return min(nbuckets, max(64, nbuckets // 8))
-
-
 def _group_of_bucket(bucket, ngroups):
     return bucket % ngroups
 
@@ -848,6 +815,10 @@ def run_sharded_pipeline(
     resume=False,
     progress_interval=5.0,
     elastic=False,
+    lease_ttl=30.0,
+    holder_id=None,
+    scatter_units=None,
+    emit_manifest=True,
 ):
     """Generic SPMD scaffolding shared by the preprocessors: dirty-dir
     guard -> block planning -> (optional) scatter shuffle -> strided
@@ -855,7 +826,11 @@ def run_sharded_pipeline(
     deferred publish returning ``{path: n}``) -> manifest, cleanup and
     reduced totals. ``spool_groups`` overrides the coarse radix width
     (default min(nblocks, max(64, nblocks // 8))). ``elastic=True`` (the
-    reference's lease-based work stealing) is not ported and raises.
+    reference's lease-based work stealing, with ``lease_ttl``,
+    ``holder_id`` and ``scatter_units``) is not ported and raises.
+    ``emit_manifest=False`` skips the integrity manifest (the ingest
+    service's work-dir part files are consumed by its delta balancer,
+    which writes the published manifests).
 
     Fault model: a unit (spool group / block) whose processing raises is
     recorded and skipped; a dead pool worker rebuilds the pool and
@@ -1057,7 +1032,8 @@ def run_sharded_pipeline(
 
     # Integrity manifest (per-shard byte length + CRC32), rank-strided;
     # none for txt output.
-    build_manifest(out_dir, comm=comm, log=log)
+    if emit_manifest:
+        build_manifest(out_dir, comm=comm, log=log)
 
     if comm.rank == 0:
         if global_shuffle:
@@ -1131,6 +1107,10 @@ def run_bert_preprocess(
     resume=False,
     progress_interval=5.0,
     elastic=False,
+    lease_ttl=30.0,
+    holder_id=None,
+    scatter_units=None,
+    emit_manifest=True,
     pack_seq_length=None,
     pack_max_per_row=8,
 ):
@@ -1201,4 +1181,8 @@ def run_bert_preprocess(
         resume=resume,
         progress_interval=progress_interval,
         elastic=elastic,
+        lease_ttl=lease_ttl,
+        holder_id=holder_id,
+        scatter_units=scatter_units,
+        emit_manifest=emit_manifest,
     )

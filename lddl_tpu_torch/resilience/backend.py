@@ -321,6 +321,17 @@ class MockObjectStore:
         uid, parts, size = self._upload_parts(odir, chunks)
         return self._commit(path, odir, uid, parts, size, expected_gen)
 
+    def put_if_match(self, path, data, expected_gen):
+        """Conditional put: commits only while the object's current
+        generation equals ``expected_gen`` (None: it must not exist).
+        Returns the new generation; raises :class:`CASConflict` when the
+        precondition is lost."""
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+        gen = self._put_once(path, self._chunks_of(data), expected_gen)
+        count(self.name, "cas-put", "ok")
+        return gen
+
     def _put_retry_races(self, path, chunks_fn):
         """Last-writer-wins put: retries lost CAS races, a bounded
         number of times."""
@@ -420,6 +431,16 @@ class MockObjectStore:
             return None, None
         count(self.name, "head", "ok")
         return int(meta.get("size", 0)), cur
+
+    def delete(self, path):
+        """Unconditional delete: the commit records (authoritative), then
+        the materialized view."""
+        shutil.rmtree(self._obj_dir(path), ignore_errors=True)
+        try:
+            os.remove(path)
+        except (FileNotFoundError, IsADirectoryError):
+            pass
+        count(self.name, "delete", "ok")
 
     def list(self, dirpath):
         """Sorted object names (committed objects and plain files, hidden

@@ -15,9 +15,10 @@ Spec grammar: comma-separated clauses of colon-separated fields::
     <op>:<kind>[:p=<float>][:nth=<int>][:max=<int>][:seed=<int>]
                [:path=<substr>][:delay=<float>][:flag=<file>]
 
-    op    site name: open | read | replace | worker | cas-put |
-          range-read | multipart-commit | list (or * for any site; the
-          last four fire only on the mock object store)
+    op    site name: open | read | replace | worker | journal-read |
+          journal-publish | cas-put | range-read | multipart-commit |
+          list (or * for any site; the last four fire only on the mock
+          object store, the journal sites at the ingest journal)
     kind  eio | estale | truncate | slow | stall | kill | conflict | stale
     p     per-call injection probability (seeded per process)
     nth   inject on exactly the Nth matching call of this process

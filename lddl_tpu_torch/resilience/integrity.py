@@ -89,10 +89,15 @@ def _shard_schema_info(path):
     return schema_version_of_names(schema.names), pack_shape_of_schema(schema)
 
 
-def build_manifest(dir_path, comm=None, log=None):
+def build_manifest(dir_path, comm=None, log=None, extra_meta=None):
     """Checksum every parquet shard directly in ``dir_path`` (rank-strided)
     and publish the manifest from rank 0; returns it (None when the
-    directory holds no shard)."""
+    directory holds no shard and no ``extra_meta`` is given).
+
+    ``extra_meta`` merges keys into the reserved ``__meta__`` entry: the
+    ingest publisher records the latest generation and each generation's
+    shard list there (the loader's generation-pickup gate). It must be
+    deterministic content: manifest bytes are compared on resume."""
     if comm is None:
         from ..parallel.distributed import LocalCommunicator
         comm = LocalCommunicator()
@@ -101,7 +106,7 @@ def build_manifest(dir_path, comm=None, log=None):
                  if _is_parquet_path(n)]
     except OSError:
         names = []
-    if not names:
+    if not names and not extra_meta:
         return None
     sizes = [0] * len(names)
     crcs = [0] * len(names)
@@ -141,6 +146,8 @@ def build_manifest(dir_path, comm=None, log=None):
         from ..preprocess.packing import pack_meta_of
         manifest.setdefault("__meta__", {})["packed"] = pack_meta_of(
             pstats[0] // n_packed, pstats[2] // n_packed)
+    if extra_meta:
+        manifest.setdefault("__meta__", {}).update(extra_meta)
     if comm.rank == 0:
         atomic_write(os.path.join(dir_path, MANIFEST_NAME),
                      json.dumps(manifest, sort_keys=True))

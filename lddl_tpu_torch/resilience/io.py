@@ -7,11 +7,13 @@ port's atomic writers (``utils/io.py`` re-exports them).
 - Retrying: ``with_retries`` runs an operation with exponential backoff,
   jitter and a total deadline, retrying only transient OSErrors (EIO,
   ESTALE, ...); a missing file or a permission error fails at once.
-- Publishing: ``atomic_write``/``atomic_publish``/``write_table_atomic``
-  place a file (or, for ``atomic_publish``, a directory) in a shard
-  directory through a temporary in the same directory, fsync, then
-  ``os.replace`` and an fsync of the directory: a crash leaves the old
-  target or the new one, never a torn one.
+- Publishing: ``atomic_write``/``atomic_publish``/``write_table_atomic``/
+  ``atomic_copy`` place a file (or, for ``atomic_publish``, a directory)
+  in a shard directory through a temporary in the same directory, fsync,
+  then ``os.replace`` and an fsync of the directory: a crash leaves the
+  old target or the new one, never a torn one. ``put_exclusive`` is the
+  create-only publish of a commit record, ``remove`` the backend-routed
+  delete, ``open_append`` a retried open of a local append file.
 - Reading: ``read_bytes``, ``read_table``, ``read_shard_bytes`` (with a
   version for the loader's shard cache), ``object_head``, ``read_range``,
   ``read_json``, ``list_dir``.
@@ -224,6 +226,44 @@ def atomic_write(path, data, retries=True):
     return _write()
 
 
+def atomic_copy(src, path, retries=True):
+    """Atomically publish the durable file ``src`` at ``path`` without
+    loading it: hard-link it to a temporary and replace (a chunked copy
+    + fsync where hard links fail). ``src`` stays in place, so a crashed
+    publish re-runs idempotently; the target is never torn. On the mock
+    store ``src``'s bytes are multipart-uploaded."""
+    tmp = "{}.tmp.{}".format(path, os.getpid())
+
+    def _copy():
+        bk = _mock_backend()
+        if bk is not None:
+            bk.put_file(src, path)
+            return
+        faults.fault_point("open", path)
+        try:
+            try:
+                os.link(src, tmp)
+                atomic_publish(tmp, path, fsync_file=False)
+            except OSError:
+                # No hard links here (or a stale temporary): copy.
+                _unlink_quietly(tmp)
+                with open(src, "rb") as fin, open(tmp, "wb") as fout:
+                    while True:
+                        chunk = fin.read(1 << 20)
+                        if not chunk:
+                            break
+                        fout.write(chunk)
+                    fout.flush()
+                    os.fsync(fout.fileno())
+                atomic_publish(tmp, path, fsync_file=False)
+        finally:
+            _unlink_quietly(tmp)
+
+    if retries:
+        return with_retries(_copy, desc="atomic_copy {}".format(path))
+    return _copy()
+
+
 def read_bytes(path, retries=True):
     """A whole file, with transient-error retries and fault injection (a
     ``truncate`` fault chops the payload, like a torn read)."""
@@ -333,6 +373,20 @@ def read_json(path, retries=True):
         return data, "torn"
 
 
+def open_append(path, retries=True):
+    """Open a local file for append, retrying transient open errors. Only
+    the open retries: a retried append could duplicate bytes. Appends stay
+    POSIX on every backend (an object store has no append)."""
+
+    def _open():
+        faults.fault_point("open", path)
+        return open(path, "ab")
+
+    if retries:
+        return with_retries(_open, desc="open append {}".format(path))
+    return _open()
+
+
 def read_table(path, retries=True):
     """One parquet shard as a pyarrow table, with transient-error
     retries and fault injection (a ``truncate`` fault raises the parse
@@ -389,3 +443,43 @@ def list_dir(path):
     _backend.count("local", "list", "ok")
     _lat_end(t0, "list")
     return [n for n in names if ".tmp." not in n]
+
+
+def remove(path):
+    """Delete one published file through the active backend (a missing
+    one is fine). On the mock store the commit records go too: a raw
+    ``os.remove`` would leave the object readable through the backend."""
+    bk = _mock_backend()
+    t0 = _lat_start()
+    if bk is not None:
+        bk.delete(path)
+        _lat_end(t0, "delete")
+        return
+    try:
+        os.remove(path)
+    except FileNotFoundError:
+        pass
+    _backend.count("local", "delete", "ok")
+    _lat_end(t0, "delete")
+
+
+def put_exclusive(path, data):
+    """Create-only publish: ``"ok"`` when this caller's bytes committed,
+    ``"conflict"`` when the object already exists (the mock store's
+    conditional create). On the local backend this is ``atomic_write``:
+    a single in-sequence writer commits there by contract."""
+    bk = _mock_backend()
+    if bk is not None:
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+        t0 = _lat_start()
+        try:
+            with_retries(lambda: bk.put_if_match(path, data, None),
+                         desc="put_exclusive {}".format(path))
+        except _backend.CASConflict:
+            _lat_end(t0, "cas-put")
+            return "conflict"
+        _lat_end(t0, "cas-put")
+        return "ok"
+    atomic_write(path, data)
+    return "ok"

@@ -1,10 +1,13 @@
 """Filesystem, shard-naming and sample-count helpers.
 
-Counterpart of ``lddl_tpu/utils/fs.py`` (local files only). The bin-id
-filename protocol: a shard of sequence-length bin ``k`` carries the
-extension ``.parquet_<k>``, and bin ids are contiguous from 0. The
-balancer writes ``.num_samples.json`` ({basename: count}) beside the
-shards so loader startup need not read every parquet footer.
+Counterpart of ``lddl_tpu/utils/fs.py``. The bin-id filename protocol: a
+shard of sequence-length bin ``k`` carries the extension
+``.parquet_<k>``, and bin ids are contiguous from 0. The balancer writes
+``.num_samples.json`` ({basename: count}) beside the shards so loader
+startup need not read every parquet footer; the census that fills it
+(``get_num_samples_of_parquet``) reads footers through the resilient I/O
+layer: retries, the ``open``/``read`` fault sites, and footer-only
+ranged reads on a non-local storage backend.
 """
 
 import io
@@ -14,7 +17,8 @@ import re
 
 import numpy as np
 
-from .io import atomic_write
+from ..resilience import faults
+from ..resilience.io import atomic_write, with_retries
 
 # Cache of per-shard sample counts written by the balancer.
 NUM_SAMPLES_CACHE_NAME = ".num_samples.json"
@@ -82,6 +86,16 @@ def get_file_paths_for_bin_id(file_paths, bin_id):
     return [p for p in file_paths if get_bin_id_of_path(p) == bin_id]
 
 
+def generation_dir_name(generation):
+    """Directory name of one ingest generation's shards under the dataset
+    root. Generation 0 is the root itself, so only generations >= 1 get
+    a subdirectory."""
+    if generation < 1:
+        raise ValueError(
+            "generation 0 lives in the dataset root, not a subdirectory")
+    return "gen-{:04d}".format(generation)
+
+
 def get_generation_of_path(root, path):
     """The ingest generation a shard belongs to: N under
     ``<root>/gen-<NNNN>/``, 0 directly in the root."""
@@ -90,11 +104,52 @@ def get_generation_of_path(root, path):
     return int(m.group(1)) if m else 0
 
 
-def get_num_samples_of_parquet(path):
-    """Rows in a parquet shard, from its footer (no data read)."""
+def read_footer_metadata(path):
+    """Parquet ``FileMetaData`` by footer-first ranged reads through the
+    active storage backend: an 8-byte tail probe (footer length + magic),
+    then the footer itself, so a metadata consumer (the census, the
+    packed-shape sniff) never fetches a whole object. Retries happen
+    inside ``read_range``; an implausible footer raises RuntimeError."""
+    import pyarrow as pa
     import pyarrow.parquet as pq
-    try:
+
+    from ..resilience.io import object_head, read_range
+    size, _ = object_head(path)
+    if size is None:
+        raise FileNotFoundError(path)
+    if size < 12:
+        raise RuntimeError(
+            "parquet shard implausibly small ({} byte(s))".format(size))
+    tail = read_range(path, size - 8, 8)
+    if len(tail) != 8 or tail[4:8] != b"PAR1":
+        raise RuntimeError("bad parquet footer magic")
+    footer_len = int.from_bytes(tail[:4], "little")
+    if footer_len <= 0 or footer_len + 8 > size:
+        raise RuntimeError(
+            "implausible parquet footer length {}".format(footer_len))
+    foot = read_range(path, size - 8 - footer_len, footer_len + 8)
+    return pq.read_metadata(pa.BufferReader(foot))
+
+
+def get_num_samples_of_parquet(path):
+    """Rows in a parquet shard, from its footer (no data read; footer-only
+    ranged reads on a non-local storage backend). Transient storage
+    errors retry; a corrupt or truncated footer, or an injected
+    ``truncate`` at the ``read`` site, raises a ValueError naming the
+    shard."""
+
+    def _read():
+        faults.fault_point("open", path)
+        if faults.fault_point("read", path) == "truncate":
+            raise RuntimeError("injected truncated footer read")
+        from ..resilience.io import backend_if_nonlocal
+        if backend_if_nonlocal() is not None:
+            return read_footer_metadata(path).num_rows
+        import pyarrow.parquet as pq
         return pq.ParquetFile(path).metadata.num_rows
+
+    try:
+        return with_retries(_read, desc="parquet footer {}".format(path))
     except OSError:
         raise
     except Exception as e:
@@ -116,6 +171,20 @@ def read_num_samples_cache(dir_path):
     return cache if isinstance(cache, dict) else None
 
 
+def num_samples_cache_is_stale(dir_path, cache):
+    """True when the cache's key set differs from the parquet shards on
+    disk (a crash window or a partial re-balance can publish a cache of
+    another shard set); a stale cache is recounted."""
+    if cache is None:
+        return True
+    try:
+        names = sorted(os.listdir(dir_path))
+    except OSError:
+        return True
+    on_disk = {n for n in names if _is_parquet_path(n)}
+    return {k for k in cache if k != NUM_SAMPLES_SIZES_KEY} != on_disk
+
+
 def trusted_num_samples_entries(dir_path, cache):
     """Split one directory's cache into (trusted {basename: count},
     untrusted basenames on disk). A cache without ``__sizes__`` is trusted
@@ -130,8 +199,7 @@ def trusted_num_samples_entries(dir_path, cache):
         return {}, set(on_disk)
     sizes = cache.get(NUM_SAMPLES_SIZES_KEY)
     if not isinstance(sizes, dict):
-        keys = {k for k in cache if k != NUM_SAMPLES_SIZES_KEY}
-        if keys != set(on_disk):
+        if num_samples_cache_is_stale(dir_path, cache):
             return {}, set(on_disk)
         return dict(cache), set()
     trusted, untrusted = {}, set()
@@ -148,11 +216,24 @@ def trusted_num_samples_entries(dir_path, cache):
     return trusted, untrusted
 
 
-def write_num_samples_cache(dir_path, counts):
-    """Store {basename: count} next to the shards, durably and atomically
-    (``utils.io.atomic_write``)."""
+def write_num_samples_cache(dir_path, counts, with_sizes=False):
+    """Store {basename: count} next to the shards, durably and atomically.
+    ``with_sizes=True`` (the ingest service's mode) also records each
+    shard's byte length under ``__sizes__``, so a growing directory is
+    validated per entry (``trusted_num_samples_entries``)."""
+    payload = dict(counts)
+    if with_sizes:
+        sizes = {}
+        for name in sorted(counts):
+            try:
+                sizes[name] = os.path.getsize(os.path.join(dir_path, name))
+            except OSError:
+                # A racing unlink leaves the entry size-less: it then
+                # reads as untrusted and is recounted from its footer.
+                pass
+        payload[NUM_SAMPLES_SIZES_KEY] = sizes
     atomic_write(os.path.join(dir_path, NUM_SAMPLES_CACHE_NAME),
-                 json.dumps(dict(counts), sort_keys=True))
+                 json.dumps(payload, sort_keys=True))
 
 
 def serialize_np_array(a):

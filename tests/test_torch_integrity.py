@@ -204,3 +204,87 @@ def test_retries_give_up_with_a_named_error(tmp_path, monkeypatch):
     faults.disarm()
     assert rio.read_bytes(path) == b"payload"
     assert rio.read_json(str(tmp_path / "absent.json")) == (None, "missing")
+
+
+# ------------------------------------------- the census through resilient I/O
+
+
+def _census_pkg(name):
+    """The census's modules of one package: (fs, faults, io, backend,
+    observability)."""
+    from importlib import import_module
+    return tuple(import_module(name + "." + m) for m in (
+        "utils.fs", "resilience.faults", "resilience.io",
+        "resilience.backend", "observability"))
+
+
+PACKAGES = ["lddl_tpu", "lddl_tpu_torch"]
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_census_truncate_fault_names_the_shard(tmp_path, pkg):
+    """An injected ``read:truncate`` at the census is the named
+    ValueError a torn footer gives, in both packages (a chaos run must
+    not pass on the port where it fails on the reference)."""
+    fs, flt, io_, _, _ = _census_pkg(pkg)
+    path = str(tmp_path / "part.0.parquet")
+    io_.write_table_atomic(pa.table({"x": [1, 2, 3]}), path)
+    flt.arm("read:truncate:nth=1")
+    try:
+        with pytest.raises(ValueError, match=r"corrupt or truncated parquet "
+                                             r"shard .*part\.0\.parquet"):
+            fs.get_num_samples_of_parquet(path)
+    finally:
+        flt.disarm()
+    assert fs.get_num_samples_of_parquet(path) == 3
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_census_open_fault_is_retried(tmp_path, monkeypatch, pkg):
+    """An ``open:eio`` at the census fires once and is retried: the count
+    is right AND the retry counter shows the retry."""
+    fs, flt, io_, _, obs = _census_pkg(pkg)
+    path = str(tmp_path / "part.0.parquet")
+    io_.write_table_atomic(pa.table({"x": [1, 2, 3]}), path)
+    monkeypatch.setenv("LDDL_TPU_METRICS_DIR", str(tmp_path / "metrics"))
+    obs.registry().reset()
+    flt.arm("open:eio:nth=1")
+    try:
+        assert fs.get_num_samples_of_parquet(path) == 3
+    finally:
+        flt.disarm()
+    retries = obs.registry().counter("resilience_retry_attempts_total")
+    assert retries.value(op="parquet") == 1
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_census_is_ranged_only_on_the_mock_store(tmp_path, monkeypatch, pkg):
+    """On the mock object store the census reads the footer by two ranged
+    gets (the 8-byte tail probe, then the footer) and never fetches a
+    whole object."""
+    fs, _, _, storage, _ = _census_pkg(pkg)
+    monkeypatch.setenv(storage.ENV_VAR, "mock")
+    bk = storage.get_backend()
+    sink = pa.BufferOutputStream()
+    import pyarrow.parquet as pq
+    pq.write_table(pa.table({"A": ["r{}".format(i) for i in range(37)]}),
+                   sink)
+    path = str(tmp_path / "census.parquet")
+    bk.put_atomic(path, sink.getvalue().to_pybytes())
+
+    def no_full_fetch(p):
+        raise AssertionError("census fetched full shard bytes")
+
+    ranged = []
+    real_get = bk.get
+
+    def ranged_only(p, start=None, length=None):
+        assert start is not None and length is not None, \
+            "census made a whole-object get"
+        ranged.append((start, length))
+        return real_get(p, start=start, length=length)
+
+    monkeypatch.setattr(bk, "get_versioned", no_full_fetch)
+    monkeypatch.setattr(bk, "get", ranged_only)
+    assert fs.get_num_samples_of_parquet(path) == 37
+    assert len(ranged) == 2 and ranged[0][1] == 8

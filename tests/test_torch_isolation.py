@@ -1,5 +1,5 @@
-"""The port stands alone: no module of lddl_tpu_torch (nor chip_smoke.py)
-imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
+"""The port stands alone: no module of lddl_tpu_torch (nor the chip_*.py
+scripts at the root) imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
 package loads no JAX and no HF package (``tokenizers`` is imported only
 lazily, by ``native/gen_tables.py`` when the tables are regenerated by
 hand), the preprocess workers and the loader's process workers import no
@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "lddl_tpu", "transformers")
 
 
 def _port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, n) for n in sorted(os.listdir(ROOT))
+             if n.startswith("chip_") and n.endswith(".py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "lddl_tpu_torch")):
         paths.extend(os.path.join(dirpath, n) for n in sorted(names)
                      if n.endswith(".py"))
@@ -79,7 +80,13 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.observability, lddl_tpu_torch.resilience.io, "
             "lddl_tpu_torch.resilience.backend, "
             "lddl_tpu_torch.resilience.faults, "
-            "lddl_tpu_torch.loader.qserde, lddl_tpu_torch.loader.shardcache; "
+            "lddl_tpu_torch.loader.qserde, lddl_tpu_torch.loader.shardcache, "
+            "lddl_tpu_torch.preprocess.bart, lddl_tpu_torch.ingest, "
+            "lddl_tpu_torch.ingest.journal, "
+            "lddl_tpu_torch.ingest.incremental, "
+            "lddl_tpu_torch.balance.delta, "
+            "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
+            "lddl_tpu_torch.cli.ingest_watch, lddl_tpu_torch.cli.common; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
             "'tokenizers')); "
@@ -92,11 +99,14 @@ def test_import_leaves_jax_unloaded():
 
 def test_preprocess_workers_import_no_torch():
     """What a spawned preprocess worker imports (the runner, to unpickle
-    its processor and vocab table, and the CLI module as its main) loads
-    no torch, no JAX and no HF package: a numpy-engine worker pays no
-    torch import."""
+    its BERT or BART processor and vocab table, and the BERT, BART or
+    ingest CLI module as its main) loads no torch, no JAX and no HF
+    package: a numpy-engine worker pays no torch import."""
     code = ("import sys, lddl_tpu_torch.preprocess.runner, "
-            "lddl_tpu_torch.cli.preprocess_bert_pretrain, pickle; "
+            "lddl_tpu_torch.cli.preprocess_bert_pretrain, pickle, "
+            "lddl_tpu_torch.preprocess.bart, "
+            "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
+            "lddl_tpu_torch.cli.ingest_watch; "
             "from lddl_tpu_torch.preprocess import get_tokenizer; "
             "from lddl_tpu_torch.preprocess.runner import "
             "BertBucketProcessor, BertPretrainConfig; "

@@ -28,6 +28,9 @@ from lddl_tpu_torch.resilience import faults  # noqa: E402
 @pytest.fixture(autouse=True)
 def _disarm_and_fast_death(monkeypatch):
     faults.disarm()
+    # Telemetry off unless a test arms it: a test of another file that ran
+    # before in this process may have left the variable set.
+    monkeypatch.delenv("LDDL_TPU_METRICS_DIR", raising=False)
     monkeypatch.setattr(DataLoader, "_POLL_TIMEOUT_S", 0.5)
     yield
     faults.disarm()
@@ -245,21 +248,23 @@ def test_dying_worker_raises_named_error(built, monkeypatch, max_restarts,
 # --------------------------------------------------- generation following
 
 
-@pytest.fixture(scope="module")
-def ingest_env(tmp_path_factory):
-    """lddl_tpu's ingest over a growing landing directory (one corpus
-    file a round)."""
-    from lddl_tpu.preprocess import BertPretrainConfig, get_tokenizer
+@pytest.fixture(scope="module", params=["lddl_tpu", "lddl_tpu_torch"])
+def ingest_env(request, tmp_path_factory):
+    """An ingest over a growing landing directory (one corpus file a
+    round), produced by lddl_tpu's ingest or by the port's own."""
+    import importlib
+    pre = importlib.import_module(request.param + ".preprocess")
     root = str(tmp_path_factory.mktemp("ingest"))
     corpus, vocab = shards.build_corpus(os.path.join(root, "corpus"),
                                         num_docs=60, num_files=3)
     return {"root": root, "corpus": corpus, "vocab": vocab,
-            "tok": get_tokenizer(vocab_file=vocab),
-            "cfg": BertPretrainConfig(max_seq_length=32, masking=False)}
+            "producer": importlib.import_module(request.param + ".ingest"),
+            "tok": pre.get_tokenizer(vocab_file=vocab),
+            "cfg": pre.BertPretrainConfig(max_seq_length=32, masking=False)}
 
 
 def _ingest_rounds(env, target, rounds):
-    from lddl_tpu.ingest import ingest_once
+    ingest_once = env["producer"].ingest_once
     landing = target + "_landing"   # one landing per target: it only grows
     src = os.path.join(landing, "source")
     os.makedirs(src, exist_ok=True)
