@@ -140,7 +140,23 @@ exits non-zero):
    steps through ``prefetch_to_device``, 2 in each bin reached, with
    finite losses and 24 launches of each single-block kernel a step of
    L_pad >= 256; then a replay of the three rounds into a second root,
-   byte-equal in every file.
+   byte-equal in every file;
+12. elastic scheduling under bert_large: a 32 MiB corpus (16 files, phase
+   8's generator and vocab, seed 2) through phase 8's preprocess CLI
+   (numpy engine, 4 workers), once static and once as three
+   ``--elastic --lease-ttl 5`` processes on one output directory, each in
+   its own session; the first is SIGKILLed with its process group (pool
+   workers included) as soon as a lease file names it on a gather unit.
+   The survivors must exit 0 having stolen at least one unit (their
+   ``lease_steals_total`` and ``lease.steal`` trace events under
+   ``LDDL_TPU_METRICS_DIR``), every shard and the manifest must equal the
+   static run's byte for byte, and no elastic process may open a CUDA
+   context (``DeviceWatch``); printed: the static and elastic seconds,
+   the units each holder journaled, steals and fence rejects, the time
+   from the kill to the first steal; then the elastic output balanced to
+   16 shards a bin -> the loader (batch 16) -> bert_large, 2 steps a bin
+   with finite losses, the step ms without each bin's first step, and 24
+   launches of each single-block kernel a step of L_pad >= 256.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
@@ -239,6 +255,20 @@ INGEST_FILE_BYTES = 256 << 10
 INGEST_SHARDS = 4
 INGEST_BATCH = 16
 INGEST_STEPS_PER_BIN = 2
+# Elastic scheduling (phase 12): a corpus of ELASTIC_BYTES in
+# ELASTIC_FILES files (phase 8's generator, seed 2) through phase 8's
+# preprocess CLI with ELASTIC_WORKERS workers, once static and once as
+# ELASTIC_HOSTS ``--elastic`` processes on one output directory, the
+# first of which is SIGKILLed with its workers while it holds a gather
+# lease; the elastic output balanced to ELASTIC_SHARDS shards a bin ->
+# the loader -> bert_large.
+ELASTIC_BYTES = 32 << 20
+ELASTIC_FILES = 16
+ELASTIC_WORKERS = 4
+ELASTIC_HOSTS = 3
+ELASTIC_TTL = 5
+ELASTIC_SHARDS = 16
+ELASTIC_STEPS_PER_BIN = 2
 
 
 
@@ -1678,19 +1708,25 @@ class DeviceWatch:
                 "held_mib": (self.used - self.base) / 2**20}
 
 
+def preprocess_cmd(corpus, vocab, out, engine, workers):
+    """The port's BERT preprocess CLI at phase 8's setting."""
+    return [sys.executable, "-m",
+            "lddl_tpu_torch.cli.preprocess_bert_pretrain",
+            "--wikipedia", corpus, "--sink", out, "--vocab-file", vocab,
+            "--target-seq-length", str(DATA_TARGET), "--bin-size",
+            str(DATA_BIN), "--masking", "--duplicate-factor", "5",
+            "--sample-ratio", "0.9", "--seed", "12345", "--num-blocks", "64",
+            "--schema-version", "2", "--local-workers", str(workers),
+            "--engine", engine] + (["--device", "cuda"] if engine == "torch"
+                                   else [])
+
+
 def preprocess_cli(corpus, vocab, out, engine, workers, card):
     """The port's preprocess CLI in a process of its own (its spawned
     workers then import the CLI module, not this script); returns
     (seconds, device watch)."""
-    cmd = [sys.executable, "-m", "lddl_tpu_torch.cli.preprocess_bert_pretrain",
-           "--wikipedia", corpus, "--sink", out, "--vocab-file", vocab,
-           "--target-seq-length", str(DATA_TARGET), "--bin-size",
-           str(DATA_BIN), "--masking", "--duplicate-factor", "5",
-           "--sample-ratio", "0.9", "--seed", "12345", "--num-blocks", "64",
-           "--schema-version", "2", "--local-workers", str(workers),
-           "--engine", engine] + (["--device", "cuda"] if engine == "torch"
-                                  else [])
-    return run_cli(cmd, "preprocess --engine " + engine)
+    return run_cli(preprocess_cmd(corpus, vocab, out, engine, workers),
+                   "preprocess --engine " + engine)
 
 
 def run_cli(cmd, label):
@@ -2761,6 +2797,284 @@ def ingest_path(fa, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def lease_holders(out, prefix):
+    """{unit: holder} of the lease files under ``out/_leases`` whose unit
+    starts with ``prefix`` (a file caught mid-replace or gone is
+    skipped)."""
+    root = os.path.join(out, "_leases")
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return {}
+    held = {}
+    for n in names:
+        if n.startswith(prefix) and n.endswith(".json"):
+            try:
+                with open(os.path.join(root, n)) as f:
+                    held[n[:-len(".json")]] = json.load(f).get("holder")
+            except (OSError, ValueError):
+                continue
+    return held
+
+
+def metric_total(metrics_dir, name):
+    """A counter summed over the last snapshot of each process that
+    exported into ``metrics_dir``."""
+    total = 0
+    for n in sorted(os.listdir(metrics_dir)):
+        if n.startswith("metrics-") and n.endswith(".jsonl"):
+            with open(os.path.join(metrics_dir, n)) as f:
+                lines = [ln for ln in f.read().splitlines() if ln.strip()]
+            snap = json.loads(lines[-1])["metrics"].get(name) if lines \
+                else None
+            if snap:
+                total += sum(snap["values"].values())
+    return total
+
+
+def trace_instants(metrics_dir, name):
+    """Wall-clock seconds of every instant event ``name`` in the trace
+    files of ``metrics_dir``."""
+    out = []
+    for n in sorted(os.listdir(metrics_dir)):
+        if n.startswith("trace-") and n.endswith(".jsonl"):
+            with open(os.path.join(metrics_dir, n)) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec.get("name") == name and rec.get("ph") == "i":
+                        out.append(rec["ts"] / 1e6)
+    return out
+
+
+def elastic_path(fa, card):
+    """Phase 12, elastic scheduling under bert_large: phase 8's preprocess
+    CLI over one corpus, static, then as ELASTIC_HOSTS ``--elastic``
+    processes on one output directory with the first SIGKILLed (its
+    process group, pool workers included) as soon as a lease file names
+    it on a gather unit; the survivors must steal its units, exit 0 and
+    write the static run's bytes, and no elastic process may open a CUDA
+    context. Then the elastic output is balanced and drives bert_large
+    steps from the loader. Returns the launch counts of the steps."""
+    import re
+    import signal
+
+    import numpy as np
+    from lddl_tpu_torch.balance import balance_shards
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.testing import write_text_corpus, write_vocab
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    procs = {}
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        nbytes = write_text_corpus(tmp, tokens, ELASTIC_BYTES,
+                                   num_files=ELASTIC_FILES, seed=2)
+        static = os.path.join(tmp, "static")
+        static_s, seen = preprocess_cli(tmp, vocab, static, "numpy",
+                                        ELASTIC_WORKERS, card)
+        if seen["cuda_procs"]:
+            raise AssertionError("the static run: {} processes opened a "
+                                 "CUDA context".format(seen["cuda_procs"]))
+        print("elastic phase: static preprocess of {} bytes in {:.1f} s "
+              "({:.2f} MB/s, {} workers) ({})".format(
+                  nbytes, static_s, nbytes / 1e6 / static_s,
+                  ELASTIC_WORKERS, card), flush=True)
+
+        out = os.path.join(tmp, "elastic")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        hosts = ["h{}".format(i) for i in range(ELASTIC_HOSTS)]
+        logs = {h: os.path.join(tmp, h + ".log") for h in hosts}
+        metrics = {h: os.path.join(tmp, "metrics-" + h) for h in hosts}
+        watches = {}
+        t0 = time.perf_counter()
+        for h in hosts:
+            cmd = preprocess_cmd(tmp, vocab, out, "numpy", ELASTIC_WORKERS) \
+                + ["--elastic", "--lease-ttl", str(ELASTIC_TTL),
+                   "--elastic-host-id", h]
+            with open(logs[h], "w") as f:
+                procs[h] = subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                    env=dict(env, LDDL_TPU_METRICS_DIR=metrics[h]),
+                    start_new_session=True)
+            watches[h] = DeviceWatch(procs[h].pid)
+        victim = procs[hosts[0]]
+        while True:
+            if victim.poll() is not None:
+                raise AssertionError("{} exited ({}) before it held a "
+                                     "gather lease".format(hosts[0],
+                                                           victim.returncode))
+            held = lease_holders(out, "group-")
+            if hosts[0] in held.values():
+                os.killpg(victim.pid, signal.SIGKILL)
+                kill_wall, kill_t = time.time(), time.perf_counter()
+                break
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("no gather lease named {} in 600 s"
+                                     .format(hosts[0]))
+            time.sleep(0.02)
+        victim.wait()
+        for h in hosts[1:]:
+            procs[h].wait(timeout=900)
+        elastic_s = time.perf_counter() - t0
+        seen = {h: watches[h].stop() for h in hosts}
+        text = {}
+        for h in hosts:
+            with open(logs[h]) as f:
+                text[h] = f.read()
+        for h in hosts[1:]:
+            if procs[h].returncode != 0:
+                raise AssertionError("elastic host {} failed ({}):\n{}"
+                                     .format(h, procs[h].returncode,
+                                             text[h][-4000:]))
+        if victim.returncode != -signal.SIGKILL:
+            raise AssertionError("{} ended with {}".format(
+                hosts[0], victim.returncode))
+        if any(s["cuda_procs"] for s in seen.values()):
+            raise AssertionError("elastic processes opened a CUDA context: "
+                                 "{}".format(seen))
+        # Units journaled a holder: the survivors' summaries; the killed
+        # host's are the plan's units less theirs (each unit is journaled
+        # once).
+        units, steals_log, rejects_log = {}, 0, 0
+        for h in hosts[1:]:
+            m = re.search(r"elastic summary: holder=(\S+) units=(\d+) "
+                          r"steals=(\d+) fence_rejects=(\d+)", text[h])
+            if m is None:
+                raise AssertionError("no summary from {}".format(h))
+            units[h] = int(m.group(2))
+            steals_log += int(m.group(3))
+            rejects_log += int(m.group(4))
+        plan = re.search(r"adaptive plan journaled \((\d+) probe\(s\) \+ "
+                         r"(\d+) main unit\(s\)", "".join(text.values()))
+        groups = re.search(r"-> \d+ blocks \((\d+) spool groups\)",
+                           text[hosts[1]])
+        total = int(plan.group(1)) + int(plan.group(2)) + int(groups.group(1))
+        units[hosts[0]] = total - sum(units.values())
+        steals = sum(metric_total(metrics[h], "lease_steals_total")
+                     for h in hosts[1:])
+        rejects = sum(metric_total(metrics[h], "lease_fence_rejects_total")
+                      for h in hosts[1:])
+        stolen_at = sorted(t for h in hosts[1:]
+                           for t in trace_instants(metrics[h], "lease.steal")
+                           if t >= kill_wall)
+        if steals < 1 or not stolen_at:
+            raise AssertionError("no steal after the SIGKILL: {} counted, "
+                                 "{} traced".format(steals, len(stolen_at)))
+        names = sorted(os.listdir(static))
+        if sorted(os.listdir(out)) != names or ".manifest.json" not in names:
+            raise AssertionError("elastic files {} != static {}".format(
+                sorted(os.listdir(out))[:8], names[:8]))
+        differ = []
+        for n in names:
+            with open(os.path.join(out, n), "rb") as a, \
+                    open(os.path.join(static, n), "rb") as b:
+                if a.read() != b.read():
+                    differ.append(n)
+        if differ:
+            raise AssertionError("elastic bytes differ from the static "
+                                 "run's in {}".format(differ[:8]))
+        print("elastic phase: {} --elastic hosts x {} workers, ttl {} s, {} "
+              "SIGKILLed with its process group at {:.1f} s on a gather "
+              "lease; the survivors done at {:.1f} s (static {:.1f} s); "
+              "units journaled per holder {}; steals {} (their logs: {}), "
+              "fence rejects {} ({}); first steal {:.2f} s after the kill; "
+              "{} files (shards + .manifest.json) byte-equal to the static "
+              "run's; {} CUDA contexts in {} elastic processes ({})".format(
+                  ELASTIC_HOSTS, ELASTIC_WORKERS, ELASTIC_TTL, hosts[0],
+                  kill_t - t0, elastic_s, static_s,
+                  json.dumps(units, sort_keys=True), steals, steals_log,
+                  rejects, rejects_log, stolen_at[0] - kill_wall,
+                  len(names),
+                  sum(s["cuda_procs"] for s in seen.values()),
+                  sum(s["procs"] for s in seen.values()), card), flush=True)
+        shutil.rmtree(static)
+
+        bal = os.path.join(tmp, "balanced")
+        t0 = time.perf_counter()
+        counts = balance_shards(out, bal, ELASTIC_SHARDS)
+        balance_s = time.perf_counter() - t0
+        by_bin = {}
+        for k, n in counts.items():
+            by_bin.setdefault(int(k.rsplit("_", 1)[1]), []).append(n)
+        for b, ns in by_bin.items():
+            if len(ns) != ELASTIC_SHARDS or max(ns) - min(ns) > 1:
+                raise AssertionError("bin {}: {} shards, spread {}".format(
+                    b, len(ns), max(ns) - min(ns)))
+        print("elastic phase: balance to {} shards ({} a bin) in {:.1f} s "
+              "({})".format(len(counts), ELASTIC_SHARDS, balance_s, card),
+              flush=True)
+        shutil.rmtree(out)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+        steps, timed = {}, []
+        zero_launches(fa)
+        it = iter(prefetch_to_device(get_bert_pretrain_data_loader(
+            bal, vocab_file=vocab, batch_size=16,
+            fixed_seq_lengths=DATA_BINS, base_seed=12345)))
+        try:
+            for _ in range(DATA_MAX_BATCHES):
+                batch = next(it)
+                l_bin = batch["input_ids"].shape[1]
+                if steps.get(l_bin, 0) >= ELASTIC_STEPS_PER_BIN:
+                    continue
+                t0 = time.perf_counter()
+                loss = float(step(batch, seed=0)["loss"])  # syncs
+                dt = time.perf_counter() - t0
+                if steps.get(l_bin, 0):
+                    timed.append(dt)  # each bin's first step excluded
+                steps[l_bin] = steps.get(l_bin, 0) + 1
+                print("elastic step L={} loss={:.4f} {:.1f} ms ({})".format(
+                    l_bin, loss, dt * 1e3, card), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at L={}".format(
+                        l_bin))
+                if len(steps) == len(DATA_BINS) and min(
+                        steps.values()) >= ELASTIC_STEPS_PER_BIN:
+                    break
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        kernel_steps = sum(n for l_bin, n in steps.items()
+                           if fa.single_block_serves(l_bin, 64))
+        want = cfg.num_layers * kernel_steps
+        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("elastic launch counts {} != {} per "
+                                 "single-block kernel ({} steps)".format(
+                                     launches, want, steps))
+        print("elastic phase: bins reached {} (steps a bin); bert_large step "
+              "{:.1f} ms mean of {} (each bin's first excluded); launches: "
+              "{} ({})".format(
+                  json.dumps({str(k): v for k, v in sorted(steps.items())}),
+                  float(np.mean(timed)) * 1e3, len(timed), launches, card),
+              flush=True)
+        return launches
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     global torch
     import torch
@@ -2826,7 +3140,8 @@ def main():
               ("8-9", ("bert_data", "bert_loader"),
                lambda: data_path(fa, card)),
               ("10", "bart_data", lambda: bart_data_path(fa, card)),
-              ("11", "bert_ingest", lambda: ingest_path(fa, card))]
+              ("11", "bert_ingest", lambda: ingest_path(fa, card)),
+              ("12", "bert_elastic", lambda: elastic_path(fa, card))]
     for number, path, run in phases:
         t0 = time.perf_counter()
         if isinstance(path, tuple):

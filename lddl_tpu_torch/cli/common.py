@@ -8,9 +8,10 @@ of the preprocess and the balancer are small int64 vectors, and gloo
 serves a CPU-only preprocess cluster, as the reference's gloo CPU
 collectives do. ``--storage-backend`` selects the storage backend as
 the reference's does. The elastic flags parse as the reference's do and
-reach the runner, which refuses ``elastic=True`` (lease-based work
-stealing is not ported yet). ``--fleet-telemetry`` parses and exits
-with a message: fleet telemetry is not ported yet either.
+run the lease-based work-stealing schedule (``preprocess/steal.py``);
+``--elastic`` with ``--multihost`` is refused. ``--fleet-telemetry``
+parses and exits with a message: fleet telemetry (ROADMAP.md, Queue 1
+item 4) is not ported yet.
 """
 
 import argparse

@@ -7,11 +7,13 @@ lddl_tpu_torch.cli.ingest_watch --landing <dir> --sink <root>
 --vocab-file <vocab.txt> [--once] ...``. ``--once`` diffs and ingests a
 single generation; the default is a polling watch loop. Safe to kill at
 any point and re-run: an in-flight generation resumes from its intake
-record, and the journal commit is atomic. ``--join-pending`` and
-``--elastic`` reach the preprocess runner, which refuses elastic
-scheduling (not ported yet); ``--fleet-telemetry`` exits with a message,
-and ``--autoscale``, which needs both, is refused by the same checks as
-the reference's.
+record, and the journal commit is atomic. ``--elastic`` runs each
+round's preprocess on the lease-based work-stealing schedule, and
+``--join-pending`` runs a helper host that joins the in-flight
+generation's elastic preprocess. ``--fleet-telemetry`` exits with a
+message, and ``--autoscale``, which needs it, is refused by name: both
+wait for the fleet telemetry and the autoscaler (ROADMAP.md, Queue 1
+item 4).
 """
 
 from ..preprocess import BertPretrainConfig, get_tokenizer
@@ -126,9 +128,9 @@ def main(args=None):
     from ..ingest import ingest_once, join_pending_generation, watch
     if args.join_pending:
         # Helper mode: poll the journal for an in-flight generation and
-        # join its elastic claim loop (refused by the runner until
-        # elastic scheduling is ported). Retirement is a plain SIGTERM
-        # from the autoscaler, converted to a normal exit.
+        # join its elastic claim loop. Retirement is a plain SIGTERM
+        # (the reference's autoscaler sends it), converted to a normal
+        # exit.
         import signal
         import time
 

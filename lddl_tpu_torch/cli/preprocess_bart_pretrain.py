@@ -5,8 +5,9 @@ Counterpart of ``lddl_tpu/cli/preprocess_bart_pretrain.py``; run as
 <corpus> --sink <out> [--vocab-file <vocab.txt>] ...``. With
 ``--vocab-file`` (or ``--tokenizer``, a local directory holding
 ``vocab.txt``) the shards are schema v2, tokenized by the native engine;
-without, text-only schema v1. ``--elastic`` reaches the runner, which
-refuses it (not ported yet); ``--fleet-telemetry`` exits with a message.
+without, text-only schema v1. ``--elastic`` runs the lease-based
+work-stealing schedule, as the BERT CLI's does; ``--fleet-telemetry``
+exits with a message (fleet telemetry is not ported yet).
 """
 
 from ..preprocess import BartPretrainConfig, run_bart_preprocess

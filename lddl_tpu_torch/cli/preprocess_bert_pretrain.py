@@ -6,8 +6,11 @@ Counterpart of ``lddl_tpu/cli/preprocess_bert_pretrain.py``; run as
 the static-masking engine (``numpy``: the native Philox replay, the
 reference's shard bytes; ``torch``: the torch maskers on ``--device``,
 the card unless ``cpu``). Tokenization is the native engine's
-(``--tokenizer-engine native``). ``--elastic`` reaches the runner, which
-refuses it (not ported yet); ``--fleet-telemetry`` exits with a message.
+(``--tokenizer-engine native``). ``--elastic`` runs the lease-based
+work-stealing schedule: launch the same command on several hosts sharing
+``--sink`` (each with its own ``--elastic-host-id``); the shards equal a
+one-host static run's. ``--fleet-telemetry`` exits with a message (fleet
+telemetry is not ported yet).
 """
 
 from ..preprocess import BertPretrainConfig, get_tokenizer, run_bert_preprocess

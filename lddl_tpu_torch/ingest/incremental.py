@@ -33,9 +33,10 @@ publish is the single commit point**:
 The reference also records each step as a fleet lifecycle event
 (``observability/fleet.py``); fleet telemetry is not ported, so
 ``_fleet_record`` stands at those sites and does nothing.
-``elastic=True`` and ``join_pending_generation`` (always elastic) reach
-the preprocess runner, which refuses elastic scheduling until it is
-ported.
+``elastic=True`` runs a round's preprocess on the lease-based
+work-stealing schedule (``preprocess/steal.py``), and
+``join_pending_generation`` lets a helper host join that preprocess; the
+autoscaler that would spawn such helpers waits for the fleet telemetry.
 """
 
 import os
@@ -439,7 +440,8 @@ def join_pending_generation(root, tokenizer, *, config=None, num_workers=1,
                             lease_ttl=30.0, holder_id=None,
                             scatter_units=None, comm=None, log=None):
     """Join the in-flight generation's ELASTIC preprocess as a helper
-    host — the autoscaler's scale-up unit (observability/autoscale.py).
+    host (the reference's autoscaler spawns such helpers; the port's
+    waits for the fleet telemetry).
 
     A helper never scans the landing dir, never balances, never commits
     the journal: it replays the primary's FROZEN intake record (doc set

@@ -1,12 +1,15 @@
-"""Distributed preprocessing runner on the static schedule.
+"""Distributed preprocessing runner: the static schedule, and the hooks of
+the elastic one.
 
 Counterpart of ``lddl_tpu/preprocess/runner.py`` (``run_sharded_pipeline``,
-``run_bert_preprocess``) on its static schedule: every host plans the
+``run_bert_preprocess``). On the static schedule every host plans the
 identical block list, takes units by rank striding over the port's
 ``parallel.Communicator`` (``torch.distributed``, gloo on a CPU-only
-cluster), and meets the others only at phase barriers. The global
-document shuffle is a two-pass, shared-filesystem all-to-all over a
-two-level radix:
+cluster), and meets the others only at phase barriers. ``elastic=True``
+hands the same units to the lease-fenced work-stealing claim loop of
+:mod:`.steal` instead (independent hosts sharing only the output
+directory). The global document shuffle is a two-pass, shared-filesystem
+all-to-all over a two-level radix:
 
     phase 1 (scatter):  each writer (one per rank, or per pool worker)
                         reads its input blocks; every document goes to a
@@ -14,7 +17,9 @@ two-level radix:
                         (seed, block, doc position)), and is appended,
                         under a "#B <block> <bucket>" header, to the
                         COARSE group spool file this writer exclusively
-                        owns: _shuffle/group-<bucket % G>/w<writer>.txt.
+                        owns: _shuffle/group-<bucket % G>/w<writer>.txt
+                        (elastic: s<slice>.e<epoch>.<holder>.txt, one
+                        file per claim attempt).
     phase 2 (gather):   workers own coarse groups by striding; each reads
                         its group's spool files once, splits per fine
                         bucket, restores the canonical per-bucket order
@@ -24,9 +29,11 @@ two-level radix:
 
 Completed units are journaled under ``_done/`` so ``resume=True`` redoes
 only unfinished ones, behind a fingerprint of every argument that shapes
-the output. The reference's elastic schedule (lease-based work stealing),
-storage backends, fault sites and observability are not ported
-(ROADMAP.md, Queue 1).
+the output. Ledger records, spool appends and spool reads go through
+``resilience/io`` (its retries and its ``open``/``read``/``replace``
+fault sites), as the reference's do. The preprocess's own telemetry and
+the fleet events wait for the rest of ``observability/`` (ROADMAP.md,
+Queue 1 item 4); the elastic path reports its lease and unit counters.
 """
 
 import hashlib
@@ -36,6 +43,7 @@ import os
 import shutil
 import time
 
+from ..resilience import io as rio
 from ..resilience.integrity import build_manifest
 from ..utils import rng as lrng
 from ..utils.io import atomic_write
@@ -240,21 +248,20 @@ def _ledger_write(out_dir, group, written):
 
 def _ledger_read(out_dir, group):
     """One group's completion record, or None when the unit is not done.
-    A torn or unparseable record (atomic writes leave none, but a damaged
-    disk may) degrades to "not done" with a warning: the unit is redone."""
+
+    Reads ride ``resilience.io.read_json`` (transient EIO/ESTALE on a
+    shared mount retries instead of reading as "not done" and redoing a
+    finished unit). A torn or unparseable record (atomic writes leave
+    none, but flaky storage may serve torn bytes) degrades to "not done"
+    with a warning: the unit is redone."""
     path = _ledger_path(out_dir, group)
-    try:
-        with open(path, "rb") as f:
-            raw = f.read()
-    except FileNotFoundError:
-        return None
-    try:
-        return json.loads(raw)
-    except ValueError:
+    rec, status = rio.read_json(path)
+    if status == "torn":
         _log.warning("torn/unparseable ledger record %s (%d bytes); "
                      "treating unit as not done (it will be redone)",
-                     path, len(raw))
+                     path, len(rec))
         return None
+    return rec
 
 
 def _canonical_paths(corpus_paths):
@@ -317,7 +324,10 @@ def _spool_one_block(block, out_dir, seed, sample_ratio, nbuckets, ngroups,
     """Scatter one input block: every document goes to a hash-assigned
     fine bucket and is appended, per coarse group, to THIS writer's
     exclusive spool file ``_shuffle/group-<g>/<spool_name>``
-    (``w<rank>-<pid>.txt``). A "#B <block> <bucket>" header line
+    (``w<rank>-<pid>.txt`` on the static schedule; the elastic one names
+    files per claim attempt, ``s<slice>.e<epoch>.<holder>.txt``, so a
+    reclaimed unit's debris is sweepable and a zombie's late appends are
+    fenced out by name). A "#B <block> <bucket>" header line
     precedes each run of document lines (written as " " + text), so the
     gather pays no per-line field parsing."""
     import numpy as np
@@ -373,9 +383,10 @@ def _spool_one_block(block, out_dir, seed, sample_ratio, nbuckets, ngroups,
         dst = np.repeat(rec_start + 1, dlen) + concat_aranges(dlen)
         gat = np.repeat(text_starts[sel], dlen) + concat_aranges(dlen)
         out[dst] = src[gat]
-        # A half-applied append is handled at the unit level: the
-        # unmarked spool is wiped and redone on resume.
-        with open(os.path.join(group_dir, spool_name), "ab") as f:
+        # Guarded append (fault site "open"): only the open retries; a
+        # half-applied append is handled at the unit level (the unmarked
+        # spool is wiped and redone on resume).
+        with rio.open_append(os.path.join(group_dir, spool_name)) as f:
             f.write(memoryview(out))
 
 
@@ -485,7 +496,7 @@ def _scan_block_documents(block, sample_ratio, base_seed):
     return data, text_start[has_text], nb_ends[has_text]
 
 
-def _read_group_texts(out_dir, group, nbuckets, ngroups):
+def _read_group_texts(out_dir, group, nbuckets, ngroups, accept=None):
     """Read one coarse spool group once; return {bucket: DocSpans} — a
     ZERO-COPY view per bucket over the group's merged spool bytes (each
     document is a (start, end) range; the native engine reads the buffer
@@ -498,7 +509,13 @@ def _read_group_texts(out_dir, group, nbuckets, ngroups):
 
     The line parse is vectorized: newline offsets come from one numpy
     scan, per-line Python happens only at "#B" headers (one per
-    (block, bucket) run, not per document)."""
+    (block, bucket) run, not per document).
+
+    ``accept``: optional collection of exact file names to read, the
+    elastic scheduler's epoch fence: only the spool files named by each
+    scatter unit's completion record (the winning (epoch, holder)
+    attempt) are trusted; a fenced-off zombie's late appends land in
+    files this set never names."""
     import numpy as np
     from .readers import DocSpans
     group_dir = os.path.join(out_dir, _SPOOL_DIR, "group-{}".format(group))
@@ -506,13 +523,15 @@ def _read_group_texts(out_dir, group, nbuckets, ngroups):
     by_bucket = {b: {} for b in _buckets_of_group(group, nbuckets, ngroups)}
     if not os.path.isdir(group_dir):
         return {b: DocSpans(b"", empty, empty) for b in by_bucket}
-    # Merge the group's spool files into ONE buffer. Every writer
+    # Merge the group's spool files into ONE buffer (guarded reads:
+    # transient EIO/ESTALE on the shared spool retries). Every writer
     # terminates every line, but a crashed writer may leave a torn tail —
     # reinsert the newline so file boundaries never fuse lines.
     datas = []
     for name in sorted(os.listdir(group_dir)):
-        with open(os.path.join(group_dir, name), "rb") as f:
-            data = f.read()
+        if accept is not None and name not in accept:
+            continue
+        data = rio.read_bytes(os.path.join(group_dir, name))
         if data and not data.endswith(b"\n"):
             data += b"\n"
         datas.append(data)
@@ -723,11 +742,14 @@ def _pool_init(process_bucket, spec):
     _POOL["spec"] = spec
 
 
-def _run_block_bucket(spec, process_bucket, bucket, writer=None):
+def _run_block_bucket(spec, process_bucket, bucket, fence=None, writer=None):
     """No-global-shuffle unit: bucket == block; re-read the block directly
-    (texts never cross the process boundary). ``writer`` (serial path):
-    the unit's durable write is deferred onto the shard-writer thread and
-    the unit completes (and journals) when it drains."""
+    (texts never cross the process boundary). ``fence`` (elastic mode):
+    checked after the read and again before the write; a holder whose
+    lease was stolen self-terminates instead of publishing. ``writer``
+    (static serial path): the unit's durable write is deferred onto the
+    shard-writer thread and the unit completes (and journals) when it
+    drains."""
     input_files = discover_source_files(spec["corpus_paths"])
     blocks = plan_blocks(input_files, spec["num_blocks"])
     texts = [text for _, text in read_documents(
@@ -735,11 +757,26 @@ def _run_block_bucket(spec, process_bucket, bucket, writer=None):
         base_seed=spec["seed"])]
     if spec.get("clean_first"):
         _clean_bucket_outputs(spec["out_dir"], bucket)
+    _check_fence(fence, bucket)
+    publish = process_bucket.prepare(texts, bucket)
     if writer is not None:
-        writer.submit(bucket, process_bucket.prepare(texts, bucket))
+        writer.submit(bucket, publish, fence=fence)
         writer.end_unit(bucket)
         return sink_mod.DeferredUnit(bucket)
-    return process_bucket.prepare(texts, bucket)()
+    _check_fence(fence, bucket)
+    return publish()
+
+
+def _check_fence(fence, unit):
+    """Raise LeaseLost when an elastic unit's lease was stolen mid-run.
+    Placed between a unit's read step and its writes: once a steal has
+    happened, anything read afterwards may be swept or finalized away
+    concurrently, so the loser must never publish bytes derived from it
+    (the claim loop turns the raise into a fence reject)."""
+    if fence is not None and not fence():
+        from ..resilience.leases import LeaseLost
+        raise LeaseLost(
+            "unit {} was stolen mid-run; self-terminating".format(unit))
 
 
 def _pool_run_block_bucket(bucket):
@@ -756,23 +793,29 @@ def _clean_bucket_outputs(out_dir, bucket):
             os.remove(path)
 
 
-def _run_group(spec, process_bucket, group, writer=None):
+def _run_group(spec, process_bucket, group, fence=None, writer=None):
     """Gather unit: read one coarse spool group, process each fine bucket.
-    With a ``writer`` (the serial path) the writes are deferred ACROSS
-    units and the call returns ``sink.DeferredUnit``; otherwise (pool
-    workers) an own writer pipelines the buckets WITHIN the unit and
-    drains before returning, so the unit's result, and the journal
-    record derived from it, strictly follows its bytes."""
+    ``fence`` (elastic mode) is checked after the spool read and before
+    every bucket's compute, and re-checked by the shard writer right
+    before every deferred publish (see `_check_fence` and
+    sink.ShardWriter). With a ``writer`` (the static serial path) the
+    writes are deferred ACROSS units and the call returns
+    ``sink.DeferredUnit``; otherwise (pool workers, the elastic claim
+    loop) an own writer pipelines the buckets WITHIN the unit and drains
+    before returning, so the unit's result, and the journal record
+    derived from it, strictly follows its bytes."""
     texts_by_bucket = _read_group_texts(spec["out_dir"], group,
-                                        spec["nbuckets"], spec["ngroups"])
+                                        spec["nbuckets"], spec["ngroups"],
+                                        accept=spec.get("spool_accept"))
     own = writer is None
     w = sink_mod.ShardWriter() if own else writer
     try:
         for bucket in sorted(texts_by_bucket):
             if spec.get("clean_first"):
                 _clean_bucket_outputs(spec["out_dir"], bucket)
+            _check_fence(fence, group)
             w.submit(group, process_bucket.prepare(texts_by_bucket[bucket],
-                                                   bucket))
+                                                   bucket), fence=fence)
         w.end_unit(group)
         if not own:
             return sink_mod.DeferredUnit(group)
@@ -782,7 +825,7 @@ def _run_group(spec, process_bucket, group, writer=None):
             w.close()
     _, written, exc = done[0]
     if exc is not None:
-        raise exc
+        raise exc  # LeaseLost included: the claim loop fences the unit
     return written
 
 
@@ -825,12 +868,24 @@ def run_sharded_pipeline(
     bucket processing via ``process_bucket.prepare(texts, bucket)`` (a
     deferred publish returning ``{path: n}``) -> manifest, cleanup and
     reduced totals. ``spool_groups`` overrides the coarse radix width
-    (default min(nblocks, max(64, nblocks // 8))). ``elastic=True`` (the
-    reference's lease-based work stealing, with ``lease_ttl``,
-    ``holder_id`` and ``scatter_units``) is not ported and raises.
+    (default min(nblocks, max(64, nblocks // 8))).
     ``emit_manifest=False`` skips the integrity manifest (the ingest
     service's work-dir part files are consumed by its delta balancer,
     which writes the published manifests).
+
+    ``elastic=True`` replaces the static rank->unit schedule with the
+    lease-based work-stealing claim loop (:mod:`.steal`): launch the SAME
+    call on N independent host processes sharing ``out_dir`` (no process
+    group, no barriers: hosts may join late, die mid-unit and be
+    reclaimed by the survivors; the last host out runs the lease-guarded
+    finalization). ``lease_ttl`` is the steal horizon in seconds (a dead
+    host's units are reclaimed after at most one TTL), ``holder_id``
+    names this host in lease files (default: hostname-pid-nonce), and
+    ``scatter_units`` pins a fixed count of scatter work units (block
+    slices; default: the adaptive plan, probe slices then a journaled
+    wall-informed split). The output bytes equal a static single-host
+    run's of the same plan: leases decide only WHO runs a unit, never
+    what it produces.
 
     Fault model: a unit (spool group / block) whose processing raises is
     recorded and skipped; a dead pool worker rebuilds the pool and
@@ -842,22 +897,44 @@ def run_sharded_pipeline(
     finished.
 
     Returns {path: num_rows} for the shards written by THIS rank (ranks
-    own disjoint buckets; the balancer performs the global census).
+    own disjoint buckets; the balancer performs the global census), or,
+    elastic, the global census.
     SPMD: call on every host with the same arguments; hosts split the
     work by ``comm`` rank and meet at barriers.
     """
-    if elastic:
-        raise NotImplementedError(
-            "elastic (lease-based work-stealing) preprocessing is not "
-            "ported yet; see ROADMAP.md, Queue 1")
-    # Imported here: pool workers import this module and need no torch.
-    from ..parallel.distributed import LocalCommunicator
-    comm = comm or LocalCommunicator()
+    if comm is None:
+        # Imported here: pool workers import this module and need no
+        # torch, and neither does an elastic host.
+        from ..parallel.distributed import LocalCommunicator
+        comm = LocalCommunicator()
     log = log or (lambda msg: None)
+    if elastic and comm.world_size > 1:
+        raise ValueError(
+            "elastic mode replaces the static multihost schedule; launch "
+            "independent processes sharing the output dir instead of "
+            "joining a process group (--multihost)")
     # Refuse a dirty output dir (unless resuming): stale part files from a
     # previous run with a different block count would silently survive next
-    # to fresh ones and duplicate data downstream.
-    if os.path.isdir(out_dir) and not resume:
+    # to fresh ones and duplicate data downstream. Elastic hosts joining a
+    # run already in progress are the exception: the ledger manifest below
+    # proves the directory belongs to THIS plan (a fingerprint mismatch
+    # still refuses).
+    manifest_path = os.path.join(out_dir, _LEDGER_DIR, "manifest.json")
+    joining = elastic and os.path.exists(manifest_path)
+    if elastic and not joining and os.path.isdir(out_dir):
+        # Simultaneous elastic starts race the first host's manifest
+        # publish: its _done/_leases dirs can exist for a moment before
+        # manifest.json lands. Wait briefly before judging the directory
+        # dirty; a stale dir still refuses, 10 s later.
+        from ..resilience.leases import LEASE_DIR
+        if any(os.path.isdir(os.path.join(out_dir, d))
+               for d in (_LEDGER_DIR, LEASE_DIR)):
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline \
+                    and not os.path.exists(manifest_path):
+                time.sleep(0.1)
+            joining = os.path.exists(manifest_path)
+    if os.path.isdir(out_dir) and not resume and not joining:
         stale = [
             n for n in sorted(os.listdir(out_dir))
             if ".parquet" in n or (".txt" in n and not n.startswith("."))
@@ -894,7 +971,24 @@ def run_sharded_pipeline(
             _canonical_paths(corpus_paths), sort_keys=True, default=str),
         "processor": process_bucket.fingerprint(),
     }
-    _check_resume_manifest(out_dir, fingerprint, resume, comm.rank)
+    n_scatter_units = None
+    if elastic:
+        # The elastic unit plan (scatter slices, per-slice records, fenced
+        # spool names) is incompatible with the static layout and with
+        # another slice count; both are part of unit identity, so mixing
+        # them across a resume refuses. The default is the ADAPTIVE plan
+        # (probe slices + a journaled wall-informed split,
+        # steal._ensure_plan), whose sentinel string mismatches any fixed
+        # count, so adaptive<->fixed resumes refuse too.
+        n_scatter_units = ("adaptive-v1" if scatter_units is None
+                           else max(1, min(int(scatter_units), nbuckets)))
+        fingerprint["elastic"] = True
+        fingerprint["scatter_units"] = n_scatter_units
+    # An elastic host joining a run in progress verifies against the
+    # existing manifest as a resume would (hosts start at different
+    # times by design; a misconfigured straggler must refuse).
+    _check_resume_manifest(out_dir, fingerprint,
+                           resume or (elastic and joining), comm.rank)
     comm.barrier()  # manifest visible before anyone journals against it
 
     # Work units: coarse spool groups under global shuffle, blocks without.
@@ -919,6 +1013,16 @@ def run_sharded_pipeline(
         "ngroups": ngroups,
         "rank": comm.rank,
     }
+
+    if elastic:
+        spec["scatter_units"] = n_scatter_units
+        spec["adaptive_scatter"] = n_scatter_units == "adaptive-v1"
+        spec["emit_manifest"] = bool(emit_manifest)
+        from . import steal
+        return steal.run_elastic_pipeline(
+            spec, process_bucket, log,
+            holder_id=holder_id, lease_ttl=lease_ttl, workers=workers,
+            progress_interval=progress_interval, t0=t0)
 
     def pool_factory_for(n_units):
         if workers <= 1 or n_units <= 1:

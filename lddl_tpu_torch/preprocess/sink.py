@@ -1,7 +1,6 @@
 """Asynchronous durable shard sink: the double-buffered writer thread.
 
-Counterpart of ``lddl_tpu/preprocess/sink.py`` on the local filesystem,
-without storage backends, lease fences, fault sites or telemetry. A
+Counterpart of ``lddl_tpu/preprocess/sink.py``, without its telemetry. A
 :class:`ShardWriter` owns ONE writer thread and a bounded queue (depth 2:
 double buffering), and the producer hands it *deferred publish closures*
 instead of writing inline. While the writer encodes, fsyncs and publishes
@@ -22,10 +21,17 @@ does not change):
   the unit's ledger record is written, so a resume redoes the unit.
 - **Journal ordering.** Unit ledger records are written only after the
   writer drained that unit's closures.
+- **Fenced publish.** In elastic mode a task carries its unit's lease
+  fence; the writer checks it immediately before the deferred publish,
+  and a fenced-off unit fails with ``LeaseLost`` (the claim loop turns
+  that into a fence reject). The ``sink-write`` fault site fires just
+  before that check.
 """
 
 import queue
 import threading
+
+from ..resilience import faults
 
 _END = object()  # end-of-unit marker
 
@@ -48,8 +54,10 @@ class ShardWriter:
     """One writer thread + bounded FIFO queue of deferred publish tasks.
 
     Producer API (single producer thread):
-        ``submit(unit, fn)``  enqueue one deferred publish;
-            ``fn() -> {path: rows}`` accumulates into the unit's result.
+        ``submit(unit, fn, fence=None)``  enqueue one deferred publish;
+            ``fn() -> {path: rows}`` accumulates into the unit's result;
+            ``fence() -> bool`` (elastic mode) is checked right before
+            ``fn`` runs.
         ``end_unit(unit)``  mark the unit's last task as enqueued.
         ``completed()``  -> [(unit, written, exc)] units finished SO FAR.
         ``drain()``  block until the queue is empty, then ``completed()``.
@@ -65,13 +73,13 @@ class ShardWriter:
                                         daemon=True)
         self._thread.start()
 
-    def submit(self, unit, fn):
+    def submit(self, unit, fn, fence=None):
         self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._queue.put((unit, fn))
+        self._queue.put((unit, fn, fence))
 
     def end_unit(self, unit):
         self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._queue.put((unit, _END))
+        self._queue.put((unit, _END, None))
 
     def completed(self):
         """Units whose last task finished since the previous call, in
@@ -98,12 +106,18 @@ class ShardWriter:
             if task is None:
                 self._queue.task_done()
                 return
-            unit, fn = task
+            unit, fn, fence = task
             state = self._open.get(unit)
             try:
                 if fn is _END:
                     self._finish(unit, state)
                 elif state["exc"] is None:
+                    faults.fault_point("sink-write", str(unit))
+                    if fence is not None and not fence():
+                        from ..resilience.leases import LeaseLost
+                        raise LeaseLost(
+                            "unit {} was stolen before its deferred "
+                            "publish; self-terminating".format(unit))
                     res = fn()
                     if res:
                         state["written"].update(res)

@@ -32,7 +32,9 @@ reading; versioned reads resolve through the commit records.
 Selection is the ``LDDL_TPU_STORAGE_BACKEND`` environment variable
 (``local`` | ``mock``), so spawned workers inherit it. Counters:
 ``backend_ops_total{backend,op,outcome}`` and
-``backend_cas_conflicts_total``.
+``backend_cas_conflicts_total``. ``is_cas`` tells the lease protocol
+which shape to take: conditional puts on the mock store, atomic rename
+and read-back on POSIX.
 """
 
 import errno
@@ -109,10 +111,60 @@ def set_backend(name):
 
 class LocalBackend:
     """The POSIX filesystem. The hot paths of ``resilience/io`` read and
-    write it inline; through the backend go only ranged reads
-    (``io.read_range``)."""
+    write it inline; through the backend go ranged reads
+    (``io.read_range``). ``is_cas`` is False: POSIX has no conditional
+    put, so the lease protocol keeps its atomic-rename + read-back shape
+    here, and ``put_if_match`` takes only the create case (generation
+    None), the same exclusive create a lease acquire makes."""
 
     name = "local"
+    is_cas = False
+
+    def put_if_match(self, path, data, expected_gen):
+        if expected_gen is not None:
+            raise NotImplementedError(
+                "LocalBackend has no conditional replace: POSIX offers no "
+                "CAS; the lease protocol uses atomic rename + read-back "
+                "and publish-time fencing here")
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+        try:
+            fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            _conflict(self.name, path, "cas-put")
+        try:
+            os.write(fd, data)
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        count(self.name, "cas-put", "ok")
+        return 1
+
+    def get_versioned(self, path):
+        """(bytes, version) of the file, or (None, None) when absent. A
+        POSIX file has no generation; the (size, mtime_ns) stat pair
+        stands in, as ``io.object_head`` reports it. The local lease
+        protocol never chains a conditional put off it."""
+        from . import io as rio
+        try:
+            st = os.stat(path)
+            return rio.read_bytes(path), (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            return None, None
+
+    def delete(self, path):
+        try:
+            os.remove(path)
+        except FileNotFoundError:
+            pass
+        count(self.name, "delete", "ok")
+
+    def delete_if_match(self, path, expected_gen):
+        """Plain unlink (POSIX has no versions to compare). The local
+        lease release does its own verified unlink and never calls
+        this."""
+        self.delete(path)
+        return True
 
     def get(self, path, start=None, length=None):
         from . import io as rio
@@ -153,6 +205,7 @@ class MockObjectStore:
     exclusive-create commit records on disk."""
 
     name = "mock"
+    is_cas = True
 
     # Commit records (and parts) of the newest two generations are kept,
     # so a reader that resolved the older one finishes against intact
@@ -441,6 +494,18 @@ class MockObjectStore:
         except (FileNotFoundError, IsADirectoryError):
             pass
         count(self.name, "delete", "ok")
+
+    def delete_if_match(self, path, expected_gen):
+        """Conditional delete (the lease release): only while the current
+        generation is ``expected_gen``. Check and delete are two steps: a
+        writer landing between them loses its commit, which the lease
+        protocol tolerates (its worst case drops a clock-skewed thief's
+        lease, as on the local path)."""
+        cur = self._current_gen(self._obj_dir(path))
+        if cur != expected_gen:
+            _conflict(self.name, path, "delete")
+        self.delete(path)
+        return True
 
     def list(self, dirpath):
         """Sorted object names (committed objects and plain files, hidden

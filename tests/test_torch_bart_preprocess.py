@@ -6,7 +6,7 @@ BertTokenizerFast on the vocab file, the port's native WordPiece) and v1
 (none), parquet and txt output, the rules and learned splitters, and
 the Python splitter forced by ``LDDL_TPU_BART_NATIVE_SPLIT=0``; equal
 resume fingerprints; the CLI driven as a subprocess with the reference's
-flags; then the port's balancer and BART loader against the reference's
+flags, and with ``--elastic`` against the reference's static run; then the port's balancer and BART loader against the reference's
 balancer and loader, batch for batch. Exact equality throughout.
 """
 
@@ -186,9 +186,23 @@ def test_cli_writes_the_reference_bytes(corpus, tmp_path, tokenized):
     _assert_same_bytes(got, want)
 
 
+@pytest.mark.parametrize("tokenized", [True, False], ids=["v2", "v1"])
+def test_cli_elastic_writes_the_reference_bytes(corpus, tmp_path, tokenized):
+    """``--elastic`` (the lease-based work-stealing schedule) writes the
+    reference CLI's static bytes, manifest included."""
+    extra = ["--vocab-file", corpus[1]] if tokenized else []
+    want = _cli("lddl_tpu.cli.preprocess_bart_pretrain", corpus,
+                str(tmp_path / "ref"), extra)
+    got = _cli("lddl_tpu_torch.cli.preprocess_bart_pretrain", corpus,
+               str(tmp_path / "port"),
+               extra + ["--elastic", "--lease-ttl", "5",
+                        "--elastic-host-id", "h0"])
+    _assert_same_bytes(got, want)
+    assert not os.path.isdir(os.path.join(got, "_leases"))
+
+
 @pytest.mark.parametrize("flag,match", [
     ("--fleet-telemetry", "not ported"),
-    ("--elastic", "elastic"),
 ])
 def test_cli_refuses_unported_flags_by_name(corpus, tmp_path, flag, match):
     from lddl_tpu_torch.cli.preprocess_bart_pretrain import attach_args, main

@@ -17,8 +17,9 @@ cache, carry files), across
 - ``ingest_watch --once`` against the reference's CLI;
 
 and the port's loader serving the grown directory as the reference's
-loader does. ``elastic=True`` and ``join_pending_generation`` reach the
-runner's refusal (elastic scheduling is not ported). Exact equality
+loader does; ``ingest_once(elastic=True)`` with a helper host in
+``join_pending_generation`` (after a crash, and at once), and
+``ingest_watch --elastic`` / ``--join-pending``. Exact equality
 throughout.
 """
 
@@ -546,25 +547,88 @@ def test_republish_after_a_staging_crash(corpus, tmp_path):
 
 
 def test_elastic_ingest_reaches_the_runner_refusal(corpus, tmp_path):
-    """``elastic=True`` and ``join_pending_generation`` (always elastic)
-    are ported whole and reach the runner, which refuses elastic
-    scheduling by name; the helper first refuses politely when nothing
-    is in flight, as the reference's does."""
+    """``ingest_once(elastic=True)`` and ``join_pending_generation`` run
+    on the port's elastic schedule (the name is kept from when the runner
+    refused them). An elastic round dies mid-preprocess after its intake
+    record froze the doc set (every deferred publish fails at the
+    ``sink-write`` site); a helper host joins the pending generation and
+    finishes its preprocess from the journal alone, without committing;
+    a second helper finds nothing to do; a helper with drifted config
+    refuses; the primary's elastic resume publishes the round. The tree
+    is byte-equal to the reference's clean replay."""
     root = str(tmp_path / "root")
     _replay(PORT, root, corpus, (1,), **KW)
-    rep = PORT.ingest.join_pending_generation(root, PORT.tok(corpus[1]),
+    tok = PORT.tok(corpus[1])
+    rep = PORT.ingest.join_pending_generation(root, tok,
                                               config=PORT.config())
     assert rep == {"joined": False, "why": "no in-flight generation"}
-    with pytest.raises(NotImplementedError, match="elastic"):
-        _replay(PORT, root, corpus, (2,), elastic=True, lease_ttl=5.0,
-                holder_id="primary", **KW)
-    with pytest.raises(NotImplementedError, match="elastic"):
-        PORT.ingest.join_pending_generation(root, PORT.tok(corpus[1]),
-                                            config=PORT.config())
-    # The refused round resumes serially from its intake record.
-    _replay(PORT, root, corpus, (2,), **KW)
+    PORT.faults.arm("sink-write:eio:p=1.0")
+    try:
+        with pytest.raises(RuntimeError, match="re-run with resume"):
+            _replay(PORT, root, corpus, (2,), elastic=True, lease_ttl=5.0,
+                    holder_id="primary", **KW)
+    finally:
+        PORT.faults.disarm()
+    rep = PORT.ingest.join_pending_generation(
+        root, tok, config=PORT.config(), lease_ttl=5.0, holder_id="helper")
+    assert rep == {"joined": True, "generation": 1}
+    assert PORT.journal.Journal.load(root).pending_work() is not None
+    rep = PORT.ingest.join_pending_generation(
+        root, tok, config=PORT.config(), lease_ttl=5.0, holder_id="helper2")
+    assert rep == {"joined": False, "why": "preprocess already finalized"}
+    with pytest.raises(ValueError, match="fingerprint"):
+        PORT.ingest.join_pending_generation(
+            root, tok, config=PORT.config(duplicate_factor=2))
+    _replay(PORT, root, corpus, (2,), elastic=True, lease_ttl=5.0,
+            holder_id="primary", **KW)
     clean = str(tmp_path / "clean")
     _replay(REF, clean, corpus, (1, 2), **KW)
+    _assert_same_tree(root, clean)
+
+
+def test_elastic_ingest_with_a_joining_host_matches_reference(corpus,
+                                                              tmp_path):
+    """An elastic ingest round and a helper host polling
+    ``join_pending_generation`` run at once (threads standing in for
+    hosts); whichever units each claims, the generation tree is
+    byte-equal to the reference's static replay."""
+    import threading
+    import time
+    root = str(tmp_path / "root")
+    _replay(PORT, root, corpus, (1,), **KW)
+    tok = PORT.tok(corpus[1])
+    primary_done = threading.Event()
+    helper = {}
+    # Thread-hosts share one pid, so the helper waits for the primary's
+    # plan manifest (hosts in one process would collide on its temp
+    # file; processes do not).
+    manifest = os.path.join(PORT.journal.work_dir(root, 1), "pre", "_done",
+                            "manifest.json")
+
+    def help_out():
+        while not primary_done.is_set():
+            if not os.path.exists(manifest):
+                time.sleep(0.005)
+                continue
+            rep = PORT.ingest.join_pending_generation(
+                root, tok, config=PORT.config(), lease_ttl=5.0,
+                holder_id="helper")
+            if rep["joined"]:
+                helper["rep"] = rep
+                return
+            time.sleep(0.01)
+
+    t = threading.Thread(target=help_out)
+    t.start()
+    try:
+        reps = _replay(PORT, root, corpus, (3,), elastic=True,
+                       lease_ttl=5.0, holder_id="primary", **KW)
+    finally:
+        primary_done.set()
+        t.join()
+    assert reps[0]["generation"] == 1 and not reps[0]["noop"]
+    clean = str(tmp_path / "clean")
+    _replay(REF, clean, corpus, (1, 3), **KW)
     _assert_same_tree(root, clean)
 
 
@@ -633,13 +697,37 @@ def test_ingest_watch_once_equal_to_reference(corpus, tmp_path, capsys):
     _assert_same_tree(str(tmp_path / "port"), str(tmp_path / "ref"))
 
 
+def test_ingest_watch_elastic_and_join_pending(corpus, tmp_path, capsys):
+    """``ingest_watch --elastic --once`` writes the reference CLI's static
+    tree; ``--join-pending --once`` with nothing in flight reports so and
+    exits."""
+    from lddl_tpu.cli import ingest_watch as ref_cli
+    from lddl_tpu_torch.cli import ingest_watch as port_cli
+    base = ["--vocab-file", corpus[1], "--target-seq-length", "32",
+            "--num-shards", "4", "--seed", "7", "--once"]
+    for cli, s, extra in ((ref_cli, "ref", ["--tokenizer-engine",
+                                            "native"]),
+                          (port_cli, "port", ["--elastic", "--lease-ttl",
+                                              "5", "--elastic-host-id",
+                                              "h0"])):
+        argv = ["--landing", _landing(str(tmp_path), corpus, 2, s + "_land"),
+                "--sink", str(tmp_path / s)] + base + extra
+        cli.main(cli.attach_args().parse_args(argv))
+        assert "'generation': 0" in capsys.readouterr().out
+    _assert_same_tree(str(tmp_path / "port"), str(tmp_path / "ref"))
+    argv = ["--landing", str(tmp_path / "port_land"), "--sink",
+            str(tmp_path / "port"), "--join-pending",
+            "--elastic-host-id", "h1"] + base
+    port_cli.main(port_cli.attach_args().parse_args(argv))
+    assert "no in-flight generation" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--fleet-telemetry"], "not ported"),
     (["--autoscale", "--once"], "requires the watch loop"),
     (["--autoscale"], "needs --elastic"),
     (["--autoscale", "--elastic"], "needs --fleet-telemetry"),
     (["--autoscale", "--elastic", "--fleet-telemetry"], "not ported"),
-    (["--elastic", "--once"], "elastic"),
 ])
 def test_ingest_watch_refuses_unported_flags(corpus, tmp_path, flags, match):
     from lddl_tpu_torch.cli import ingest_watch as cli

@@ -86,7 +86,9 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.ingest.incremental, "
             "lddl_tpu_torch.balance.delta, "
             "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
-            "lddl_tpu_torch.cli.ingest_watch, lddl_tpu_torch.cli.common; "
+            "lddl_tpu_torch.cli.ingest_watch, lddl_tpu_torch.cli.common, "
+            "lddl_tpu_torch.preprocess.steal, "
+            "lddl_tpu_torch.resilience.leases; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
             "'tokenizers')); "
@@ -99,17 +101,22 @@ def test_import_leaves_jax_unloaded():
 
 def test_preprocess_workers_import_no_torch():
     """What a spawned preprocess worker imports (the runner, to unpickle
-    its BERT or BART processor and vocab table, and the BERT, BART or
-    ingest CLI module as its main) loads no torch, no JAX and no HF
-    package: a numpy-engine worker pays no torch import."""
+    its BERT or BART processor and vocab table, the BERT, BART or ingest
+    CLI module as its main, and, in an elastic pool, the unit tasks of
+    ``steal`` with the ``leases`` they fence on) loads no torch, no JAX
+    and no HF package: a numpy-engine worker pays no torch import."""
     code = ("import sys, lddl_tpu_torch.preprocess.runner, "
             "lddl_tpu_torch.cli.preprocess_bert_pretrain, pickle, "
             "lddl_tpu_torch.preprocess.bart, "
             "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
-            "lddl_tpu_torch.cli.ingest_watch; "
+            "lddl_tpu_torch.cli.ingest_watch, "
+            "lddl_tpu_torch.preprocess.steal, "
+            "lddl_tpu_torch.resilience.leases; "
             "from lddl_tpu_torch.preprocess import get_tokenizer; "
             "from lddl_tpu_torch.preprocess.runner import "
             "BertBucketProcessor, BertPretrainConfig; "
+            "from lddl_tpu_torch.preprocess.steal import ("
+            "_pool_scatter_slice, _pool_gather_group, _pool_block_bucket); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'lddl_tpu', 'transformers', 'tokenizers')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -288,3 +288,143 @@ def test_torch_engine_structurally_equals_numpy(corpus, tmp_path, wwm):
             n.column("masked_lm_positions_ids"))
     assert differs  # the engines draw different masks
     assert glob.glob(os.path.join(outs["torch"], ".manifest.json"))
+
+
+# ------------------------- the runner's I/O through the resilient layer
+#
+# Each case runs on both packages: the ledger read, the spool append and
+# the spool read ride ``resilience/io`` (its retries, its fault sites and,
+# for the gather, the elastic scheduler's ``accept`` filter).
+
+PKGS = pytest.mark.parametrize("pkg", ["lddl_tpu", "lddl_tpu_torch"],
+                               ids=["ref", "port"])
+
+
+class _Recording:
+    """Delegates to a processor, records the buckets it prepares and
+    fails those in ``fail`` while ``fail`` is non-empty."""
+
+    def __init__(self, inner, fail=()):
+        self.inner, self.fail, self.prepared = inner, set(fail), []
+
+    def fingerprint(self):
+        return self.inner.fingerprint()
+
+    def prepare(self, texts, bucket):
+        self.prepared.append(bucket)
+        if bucket in self.fail:
+            raise OSError("disk full while writing bucket {}".format(bucket))
+        return self.inner.prepare(texts, bucket)
+
+
+def _pkg_runner(pkg, corpus, out):
+    """(runner module, a BERT processor for ``out``) of one package, with
+    run_kw/cfg_kw of CASES["binned_masked"]."""
+    import importlib
+    runner = importlib.import_module(pkg + ".preprocess.runner")
+    pre = importlib.import_module(pkg + ".preprocess")
+    _, vocab = corpus
+    kw = {"tokenizer_engine": "native"} if pkg == "lddl_tpu" else {}
+    cfg = pre.BertPretrainConfig(max_seq_length=64, duplicate_factor=2,
+                                 masking=True, **kw)
+    tok = pre.get_tokenizer(vocab_file=vocab)
+    return runner, runner.BertBucketProcessor(tok, cfg, 3, out, 16,
+                                              "parquet")
+
+
+def _armed_metrics(pkg, monkeypatch, tmp_path, spec):
+    """Telemetry on in a directory of the test's own, the registry reset,
+    the fault injector armed with ``spec``; returns the registry."""
+    import importlib
+    obs = importlib.import_module(pkg + ".observability")
+    faults = importlib.import_module(pkg + ".resilience.faults")
+    monkeypatch.setenv("LDDL_TPU_METRICS_DIR", str(tmp_path / "metrics"))
+    monkeypatch.setenv("LDDL_TPU_RETRY_BASE_DELAY_S", "0.001")
+    obs.registry().reset()
+    faults.arm(spec)
+    return obs.registry(), faults
+
+
+@PKGS
+def test_ledger_read_fault_is_retried_on_resume(corpus, tmp_path,
+                                                monkeypatch, pkg):
+    """A transient EIO on a resume run's first ledger-record read is
+    retried through ``resilience/io`` (counted under
+    ``resilience_retry_attempts_total{op="read"}``), so the finished unit
+    it names is not redone: only the failed unit's buckets run again."""
+    run_kw = {"bin_size": 16, "spool_groups": 4}
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw,
+                      {"masking": True})
+    root, _ = corpus
+    out = str(tmp_path / "out")
+    runner, inner = _pkg_runner(pkg, corpus, out)
+    kw = dict(num_blocks=6, sample_ratio=0.9, seed=3, spool_groups=4)
+    first = _Recording(inner, fail={1})  # bucket 1: spool group 1
+    with pytest.raises(RuntimeError, match="1 unit"):
+        runner.run_sharded_pipeline({"w": root}, out, first, **kw)
+    reg, faults = _armed_metrics(pkg, monkeypatch, tmp_path,
+                                 "read:eio:nth=1:path=_done" + os.sep
+                                 + "group-")
+    try:
+        again = _Recording(inner)
+        runner.run_sharded_pipeline({"w": root}, out, again, resume=True,
+                                    **kw)
+    finally:
+        faults.disarm()
+    retries = reg.counter("resilience_retry_attempts_total")
+    assert retries.value(op="read") >= 1
+    assert reg.counter("resilience_faults_injected_total").value(
+        op="read", kind="eio") == 1
+    assert sorted(again.prepared) == [1, 5]  # group 1's buckets only
+    _assert_same_output(out, want)
+
+
+@PKGS
+def test_spool_append_open_fault_reaches_the_site(corpus, tmp_path,
+                                                  monkeypatch, pkg):
+    """An ``open`` fault on a scatter spool append fires at the append's
+    open (the static serial writer's ``w0-0.txt``) and is retried; the
+    run ends with the clean run's bytes."""
+    run_kw, cfg_kw = CASES["binned_masked"]
+    want = _reference(corpus, str(tmp_path / "ref"), run_kw, cfg_kw)
+    root, _ = corpus
+    out = str(tmp_path / "out")
+    runner, proc = _pkg_runner(pkg, corpus, out)
+    reg, faults = _armed_metrics(pkg, monkeypatch, tmp_path,
+                                 "open:eio:nth=1:path=w0-0.txt")
+    try:
+        runner.run_sharded_pipeline({"w": root}, out, proc, num_blocks=6,
+                                    sample_ratio=0.9, seed=3)
+    finally:
+        faults.disarm()
+    assert reg.counter("resilience_faults_injected_total").value(
+        op="open", kind="eio") == 1
+    assert reg.counter("resilience_retry_attempts_total").value(
+        op="open") >= 1
+    _assert_same_output(out, want)
+
+
+@PKGS
+def test_gather_reads_only_accepted_spool_files(tmp_path, pkg):
+    """Under ``accept`` a group's reader takes only the named spool files:
+    a stray file beside them (a fenced-off attempt's appends) is never
+    read. Without it, every file of the group is read."""
+    import importlib
+    runner = importlib.import_module(pkg + ".preprocess.runner")
+    gdir = tmp_path / "_shuffle" / "group-0"
+    gdir.mkdir(parents=True)
+    (gdir / "s0.e1.hB.txt").write_bytes(
+        b"#B 0 0\n doc one\n doc two\n#B 0 2\n doc three\n")
+    (gdir / "s0.e0.hA.txt").write_bytes(b"#B 0 0\n stray\n")
+    (gdir / "s1.e0.hA.txt").write_bytes(b"#B 1 2\n doc four\n")
+
+    def texts(accept):
+        got = runner._read_group_texts(str(tmp_path), 0, 4, 2,
+                                       accept=accept)
+        return {b: [bytes(t) for t in spans] for b, spans in got.items()}
+
+    assert texts({"s0.e1.hB.txt", "s1.e0.hA.txt"}) == {
+        0: [b"doc one", b"doc two"], 2: [b"doc three", b"doc four"]}
+    # Files are read in sorted name order: the stray one first.
+    assert texts(None) == {0: [b"stray", b"doc one", b"doc two"],
+                           2: [b"doc three", b"doc four"]}
