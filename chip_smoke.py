@@ -156,7 +156,32 @@ exits non-zero):
    from the kill to the first steal; then the elastic output balanced to
    16 shards a bin -> the loader (batch 16) -> bert_large, 2 steps a bin
    with finite losses, the step ms without each bin's first step, and 24
-   launches of each single-block kernel a step of L_pad >= 256.
+   launches of each single-block kernel a step of L_pad >= 256;
+13. fleet telemetry under bert_large, in three timed parts. (1) Phase 12's
+   corpus and three ``--elastic --lease-ttl 5`` hosts again, with
+   ``--fleet-telemetry`` and a 1 s heartbeat; the first dies by the kill
+   fault (``replace:kill:nth=1:path=_done/group-``: SIGKILL at its first
+   gather ledger publish, holding that lease; its spool is flushed
+   first, left unclosed). Every shard and the manifest must equal phase
+   12's static run's; ``lddl_tpu_torch.tools.pipeline_status --json
+   --alerts`` must exit 2 naming the killed host stalled and the
+   survivors closed, fire a threshold rule on ``hosts.*.stalled``, count
+   the survivors' ``lease_steals_total`` as its steals, and give each
+   holder the units of the journal (the survivors' summaries, the killed
+   host's ``_done/`` scatter records) in its counters and its
+   ``unit.journaled`` events; the survivors must log ``unit.stolen``,
+   ``trace_summary --merge`` must give every host a lane, and no host
+   process may open a CUDA context. (2) ``ingest_watch --elastic
+   --fleet-telemetry --autoscale`` over phase 11's round-0 landing (4
+   rounds at 2 s, SLO 64 docs, at most 2 helpers, drain 1 round): at
+   least one scale-up, every helper retired (scale-downs = scale-ups,
+   none running after), no CUDA context in a helper, generation 0 equal
+   to phase 11's byte for byte. (3) bert_large, 2 steps a bin, under a
+   ``follow_generations`` loader over that root armed only by
+   ``LDDL_TPU_FLEET_DIR``: finite losses, 24 launches of each
+   single-block kernel a step of L_pad >= 256, and this process a live
+   host of ``pipeline_status`` with the loader's padding efficiency.
+   Printed: each part's seconds, the spool bytes a host and the rollups.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
 ``launches_by_path`` per path), the card line, and last
@@ -269,6 +294,20 @@ ELASTIC_HOSTS = 3
 ELASTIC_TTL = 5
 ELASTIC_SHARDS = 16
 ELASTIC_STEPS_PER_BIN = 2
+# Fleet telemetry (phase 13): phase 12's corpus and elastic hosts again,
+# now with --fleet-telemetry and a FLEET_INTERVAL-second heartbeat, the
+# first host SIGKILLed by the kill fault at its first gather ledger
+# publish (it holds that gather lease); then ingest_watch --autoscale
+# over phase 11's round-0 landing; then bert_large under a fleet-armed
+# follow_generations loader over that ingest root.
+FLEET_INTERVAL = 1
+FLEET_KILL = "replace:kill:nth=1:path=_done/group-"
+FLEET_SLO_DOCS = 64          # below round 0's document count
+FLEET_MAX_HELPERS = 2
+FLEET_DRAIN_ROUNDS = 1
+FLEET_ROUNDS = 4
+FLEET_WATCH_INTERVAL = 2
+FLEET_STEPS_PER_BIN = 2
 
 
 
@@ -2607,14 +2646,15 @@ def file_tree(root):
     return out
 
 
-def ingest_path(fa, card):
+def ingest_path(fa, card, shared):
     """Phase 11, streaming ingest under bert_large: a landing directory
     grown in three rounds -> ``ingest_once`` after each (generation 0,
     gen-0001, gen-0002; the delta balancer appends) -> a
     ``follow_generations`` loader that picks the new generations up at
     the epoch boundary -> bert_large steps; then a replay of the rounds
-    into a second root, byte for byte. Returns the launch counts of the
-    counted steps."""
+    into a second root, byte for byte. Generation 0's files go into
+    ``shared["ingest_gen0"]`` (phase 13 holds its ingest to them).
+    Returns the launch counts of the counted steps."""
     from lddl_tpu_torch.ingest import ingest_once
     from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                        prefetch_to_device)
@@ -2699,6 +2739,7 @@ def ingest_path(fa, card):
                 raise AssertionError("ingest round: {}".format(rep))
 
         report(*ingest_round(root, landing, INGEST_ROUND_FILES[0]))
+        shared["ingest_gen0"] = file_tree(root)
         gen0 = epoch_samples(root, 0)
         bins = sorted({get_bin_id_of_path(p)
                        for p in get_all_parquets_under(root)})
@@ -2846,7 +2887,7 @@ def trace_instants(metrics_dir, name):
     return out
 
 
-def elastic_path(fa, card):
+def elastic_path(fa, card, shared):
     """Phase 12, elastic scheduling under bert_large: phase 8's preprocess
     CLI over one corpus, static, then as ELASTIC_HOSTS ``--elastic``
     processes on one output directory with the first SIGKILLed (its
@@ -2854,7 +2895,9 @@ def elastic_path(fa, card):
     it on a gather unit; the survivors must steal its units, exit 0 and
     write the static run's bytes, and no elastic process may open a CUDA
     context. Then the elastic output is balanced and drives bert_large
-    steps from the loader. Returns the launch counts of the steps."""
+    steps from the loader. The corpus, vocab and static output stay for
+    phase 13 (``shared``; ``main`` removes them). Returns the launch
+    counts of the steps."""
     import re
     import signal
 
@@ -2867,6 +2910,7 @@ def elastic_path(fa, card):
     from lddl_tpu_torch.testing import write_text_corpus, write_vocab
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    shared["elastic_tmp"] = tmp
     procs = {}
     try:
         vocab = os.path.join(tmp, "vocab.txt")
@@ -2876,6 +2920,8 @@ def elastic_path(fa, card):
         static = os.path.join(tmp, "static")
         static_s, seen = preprocess_cli(tmp, vocab, static, "numpy",
                                         ELASTIC_WORKERS, card)
+        shared.update(elastic_static=static, elastic_vocab=vocab,
+                      elastic_static_s=static_s)
         if seen["cuda_procs"]:
             raise AssertionError("the static run: {} processes opened a "
                                  "CUDA context".format(seen["cuda_procs"]))
@@ -2995,7 +3041,7 @@ def elastic_path(fa, card):
                   len(names),
                   sum(s["cuda_procs"] for s in seen.values()),
                   sum(s["procs"] for s in seen.values()), card), flush=True)
-        shutil.rmtree(static)
+        shared["elastic_s"] = elastic_s
 
         bal = os.path.join(tmp, "balanced")
         t0 = time.perf_counter()
@@ -3063,6 +3109,7 @@ def elastic_path(fa, card):
                   json.dumps({str(k): v for k, v in sorted(steps.items())}),
                   float(np.mean(timed)) * 1e3, len(timed), launches, card),
               flush=True)
+        shutil.rmtree(bal)
         return launches
     finally:
         for p in procs.values():
@@ -3072,7 +3119,462 @@ def elastic_path(fa, card):
                 except OSError:
                     pass
                 p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+FLEET_ENVS = ("LDDL_TPU_FLEET_DIR", "LDDL_TPU_FLEET_HOLDER",
+              "LDDL_TPU_FLEET_TTL_S", "LDDL_TPU_FLEET_INTERVAL_S",
+              "LDDL_TPU_METRICS_DIR", "LDDL_TPU_METRICS_RANK",
+              "LDDL_TPU_FAULTS")
+
+
+def fleet_env(**extra):
+    """The environment of a fleet phase's subprocess: the repo on the
+    path, no telemetry or fault variable of this process, the phase's
+    heartbeat interval."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in FLEET_ENVS}
+    env.update(PYTHONUNBUFFERED="1", LDDL_TPU_FLEET_INTERVAL_S=str(
+        FLEET_INTERVAL), PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env.update(extra)
+    return env
+
+
+def status_json(root, *extra):
+    """``python -m lddl_tpu_torch.tools.pipeline_status <root> --json``
+    in a process of its own: (exit code, report, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lddl_tpu_torch.tools.pipeline_status", root,
+         "--json", *extra], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=fleet_env())
+    secs = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError("pipeline_status ({}): {}\n{}".format(
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+    return proc.returncode, report, secs
+
+
+def spool_bytes(root):
+    """{holder: bytes of its spool under <root>/.telemetry/}."""
+    tele = os.path.join(root, ".telemetry")
+    out = {}
+    for h in sorted(os.listdir(tele)):
+        d = os.path.join(tele, h)
+        if os.path.isdir(d):
+            out[h] = sum(os.path.getsize(os.path.join(d, n))
+                         for n in os.listdir(d))
+    return out
+
+
+def rollups(report):
+    """The per-host rollup lines of a pipeline_status report."""
+    rows = {}
+    for h, st in sorted(report["hosts"].items()):
+        c = st["counters"]
+        rows[h] = {"state": "STALLED" if st["stalled"] else (
+            "closed" if st["closed"] else "live"),
+            "beat_age_s": st["heartbeat_age_s"],
+            "units": c["units_completed"], "steals": c["steals"],
+            "fence_rejects": c["fence_rejects"], "docs": c["docs"],
+            "samples": c["samples"], "events": st["events_total"],
+            "torn": st["torn_lines"], "gauges": st["gauges"]}
+    return rows
+
+
+def live_processes(marker):
+    """Pids of live (non-zombie) processes whose command line holds every
+    string of ``marker``."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open("/proc/{}/cmdline".format(pid), "rb") as f:
+                cmd = f.read().decode(errors="replace")
+            with open("/proc/{}/stat".format(pid)) as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except (OSError, IndexError):
+            continue
+        if state != "Z" and all(m in cmd for m in marker):
+            out.append(int(pid))
+    return out
+
+
+def fleet_elastic(card, shared):
+    """Phase 13, part 1: phase 12's elastic hosts with
+    ``--fleet-telemetry``; the first dies by the kill fault at its first
+    gather ledger publish. Returns the part's summary dict."""
+    import re
+    import signal
+
+    tmp, static, vocab = (shared["elastic_tmp"], shared["elastic_static"],
+                          shared["elastic_vocab"])
+    out = os.path.join(tmp, "fleet")
+    root = os.path.dirname(os.path.abspath(__file__))
+    hosts = ["h{}".format(i) for i in range(ELASTIC_HOSTS)]
+    logs = {h: os.path.join(tmp, "fleet-" + h + ".log") for h in hosts}
+    procs, watches = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for h in hosts:
+            cmd = preprocess_cmd(tmp, vocab, out, "numpy", ELASTIC_WORKERS) \
+                + ["--elastic", "--lease-ttl", str(ELASTIC_TTL),
+                   "--elastic-host-id", h, "--fleet-telemetry"]
+            env = fleet_env(**({"LDDL_TPU_FAULTS": FLEET_KILL}
+                               if h == hosts[0] else {}))
+            with open(logs[h], "w") as f:
+                procs[h] = subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                    env=env, start_new_session=True)
+            watches[h] = DeviceWatch(procs[h].pid)
+        victim = procs[hosts[0]]
+        victim.wait(timeout=600)
+        kill_wall, kill_t = time.time(), time.perf_counter()
+        try:
+            os.killpg(victim.pid, signal.SIGKILL)  # its orphaned workers
+        except OSError:
+            pass
+        # The victim's journal: the records of the scatter slices and
+        # probes (``scatter-p<k>``) naming it, not the adaptive plan's
+        # (``scatter-plan``), read while its stolen gather lease keeps
+        # the survivors from finalizing.
+        done = os.path.join(out, "_done")
+        victim_units = 0
+        for n in sorted(os.listdir(done)):
+            if re.fullmatch(r"scatter-p?\d+\.json", n):
+                with open(os.path.join(done, n)) as f:
+                    if json.load(f).get("holder") == hosts[0]:
+                        victim_units += 1
+        for h in hosts[1:]:
+            procs[h].wait(timeout=900)
+        elastic_s = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait()
+        seen = {h: w.stop() for h, w in watches.items()}
+    text = {}
+    for h in hosts:
+        with open(logs[h]) as f:
+            text[h] = f.read()
+    if victim.returncode != -signal.SIGKILL:
+        raise AssertionError("{} ended with {}:\n{}".format(
+            hosts[0], victim.returncode, text[hosts[0]][-4000:]))
+    for h in hosts[1:]:
+        if procs[h].returncode != 0:
+            raise AssertionError("fleet host {} failed ({}):\n{}".format(
+                h, procs[h].returncode, text[h][-4000:]))
+    if any(s["cuda_procs"] for s in seen.values()):
+        raise AssertionError("fleet hosts opened a CUDA context: {}"
+                             .format(seen))
+    names = sorted(n for n in os.listdir(out) if n != ".telemetry")
+    if names != sorted(os.listdir(static)) or ".manifest.json" not in names:
+        raise AssertionError("fleet files {} != static {}".format(
+            names[:8], sorted(os.listdir(static))[:8]))
+    differ = []
+    for n in names:
+        with open(os.path.join(out, n), "rb") as a, \
+                open(os.path.join(static, n), "rb") as b:
+            if a.read() != b.read():
+                differ.append(n)
+    if differ:
+        raise AssertionError("fleet bytes differ from phase 12's static "
+                             "run's in {}".format(differ[:8]))
+    units = {hosts[0]: victim_units}
+    for h in hosts[1:]:
+        m = re.search(r"elastic summary: holder=(\S+) units=(\d+)", text[h])
+        if m is None:
+            raise AssertionError("no summary from {}".format(h))
+        units[h] = int(m.group(2))
+
+    # The status tool once the victim's last beat is older than its TTL.
+    time.sleep(max(0.0, kill_wall + ELASTIC_TTL + 1.0 - time.time()))
+    rules = os.path.join(tmp, "fleet-rules.json")
+    with open(rules, "w") as f:
+        json.dump({"rules": [{"name": "stalled-hosts", "type": "threshold",
+                              "metric": "hosts.*.stalled", "op": ">",
+                              "value": 0}]}, f)
+    rc, report, agg_s = status_json(out, "--alerts", rules)
+    health = report["health"]
+    if rc != 2 or health["stalled_hosts"] != [hosts[0]] \
+            or health["closed_hosts"] != hosts[1:]:
+        raise AssertionError("pipeline_status exit {}: stalled {}, closed "
+                             "{}".format(rc, health["stalled_hosts"],
+                                         health["closed_hosts"]))
+    if report["alerts"]["firing"] != ["stalled-hosts"]:
+        raise AssertionError("alerts: {}".format(report["alerts"]))
+    spool = {h: os.path.join(out, ".telemetry", h) for h in hosts}
+    steals = sum(metric_total(spool[h], "lease_steals_total")
+                 for h in hosts[1:])
+    if report["totals"]["counters"]["steals"] != steals or steals < 1:
+        raise AssertionError("report steals {} != the survivors' "
+                             "lease_steals_total {}".format(
+                                 report["totals"]["counters"]["steals"],
+                                 steals))
+    got_units = {h: report["hosts"][h]["counters"]["units_completed"]
+                 for h in hosts}
+    journaled = {h: report["hosts"][h]["event_counts"].get(
+        "unit.journaled", 0) for h in hosts}
+    if got_units != units or journaled != units:
+        raise AssertionError("units per holder: report {}, events {}, "
+                             "journal {}".format(got_units, journaled,
+                                                 units))
+    stolen = sum(report["hosts"][h]["event_counts"].get("unit.stolen", 0)
+                 for h in hosts[1:])
+    if stolen < 1:
+        raise AssertionError("no unit.stolen event from the survivors")
+    merged = os.path.join(tmp, "fleet-merged.json")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lddl_tpu_torch.tools.trace_summary", out,
+         "--merge", merged], capture_output=True, text=True, timeout=300,
+        cwd=root, env=fleet_env())
+    merge_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError("trace_summary --merge: {}".format(
+            proc.stderr[-2000:]))
+    with open(merged) as f:
+        events = json.load(f)
+    lanes = {ev["args"]["name"] for ev in events
+             if ev.get("ph") == "M" and ev.get("name") == "process_name"}
+    lane_hosts = sorted({name.split(" ")[0] for name in lanes})
+    if lane_hosts != hosts:
+        raise AssertionError("merged trace lanes {}".format(sorted(lanes)))
+    print("fleet phase, elastic: {} hosts x {} workers with "
+          "--fleet-telemetry (heartbeat {} s), {} killed by the kill fault "
+          "at {:.1f} s on its first gather publish; the survivors done at "
+          "{:.1f} s (phase 12: elastic {:.1f} s, static {:.1f} s); {} files "
+          "byte-equal to phase 12's static run; {} CUDA contexts in {} "
+          "processes ({})".format(
+              ELASTIC_HOSTS, ELASTIC_WORKERS, FLEET_INTERVAL, hosts[0],
+              kill_t - t0, elastic_s, shared["elastic_s"],
+              shared["elastic_static_s"], len(names),
+              sum(s["cuda_procs"] for s in seen.values()),
+              sum(s["procs"] for s in seen.values()), card), flush=True)
+    print("fleet phase, elastic: pipeline_status exit {} in {:.2f} s: "
+          "stalled {}, closed {}, alerts firing {}; steals {} (= the "
+          "survivors' lease_steals_total); units per holder {} (= the "
+          "journal, = unit.journaled events); unit.stolen events {}; "
+          "merged trace {} events in {} lanes over hosts {} ({:.2f} s); "
+          "spool bytes {}".format(
+              rc, agg_s, health["stalled_hosts"], health["closed_hosts"],
+              report["alerts"]["firing"], steals,
+              json.dumps(units, sort_keys=True), stolen, len(events),
+              len(lanes), lane_hosts, merge_s,
+              json.dumps(spool_bytes(out), sort_keys=True)), flush=True)
+    print("fleet phase, elastic rollups: {}".format(json.dumps(
+        rollups(report), sort_keys=True, default=str)), flush=True)
+    shutil.rmtree(out)
+    return {"elastic_s": elastic_s, "aggregate_s": agg_s}
+
+
+def fleet_ingest(card, shared):
+    """Phase 13, part 2: ``ingest_watch --elastic --fleet-telemetry
+    --autoscale`` over phase 11's round-0 landing, with an SLO below the
+    round's document count. Returns (ingest root, the part's summary)."""
+    from lddl_tpu_torch.testing import write_text_corpus, write_vocab
+
+    tmp, vocab = shared["elastic_tmp"], shared["elastic_vocab"]
+    # Phase 11's corpus: the same vocab (phases 11 and 12 write one from
+    # seed 0), seed 1.
+    tokens = write_vocab(os.path.join(tmp, "ingest-vocab.txt"), 30522,
+                         seed=0)
+    corpus = os.path.join(tmp, "ingest-corpus")
+    write_text_corpus(corpus, tokens, INGEST_FILES * INGEST_FILE_BYTES,
+                      num_files=INGEST_FILES, seed=1)
+    landing = os.path.join(tmp, "ingest-landing")
+    os.makedirs(os.path.join(landing, "source"))
+    for i in range(INGEST_ROUND_FILES[0]):
+        shutil.copy(os.path.join(corpus, "source", "{}.txt".format(i)),
+                    os.path.join(landing, "source"))
+    iroot = os.path.join(tmp, "ingest-root")
+    cmd = [sys.executable, "-m", "lddl_tpu_torch.cli.ingest_watch",
+           "--landing", landing, "--sink", iroot, "--vocab-file", vocab,
+           "--target-seq-length", str(DATA_TARGET), "--bin-size",
+           str(DATA_BIN), "--masking", "--num-shards", str(INGEST_SHARDS),
+           "--seed", "12345", "--elastic", "--lease-ttl", str(ELASTIC_TTL),
+           "--fleet-telemetry", "--autoscale", "--backlog-slo-docs",
+           str(FLEET_SLO_DOCS), "--max-helpers", str(FLEET_MAX_HELPERS),
+           "--drain-rounds", str(FLEET_DRAIN_ROUNDS), "--max-rounds",
+           str(FLEET_ROUNDS), "--interval", str(FLEET_WATCH_INTERVAL)]
+    log = os.path.join(tmp, "ingest-watch.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)), env=fleet_env())
+    watch = DeviceWatch(proc.pid)
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        seen = watch.stop()
+    ingest_s = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError("ingest_watch --autoscale failed ({}):\n{}"
+                             .format(proc.returncode, text[-4000:]))
+    left = live_processes(["--join-pending", iroot])
+    if left:
+        raise AssertionError("helpers left running: {}".format(left))
+    if seen["cuda_procs"]:
+        raise AssertionError("ingest processes opened a CUDA context: {}"
+                             .format(seen))
+    got = {k: v for k, v in file_tree(iroot).items()
+           if not k.startswith(".telemetry" + os.sep)}
+    want = shared["ingest_gen0"]
+    if got != want:
+        raise AssertionError("generation 0 differs from phase 11's in {}"
+                             .format(sorted(k for k in set(got) | set(want)
+                                            if got.get(k) != want.get(k))
+                                     [:8]))
+    rc, report, agg_s = status_json(iroot)
+    decisions = []
+    for h in sorted(os.listdir(os.path.join(iroot, ".telemetry"))):
+        d = os.path.join(iroot, ".telemetry", h)
+        for n in sorted(os.listdir(d)):
+            if n.startswith("events-pid") and n.endswith(".jsonl"):
+                with open(os.path.join(d, n)) as f:
+                    for line in f:
+                        ev = json.loads(line)
+                        if ev["kind"].startswith("autoscale."):
+                            decisions.append((ev["wall"], ev["kind"][10:],
+                                              ev["args"]["helpers"]))
+    decisions.sort()
+    ups = sum(1 for _, k, _ in decisions if k == "scale_up")
+    downs = sum(1 for _, k, _ in decisions if k == "scale_down")
+    if ups < 1 or downs != ups or decisions[-1][2] != 0:
+        raise AssertionError("autoscale decisions {}".format(decisions))
+    joined = sum(st["event_counts"].get("generation.joined", 0)
+                 for st in report["hosts"].values())
+    print("fleet phase, ingest: ingest_watch --autoscale, {} rounds at {} "
+          "s over phase 11's round-0 landing ({} files), SLO {} docs, at "
+          "most {} helpers, drain {} round(s): done in {:.1f} s, exit 0; "
+          "helper count over the decisions {} ({} scale-ups, {} "
+          "scale-downs, none left running); {} CUDA contexts in {} "
+          "processes; {} files of generation 0 byte-equal to phase 11's; "
+          "pipeline_status exit {} in {:.2f} s; {} hosts, {} helper joins "
+          "of the in-flight generation; spool bytes {} ({})".format(
+              FLEET_ROUNDS, FLEET_WATCH_INTERVAL, INGEST_ROUND_FILES[0],
+              FLEET_SLO_DOCS, FLEET_MAX_HELPERS, FLEET_DRAIN_ROUNDS,
+              ingest_s, [n for _, _, n in decisions], ups, downs,
+              seen["cuda_procs"], seen["procs"], len(got), rc, agg_s,
+              len(report["hosts"]), joined,
+              json.dumps(spool_bytes(iroot), sort_keys=True),
+              card), flush=True)
+    print("fleet phase, ingest rollups: {}".format(json.dumps(
+        rollups(report), sort_keys=True, default=str)), flush=True)
+    return iroot, {"ingest_s": ingest_s, "helpers": [
+        n for _, _, n in decisions]}
+
+
+def fleet_steps(fa, card, iroot, vocab):
+    """Phase 13, part 3: bert_large under a ``follow_generations``
+    loader armed only by ``LDDL_TPU_FLEET_DIR`` (this process joins the
+    ingest root's fleet as a host). Returns the launch counts."""
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.observability import fleet
+
+    os.environ["LDDL_TPU_FLEET_DIR"] = iroot
+    os.environ["LDDL_TPU_FLEET_INTERVAL_S"] = str(FLEET_INTERVAL)
+    try:
+        loader = get_bert_pretrain_data_loader(
+            iroot, vocab_file=vocab, batch_size=INGEST_BATCH,
+            fixed_seq_lengths=DATA_BINS, base_seed=12345,
+            follow_generations=True)
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+        steps = {}
+        zero_launches(fa)
+        it = iter(prefetch_to_device(loader))
+        try:
+            for batch in it:
+                l_bin = batch["input_ids"].shape[1]
+                if steps.get(l_bin, 0) >= FLEET_STEPS_PER_BIN:
+                    continue
+                t0 = time.perf_counter()
+                loss = float(step(batch, seed=0)["loss"])  # syncs
+                dt = time.perf_counter() - t0
+                steps[l_bin] = steps.get(l_bin, 0) + 1
+                print("fleet step L={} loss={:.4f} {:.1f} ms ({})".format(
+                    l_bin, loss, dt * 1e3, card), flush=True)
+                if not math.isfinite(loss):
+                    raise AssertionError("non-finite loss at L={}".format(
+                        l_bin))
+                if len(steps) == len(DATA_BINS) and min(
+                        steps.values()) >= FLEET_STEPS_PER_BIN:
+                    break
+        finally:
+            it.close()
+        launches = read_launches(fa)
+        del model, opt, step
+        kernel_steps = sum(n for l_bin, n in steps.items()
+                           if fa.single_block_serves(l_bin, 64))
+        want = cfg.num_layers * kernel_steps
+        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("fleet launch counts {} != {} per "
+                                 "single-block kernel ({} steps)".format(
+                                     launches, want, steps))
+        time.sleep(FLEET_INTERVAL * 1.5)  # one more beat: the gauges
+        rc, report, agg_s = status_json(iroot)
+        me = [h for h, st in report["hosts"].items()
+              if os.getpid() in st["pids"]]
+        if len(me) != 1:
+            raise AssertionError("this process is no host of {}".format(
+                sorted(report["hosts"])))
+        st = report["hosts"][me[0]]
+        if st["closed"] or st["stalled"] \
+                or "padding_efficiency" not in st["gauges"]:
+            raise AssertionError("the training host reads {}".format(st))
+        print("fleet phase, steps: bins reached {} (steps a bin); "
+              "launches: {}; this process is host {} of pipeline_status "
+              "(exit {}, {:.2f} s): live, heartbeat age {:.2f} s, padding "
+              "efficiency {:.4f}, generations loaded {} ({})".format(
+                  json.dumps({str(k): v for k, v in sorted(steps.items())}),
+                  launches, me[0], rc, agg_s, st["heartbeat_age_s"],
+                  st["gauges"]["padding_efficiency"],
+                  st["gauges"].get("generations_loaded"), card), flush=True)
+        return launches
+    finally:
+        fleet.heartbeat(closed=True, reason="phase end")
+        fleet._reset_for_tests()
+        for name in FLEET_ENVS:
+            os.environ.pop(name, None)
+
+
+def fleet_path(fa, card, shared):
+    """Phase 13, fleet telemetry under bert_large: the three parts above,
+    each timed. Returns the launch counts of part 3's steps."""
+    t0 = time.perf_counter()
+    fleet_elastic(card, shared)
+    t1 = time.perf_counter()
+    iroot, _ = fleet_ingest(card, shared)
+    t2 = time.perf_counter()
+    launches = fleet_steps(fa, card, iroot, shared["elastic_vocab"])
+    print("fleet phase parts: elastic {:.1f} s, ingest {:.1f} s, steps "
+          "{:.1f} s ({})".format(t1 - t0, t2 - t1, time.perf_counter() - t2,
+                                 card), flush=True)
+    return launches
 
 
 def main():
@@ -3133,6 +3635,7 @@ def main():
         print(json.dumps({"kernels": kernels}))
         return 0
     by_path = {}
+    shared = {}  # what phases 11-12 leave for phase 13
     phases = [("4", "bert_binned", lambda: bert_path(fa, card)),
               ("5", "bert_packed", lambda: packed_path(fa, card)),
               ("6", "bart", lambda: bart_path(fa, card)),
@@ -3140,17 +3643,22 @@ def main():
               ("8-9", ("bert_data", "bert_loader"),
                lambda: data_path(fa, card)),
               ("10", "bart_data", lambda: bart_data_path(fa, card)),
-              ("11", "bert_ingest", lambda: ingest_path(fa, card)),
-              ("12", "bert_elastic", lambda: elastic_path(fa, card))]
-    for number, path, run in phases:
-        t0 = time.perf_counter()
-        if isinstance(path, tuple):
-            by_path.update(zip(path, run()))
-        else:
-            by_path[path] = run()
-        print("phase {} ({}): {:.1f} s".format(
-            number, path if isinstance(path, str) else "+".join(path),
-            time.perf_counter() - t0), flush=True)
+              ("11", "bert_ingest", lambda: ingest_path(fa, card, shared)),
+              ("12", "bert_elastic", lambda: elastic_path(fa, card, shared)),
+              ("13", "fleet", lambda: fleet_path(fa, card, shared))]
+    try:
+        for number, path, run in phases:
+            t0 = time.perf_counter()
+            if isinstance(path, tuple):
+                by_path.update(zip(path, run()))
+            else:
+                by_path[path] = run()
+            print("phase {} ({}): {:.1f} s".format(
+                number, path if isinstance(path, str) else "+".join(path),
+                time.perf_counter() - t0), flush=True)
+    finally:
+        if "elastic_tmp" in shared:
+            shutil.rmtree(shared["elastic_tmp"], ignore_errors=True)
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}

@@ -2,12 +2,11 @@
 
 The port's own copy of ``balance_shards`` and ``generate_num_samples_cache``
 of ``lddl_tpu/balance/balancer.py`` over the port's ``Communicator``
-(``parallel.distributed``), without telemetry: the same plan, the same
-output contract (``shard-<i>.parquet[_<bin>]`` with every shard holding
-``base`` or ``base+1`` samples, plus ``.num_samples.json`` and
+(``parallel.distributed``), with its spans and counters: the same plan,
+the same output contract (``shard-<i>.parquet[_<bin>]`` with every shard
+holding ``base`` or ``base+1`` samples, plus ``.num_samples.json`` and
 ``.manifest.json``), so the port's output equals the reference's byte for
-byte. The reference's delta balancer (``balance/delta.py``) is not ported
-yet.
+byte. The delta balancer of streaming ingest is ``balance/delta.py``.
 
 Why balancing matters: the loader shards *files* across data-parallel
 groups; equal per-file counts keep rank-sharded epochs from diverging.
@@ -27,7 +26,8 @@ import os
 
 import pyarrow as pa
 
-from ..parallel.distributed import LocalCommunicator
+from .. import observability as obs
+from ..utils.comm import LocalCommunicator
 from ..preprocess.binning import (DEFAULT_PARQUET_COMPRESSION,
                                   write_options_for_names)
 from ..resilience.integrity import build_manifest
@@ -96,6 +96,7 @@ class _Shard:
             write_table_atomic(table, path,
                                compression=DEFAULT_PARQUET_COMPRESSION,
                                **write_options_for_names(table.schema.names))
+            _count_bytes_rewritten(path)
 
     def _load(self, num_samples, with_table):
         """Remove rows, consuming input files from the end first, then
@@ -135,6 +136,11 @@ class _Shard:
         destination (the dominant I/O cost when one giant file feeds many
         shards)."""
         total = sum(n for _, n in assignments)
+        if i_am_owner:
+            # Owner-side count: every rank mirrors the plan metadata, but
+            # only the owner moves rows, so the counter is exact per
+            # process in multi-rank layouts too.
+            obs.inc("balance_samples_moved_total", total)
         table = self._load(total, with_table=i_am_owner)
         offset = 0
         for other, n in assignments:
@@ -161,9 +167,22 @@ class _Shard:
             write_table_atomic(table, self.out_path,
                                compression=DEFAULT_PARQUET_COMPRESSION,
                                **write_options_for_names(table.schema.names))
+            _count_bytes_rewritten(self.out_path)
             for f in parts:
                 os.remove(f.path)
         self.final_file = File(self.out_path, n)
+
+
+def _count_bytes_rewritten(path):
+    """Bytes this rank physically wrote while balancing (custody parts
+    and final merges): the I/O cost the ``stats`` row counts only
+    imply."""
+    if not obs.enabled():
+        return
+    try:
+        obs.inc("balance_bytes_rewritten_total", os.stat(path).st_size)
+    except OSError:  # a telemetry-only stat must not fail the balance
+        pass
 
 
 def _census(file_paths, comm):
@@ -267,6 +286,13 @@ def balance_shards(in_dir, out_dir, num_shards, comm=None, log=None,
     log = log or (lambda msg: None)
     if num_shards < 1:
         raise ValueError("num_shards must be >= 1")
+    # Top-level stage span.
+    with obs.span("balance.run", rank=comm.rank, num_shards=num_shards):
+        return _balance_shards_body(in_dir, out_dir, num_shards, comm, log,
+                                    stats)
+
+
+def _balance_shards_body(in_dir, out_dir, num_shards, comm, log, stats):
     if os.path.isdir(out_dir):
         stale = [n for n in sorted(os.listdir(out_dir)) if ".parquet" in n]
         if stale:
@@ -289,9 +315,10 @@ def balance_shards(in_dir, out_dir, num_shards, comm=None, log=None,
                     len(unbinned), os.path.basename(unbinned[0])))
         for b in bin_ids:
             bin_paths = get_file_paths_for_bin_id(file_paths, b)
-            counts.update(
-                _balance_one_set(bin_paths, out_dir, num_shards, comm,
-                                 postfix="_{}".format(b), stats=stats))
+            with obs.span("balance.bin", bin=b, files=len(bin_paths)):
+                counts.update(
+                    _balance_one_set(bin_paths, out_dir, num_shards, comm,
+                                     postfix="_{}".format(b), stats=stats))
             log("balanced bin {}: {} files -> {} shards".format(
                 b, len(bin_paths), num_shards))
     else:

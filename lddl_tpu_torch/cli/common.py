@@ -10,8 +10,8 @@ collectives do. ``--storage-backend`` selects the storage backend as
 the reference's does. The elastic flags parse as the reference's do and
 run the lease-based work-stealing schedule (``preprocess/steal.py``);
 ``--elastic`` with ``--multihost`` is refused. ``--fleet-telemetry``
-parses and exits with a message: fleet telemetry (ROADMAP.md, Queue 1
-item 4) is not ported yet.
+arms the fleet telemetry spools under ``<sink>/.telemetry/<holder>/``
+(``observability/fleet.py``), as the reference's does.
 """
 
 import argparse
@@ -122,22 +122,31 @@ def apply_storage_backend(args):
 def attach_fleet_arg(parser):
     parser.add_argument(
         "--fleet-telemetry", action="store_true",
-        help="publish per-host telemetry spools under "
-             "<sink>/.telemetry/<holder>/ (not ported yet: the flag "
-             "exits with a message rather than run without the "
-             "telemetry it asks for)")
+        help="publish per-host telemetry spools (registry snapshots + "
+             "unit/generation lifecycle event logs + traces) under "
+             "<sink>/.telemetry/<holder>/ for cross-host aggregation; "
+             "inspect with `python -m lddl_tpu_torch.tools.pipeline_status "
+             "<sink>` (equivalent to LDDL_TPU_FLEET_DIR=<sink>)")
 
 
 def arm_fleet_if_requested(args, sink):
-    """Refuse ``--fleet-telemetry``: the fleet telemetry layer
-    (``observability/fleet.py``) is not ported yet, and a run must not
-    go on without the telemetry it asked for."""
-    if getattr(args, "fleet_telemetry", False):
-        raise SystemExit(
-            "--fleet-telemetry: fleet telemetry (observability/fleet.py) "
-            "is not ported to lddl_tpu_torch yet (ROADMAP.md, Queue 1 "
-            "item 4); drop the flag, or use lddl_tpu for a run that "
-            "needs it ({})".format(sink))
+    """Arm fleet telemetry into the run's output dir when requested. The
+    elastic holder id doubles as the spool name, so lease events and
+    spool dirs name the same host; when an elastic run got no
+    ``--elastic-host-id``, ONE auto-generated lease holder is pinned into
+    ``args`` here, so the spool and the lease files still share a name
+    (``configure()`` would otherwise pin a hostname-pid default that the
+    runner's later ``adopt_holder()`` could no longer override)."""
+    if not getattr(args, "fleet_telemetry", False):
+        return
+    holder = getattr(args, "elastic_host_id", None)
+    if holder is None and getattr(args, "elastic", False):
+        from ..resilience import leases
+        holder = leases.default_holder()
+        args.elastic_host_id = holder
+    from ..observability import fleet
+    fleet.configure(sink, holder_id=holder,
+                    ttl=getattr(args, "lease_ttl", None))
 
 
 @contextlib.contextmanager

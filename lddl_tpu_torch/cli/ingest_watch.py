@@ -10,10 +10,11 @@ any point and re-run: an in-flight generation resumes from its intake
 record, and the journal commit is atomic. ``--elastic`` runs each
 round's preprocess on the lease-based work-stealing schedule, and
 ``--join-pending`` runs a helper host that joins the in-flight
-generation's elastic preprocess. ``--fleet-telemetry`` exits with a
-message, and ``--autoscale``, which needs it, is refused by name: both
-wait for the fleet telemetry and the autoscaler (ROADMAP.md, Queue 1
-item 4).
+generation's elastic preprocess. ``--fleet-telemetry`` publishes the
+service's telemetry spool under ``<sink>/.telemetry/``, and
+``--autoscale`` (with ``--elastic`` and ``--fleet-telemetry``) runs a
+control thread that reads the fleet aggregate and spawns or retires
+local ``--join-pending`` helper processes to hold ``--backlog-slo-docs``.
 """
 
 from ..preprocess import BertPretrainConfig, get_tokenizer
@@ -88,11 +89,24 @@ def attach_args(parser=None):
                              "maintenance windows — not while a loader "
                              "streams the directory mid-epoch")
     attach_bool_arg(parser, "autoscale", default=False,
-                    help_str="telemetry-driven autoscaling of local "
-                             "helper processes (--join-pending mode); "
-                             "requires --elastic and --fleet-telemetry, "
-                             "and is refused until the autoscaler is "
-                             "ported")
+                    help_str="telemetry-driven autoscaling: a control "
+                             "thread reads the fleet aggregate every "
+                             "half interval and spawns/retires local "
+                             "helper processes (--join-pending mode) to "
+                             "hold --backlog-slo-docs; requires "
+                             "--elastic and --fleet-telemetry")
+    parser.add_argument("--backlog-slo-docs", type=int, default=512,
+                        help="autoscale SLO: spawn a helper while the "
+                             "fleet's ingest backlog gauge is at/above "
+                             "this many documents (or the service is "
+                             "wedged)")
+    parser.add_argument("--max-helpers", type=int, default=2,
+                        help="autoscale ceiling on concurrently running "
+                             "helper processes")
+    parser.add_argument("--drain-rounds", type=int, default=2,
+                        help="consecutive calm control rounds (no "
+                             "backlog, no pending work) before one "
+                             "helper is retired")
     attach_bool_arg(parser, "join-pending", default=False,
                     help_str="helper mode (what --autoscale spawns): "
                              "join the in-flight generation's elastic "
@@ -105,12 +119,46 @@ def attach_args(parser=None):
     return parser
 
 
+def _helper_argv(args):
+    """The command line ``--autoscale`` spawns: this same CLI in
+    ``--join-pending`` mode, carrying every processor-config flag (the
+    helper recomputes the intake fingerprint and refuses on drift) but
+    none of the landing-scan knobs (frozen in the intake record)."""
+    import sys
+    argv = [sys.executable, "-m", "lddl_tpu_torch.cli.ingest_watch",
+            "--landing", args.landing, "--sink", args.sink,
+            "--join-pending", "--elastic",
+            "--local-workers", str(args.local_workers),
+            "--lease-ttl", str(args.lease_ttl),
+            "--interval", str(args.interval),
+            "--num-shards", str(args.num_shards),
+            "--target-seq-length", str(args.target_seq_length),
+            "--short-seq-prob", str(args.short_seq_prob),
+            "--masked-lm-ratio", str(args.masked_lm_ratio),
+            "--duplicate-factor", str(args.duplicate_factor),
+            "--seed", str(args.seed),
+            "--schema-version", str(args.schema_version),
+            "--tokenizer-engine", args.tokenizer_engine]
+    if args.vocab_file:
+        argv += ["--vocab-file", args.vocab_file]
+    if args.tokenizer:
+        argv += ["--tokenizer", args.tokenizer]
+    if args.masking:
+        argv += ["--masking"]
+    if args.scatter_units is not None:
+        argv += ["--scatter-units", str(args.scatter_units)]
+    if args.fleet_telemetry:
+        argv += ["--fleet-telemetry"]
+    return argv
+
+
 def main(args=None):
     args = args if args is not None else attach_args().parse_args()
     if args.vocab_file is None and args.tokenizer is None:
         raise SystemExit("need --vocab-file or --tokenizer")
-    # Pin the storage backend into the env first (workers inherit it);
-    # --fleet-telemetry is refused before any work.
+    # Pin the storage backend into the env first (workers and helper
+    # subprocesses inherit it), then arm fleet BEFORE the elastic kwargs
+    # are taken (see arm_fleet_if_requested).
     apply_storage_backend(args)
     arm_fleet_if_requested(args, args.sink)
     elastic_kwargs = elastic_kwargs_of(args)
@@ -128,9 +176,11 @@ def main(args=None):
     from ..ingest import ingest_once, join_pending_generation, watch
     if args.join_pending:
         # Helper mode: poll the journal for an in-flight generation and
-        # join its elastic claim loop. Retirement is a plain SIGTERM
-        # (the reference's autoscaler sends it), converted to a normal
-        # exit.
+        # join its elastic claim loop. Retirement is a plain SIGTERM from
+        # the autoscaler, converted to a normal exit so the atexit hook
+        # closes the telemetry spool (pipeline_status then reads a clean
+        # shutdown, not a stalled host). A helper that dies mid-unit
+        # anyway just stops renewing its leases and the survivors steal.
         import signal
         import time
 
@@ -172,6 +222,8 @@ def main(args=None):
         if not args.fleet_telemetry:
             raise SystemExit("--autoscale needs --fleet-telemetry: scale "
                              "decisions read the fleet aggregate")
+        _watch_with_autoscaler(args, tokenizer, kwargs)
+        return
     if args.once:
         report = ingest_once(args.sink, tokenizer, landing=args.landing,
                              log=print, **kwargs)
@@ -179,6 +231,58 @@ def main(args=None):
         return
     watch(args.sink, tokenizer, args.landing, interval_s=args.interval,
           max_rounds=args.max_rounds, log=print, **kwargs)
+
+
+
+def _watch_with_autoscaler(args, tokenizer, kwargs):
+    """The watch loop with the autoscaler's control thread beside it;
+    every helper is retired (SIGTERM, then SIGKILL after 30 s) before
+    this returns."""
+    import subprocess
+    import threading
+
+    from ..ingest import watch
+    from ..observability.autoscale import Autoscaler
+
+    def spawn():
+        return subprocess.Popen(_helper_argv(args))
+
+    def retire(proc):
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+
+    scaler = Autoscaler(args.sink, spawn, retire,
+                        backlog_slo_docs=args.backlog_slo_docs,
+                        max_helpers=args.max_helpers,
+                        drain_rounds=args.drain_rounds,
+                        stall_ttl=args.lease_ttl, log=print)
+    stop = threading.Event()
+
+    def control_loop():
+        # Half the watch interval, so a backlog spike seen at scan time
+        # scales up while the round's preprocess still runs, when a
+        # helper is actually useful.
+        while not stop.wait(max(1.0, args.interval / 2.0)):
+            try:
+                scaler.step()
+            except Exception as e:  # noqa: BLE001 - keep controlling
+                print("autoscale: control round failed ({}: {})".format(
+                    type(e).__name__, e))
+
+    thread = threading.Thread(target=control_loop, name="autoscale",
+                              daemon=True)
+    thread.start()
+    try:
+        watch(args.sink, tokenizer, args.landing, interval_s=args.interval,
+              max_rounds=args.max_rounds, log=print, **kwargs)
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)
+        scaler.shutdown()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ Counterpart of ``lddl_tpu/cli/preprocess_bart_pretrain.py``; run as
 ``vocab.txt``) the shards are schema v2, tokenized by the native engine;
 without, text-only schema v1. ``--elastic`` runs the lease-based
 work-stealing schedule, as the BERT CLI's does; ``--fleet-telemetry``
-exits with a message (fleet telemetry is not ported yet).
+publishes per-host telemetry spools under ``<sink>/.telemetry/``.
 """
 
 from ..preprocess import BartPretrainConfig, run_bart_preprocess

@@ -9,8 +9,9 @@ the card unless ``cpu``). Tokenization is the native engine's
 (``--tokenizer-engine native``). ``--elastic`` runs the lease-based
 work-stealing schedule: launch the same command on several hosts sharing
 ``--sink`` (each with its own ``--elastic-host-id``); the shards equal a
-one-host static run's. ``--fleet-telemetry`` exits with a message (fleet
-telemetry is not ported yet).
+one-host static run's. ``--fleet-telemetry`` publishes per-host
+telemetry spools under ``<sink>/.telemetry/`` (read them with ``python -m
+lddl_tpu_torch.tools.pipeline_status <sink>``).
 """
 
 from ..preprocess import BertPretrainConfig, get_tokenizer, run_bert_preprocess

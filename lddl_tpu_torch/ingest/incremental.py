@@ -30,13 +30,12 @@ publish is the single commit point**:
        generation-pickup gate
     6. journal segment published (COMMIT), then scratch swept
 
-The reference also records each step as a fleet lifecycle event
-(``observability/fleet.py``); fleet telemetry is not ported, so
-``_fleet_record`` stands at those sites and does nothing.
+Each step is also recorded as a fleet lifecycle event
+(``observability/fleet.py``) when fleet telemetry is armed.
 ``elastic=True`` runs a round's preprocess on the lease-based
 work-stealing schedule (``preprocess/steal.py``), and
-``join_pending_generation`` lets a helper host join that preprocess; the
-autoscaler that would spawn such helpers waits for the fleet telemetry.
+``join_pending_generation`` lets a helper host join that preprocess
+(what ``ingest_watch --autoscale`` spawns).
 """
 
 import os
@@ -56,11 +55,6 @@ from ..utils.fs import (
 )
 from ..balance import delta as delta_mod
 from . import journal as journal_mod
-
-
-def _fleet_record(kind, **fields):
-    """A fleet lifecycle event in the reference (``fleet.record``); fleet
-    telemetry is not ported, so this does nothing."""
 
 
 def _snapshot_prior(root):
@@ -192,6 +186,10 @@ def ingest_once(
     semantics are untouched — carryover rows are whole packed rows.
     """
     log = log or (lambda msg: None)
+    # Long-lived service: heartbeats run even on noop rounds, so the
+    # fleet status report can tell "idle" from "dead" (a no-op when fleet
+    # telemetry is not armed).
+    obs.fleet.ensure_started()
     with obs.span("ingest.run", root=root):
         return _ingest_once_body(
             root, tokenizer, landing, files, config, num_shards, bin_size,
@@ -256,8 +254,8 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
                 "arguments".format(generation, pending.get("fingerprint"),
                                    fingerprint))
         intake = pending
-        _fleet_record("generation.intake", generation=generation,
-                      docs=len(intake["hashes"]), resumed=True)
+        obs.fleet.record("generation.intake", generation=generation,
+                         docs=len(intake["hashes"]), resumed=True)
         log("ingest: resuming in-flight generation {} ({} document(s) "
             "from its intake record)".format(generation,
                                              len(intake["hashes"])))
@@ -270,8 +268,8 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
         obs.set_gauge("ingest_backlog_docs", len(new_docs))
         carry_rows = _carry_row_count(root, journal)
         if not new_docs and not (flush_tail and carry_rows):
-            _fleet_record("ingest.scan", docs_seen=scan_stats["docs_seen"],
-                          docs_new=0, noop=True)
+            obs.fleet.record("ingest.scan", docs_seen=scan_stats["docs_seen"],
+                             docs_new=0, noop=True)
             log("ingest: no new documents ({} seen, all journaled)".format(
                 scan_stats["docs_seen"]))
             return {"noop": True, "generation": journal.generation,
@@ -309,9 +307,9 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
         }
         journal_mod.publish_record(
             journal_mod.intake_path(root, generation), intake)
-        _fleet_record("generation.intake", generation=generation,
-                      docs=len(intake["hashes"]),
-                      doc_bytes=intake["doc_bytes"], resumed=False)
+        obs.fleet.record("generation.intake", generation=generation,
+                         docs=len(intake["hashes"]),
+                         doc_bytes=intake["doc_bytes"], resumed=False)
         log("ingest: generation {}: {} new document(s) of {} seen".format(
             generation, scan_stats["docs_new"], scan_stats["docs_seen"]))
 
@@ -346,8 +344,8 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
                 pack_max_per_row=intake.get("pack_max_per_row", 8),
             )
         part_paths = get_all_parquets_under(pre_dir)
-        _fleet_record("generation.preprocess", generation=generation,
-                      shards=len(part_paths))
+        obs.fleet.record("generation.preprocess", generation=generation,
+                         shards=len(part_paths))
 
     stage_dir = os.path.join(wdir, "balance")
     plan = delta_mod.read_plan(stage_dir)
@@ -366,9 +364,9 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
     published = delta_mod.publish_delta_balance(
         root, stage_dir, plan, carry_dir=journal_mod.carry_dir(root),
         log=log)
-    _fleet_record("generation.delta_balance", generation=generation,
-                  new_shards=len(published["new"]),
-                  touched_prior=len(published["touched"]))
+    obs.fleet.record("generation.delta_balance", generation=generation,
+                     new_shards=len(published["new"]),
+                     touched_prior=len(published["touched"]))
 
     changed_dirs = {os.path.dirname(os.path.join(root, rel))
                     for rel in list(published["new"])
@@ -377,13 +375,13 @@ def _ingest_once_body(root, tokenizer, landing, files, config, num_shards,
     known_counts.update(published["touched"])
     _refresh_dir_bookkeeping(root, changed_dirs or {root}, generation,
                              known_counts)
-    _fleet_record("generation.gate_advance", generation=generation)
+    obs.fleet.record("generation.gate_advance", generation=generation)
 
     journal.publish_generation(generation, intake["hashes"], fingerprint,
                                carry=published["carry"],
                                doc_bytes=intake.get("doc_bytes", 0))
-    _fleet_record("generation.committed", generation=generation,
-                  docs=len(intake["hashes"]))
+    obs.fleet.record("generation.committed", generation=generation,
+                     docs=len(intake["hashes"]))
     obs.set_gauge("ingest_backlog_docs", 0)
 
     # Post-commit sweep (idempotent; redone by pending_work on a crash):
@@ -440,8 +438,7 @@ def join_pending_generation(root, tokenizer, *, config=None, num_workers=1,
                             lease_ttl=30.0, holder_id=None,
                             scatter_units=None, comm=None, log=None):
     """Join the in-flight generation's ELASTIC preprocess as a helper
-    host (the reference's autoscaler spawns such helpers; the port's
-    waits for the fleet telemetry).
+    host (what ``ingest_watch --autoscale`` spawns).
 
     A helper never scans the landing dir, never balances, never commits
     the journal: it replays the primary's FROZEN intake record (doc set
@@ -457,6 +454,7 @@ def join_pending_generation(root, tokenizer, *, config=None, num_workers=1,
     from ..preprocess.runner import BertBucketProcessor, run_bert_preprocess
 
     log = log or (lambda msg: None)
+    obs.fleet.ensure_started()
     config = config or BertPretrainConfig()
     journal = journal_mod.Journal.load(root)
     pending = journal.pending_work()
@@ -516,8 +514,8 @@ def join_pending_generation(root, tokenizer, *, config=None, num_workers=1,
             pack_seq_length=pending.get("pack_seq_length"),
             pack_max_per_row=pending.get("pack_max_per_row", 8),
         )
-    _fleet_record("generation.joined", generation=generation,
-                  holder=str(holder_id or ""))
+    obs.fleet.record("generation.joined", generation=generation,
+                     holder=str(holder_id or ""))
     return {"joined": True, "generation": generation}
 
 

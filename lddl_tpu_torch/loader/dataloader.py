@@ -154,6 +154,16 @@ class DataLoader:
             raise ValueError("batch_size must be >= 1")
         if worker_mode not in ("thread", "process"):
             raise ValueError("worker_mode must be thread|process")
+        # A loader process armed only through the env (LDDL_TPU_FLEET_DIR,
+        # the equivalent of --fleet-telemetry) never calls configure() or
+        # record(), so nothing would start the heartbeat or point the
+        # metrics dir at the spool, and every obs.enabled() gate below
+        # would read False. Kick the fleet once here, before any gate.
+        try:
+            from ..observability import fleet
+            fleet.ensure_started()
+        except Exception:  # noqa: BLE001 - telemetry must stay inert
+            pass
         if worker_mode == "process":
             worker_mode = self._check_process_mode(dataset)
         self.dataset = dataset

@@ -358,8 +358,9 @@ class ParquetDataset:
         self._files = files
         self._num_samples_per_file = per_file
         self._files_version += 1
-        if obs.enabled():
+        if obs.enabled() or obs.fleet.enabled():
             obs.inc("loader_generation_refreshes_total")
+            loaded, lag = None, None
             root = getattr(self._refresh, "root", None)
             if root is not None:
                 from ..utils.fs import get_generation_of_path
@@ -368,7 +369,10 @@ class ParquetDataset:
                 obs.set_gauge("loader_generations_loaded", loaded + 1)
                 gate = getattr(self._refresh, "last_gate", None)
                 if gate is not None:
-                    obs.set_gauge("loader_generation_lag", gate - loaded)
+                    lag = gate - loaded
+                    obs.set_gauge("loader_generation_lag", lag)
+            obs.fleet.record("generation.pickup", files=len(self._files),
+                             epoch=self._epoch + 1, loaded=loaded, lag=lag)
         self._logger.to("rank").info(
             "picked up new generation(s): {} -> {} files".format(
                 len(current), len(self._files)))

@@ -126,6 +126,11 @@ def _load():
         lib.lddl_tok_set_threads.restype = None
         lib.lddl_tok_set_threads.argtypes = [ctypes.c_void_p,
                                              ctypes.c_int32]
+        lib.lddl_tok_get_threads.restype = ctypes.c_int32
+        lib.lddl_tok_get_threads.argtypes = [ctypes.c_void_p]
+        lib.lddl_tok_thread_busy_ns.restype = ctypes.c_int32
+        lib.lddl_tok_thread_busy_ns.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int32]
         lib.lddl_tok_set_splitter.restype = None
         lib.lddl_tok_set_splitter.argtypes = [ctypes.c_void_p,
                                               ctypes.c_char_p,
@@ -308,6 +313,19 @@ class NativeTokenizer:
         # _args: a pool worker rebuilding the tokenizer sizes itself from
         # the env the runner set for it, not from the parent's budget.
         lib.lddl_tok_set_threads(self._handle, resolve_threads())
+
+    def get_threads(self):
+        """Configured pool width (a bucket with fewer docs runs narrower)."""
+        return int(self._lib.lddl_tok_get_threads(self._handle))
+
+    def thread_busy_ns(self):
+        """Cumulative per-thread busy nanoseconds since construction, one
+        entry per configured thread slot (the ``native_thread_busy_
+        seconds_total{tid}`` counter diffs successive reads)."""
+        out = (ctypes.c_int64 * _MAX_THREADS)()
+        n = self._lib.lddl_tok_thread_busy_ns(self._handle, out,
+                                              _MAX_THREADS)
+        return [int(out[i]) for i in range(max(0, n))]
 
     def set_splitter(self, blob):
         """Attach (or clear, blob=None) corpus-learned punkt splitter

@@ -13,18 +13,15 @@ order:
    mutation holds the registry lock.
 
 Enablement is the ``LDDL_TPU_METRICS_DIR`` environment variable, so
-spawned loader workers inherit it. Each process appends one snapshot of
-its registry to ``metrics-rank<r>-pid<p>.jsonl`` there when it exits or
-is terminated (``export_jsonl``), which is how a spawned worker's stage
-seconds become visible. Metric names are ``<stage>_<what>_<unit>``, as
-the reference's.
+spawned pool and loader workers inherit it. Each process exports its
+registry there when it exits or is terminated (``exporters``), which is
+how a spawned worker's counters become visible. Metric names are
+``<stage>_<what>_<unit>``, as the reference's.
 """
 
-import json
 import math
 import os
 import threading
-import time
 
 ENV_DIR = "LDDL_TPU_METRICS_DIR"
 ENV_RANK = "LDDL_TPU_METRICS_RANK"
@@ -229,54 +226,35 @@ def registry():
     return _REGISTRY
 
 
-def export_jsonl():
-    """Append one registry snapshot line to this process's
-    ``metrics-rank<r>-pid<p>.jsonl``; returns its path (None when
-    disabled or the write failed)."""
-    d = metrics_dir()
-    if d is None:
-        return None
-    path = os.path.join(d, "metrics-rank{}-pid{}.jsonl".format(
-        rank(), os.getpid()))
-    line = {"time": time.time(), "rank": rank(), "pid": os.getpid(),
-            "metrics": _REGISTRY.snapshot()}
-    try:
-        os.makedirs(d, exist_ok=True)
-        with open(path, "a", encoding="utf-8") as f:
-            f.write(json.dumps(line) + "\n")
-    except (OSError, TypeError, ValueError):
-        return None
-    return path
-
-
 _final_export_registered = []
 
 
 def _ensure_final_export():
     """Register the end-of-process export once: metrics of short-lived
-    processes (spawned loader workers) would otherwise die with them.
-    Besides atexit, a SIGTERM handler exports first (a process-mode
-    worker stopped mid-epoch is terminated), then dies of the signal as
-    before; installed only from the main thread and only over the
-    default disposition."""
+    processes (spawned preprocess pool and loader workers, an env-armed
+    CLI run) would otherwise die with them. The atexit hook and the
+    SIGTERM handler (``exporters.install_signal_flush``, the process's
+    one handler chain) both run ``exporters.final_flush``."""
     if _final_export_registered:
         return
     _final_export_registered.append(True)
     import atexit
-    import signal
-    atexit.register(export_jsonl)
-    if (threading.current_thread() is not threading.main_thread()
-            or signal.getsignal(signal.SIGTERM) != signal.SIG_DFL):
-        return
 
-    def _on_term(signum, frame):
-        from .tracing import flush
-        export_jsonl()
-        flush()
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
-        os.kill(os.getpid(), signal.SIGTERM)
+    def _final_export():
+        try:
+            if metrics_dir() is None:
+                return
+            from . import exporters
+            exporters.final_flush()
+        except Exception:  # noqa: BLE001 - telemetry must stay inert
+            pass
 
-    signal.signal(signal.SIGTERM, _on_term)
+    atexit.register(_final_export)
+    try:
+        from . import exporters
+        exporters.install_signal_flush()
+    except Exception:  # noqa: BLE001 - telemetry must stay inert
+        pass
 
 
 # Module-level instrumentation points: a no-op after one cheap check when

@@ -133,3 +133,15 @@ def flush():
     except (OSError, TypeError, ValueError):
         pass
     return path
+
+
+def pending_events():
+    """Number of buffered (unflushed) events, for tests and debugging."""
+    with _lock:
+        return len(_buffer)
+
+
+def _reset_for_tests():
+    with _lock:
+        _buffer[:] = []
+        _emitted_meta.clear()

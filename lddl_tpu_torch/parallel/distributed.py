@@ -35,51 +35,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.comm import Communicator, LocalCommunicator
 
 # Seconds ``run_world`` waits for every rank's result before it gives up.
 WORLD_TIMEOUT = 600
-
-
-class Communicator:
-    """Interface. Ranks are 0..world_size-1."""
-
-    @property
-    def rank(self):
-        raise NotImplementedError
-
-    @property
-    def world_size(self):
-        raise NotImplementedError
-
-    def barrier(self):
-        raise NotImplementedError
-
-    def allreduce_sum(self, values):
-        """Element-wise sum of an int64 numpy vector across ranks."""
-        raise NotImplementedError
-
-    def allreduce_max(self, values):
-        raise NotImplementedError
-
-
-class LocalCommunicator(Communicator):
-
-    @property
-    def rank(self):
-        return 0
-
-    @property
-    def world_size(self):
-        return 1
-
-    def barrier(self):
-        pass
-
-    def allreduce_sum(self, values):
-        return np.array(values, dtype=np.int64, copy=True)
-
-    def allreduce_max(self, values):
-        return np.array(values, dtype=np.int64, copy=True)
 
 
 class TorchCommunicator(Communicator):

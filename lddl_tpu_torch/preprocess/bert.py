@@ -34,6 +34,7 @@ import json
 
 import numpy as np
 
+from .. import observability as obs
 from ..ops.masking import (
     make_torch_masker,
     make_torch_whole_word_masker,
@@ -211,6 +212,30 @@ def _check_splitter(config, splitter_params):
             "them automatically)")
 
 
+def _emit_native_thread_metrics(nat):
+    """Pool-attribution metrics after a native kernel call: the configured
+    width (``native_threads`` gauge) plus per-thread busy-time deltas
+    (``native_thread_busy_seconds_total{tid}``). Together they tell a
+    starved pool (every tid busy but wall flat: an oversubscribed host)
+    from a serial floor (tid 0 busy, the rest idle: the bucket was too
+    small to partition). The kernel's counters are cumulative; the
+    previous reading is cached on the tokenizer and diffed here."""
+    if not obs.enabled():
+        return
+    try:
+        obs.set_gauge("native_threads", nat.get_threads())
+        busy = nat.thread_busy_ns()
+        prev = getattr(nat, "_busy_prev", [])
+        for t, b in enumerate(busy):
+            d = b - (prev[t] if t < len(prev) else 0)
+            if d > 0:
+                obs.inc("native_thread_busy_seconds_total", d / 1e9,
+                        tid=str(t))
+        nat._busy_prev = busy
+    except Exception:  # noqa: BLE001 - a metrics-only path
+        pass
+
+
 def instances_from_texts(texts, tok_info, config, seed, bucket,
                          splitter_params=None):
     """Texts -> InstanceBatch in ONE native pass (split + WordPiece + NSP
@@ -225,6 +250,7 @@ def instances_from_texts(texts, tok_info, config, seed, bucket,
         texts, config.max_seq_length, config.short_seq_prob,
         config.duplicate_factor, seed, bucket, tok_info.cls_id,
         tok_info.sep_id, want_ab=not config.masking)
+    _emit_native_thread_metrics(nat)
     return InstanceBatch(seq_ids, seq_lens, a_lens, rn, a_ids=a_ids,
                          b_ids=b_ids)
 
@@ -401,6 +427,7 @@ def masked_instances_from_texts(texts, tok_info, config, seed, bucket,
         tok_info.mask_id, tok_info.vocab_size, config.masked_lm_ratio,
         config.max_predictions_per_seq,
         min(128, config.max_seq_length))
+    _emit_native_thread_metrics(nat)
     return MaskedInstanceBatch(*res)
 
 

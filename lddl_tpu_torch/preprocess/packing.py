@@ -5,7 +5,7 @@ The port's own copy of the pure part of
 ``pack_meta_of``, ``pack_shape_of_schema``, ``pack_shape_of_parquet``
 (local files) and the ``PACK_META_*`` keys, plus ``packed_schema``
 (``binning.make_packed_schema`` there) and ``write_packed_shard``, the
-offline-packed shard sink (without the reference's fill telemetry).
+offline-packed shard sink with the reference's fill telemetry.
 
 A packed row is one training row, stored as (all ``list<int32>`` but
 ``num_tokens``):
@@ -28,6 +28,7 @@ import os
 
 import numpy as np
 
+from .. import observability as obs
 from .arrowcols import concat_aranges, gather_list_slices, int32_list_array
 
 # Parquet schema-metadata keys stamping the packed row shape into every
@@ -216,6 +217,24 @@ def pack_shape_of_parquet(path):
         return None
 
 
+def _record_fill(stats):
+    """Cumulative pack-fill telemetry: the gauge is placed tokens over
+    budget slots across every bucket this process packed so far (the
+    fleet aggregator recomputes the cluster-wide ratio from the two
+    counters, so per-host and fleet numbers agree by construction)."""
+    if not obs.enabled():
+        return
+    obs.inc("preprocess_pack_tokens_total", stats["tokens"])
+    obs.inc("preprocess_pack_slot_tokens_total", stats["slots"])
+    obs.inc("preprocess_pack_rows_total", stats["rows"])
+    reg = obs.registry()
+    slots = reg.counter("preprocess_pack_slot_tokens_total").total()
+    if slots:
+        obs.set_gauge(
+            "preprocess_pack_fill_ratio",
+            reg.counter("preprocess_pack_tokens_total").total() / slots)
+
+
 def write_packed_shard(columns, n, out_dir, part_id, pack_seq_length,
                        max_per_row, cls_id, sep_id, masking=False,
                        compression=None):
@@ -231,7 +250,7 @@ def write_packed_shard(columns, n, out_dir, part_id, pack_seq_length,
         compression = binning_mod.DEFAULT_PARQUET_COMPRESSION
     if n == 0:
         return {}
-    packed, n_rows, _ = pack_columns(
+    packed, n_rows, stats = pack_columns(
         columns, n, pack_seq_length, max_per_row, cls_id, sep_id,
         masking=masking)
     schema = packed_schema(masking, pack_seq_length, max_per_row)
@@ -242,6 +261,7 @@ def write_packed_shard(columns, n, out_dir, part_id, pack_seq_length,
                  schema=schema),
         path, compression=compression,
         **binning_mod.write_options_for_names(schema.names))
+    _record_fill(stats)
     return {path: n_rows}
 
 

@@ -31,11 +31,13 @@ Completed units are journaled under ``_done/`` so ``resume=True`` redoes
 only unfinished ones, behind a fingerprint of every argument that shapes
 the output. Ledger records, spool appends and spool reads go through
 ``resilience/io`` (its retries and its ``open``/``read``/``replace``
-fault sites), as the reference's do. The preprocess's own telemetry and
-the fleet events wait for the rest of ``observability/`` (ROADMAP.md,
-Queue 1 item 4); the elastic path reports its lease and unit counters.
+fault sites), as the reference's do. The stages report the reference's
+spans (``preprocess.run``, ``.scatter``, ``.gather``, ``.scatter_block``,
+``.process_block``, ``.gather_group``) and counters (``preprocess_*``)
+into ``observability``.
 """
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -43,6 +45,7 @@ import os
 import shutil
 import time
 
+from .. import observability as obs
 from ..resilience import io as rio
 from ..resilience.integrity import build_manifest
 from ..utils import rng as lrng
@@ -330,10 +333,20 @@ def _spool_one_block(block, out_dir, seed, sample_ratio, nbuckets, ngroups,
     fenced out by name). A "#B <block> <bucket>" header line
     precedes each run of document lines (written as " " + text), so the
     gather pays no per-line field parsing."""
+    with obs.span("preprocess.scatter_block", block=block.block_id):
+        _spool_one_block_inner(block, out_dir, seed, sample_ratio, nbuckets,
+                               ngroups, spool_name)
+
+
+def _spool_one_block_inner(block, out_dir, seed, sample_ratio, nbuckets,
+                           ngroups, spool_name):
     import numpy as np
     buf, text_starts, text_ends = _scan_block_documents(
         block, sample_ratio, seed)
     n = len(text_starts)
+    obs.inc("preprocess_docs_total", n)
+    obs.inc("preprocess_doc_bytes_total",
+            int((text_ends - text_starts).sum()))
     if not n:
         return
     # Bucket of document o: blake2b("{seed}:{block_id}:{o}") (8 bytes,
@@ -681,6 +694,9 @@ class BertBucketProcessor:
                 splitter_params=self.splitter_params)
         columns, n = materialize_columns(batch, config, self.tok_info, seed,
                                          (0x3A5C, bucket))
+        if obs.enabled() and "num_tokens" in columns:
+            obs.inc("preprocess_tokens_total",
+                    int(sum(int(t) for t in columns["num_tokens"])))
         out_dir, bin_size = self.out_dir, self.bin_size
         pack_seq_length = self.pack_seq_length
         pack_max_per_row = self.pack_max_per_row
@@ -758,7 +774,9 @@ def _run_block_bucket(spec, process_bucket, bucket, fence=None, writer=None):
     if spec.get("clean_first"):
         _clean_bucket_outputs(spec["out_dir"], bucket)
     _check_fence(fence, bucket)
-    publish = process_bucket.prepare(texts, bucket)
+    with obs.span("preprocess.process_block", bucket=bucket):
+        publish = _publish_task(process_bucket.prepare(texts, bucket),
+                                bucket)
     if writer is not None:
         writer.submit(bucket, publish, fence=fence)
         writer.end_unit(bucket)
@@ -793,6 +811,33 @@ def _clean_bucket_outputs(out_dir, bucket):
             os.remove(path)
 
 
+def _record_bucket_written(written):
+    """Per-bin sample accounting of one processed bucket: a counter per
+    bin (parsed off the part-file suffix) and a histogram of bucket
+    sizes (skew visibility)."""
+    if not obs.enabled() or not isinstance(written, dict):
+        return
+    from ..utils.fs import get_bin_id_of_path
+    total = 0
+    for path, n in written.items():
+        b = get_bin_id_of_path(path)
+        obs.inc("preprocess_shards_total", bin="none" if b is None else b)
+        obs.inc("preprocess_samples_total", n,
+                bin="none" if b is None else b)
+        total += n
+    obs.observe("preprocess_bucket_samples", total)
+
+
+def _publish_task(publish, bucket):
+    """Wrap a processor's deferred publish with the per-bucket sample
+    accounting (it runs on the writer thread; obs is thread-safe)."""
+    def task():
+        written = publish()
+        _record_bucket_written(written)
+        return written
+    return task
+
+
 def _run_group(spec, process_bucket, group, fence=None, writer=None):
     """Gather unit: read one coarse spool group, process each fine bucket.
     ``fence`` (elastic mode) is checked after the spool read and before
@@ -804,28 +849,30 @@ def _run_group(spec, process_bucket, group, fence=None, writer=None):
     loop) an own writer pipelines the buckets WITHIN the unit and drains
     before returning, so the unit's result, and the journal record
     derived from it, strictly follows its bytes."""
-    texts_by_bucket = _read_group_texts(spec["out_dir"], group,
-                                        spec["nbuckets"], spec["ngroups"],
-                                        accept=spec.get("spool_accept"))
-    own = writer is None
-    w = sink_mod.ShardWriter() if own else writer
-    try:
-        for bucket in sorted(texts_by_bucket):
-            if spec.get("clean_first"):
-                _clean_bucket_outputs(spec["out_dir"], bucket)
-            _check_fence(fence, group)
-            w.submit(group, process_bucket.prepare(texts_by_bucket[bucket],
-                                                   bucket), fence=fence)
-        w.end_unit(group)
-        if not own:
-            return sink_mod.DeferredUnit(group)
-        done = w.drain()
-    finally:
-        if own:
-            w.close()
-    _, written, exc = done[0]
-    if exc is not None:
-        raise exc  # LeaseLost included: the claim loop fences the unit
+    with obs.span("preprocess.gather_group", group=group):
+        texts_by_bucket = _read_group_texts(
+            spec["out_dir"], group, spec["nbuckets"], spec["ngroups"],
+            accept=spec.get("spool_accept"))
+        own = writer is None
+        w = sink_mod.ShardWriter() if own else writer
+        try:
+            for bucket in sorted(texts_by_bucket):
+                if spec.get("clean_first"):
+                    _clean_bucket_outputs(spec["out_dir"], bucket)
+                _check_fence(fence, group)
+                publish = process_bucket.prepare(texts_by_bucket[bucket],
+                                                 bucket)
+                w.submit(group, _publish_task(publish, bucket), fence=fence)
+            w.end_unit(group)
+            if not own:
+                return sink_mod.DeferredUnit(group)
+            done = w.drain()
+        finally:
+            if own:
+                w.close()
+        _, written, exc = done[0]
+        if exc is not None:
+            raise exc  # LeaseLost included: the claim loop fences the unit
     return written
 
 
@@ -903,9 +950,9 @@ def run_sharded_pipeline(
     work by ``comm`` rank and meet at barriers.
     """
     if comm is None:
-        # Imported here: pool workers import this module and need no
-        # torch, and neither does an elastic host.
-        from ..parallel.distributed import LocalCommunicator
+        # The torch-free world of one: pool workers, elastic and ingest
+        # helper hosts import no torch.
+        from ..utils.comm import LocalCommunicator
         comm = LocalCommunicator()
     log = log or (lambda msg: None)
     if elastic and comm.world_size > 1:
@@ -913,6 +960,25 @@ def run_sharded_pipeline(
             "elastic mode replaces the static multihost schedule; launch "
             "independent processes sharing the output dir instead of "
             "joining a process group (--multihost)")
+    # Top-level stage span; the scatter/gather phases and the per-unit
+    # worker spans nest under it in the per-process trace files.
+    with obs.span("preprocess.run", rank=comm.rank,
+                  world_size=comm.world_size, elastic=bool(elastic)):
+        try:
+            return _run_pipeline_body(
+                corpus_paths, out_dir, process_bucket, num_blocks,
+                sample_ratio, seed, global_shuffle, comm, log, num_workers,
+                spool_groups, resume, progress_interval, elastic,
+                lease_ttl, holder_id, scatter_units, emit_manifest)
+        finally:
+            obs.flush()
+
+
+def _run_pipeline_body(corpus_paths, out_dir, process_bucket, num_blocks,
+                       sample_ratio, seed, global_shuffle, comm, log,
+                       num_workers, spool_groups, resume, progress_interval,
+                       elastic, lease_ttl, holder_id, scatter_units,
+                       emit_manifest):
     # Refuse a dirty output dir (unless resuming): stale part files from a
     # previous run with a different block count would silently survive next
     # to fresh ones and duplicate data downstream. Elastic hosts joining a
@@ -1077,14 +1143,16 @@ def run_sharded_pipeline(
             # retry_deaths=False: a dead scatter worker leaves partial
             # appends that a re-run would duplicate; the only safe redo is
             # wiping the (unmarked) spool, which the next resume does.
-            _, scatter_fail = _run_units(
-                _pool_scatter_block if factory else
-                (lambda b: _spool_one_block(
-                    blocks[b], out_dir, seed, sample_ratio, nbuckets,
-                    ngroups, serial_name)),
-                my_blocks, factory, log,
-                "rank {} scatter".format(comm.rank), retry_deaths=False,
-                progress_interval=progress_interval)
+            with obs.span("preprocess.scatter", rank=comm.rank,
+                          blocks=len(my_blocks)):
+                _, scatter_fail = _run_units(
+                    _pool_scatter_block if factory else
+                    (lambda b: _spool_one_block(
+                        blocks[b], out_dir, seed, sample_ratio, nbuckets,
+                        ngroups, serial_name)),
+                    my_blocks, factory, log,
+                    "rank {} scatter".format(comm.rank), retry_deaths=False,
+                    progress_interval=progress_interval)
             n_failed = int(comm.allreduce_sum([len(scatter_fail)])[0])
             if n_failed:
                 raise RuntimeError(
@@ -1109,14 +1177,21 @@ def run_sharded_pipeline(
     # unit instead (results must drain before a future resolves, or the
     # parent would journal bytes still in flight).
     writer = sink_mod.ShardWriter() if factory is None else None
+    # The gather phase's span (the reference opens none around the
+    # no-shuffle block processing).
+    phase_span = (obs.span("preprocess.gather", rank=comm.rank,
+                           groups=len(my_units))
+                  if global_shuffle else contextlib.nullcontext())
     try:
-        results, failures = _run_units(
-            pool_fn if factory else
-            (lambda u: unit_fn(spec, process_bucket, u, writer=writer)),
-            my_units, factory, log, "rank {} {}".format(comm.rank, phase),
-            progress_interval=progress_interval,
-            on_result=lambda u, res: _ledger_write(out_dir, u, res),
-            writer=writer)
+        with phase_span:
+            results, failures = _run_units(
+                pool_fn if factory else
+                (lambda u: unit_fn(spec, process_bucket, u, writer=writer)),
+                my_units, factory, log,
+                "rank {} {}".format(comm.rank, phase),
+                progress_interval=progress_interval,
+                on_result=lambda u, res: _ledger_write(out_dir, u, res),
+                writer=writer)
     finally:
         if writer is not None:
             writer.close()
@@ -1146,8 +1221,19 @@ def run_sharded_pipeline(
         shutil.rmtree(os.path.join(out_dir, _LEDGER_DIR), ignore_errors=True)
         _sweep_tmp_debris(out_dir)
     totals = comm.allreduce_sum([len(written), sum(written.values())])
+    elapsed = time.perf_counter() - t0  # log-only rates
+    if obs.enabled():
+        # Rates over the whole run (docs/s from the scatter counters,
+        # samples/s from the reduced census): the stage's throughput
+        # headline in the summary.
+        obs.set_gauge("preprocess_samples_per_second",
+                      int(totals[1]) / max(elapsed, 1e-9))
+        docs = obs.registry().counter("preprocess_docs_total").total()
+        if docs:
+            obs.set_gauge("preprocess_docs_per_second",
+                          docs / max(elapsed, 1e-9))
     log("preprocess done in {:.1f}s, {} shards, {} samples".format(
-        time.perf_counter() - t0, int(totals[0]), int(totals[1])))
+        elapsed, int(totals[0]), int(totals[1])))
     return written
 
 
@@ -1163,6 +1249,7 @@ def _sweep_tmp_debris(out_dir):
     for stale in sorted(glob.glob(os.path.join(out_dir, "*.tmp.*"))):
         try:
             os.remove(stale)
+            obs.inc("preprocess_stale_tmp_cleaned_total")
         # Best-effort sweep of dead writers' debris: a vanished or
         # unremovable temp file must not fail a completed run.
         except OSError:

@@ -1,6 +1,6 @@
 """Asynchronous durable shard sink: the double-buffered writer thread.
 
-Counterpart of ``lddl_tpu/preprocess/sink.py``, without its telemetry. A
+Counterpart of ``lddl_tpu/preprocess/sink.py``. A
 :class:`ShardWriter` owns ONE writer thread and a bounded queue (depth 2:
 double buffering), and the producer hands it *deferred publish closures*
 instead of writing inline. While the writer encodes, fsyncs and publishes
@@ -26,11 +26,21 @@ does not change):
   and a fenced-off unit fails with ``LeaseLost`` (the claim loop turns
   that into a fence reject). The ``sink-write`` fault site fires just
   before that check.
+
+Telemetry, as the reference's::
+
+    preprocess_sink_queue_depth          gauge: queued tasks high-water
+    preprocess_sink_stall_seconds_total  counter: producer seconds blocked
+                                         on a full queue or final drain
+    preprocess_sink_write_seconds_total  counter: writer seconds inside
+                                         deferred publish closures
 """
 
 import queue
 import threading
+import time
 
+from .. import observability as obs
 from ..resilience import faults
 
 _END = object()  # end-of-unit marker
@@ -75,11 +85,29 @@ class ShardWriter:
 
     def submit(self, unit, fn, fence=None):
         self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._queue.put((unit, fn, fence))
+        self._put((unit, fn, fence))
 
     def end_unit(self, unit):
         self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._queue.put((unit, _END, None))
+        self._put((unit, _END, None))
+
+    def _put(self, task):
+        q = self._queue
+        if obs.enabled():
+            obs.set_gauge("preprocess_sink_queue_depth", q.qsize() + 1)
+        try:
+            q.put_nowait(task)
+            return
+        except queue.Full:
+            pass
+        t0 = time.monotonic()
+        q.put(task)  # blocks: the double buffer's back-pressure
+        self._note_stall(time.monotonic() - t0)
+
+    @staticmethod
+    def _note_stall(seconds):
+        if seconds > 0 and obs.enabled():
+            obs.inc("preprocess_sink_stall_seconds_total", seconds)
 
     def completed(self):
         """Units whose last task finished since the previous call, in
@@ -89,8 +117,12 @@ class ShardWriter:
         return done
 
     def drain(self):
-        """Block until every enqueued task ran; return ``completed()``."""
+        """Block until every enqueued task ran; return ``completed()``.
+        The producer's wait (the tail the overlap could not hide) counts
+        into ``preprocess_sink_stall_seconds_total``."""
+        t0 = time.monotonic()
         self._queue.join()
+        self._note_stall(time.monotonic() - t0)
         return self.completed()
 
     def close(self):
@@ -108,6 +140,7 @@ class ShardWriter:
                 return
             unit, fn, fence = task
             state = self._open.get(unit)
+            t0 = time.monotonic()
             try:
                 if fn is _END:
                     self._finish(unit, state)
@@ -130,6 +163,9 @@ class ShardWriter:
                     with self._lock:
                         self._done.append((unit, {}, e))
             finally:
+                if fn is not _END and obs.enabled():
+                    obs.inc("preprocess_sink_write_seconds_total",
+                            time.monotonic() - t0)
                 self._queue.task_done()
 
     def _finish(self, unit, state):

@@ -44,11 +44,10 @@ Unit kinds and their fencing:
   that too. The lease directory is removed last: its disappearance is
   the "run complete" signal waiting hosts poll for.
 
-The reference also reports units to the fleet telemetry
-(``observability/fleet.py``); that is not ported, so
-``leases._fleet_record`` stands at those sites and does nothing. What a
-spawned pool worker imports (this module, the runner, the leases) loads
-no torch.
+Every unit's lifecycle (claimed, renewed, stolen, fenced, failed,
+journaled) is also reported to the fleet telemetry
+(``observability/fleet.py``) when it is armed. What a spawned pool worker
+imports (this module, the runner, the leases) loads no torch.
 """
 
 
@@ -641,7 +640,7 @@ def claim_loop(spec, phase, unit_prefix, units, *, holder, ttl, keeper,
         obs.inc("lease_fence_rejects_total")
         obs.event("lease.fence_reject", unit="{}{}".format(
             unit_prefix, unit), epoch=lease.epoch)
-        leases._fleet_record("unit.fenced", unit="{}{}".format(
+        obs.fleet.record("unit.fenced", unit="{}{}".format(
             unit_prefix, unit), epoch=lease.epoch, holder=holder, why=why)
         log("{}: unit {} {} at epoch {}; late result discarded "
             "(fence)".format(phase, unit, why, lease.epoch))
@@ -673,7 +672,7 @@ def claim_loop(spec, phase, unit_prefix, units, *, holder, ttl, keeper,
                 return
             leases.release(lease)
             failed[unit] = "{}: {}".format(type(e).__name__, e)
-            leases._fleet_record("unit.failed", unit="{}{}".format(
+            obs.fleet.record("unit.failed", unit="{}{}".format(
                 unit_prefix, unit), epoch=lease.epoch, holder=holder,
                 error=failed[unit][:200])
             remaining.discard(unit)
@@ -701,7 +700,7 @@ def claim_loop(spec, phase, unit_prefix, units, *, holder, ttl, keeper,
         # Label = the phase word ("scatter"/"gather"/"process"), not the
         # constant "elastic" prefix of the display name.
         obs.inc("elastic_units_completed_total", phase=phase.split()[-1])
-        leases._fleet_record("unit.journaled", unit="{}{}".format(
+        obs.fleet.record("unit.journaled", unit="{}{}".format(
             unit_prefix, unit), epoch=lease.epoch, holder=holder,
             phase=phase.split()[-1])
         remaining.discard(unit)
@@ -1001,6 +1000,11 @@ def run_elastic_pipeline(spec, process_bucket, log, *, holder_id, lease_ttl,
         raise ValueError("lease_ttl must be > 0, got {}".format(lease_ttl))
     poll = max(0.05, min(ttl / 4.0, 2.0))  # claim-loop rescan period
     keeper = leases.LeaseKeeper(ttl)
+    # Fleet spools (when armed) carry the lease holder's name, so the
+    # status report's "host h0 stalled" and the lease events' "stolen
+    # from h0" name the same thing; the env pin makes pool workers
+    # publish into the same spool.
+    obs.fleet.adopt_holder(holder, ttl=ttl)
     log("elastic preprocess: holder={} ttl={}s".format(holder, ttl))
     totals = {"completed": 0, "stolen": 0, "fence_rejects": 0}
 
@@ -1165,6 +1169,10 @@ def run_elastic_pipeline(spec, process_bucket, log, *, holder_id, lease_ttl,
     if obs.enabled():
         obs.set_gauge("preprocess_samples_per_second",
                       sum(written.values()) / max(elapsed, 1e-9))
+        docs = obs.registry().counter("preprocess_docs_total").total()
+        if docs:
+            obs.set_gauge("preprocess_docs_per_second",
+                          docs / max(elapsed, 1e-9))
     log("preprocess done in {:.1f}s, {} shards, {} samples (elastic, "
         "global census)".format(elapsed, len(written),
                                 sum(written.values())))

@@ -187,10 +187,16 @@ def fault_point(op, path=None):
             time.sleep(clause["delay"])
         elif kind == "kill":
             # SIGKILL runs no atexit hook: write the telemetry first, or
-            # the kill is invisible in the record it exists to make.
-            from ..observability import export_jsonl, flush
-            flush()
-            export_jsonl()
+            # the kill is invisible in the record it exists to make. The
+            # fleet snapshot stays un-closed: the host dies abnormally,
+            # and the aggregator's stall verdict keys on exactly that.
+            try:
+                from ..observability import exporters, fleet, tracing
+                tracing.flush()
+                exporters.export_jsonl()
+                fleet.heartbeat(closed=False)
+            except Exception:  # noqa: BLE001 - the kill must still fire
+                pass
             import signal
             os.kill(os.getpid(), signal.SIGKILL)
         elif kind in ("truncate", "conflict", "stale"):

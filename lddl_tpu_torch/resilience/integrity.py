@@ -99,7 +99,7 @@ def build_manifest(dir_path, comm=None, log=None, extra_meta=None):
     shard list there (the loader's generation-pickup gate). It must be
     deterministic content: manifest bytes are compared on resume."""
     if comm is None:
-        from ..parallel.distributed import LocalCommunicator
+        from ..utils.comm import LocalCommunicator
         comm = LocalCommunicator()
     try:
         names = [n for n in sorted(os.listdir(dir_path))

@@ -42,6 +42,7 @@ from . import backend as _backend
 from . import faults
 from ..observability import enabled as obs_enabled
 from ..observability import event as obs_event
+from ..observability import fleet
 from ..observability import inc as obs_inc
 
 # OSError errnos that plausibly heal on retry on shared storage.
@@ -127,6 +128,9 @@ def with_retries(fn, desc="operation", attempts=None, deadline_s=None,
             op = desc.split(" ", 1)[0]
             if attempt >= attempts or elapsed >= deadline_s:
                 obs_inc("resilience_retry_exhausted_total", op=op)
+                fleet.record("io.retry_exhausted", op=op,
+                             error="{}: {}".format(type(e).__name__,
+                                                   e)[:200])
                 raise OSError(
                     getattr(e, "errno", None) or errno.EIO,
                     "{} failed after {} attempt(s) over {:.1f}s: {}".format(

@@ -43,9 +43,9 @@ put FAILS (``CASConflict`` -> ``LeaseLost``), and concurrent stealers are
 serialized (one conditional put per generation wins). Epochs, counters,
 the deadline cache and every fault site are the same on both backends.
 
-The reference also records each lease transition as a fleet event
-(``observability/fleet.py``); fleet telemetry is not ported, so
-:func:`_fleet_record` stands at those sites and does nothing.
+Each lease transition (claimed, stolen, renewed) is also recorded as a
+fleet lifecycle event (``observability/fleet.py``), as the reference's
+are.
 """
 
 
@@ -62,6 +62,7 @@ from . import backend as storage
 from . import faults
 from . import io as rio
 from ..observability import event as obs_event
+from ..observability import fleet
 from ..observability import inc as obs_inc
 
 LEASE_DIR = "_leases"
@@ -69,11 +70,6 @@ LEASE_DIR = "_leases"
 _log = logging.getLogger("lddl_tpu_torch.resilience.leases")
 
 _SAFE_RE = re.compile(r"[^A-Za-z0-9_.-]+")
-
-
-def _fleet_record(kind, **fields):
-    """A fleet lifecycle event in the reference (``fleet.record``); fleet
-    telemetry is not ported, so this does nothing."""
 
 
 def legacy_coordination():
@@ -314,8 +310,8 @@ def _try_acquire_cas(bk, root, unit, holder, ttl_s, now, held_cache,
             obs_inc("lease_acquire_conflicts_total")
             return None
         obs_inc("lease_acquires_total")
-        _fleet_record("unit.claimed", unit=str(unit), epoch=0,
-                      holder=holder)
+        fleet.record("unit.claimed", unit=str(unit), epoch=0,
+                     holder=holder)
         return Lease(root, unit, holder, 0, rec["deadline"], gen=g)
     if float(cur.get("deadline", 0.0)) > now and not cur.get("torn"):
         if held_cache is not None:
@@ -333,8 +329,8 @@ def _try_acquire_cas(bk, root, unit, holder, ttl_s, now, held_cache,
     obs_inc("lease_steals_total")
     obs_event("lease.steal", unit=str(unit), epoch=new_epoch,
               prev_holder=str(cur.get("holder", "")))
-    _fleet_record("unit.stolen", unit=str(unit), epoch=new_epoch,
-                  holder=holder, prev_holder=str(cur.get("holder", "")))
+    fleet.record("unit.stolen", unit=str(unit), epoch=new_epoch,
+                 holder=holder, prev_holder=str(cur.get("holder", "")))
     return Lease(root, unit, holder, new_epoch, rec["deadline"], gen=g)
 
 
@@ -359,8 +355,8 @@ def _renew_cas(bk, lease, ttl_s, now_fn):
                         "(CAS precondition)".format(lease.unit))
     lease.deadline = rec["deadline"]
     obs_inc("lease_renews_total")
-    _fleet_record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
-                  holder=lease.holder)
+    fleet.record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
+                 holder=lease.holder)
     return lease
 
 
@@ -439,14 +435,14 @@ def try_acquire(root, unit, holder, ttl_s, now_fn=time.time,
                 # declares fine by design: the publish-time fence picks
                 # one winner, the loser's work is the only cost.
                 obs_inc("lease_acquires_total")
-                _fleet_record("unit.claimed", unit=str(unit), epoch=0,
-                              holder=holder)
+                fleet.record("unit.claimed", unit=str(unit), epoch=0,
+                             holder=holder)
                 return Lease(root, unit, holder, 0, rec["deadline"])
             got = read_lease(root, unit)
             if _matches(got, holder, 0):
                 obs_inc("lease_acquires_total")
-                _fleet_record("unit.claimed", unit=str(unit), epoch=0,
-                              holder=holder)
+                fleet.record("unit.claimed", unit=str(unit), epoch=0,
+                             holder=holder)
                 return Lease(root, unit, holder, 0, rec["deadline"])
             obs_inc("lease_acquire_conflicts_total")
             return None
@@ -478,8 +474,8 @@ def try_acquire(root, unit, holder, ttl_s, now_fn=time.time,
         obs_inc("lease_steals_total")
         obs_event("lease.steal", unit=str(unit), epoch=new_epoch,
                   prev_holder=str(cur.get("holder", "")))
-        _fleet_record("unit.stolen", unit=str(unit), epoch=new_epoch,
-                      holder=holder, prev_holder=str(cur.get("holder", "")))
+        fleet.record("unit.stolen", unit=str(unit), epoch=new_epoch,
+                     holder=holder, prev_holder=str(cur.get("holder", "")))
         return Lease(root, unit, holder, new_epoch, rec["deadline"])
     obs_inc("lease_acquire_conflicts_total")
     return None
@@ -510,8 +506,8 @@ def renew(lease, ttl_s, now_fn=time.time):
             lease.unit))
     lease.deadline = rec["deadline"]
     obs_inc("lease_renews_total")
-    _fleet_record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
-                  holder=lease.holder)
+    fleet.record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
+                 holder=lease.holder)
     return lease
 
 
@@ -539,8 +535,8 @@ def renew_fast(lease, ttl_s, now_fn=time.time):
     _publish(path, rec, lease.holder)
     lease.deadline = rec["deadline"]
     obs_inc("lease_renews_total")
-    _fleet_record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
-                  holder=lease.holder)
+    fleet.record("unit.renewed", unit=str(lease.unit), epoch=lease.epoch,
+                 holder=lease.holder)
     return lease
 
 
@@ -769,7 +765,7 @@ class LeaseKeeper(object):
     @staticmethod
     def _mark_lost(lease):
         obs_event("lease.lost", unit=str(lease.unit), epoch=lease.epoch)
-        _fleet_record("unit.lost", unit=str(lease.unit), epoch=lease.epoch,
-                      holder=lease.holder)
+        fleet.record("unit.lost", unit=str(lease.unit), epoch=lease.epoch,
+                     holder=lease.holder)
         _log.warning("lease for unit %s stolen at epoch %s; in-flight "
                      "result will be fenced off", lease.unit, lease.epoch)

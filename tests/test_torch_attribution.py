@@ -159,8 +159,10 @@ def test_prefetcher_stages_and_process_worker_exports(telemetry, built):
         "loader_prefetch_batches_total").value() == n
     exported = {}
     for name in os.listdir(telemetry):
-        if name.startswith("metrics-") and name.split("pid")[1].split(
-                ".")[0] in pids:
+        # The final export also writes the Prometheus textfile
+        # (metrics-*.prom) beside the JSONL snapshots read here.
+        if name.startswith("metrics-") and name.endswith(".jsonl") \
+                and name.split("pid")[1].split(".")[0] in pids:
             with open(os.path.join(telemetry, name)) as f:
                 last = json.loads(f.read().splitlines()[-1])
             exported[name] = last["metrics"].get(

@@ -205,13 +205,35 @@ def test_cli_elastic_writes_the_reference_bytes(corpus, tmp_path, tokenized):
     ("--fleet-telemetry", "not ported"),
 ])
 def test_cli_refuses_unported_flags_by_name(corpus, tmp_path, flag, match):
+    """The flag this CLI once refused by name (``match`` was its
+    refusal) is ported: ``--fleet-telemetry`` now runs, arms the
+    spool under ``<sink>/.telemetry/`` and leaves the shards equal to
+    the reference CLI's."""
     from lddl_tpu_torch.cli.preprocess_bart_pretrain import attach_args, main
+    from lddl_tpu_torch.observability import fleet, registry, tracing
+    out = str(tmp_path / "out")
     args = attach_args().parse_args(
-        ["--wikipedia", corpus[0], "--sink", str(tmp_path / "out"),
+        ["--wikipedia", corpus[0], "--sink", out, "--target-seq-length",
+         "24", "--num-blocks", "6", "--sample-ratio", "0.9", "--seed", "5",
          "--local-workers", "1", flag])
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
-        main(args)
-    assert not os.path.exists(str(tmp_path / "out" / "part.0.parquet"))
+    try:
+        main(args)  # no SystemExit naming ``match``
+        fleet.heartbeat(closed=True)
+        spool = fleet.spool_dir()
+        assert spool and spool.startswith(os.path.join(out, ".telemetry"))
+        assert any(n.startswith("snapshot-pid") for n in os.listdir(spool))
+    finally:
+        fleet._reset_for_tests()
+        registry().reset()
+        tracing._reset_for_tests()
+    want = _cli("lddl_tpu.cli.preprocess_bart_pretrain", corpus,
+                str(tmp_path / "ref"))
+    names = sorted(n for n in os.listdir(want))
+    assert sorted(n for n in os.listdir(out) if n != ".telemetry") == names
+    for name in names:
+        with open(os.path.join(out, name), "rb") as a, \
+                open(os.path.join(want, name), "rb") as b:
+            assert a.read() == b.read(), name
 
 
 @pytest.mark.parametrize("tokenized", [True, False], ids=["v2", "v1"])

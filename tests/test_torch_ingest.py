@@ -730,14 +730,34 @@ def test_ingest_watch_elastic_and_join_pending(corpus, tmp_path, capsys):
     (["--autoscale", "--elastic", "--fleet-telemetry"], "not ported"),
 ])
 def test_ingest_watch_refuses_unported_flags(corpus, tmp_path, flags, match):
+    """The reference's own checks still refuse ``--autoscale`` without
+    the watch loop, ``--elastic`` or ``--fleet-telemetry``. The flags the
+    port once refused by name (``match`` "not ported") are ported: they
+    now run one watch round, fleet-armed, and leave a spool."""
     from lddl_tpu_torch.cli import ingest_watch as cli
+    from lddl_tpu_torch.observability import fleet, registry, tracing
     argv = ["--landing", _landing(str(tmp_path), corpus, 1, "land"),
             "--sink", str(tmp_path / "root"), "--vocab-file", corpus[1],
             "--target-seq-length", "32", *flags]
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
-        cli.main(cli.attach_args().parse_args(argv))
-    assert not PORT.fs.get_all_parquets_under(str(tmp_path / "root")) \
-        if os.path.isdir(str(tmp_path / "root")) else True
+    if match != "not ported":
+        with pytest.raises((SystemExit, NotImplementedError), match=match):
+            cli.main(cli.attach_args().parse_args(argv))
+        assert not PORT.fs.get_all_parquets_under(str(tmp_path / "root")) \
+            if os.path.isdir(str(tmp_path / "root")) else True
+        return
+    try:
+        cli.main(cli.attach_args().parse_args(
+            argv + ["--max-rounds", "1", "--interval", "0.1"]))
+        fleet.heartbeat(closed=True)
+        report = fleet.aggregate(str(tmp_path / "root"))
+    finally:
+        fleet._reset_for_tests()
+        registry().reset()
+        tracing._reset_for_tests()
+    assert PORT.fs.get_all_parquets_under(str(tmp_path / "root"))
+    (host,) = report["hosts"].values()
+    assert host["event_counts"].get("generation.committed") == 1
+    assert report["health"]["ok"], report["health"]["verdicts"]
 
 
 FLAG_KEYS = ("elastic", "lease_ttl", "elastic_host_id", "scatter_units",
@@ -773,13 +793,42 @@ def test_storage_elastic_fleet_flags_parse_as_the_reference(cli, argv,
 @pytest.mark.parametrize("cli", ["preprocess_bert_pretrain",
                                  "balance_shards"])
 def test_bert_and_balance_clis_refuse_fleet_telemetry(corpus, tmp_path, cli):
+    """Both CLIs once refused ``--fleet-telemetry`` by name; it is ported:
+    the run goes through, arms the spool under its output dir, and the
+    stage's top-level span and counters land in it."""
+    from lddl_tpu_torch.observability import fleet, registry, tracing
     mod = importlib.import_module("lddl_tpu_torch.cli." + cli)
+    pre = str(tmp_path / "i")
     if cli == "balance_shards":
-        args = ["--indir", str(tmp_path / "i"), "--outdir",
-                str(tmp_path / "o"), "--num-shards", "2"]
+        PORT.pre.run_bert_preprocess(
+            {"w": corpus[0]}, pre, PORT.tok(corpus[1]),
+            config=PORT.config(), num_blocks=3, seed=3)
+        args = ["--indir", pre, "--outdir", str(tmp_path / "o"),
+                "--num-shards", "2"]
+        span, counter = "balance.run", "balance_samples_moved_total"
     else:
         args = ["--wikipedia", corpus[0], "--sink", str(tmp_path / "o"),
                 "--vocab-file", corpus[1], "--local-workers", "1"]
-    with pytest.raises(SystemExit, match="not ported"):
+        span, counter = "preprocess.run", "preprocess_docs_total"
+    try:
         mod.main(mod.attach_args().parse_args(args + ["--fleet-telemetry"]))
-    assert not os.path.exists(str(tmp_path / "o"))
+        fleet.heartbeat(closed=True)
+        spool = fleet.spool_dir()
+        report = fleet.aggregate(str(tmp_path / "o"))
+    finally:
+        fleet._reset_for_tests()
+        registry().reset()
+        tracing._reset_for_tests()
+    assert spool.startswith(os.path.join(str(tmp_path / "o"), ".telemetry"))
+    assert PORT.fs.get_all_parquets_under(str(tmp_path / "o"))
+    (host,) = report["hosts"].values()
+    assert host["closed"] and report["health"]["ok"]
+    names = set()
+    for name in os.listdir(spool):
+        if name.startswith("trace-"):
+            with open(os.path.join(spool, name)) as f:
+                names.update(json.loads(line)["name"] for line in f)
+    assert span in names
+    snaps = [n for n in os.listdir(spool) if n.startswith("snapshot-pid")]
+    with open(os.path.join(spool, snaps[0])) as f:
+        assert counter in json.load(f)["metrics"]

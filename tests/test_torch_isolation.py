@@ -88,7 +88,14 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
             "lddl_tpu_torch.cli.ingest_watch, lddl_tpu_torch.cli.common, "
             "lddl_tpu_torch.preprocess.steal, "
-            "lddl_tpu_torch.resilience.leases; "
+            "lddl_tpu_torch.resilience.leases, "
+            "lddl_tpu_torch.observability.exporters, "
+            "lddl_tpu_torch.observability.series, "
+            "lddl_tpu_torch.observability.fleet, "
+            "lddl_tpu_torch.observability.alerts, "
+            "lddl_tpu_torch.observability.autoscale, "
+            "lddl_tpu_torch.tools, lddl_tpu_torch.tools.pipeline_status, "
+            "lddl_tpu_torch.tools.trace_summary; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
             "'tokenizers')); "
@@ -103,15 +110,28 @@ def test_preprocess_workers_import_no_torch():
     """What a spawned preprocess worker imports (the runner, to unpickle
     its BERT or BART processor and vocab table, the BERT, BART or ingest
     CLI module as its main, and, in an elastic pool, the unit tasks of
-    ``steal`` with the ``leases`` they fence on) loads no torch, no JAX
-    and no HF package: a numpy-engine worker pays no torch import."""
+    ``steal`` with the ``leases`` they fence on, all reporting into the
+    fleet telemetry) loads no torch, no JAX and no HF package: a
+    numpy-engine worker pays no torch import. Neither do an ingest
+    helper host (the ingest service, the balancers and the world-of-one
+    communicator it runs the preprocess on) and the status tools, which
+    an operator runs beside the fleet."""
     code = ("import sys, lddl_tpu_torch.preprocess.runner, "
             "lddl_tpu_torch.cli.preprocess_bert_pretrain, pickle, "
             "lddl_tpu_torch.preprocess.bart, "
             "lddl_tpu_torch.cli.preprocess_bart_pretrain, "
             "lddl_tpu_torch.cli.ingest_watch, "
             "lddl_tpu_torch.preprocess.steal, "
-            "lddl_tpu_torch.resilience.leases; "
+            "lddl_tpu_torch.resilience.leases, "
+            "lddl_tpu_torch.observability.fleet, "
+            "lddl_tpu_torch.observability.series, "
+            "lddl_tpu_torch.observability.alerts, "
+            "lddl_tpu_torch.observability.autoscale, "
+            "lddl_tpu_torch.tools.pipeline_status, "
+            "lddl_tpu_torch.tools.trace_summary, lddl_tpu_torch.ingest, "
+            "lddl_tpu_torch.balance, lddl_tpu_torch.resilience.integrity; "
+            "from lddl_tpu_torch.utils.comm import LocalCommunicator; "
+            "LocalCommunicator().allreduce_sum([1]); "
             "from lddl_tpu_torch.preprocess import get_tokenizer; "
             "from lddl_tpu_torch.preprocess.runner import "
             "BertBucketProcessor, BertPretrainConfig; "

@@ -25,15 +25,29 @@ from lddl_tpu_torch.loader.dataloader import DataLoader  # noqa: E402
 from lddl_tpu_torch.resilience import faults  # noqa: E402
 
 
+# Telemetry and fleet variables a test of another file that ran before in
+# this process may have left set.
+_TELEMETRY_ENVS = ("LDDL_TPU_METRICS_DIR", "LDDL_TPU_METRICS_RANK",
+                   "LDDL_TPU_FLEET_DIR", "LDDL_TPU_FLEET_HOLDER",
+                   "LDDL_TPU_FLEET_TTL_S", "LDDL_TPU_FLEET_INTERVAL_S")
+
+
+def _scrub_telemetry_env():
+    # Plain os.environ.pop, not monkeypatch.delenv: delenv puts a leaked
+    # value back at teardown, re-arming telemetry for the tests after.
+    for name in _TELEMETRY_ENVS:
+        os.environ.pop(name, None)
+
+
 @pytest.fixture(autouse=True)
 def _disarm_and_fast_death(monkeypatch):
     faults.disarm()
-    # Telemetry off unless a test arms it: a test of another file that ran
-    # before in this process may have left the variable set.
-    monkeypatch.delenv("LDDL_TPU_METRICS_DIR", raising=False)
+    # Telemetry off unless a test arms it.
+    _scrub_telemetry_env()
     monkeypatch.setattr(DataLoader, "_POLL_TIMEOUT_S", 0.5)
     yield
     faults.disarm()
+    _scrub_telemetry_env()
 
 
 @pytest.fixture(scope="module")
