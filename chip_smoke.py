@@ -182,9 +182,35 @@ exits non-zero):
    single-block kernel a step of L_pad >= 256, and this process a live
    host of ``pipeline_status`` with the loader's padding efficiency.
    Printed: each part's seconds, the spool bytes a host and the rollups.
+14. all four stages, then the analyzer, in two timed parts. (1) Phase 8's
+   generator (seed 4) writes 8 MiB of documents, 2 MiB a source, in each
+   source's upstream form: 16 wikiextractor files, a ``.tar.gz`` of 32
+   books, a ``.tar.xz`` of 4 ``.xz`` subsets of page files, and Common
+   Crawl buffer files written by the port's ``ArticleBuffer``. The four
+   downloader CLIs (``python -m lddl_tpu_torch.download.<name>``, the
+   download and extract steps skipped by ``--no-download --no-extract
+   --extracted-dir``, ``--local-archive``, ``--no-newsplease
+   --txt-dir``; 8 shards, 4 spawned sharding workers) must write every
+   ``source/`` shard equal to the bytes the contract gives (built here
+   from the generated documents: sorted inputs, input k::8, one ``<id>
+   <flattened text>`` line each), as many documents as were generated,
+   with no process mapping the CUDA driver; phase 8's preprocess CLI
+   (numpy engine, sample ratio 1.0) over the four trees must read every
+   document (``preprocess_docs_total``), then balance to 8 shards a bin
+   -> the loader (batch 16) -> bert_large, 2 steps a bin with finite
+   losses and 24 launches of each single-block kernel a step of L_pad >=
+   256. (2) On the card's host, ``python -m lddl_tpu_torch.tools.
+   lddl_check --no-cache --sarif`` over the tree as shipped must exit 0,
+   then a cached run must agree and a warm one serve every file from the
+   cache; ``pipeline_status <part 1's sink> --json`` must carry
+   ``static_analysis`` with ``new`` 0 and the port's rule count.
+   Printed: each source's seconds and documents, the preprocess, balance
+   and step seconds, the analyzer's cold and warm seconds and its
+   findings by rule.
 
-Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}`` line (``launches`` summed over the paths,
-``launches_by_path`` per path), the card line, and last
+Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
+line (``launches`` summed over the paths, ``launches_by_path`` per path:
+``download`` is phase 14's), the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -308,6 +334,23 @@ FLEET_DRAIN_ROUNDS = 1
 FLEET_ROUNDS = 4
 FLEET_WATCH_INTERVAL = 2
 FLEET_STEPS_PER_BIN = 2
+# All four stages (phase 14): phase 8's generator (seed 4) writes
+# DOWNLOAD_BYTES of documents, a quarter a source, in each source's
+# upstream form; the four downloader CLIs shard them (local-input flags,
+# DOWNLOAD_WORKERS spawned sharding workers); phase 8's preprocess CLI
+# (numpy engine, every document sampled) reads the four source trees ->
+# balance -> the loader -> bert_large, DOWNLOAD_STEPS_PER_BIN steps a bin.
+DOWNLOAD_BYTES = 8 << 20
+DOWNLOAD_SOURCES = ("wikipedia", "books", "openwebtext", "common_crawl")
+DOWNLOAD_WIKI_FILES = 16     # wikiextractor AA/wiki_NN files
+DOWNLOAD_BOOKS = 32          # book .txt files in books1.tar.gz
+DOWNLOAD_OWT_SUBSETS = 4     # .xz subsets in openwebtext.tar.xz
+DOWNLOAD_CC_FILES = 32       # Common Crawl buffer files
+DOWNLOAD_SHARDS = 8          # --num-shards of each downloader
+DOWNLOAD_WORKERS = 4         # --number-of-sharding-processes
+DOWNLOAD_PRE_WORKERS = 4     # the preprocess CLI's --local-workers
+DOWNLOAD_BAL_SHARDS = 8
+DOWNLOAD_STEPS_PER_BIN = 2
 
 
 
@@ -2887,6 +2930,64 @@ def trace_instants(metrics_dir, name):
     return out
 
 
+def bert_large_bins(fa, loader, per_bin, label, card):
+    """bert_large (random weights from seed 0), ``per_bin`` steps in each
+    bin of DATA_BINS that ``loader`` reaches within DATA_MAX_BATCHES
+    batches (or its epoch), through ``prefetch_to_device``, each loss
+    finite. The launch counters are zeroed just before and read just
+    after, and must show each single-block kernel 24 times a step of
+    L_pad >= 256 and no other kernel. Returns ({bin: steps}, the step
+    seconds without each bin's first, the launch counts)."""
+    import itertools
+
+    from lddl_tpu_torch.loader import prefetch_to_device
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+
+    torch.manual_seed(0)
+    cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                attention_impl="auto")
+    with torch.device("cuda"):
+        model = BertForPreTraining(cfg)
+    opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                         warmup_steps=4, total_steps=100)
+    step = make_train_step(model, opt)
+    steps, timed = {}, []
+    zero_launches(fa)
+    it = iter(prefetch_to_device(loader))
+    try:
+        for batch in itertools.islice(it, DATA_MAX_BATCHES):
+            l_bin = batch["input_ids"].shape[1]
+            if steps.get(l_bin, 0) >= per_bin:
+                continue
+            t0 = time.perf_counter()
+            loss = float(step(batch, seed=0)["loss"])  # syncs
+            dt = time.perf_counter() - t0
+            if steps.get(l_bin, 0):
+                timed.append(dt)  # each bin's first step excluded
+            steps[l_bin] = steps.get(l_bin, 0) + 1
+            print("{} step L={} loss={:.4f} {:.1f} ms ({})".format(
+                label, l_bin, loss, dt * 1e3, card), flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError("non-finite loss at L={}".format(
+                    l_bin))
+            if len(steps) == len(DATA_BINS) and min(
+                    steps.values()) >= per_bin:
+                break
+    finally:
+        it.close()
+    launches = read_launches(fa)
+    kernel_steps = sum(n for l_bin, n in steps.items()
+                       if fa.single_block_serves(l_bin, 64))
+    want = cfg.num_layers * kernel_steps
+    if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
+            "onekv_fwd": want, "onekv_bwd": want}:
+        raise AssertionError("{} launch counts {} != {} per single-block "
+                             "kernel ({} steps)".format(label, launches, want,
+                                                        steps))
+    return steps, timed, launches
+
+
 def elastic_path(fa, card, shared):
     """Phase 12, elastic scheduling under bert_large: phase 8's preprocess
     CLI over one corpus, static, then as ELASTIC_HOSTS ``--elastic``
@@ -2903,10 +3004,7 @@ def elastic_path(fa, card, shared):
 
     import numpy as np
     from lddl_tpu_torch.balance import balance_shards
-    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
-                                       prefetch_to_device)
-    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
-                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
     from lddl_tpu_torch.testing import write_text_corpus, write_vocab
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
@@ -3059,50 +3157,11 @@ def elastic_path(fa, card, shared):
               flush=True)
         shutil.rmtree(out)
 
-        torch.manual_seed(0)
-        cfg = BertConfig.bert_large(attention_dropout=0.0,
-                                    attention_impl="auto")
-        with torch.device("cuda"):
-            model = BertForPreTraining(cfg)
-        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
-                             warmup_steps=4, total_steps=100)
-        step = make_train_step(model, opt)
-        steps, timed = {}, []
-        zero_launches(fa)
-        it = iter(prefetch_to_device(get_bert_pretrain_data_loader(
-            bal, vocab_file=vocab, batch_size=16,
-            fixed_seq_lengths=DATA_BINS, base_seed=12345)))
-        try:
-            for _ in range(DATA_MAX_BATCHES):
-                batch = next(it)
-                l_bin = batch["input_ids"].shape[1]
-                if steps.get(l_bin, 0) >= ELASTIC_STEPS_PER_BIN:
-                    continue
-                t0 = time.perf_counter()
-                loss = float(step(batch, seed=0)["loss"])  # syncs
-                dt = time.perf_counter() - t0
-                if steps.get(l_bin, 0):
-                    timed.append(dt)  # each bin's first step excluded
-                steps[l_bin] = steps.get(l_bin, 0) + 1
-                print("elastic step L={} loss={:.4f} {:.1f} ms ({})".format(
-                    l_bin, loss, dt * 1e3, card), flush=True)
-                if not math.isfinite(loss):
-                    raise AssertionError("non-finite loss at L={}".format(
-                        l_bin))
-                if len(steps) == len(DATA_BINS) and min(
-                        steps.values()) >= ELASTIC_STEPS_PER_BIN:
-                    break
-        finally:
-            it.close()
-        launches = read_launches(fa)
-        kernel_steps = sum(n for l_bin, n in steps.items()
-                           if fa.single_block_serves(l_bin, 64))
-        want = cfg.num_layers * kernel_steps
-        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
-                "onekv_fwd": want, "onekv_bwd": want}:
-            raise AssertionError("elastic launch counts {} != {} per "
-                                 "single-block kernel ({} steps)".format(
-                                     launches, want, steps))
+        steps, timed, launches = bert_large_bins(
+            fa, get_bert_pretrain_data_loader(
+                bal, vocab_file=vocab, batch_size=16,
+                fixed_seq_lengths=DATA_BINS, base_seed=12345),
+            ELASTIC_STEPS_PER_BIN, "elastic", card)
         print("elastic phase: bins reached {} (steps a bin); bert_large step "
               "{:.1f} ms mean of {} (each bin's first excluded); launches: "
               "{} ({})".format(
@@ -3482,10 +3541,7 @@ def fleet_steps(fa, card, iroot, vocab):
     """Phase 13, part 3: bert_large under a ``follow_generations``
     loader armed only by ``LDDL_TPU_FLEET_DIR`` (this process joins the
     ingest root's fleet as a host). Returns the launch counts."""
-    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
-                                       prefetch_to_device)
-    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
-                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
     from lddl_tpu_torch.observability import fleet
 
     os.environ["LDDL_TPU_FLEET_DIR"] = iroot
@@ -3495,46 +3551,8 @@ def fleet_steps(fa, card, iroot, vocab):
             iroot, vocab_file=vocab, batch_size=INGEST_BATCH,
             fixed_seq_lengths=DATA_BINS, base_seed=12345,
             follow_generations=True)
-        torch.manual_seed(0)
-        cfg = BertConfig.bert_large(attention_dropout=0.0,
-                                    attention_impl="auto")
-        with torch.device("cuda"):
-            model = BertForPreTraining(cfg)
-        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
-                             warmup_steps=4, total_steps=100)
-        step = make_train_step(model, opt)
-        steps = {}
-        zero_launches(fa)
-        it = iter(prefetch_to_device(loader))
-        try:
-            for batch in it:
-                l_bin = batch["input_ids"].shape[1]
-                if steps.get(l_bin, 0) >= FLEET_STEPS_PER_BIN:
-                    continue
-                t0 = time.perf_counter()
-                loss = float(step(batch, seed=0)["loss"])  # syncs
-                dt = time.perf_counter() - t0
-                steps[l_bin] = steps.get(l_bin, 0) + 1
-                print("fleet step L={} loss={:.4f} {:.1f} ms ({})".format(
-                    l_bin, loss, dt * 1e3, card), flush=True)
-                if not math.isfinite(loss):
-                    raise AssertionError("non-finite loss at L={}".format(
-                        l_bin))
-                if len(steps) == len(DATA_BINS) and min(
-                        steps.values()) >= FLEET_STEPS_PER_BIN:
-                    break
-        finally:
-            it.close()
-        launches = read_launches(fa)
-        del model, opt, step
-        kernel_steps = sum(n for l_bin, n in steps.items()
-                           if fa.single_block_serves(l_bin, 64))
-        want = cfg.num_layers * kernel_steps
-        if not kernel_steps or launches != dict.fromkeys(KERNELS, 0) | {
-                "onekv_fwd": want, "onekv_bwd": want}:
-            raise AssertionError("fleet launch counts {} != {} per "
-                                 "single-block kernel ({} steps)".format(
-                                     launches, want, steps))
+        steps, _, launches = bert_large_bins(fa, loader, FLEET_STEPS_PER_BIN,
+                                             "fleet", card)
         time.sleep(FLEET_INTERVAL * 1.5)  # one more beat: the gauges
         rc, report, agg_s = status_json(iroot)
         me = [h for h, st in report["hosts"].items()
@@ -3574,6 +3592,348 @@ def fleet_path(fa, card, shared):
     print("fleet phase parts: elastic {:.1f} s, ingest {:.1f} s, steps "
           "{:.1f} s ({})".format(t1 - t0, t2 - t1, time.perf_counter() - t2,
                                  card), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+def _part(n, parts, k):
+    """The k-th of ``parts`` near-equal contiguous ranges of ``n``."""
+    return range(k * n // parts, (k + 1) * n // parts)
+
+
+def _flat(text):
+    """A document's text as the downloaders' contract writes it: every
+    run of whitespace one space."""
+    return " ".join(text.split())
+
+
+def download_corpus(root, tokens):
+    """Phase 14's corpus: phase 8's generator (seed 4) writes
+    DOWNLOAD_BYTES of documents in one file a source; each file's
+    documents are then written in that source's upstream form under
+    ``root``. Returns ({source: CLI arguments}, {source: [(sort key of
+    the input file, [expected source lines])]}, {source: documents}); the
+    expected lines are built here, without the port's code, as the
+    contract gives them: ``<id> <flattened text>`` each."""
+    import io
+    import lzma
+    import tarfile
+
+    from lddl_tpu_torch.download.common_crawl import ArticleBuffer
+    from lddl_tpu_torch.testing import write_text_corpus
+
+    gen = os.path.join(root, "generated")
+    write_text_corpus(gen, tokens, DOWNLOAD_BYTES,
+                      num_files=len(DOWNLOAD_SOURCES), seed=4)
+    docs = {}
+    for i, source in enumerate(DOWNLOAD_SOURCES):
+        with open(os.path.join(gen, "source", "{}.txt".format(i)),
+                  encoding="utf-8") as f:
+            docs[source] = [line.rstrip("\n").split(" ", 1)[1] for line in f]
+    shutil.rmtree(gen)
+    args, inputs = {}, {}
+
+    # Wikipedia: wikiextractor's AA/wiki_NN files; each article opens
+    # with <doc ...>, repeats its title, and closes with </doc>.
+    wiki = os.path.join(root, "wiki_extracted")
+    os.makedirs(os.path.join(wiki, "AA"))
+    texts = docs["wikipedia"]
+    inputs["wikipedia"] = []
+    for k in range(DOWNLOAD_WIKI_FILES):
+        name = "wiki_{:02d}".format(k)
+        out, lines = [], []
+        for i in _part(len(texts), DOWNLOAD_WIKI_FILES, k):
+            words = texts[i].split(" ")
+            body = "\n".join(" ".join(words[j:j + 40])
+                             for j in range(0, len(words), 40))
+            out.append('<doc id="{0}" url="https://en.wikipedia.org/wiki?'
+                       'curid={0}" title="Article {0}">\nArticle {0}\n\n{1}'
+                       '\n</doc>\n'.format(i + 1, body))
+            lines.append("wiki-{} {}\n".format(i + 1, _flat(texts[i])))
+        with open(os.path.join(wiki, "AA", name), "w",
+                  encoding="utf-8") as f:
+            f.write("".join(out))
+        inputs["wikipedia"].append(("AA/" + name, lines))
+    args["wikipedia"] = ["--no-download", "--no-extract", "--extracted-dir",
+                         wiki]
+
+    # Books: books1.tar.gz holding books1/epubtxt/<title>.txt, a book of
+    # paragraphs; the id is the file name with its spaces replaced.
+    texts = docs["books"]
+    arc = os.path.join(root, "books1.tar.gz")
+    inputs["books"] = []
+    with tarfile.open(arc, "w:gz") as tf:
+        for k in range(DOWNLOAD_BOOKS):
+            name = "Book {:02d} of the corpus.txt".format(k)
+            body = "\n\n".join(texts[i] for i in _part(
+                len(texts), DOWNLOAD_BOOKS, k))
+            data = body.encode("utf-8")
+            info = tarfile.TarInfo("books1/epubtxt/" + name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+            inputs["books"].append((name, ["{} {}\n".format(
+                name.replace(" ", "-"), _flat(body))]))
+    args["books"] = ["--local-archive", arc]
+
+    # OpenWebText: openwebtext.tar.xz holding openwebtext/<subset>.xz,
+    # each an xz tar of page files; the id is the page's file name.
+    texts = docs["openwebtext"]
+    owt = os.path.join(root, "owt", "openwebtext")
+    os.makedirs(owt)
+    inputs["openwebtext"] = []
+    for s in range(DOWNLOAD_OWT_SUBSETS):
+        subset = "urlsf_subset{:02d}-{}_data".format(s, s + 1)
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w") as sub:
+            for i in _part(len(texts), DOWNLOAD_OWT_SUBSETS, s):
+                page = "{:07d}-{}".format(i, hashlib.md5(
+                    texts[i].encode("utf-8")).hexdigest()[:12])
+                data = texts[i].replace(". ", ".\n").encode("utf-8")
+                info = tarfile.TarInfo(page + ".txt")
+                info.size = len(data)
+                sub.addfile(info, io.BytesIO(data))
+                inputs["openwebtext"].append((
+                    "{}/{}.txt".format(subset, page),
+                    ["{} {}\n".format(page, _flat(texts[i]))]))
+        with lzma.open(os.path.join(owt, subset + ".xz"), "wb") as f:
+            f.write(buf.getvalue())
+    arc = os.path.join(root, "openwebtext.tar.xz")
+    with tarfile.open(arc, "w:xz") as tf:
+        tf.add(owt, arcname="openwebtext")
+    shutil.rmtree(os.path.dirname(owt))
+    args["openwebtext"] = ["--local-archive", arc]
+
+    # Common Crawl: buffer files written by the port's ArticleBuffer, as
+    # a crawl writes them (flushed every DOWNLOAD_CC_PER_WRITE articles);
+    # the flush counter in each name says which articles it holds.
+    texts = docs["common_crawl"]
+    per = -(-len(texts) // DOWNLOAD_CC_FILES)
+    txt = os.path.join(root, "cc_txt")
+    buffer = ArticleBuffer(txt, "cc", articles_per_write=per)
+    for i, text in enumerate(texts):
+        buffer.add("cc-https://news.example.com/{}".format(i), text)
+    buffer.flush()
+    inputs["common_crawl"] = []
+    for name in sorted(os.listdir(txt)):
+        flush = int(name.split("-")[3])
+        inputs["common_crawl"].append((name, [
+            "cc-https://news.example.com/{} {}\n".format(i, _flat(texts[i]))
+            for i in range(flush * per, min(len(texts), (flush + 1) * per))]))
+    args["common_crawl"] = ["--no-newsplease", "--txt-dir", txt]
+    return args, inputs, {s: sum(len(lines) for _, lines in inputs[s])
+                          for s in DOWNLOAD_SOURCES}
+
+
+def expected_shards(inputs, prefix):
+    """{shard file name: bytes} the contract gives: shard k is the parse
+    of the sorted inputs' ``[k::DOWNLOAD_SHARDS]``."""
+    ordered = sorted(inputs)
+    return {"{}{}.txt".format(prefix, k): "".join(
+        line for _, lines in ordered[k::DOWNLOAD_SHARDS]
+        for line in lines).encode("utf-8")
+        for k in range(DOWNLOAD_SHARDS)}
+
+
+def download_path(fa, card):
+    """Phase 14, part 1: the four downloaders' CLIs over local inputs
+    (download and extract steps skipped by the reference's flags) ->
+    the preprocess CLI over their four source trees -> balance -> the
+    loader -> bert_large, 2 steps a bin. Returns (launch counts, the
+    preprocess sink, which part 2's status call reads)."""
+    import numpy as np
+    from lddl_tpu_torch.balance import balance_shards
+    from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+    from lddl_tpu_torch.testing import write_vocab
+    from lddl_tpu_torch.utils.cpus import usable_cpu_count
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_download_")
+    vocab = os.path.join(tmp, "vocab.txt")
+    tokens = write_vocab(vocab, 30522, seed=0)
+    t0 = time.perf_counter()
+    args, inputs, counts = download_corpus(tmp, tokens)
+    print("download phase: {} bytes of documents (seed 4) written in each "
+          "source's upstream form in {:.1f} s: {}".format(
+              DOWNLOAD_BYTES, time.perf_counter() - t0,
+              json.dumps(counts, sort_keys=True)), flush=True)
+    outs = {}
+    for source in DOWNLOAD_SOURCES:
+        outs[source] = os.path.join(tmp, "dl_" + source)
+        secs, seen = run_cli(
+            [sys.executable, "-m", "lddl_tpu_torch.download." + source,
+             "--outdir", outs[source], "--num-shards", str(DOWNLOAD_SHARDS),
+             "--number-of-sharding-processes", str(DOWNLOAD_WORKERS)]
+            + args[source], "download " + source)
+        prefix = "en-" if source == "wikipedia" else ""
+        want = expected_shards(inputs[source], prefix)
+        src = os.path.join(outs[source], "source")
+        got = {}
+        for name in sorted(os.listdir(src)):
+            with open(os.path.join(src, name), "rb") as f:
+                got[name] = f.read()
+        if got != want:
+            bad = sorted(n for n in set(got) | set(want)
+                         if got.get(n) != want.get(n))
+            raise AssertionError("download {}: shards {} differ from the "
+                                 "contract's bytes".format(source, bad))
+        n_docs = sum(b.count(b"\n") for b in got.values())
+        if n_docs != counts[source]:
+            raise AssertionError("download {}: {} documents, {} generated"
+                                 .format(source, n_docs, counts[source]))
+        if seen["cuda_procs"] or not seen["procs"]:
+            raise AssertionError(
+                "download {}: {} of {} processes opened a CUDA context"
+                .format(source, seen["cuda_procs"], seen["procs"]))
+        print("download {}: {:.2f} s, {} documents -> {} shards equal to "
+              "the contract's bytes ({} bytes); {} of {} processes opened "
+              "a CUDA context ({})".format(
+                  source, secs, n_docs, len(got),
+                  sum(len(b) for b in got.values()), seen["cuda_procs"],
+                  seen["procs"], card), flush=True)
+
+    out = os.path.join(tmp, "pre")
+    metrics = os.path.join(tmp, "metrics")
+    cmd = preprocess_cmd(outs["wikipedia"], vocab, out, "numpy",
+                         min(DOWNLOAD_PRE_WORKERS, usable_cpu_count()))
+    cmd[cmd.index("--sample-ratio") + 1] = "1.0"
+    cmd += ["--books", outs["books"], "--common-crawl",
+            outs["common_crawl"], "--open-webtext", outs["openwebtext"]]
+    os.environ["LDDL_TPU_METRICS_DIR"] = metrics
+    try:
+        pre_s, seen = run_cli(cmd, "preprocess (downloaded)")
+    finally:
+        os.environ.pop("LDDL_TPU_METRICS_DIR", None)
+    read = metric_total(metrics, "preprocess_docs_total")
+    if read != sum(counts.values()) or seen["cuda_procs"]:
+        raise AssertionError("preprocess read {} of {} downloaded documents"
+                             " ({} CUDA processes)".format(
+                                 read, sum(counts.values()),
+                                 seen["cuda_procs"]))
+    print("download phase: preprocess (numpy, sample ratio 1.0) read {} of "
+          "{} downloaded documents in {:.1f} s; {} of {} processes opened "
+          "a CUDA context ({})".format(read, sum(counts.values()), pre_s,
+                                       seen["cuda_procs"], seen["procs"],
+                                       card), flush=True)
+    for source in DOWNLOAD_SOURCES:
+        shutil.rmtree(outs[source])
+
+    bal = os.path.join(tmp, "balanced")
+    t0 = time.perf_counter()
+    shard_counts = balance_shards(out, bal, DOWNLOAD_BAL_SHARDS)
+    balance_s = time.perf_counter() - t0
+    print("download phase: balance to {} shards ({} a bin) in {:.1f} s "
+          "({})".format(len(shard_counts), DOWNLOAD_BAL_SHARDS, balance_s,
+                        card), flush=True)
+
+    t_steps = time.perf_counter()
+    steps, timed, launches = bert_large_bins(
+        fa, get_bert_pretrain_data_loader(
+            bal, vocab_file=vocab, batch_size=16,
+            fixed_seq_lengths=DATA_BINS, base_seed=12345),
+        DOWNLOAD_STEPS_PER_BIN, "download", card)
+    steps_s = time.perf_counter() - t_steps
+    if len(steps) != len(DATA_BINS):
+        raise AssertionError("download steps reached bins {} of {}".format(
+            sorted(steps), DATA_BINS))
+    print("download phase: bins reached {} (steps a bin); bert_large step "
+          "{:.1f} ms mean of {} (each bin's first excluded), steps part "
+          "{:.1f} s; launches: {} ({})".format(
+              json.dumps({str(k): v for k, v in sorted(steps.items())}),
+              float(np.mean(timed)) * 1e3, len(timed), steps_s, launches,
+              card), flush=True)
+    shutil.rmtree(bal)
+    return launches, tmp, out
+
+
+def lddl_check(*extra):
+    """``python -m lddl_tpu_torch.tools.lddl_check`` in a process of its
+    own, from the repo root, which must exit 0: (its JSON report, or None
+    without ``--json``; seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lddl_tpu_torch.tools.lddl_check", *extra],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=fleet_env())
+    secs = time.perf_counter() - t0
+    report = json.loads(proc.stdout) if "--json" in extra \
+        and proc.stdout.strip().startswith("{") else None
+    if proc.returncode != 0:
+        raise AssertionError("lddl_check {} exited {}:\n{}\n{}".format(
+            " ".join(extra), proc.returncode, proc.stdout[-3000:],
+            proc.stderr[-2000:]))
+    return report, secs
+
+
+def analyzer_path(card, sink):
+    """Phase 14, part 2, on the card's host: the port's analyzer over the
+    tree as shipped, cold (no cache) writing the port's SARIF, then with
+    its cache (filled, then warm); ``pipeline_status`` over part 1's
+    sink must carry its verdict. The cache and SARIF it writes at the
+    repo root are removed after."""
+    from collections import Counter
+
+    from lddl_tpu_torch import analysis
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sarif = os.path.join(root, analysis.DEFAULT_SARIF)
+    cache = os.path.join(root, analysis.DEFAULT_CACHE)
+    for path in (sarif, cache):
+        if os.path.exists(path):
+            os.unlink(path)
+    try:
+        cold, cold_s = lddl_check("--no-cache", "--json", "--sarif", sarif)
+        fill, fill_s = lddl_check("--json")
+        warm, warm_s = lddl_check("--json")
+        if cold["findings"] or not cold["ok"] \
+                or warm["files_cached"] != warm["files"] \
+                or fill["files_cached"] != 0 \
+                or [warm[k] for k in ("findings", "baselined")] != \
+                [cold[k] for k in ("findings", "baselined")]:
+            raise AssertionError("analyzer runs disagree: cold {} / warm "
+                                 "{}".format(cold, warm))
+        rc, report, status_s = status_json(sink)
+        sa = report.get("static_analysis")
+        if rc != 0 or not sa or sa["new"] != 0 \
+                or sa["rules_enabled"] != len(analysis.RULE_IDS) \
+                or sa["baselined"] != len(cold["baselined"]):
+            raise AssertionError("pipeline_status ({}) static analysis: {}"
+                                 .format(rc, sa))
+        by_rule = {k: dict(sorted(Counter(
+            f["rule"] for f in cold[k]).items()))
+            for k in ("findings", "baselined", "suppressed")}
+        print("analyzer: {} files, cold (no cache) {:.2f} s (its own clock "
+              "{:.2f} s), cache fill {:.2f} s, warm {:.2f} s ({} of {} files "
+              "cached, its own clock {:.2f} s); findings by rule: new {}, "
+              "baselined {}, suppressed {}; pipeline_status static_analysis "
+              "{} in {:.2f} s ({})".format(
+                  cold["files"], cold_s, cold["elapsed_s"], fill_s, warm_s,
+                  warm["files_cached"], warm["files"], warm["elapsed_s"],
+                  json.dumps(by_rule["findings"]),
+                  json.dumps(by_rule["baselined"]),
+                  json.dumps(by_rule["suppressed"]),
+                  json.dumps(sa, sort_keys=True), status_s, card),
+              flush=True)
+        return {"cold_s": cold_s, "warm_s": warm_s}
+    finally:
+        for path in (sarif, cache):
+            if os.path.exists(path):
+                os.unlink(path)
+
+
+def download_and_analyzer_path(fa, card):
+    """Phase 14: all four stages from the downloaders on (part 1), then
+    the analyzer (part 2), each timed. Returns part 1's launch counts."""
+    t0 = time.perf_counter()
+    launches, tmp, sink = download_path(fa, card)
+    try:
+        t1 = time.perf_counter()
+        analyzer_path(card, sink)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("download phase parts: four stages {:.1f} s, analyzer {:.1f} s "
+          "({})".format(t1 - t0, time.perf_counter() - t1, card), flush=True)
     return launches
 
 
@@ -3645,7 +4005,9 @@ def main():
               ("10", "bart_data", lambda: bart_data_path(fa, card)),
               ("11", "bert_ingest", lambda: ingest_path(fa, card, shared)),
               ("12", "bert_elastic", lambda: elastic_path(fa, card, shared)),
-              ("13", "fleet", lambda: fleet_path(fa, card, shared))]
+              ("13", "fleet", lambda: fleet_path(fa, card, shared)),
+              ("14", "download",
+               lambda: download_and_analyzer_path(fa, card))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

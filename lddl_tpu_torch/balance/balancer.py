@@ -181,7 +181,9 @@ def _count_bytes_rewritten(path):
         return
     try:
         obs.inc("balance_bytes_rewritten_total", os.stat(path).st_size)
-    except OSError:  # a telemetry-only stat must not fail the balance
+    # Telemetry-only stat of a file this rank just wrote; a racing stat
+    # failure must not fail the balance.
+    except OSError:  # lddl: disable=swallowed-error
         pass
 
 

@@ -52,7 +52,7 @@ def decode_record_batch(b):
                    lens_v[lens_off[i]:lens_off[i + 1]])
         return
     obs.inc("loader_decode_legacy_batches_total")
-    yield from b.column("sentences").to_pylist()
+    yield from b.column("sentences").to_pylist()  # lddl: disable=python-hot-loop
 
 
 class BartCollate:
@@ -102,8 +102,7 @@ class BartCollate:
                 getattr(self._tokenizer, "do_lower_case", True))
         ids, lens = tokenize_sentences(self._native, sentences)
         ends = np.cumsum(lens)
-        return [ids[e - n:e].tolist() for n, e in zip(lens.tolist(),
-                                                       ends.tolist())]
+        return [ids[e - n:e] for n, e in zip(lens, ends)]
 
     def _sentence_ids(self, samples):
         """Per sample, its sentences' token-id sequences: slices of the

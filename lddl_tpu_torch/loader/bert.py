@@ -237,11 +237,13 @@ def _decode_prepacked(b, names):
             mlm2 = np.empty((2, int(pos_off[end]) - m0), dtype=np.int32)
             mlm2[0] = pos_v[m0:int(pos_off[end])]
             mlm2[1] = lab_v[m0:int(pos_off[end])]
-            mb = (pos_off[row:end + 1] - m0).tolist()
-        # Slice bounds as plain ints, once per chunk.
-        idsb = ids_off[row:end + 1].tolist()
-        trow = (ids_off[row:end + 1] - ids_off[row]).tolist()
-        sprl = spr.tolist()
+            mb = (pos_off[row:end + 1] - m0).tolist()  # lddl: disable=python-hot-loop
+        # Slice bounds as plain ints, materialized once per chunk (a few
+        # per ROW, never per token): numpy scalar extraction inside the
+        # per-row loop costs ~10x a list index.
+        idsb = ids_off[row:end + 1].tolist()  # lddl: disable=python-hot-loop
+        trow = (ids_off[row:end + 1] - ids_off[row]).tolist()  # lddl: disable=python-hot-loop
+        sprl = spr.tolist()  # lddl: disable=python-hot-loop
         for i in range(end - row):
             mlm = mlm2[:, mb[i]:mb[i + 1]] if static else None
             yield PackedRow((
@@ -271,7 +273,8 @@ def decode_record_batch(b):
     cols = ["A", "B", "is_random_next"]
     if "masked_lm_positions" in names:
         cols += ["masked_lm_positions", "masked_lm_labels"]
-    yield from zip(*(b.column(c).to_pylist() for c in cols))
+    # Legacy v1 text path: per-row Python strings are the shard format.
+    yield from zip(*(b.column(c).to_pylist() for c in cols))  # lddl: disable=python-hot-loop
 
 
 def _concat_aranges(lens):
@@ -384,6 +387,7 @@ class BertCollate:
                 raise ValueError(
                     "masked_lm_positions/masked_lm_labels length mismatch "
                     "in sample(s) {}".format(
+                        # error path only -- lddl: disable=python-hot-loop
                         np.flatnonzero(pos_lens != lens_m).tolist()))
             labels[np.repeat(rows, lens_m), flat_pos] = flat_labels
         else:

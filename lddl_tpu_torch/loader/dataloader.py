@@ -365,7 +365,7 @@ class DataLoader:
         for q in self._cmd_qs:
             try:
                 q.put(("stop",))
-            except (OSError, ValueError):  # the queue may be broken
+            except Exception:  # noqa: BLE001 - queue may be broken
                 pass
         self._shutdown_procs(self._procs, grace_s=grace_s)
         for stop in self._pump_stops:
@@ -420,7 +420,7 @@ class DataLoader:
             try:
                 q.close()
                 q.cancel_join_thread()
-            except (OSError, ValueError):
+            except Exception:  # noqa: BLE001 - queue may already be broken
                 pass
         self._cmd_qs[w] = ctx.Queue()
         self._out_qs[w] = ctx.Queue(maxsize=self._prefetch)

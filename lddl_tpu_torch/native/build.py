@@ -37,7 +37,9 @@ def _cpu_flags():
             for line in f:
                 if line.startswith("flags"):
                     return line
-    except OSError:
+    # /proc/cpuinfo probe is a cache-tag refinement; absent (non-Linux)
+    # just means a coarser tag.
+    except OSError:  # lddl: disable=swallowed-error
         pass
     return ""
 

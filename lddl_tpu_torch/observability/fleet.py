@@ -113,8 +113,9 @@ _env_set = set()   # variables configure()/adopt_holder() set, for resets
 
 
 def _set_env(name, value):
-    os.environ[name] = value
-    _env_set.add(name)
+    with _lock:
+        os.environ[name] = value
+        _env_set.add(name)
 
 
 # ------------------------------------------------------------- enablement

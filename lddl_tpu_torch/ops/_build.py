@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 
+from ..resilience.io import atomic_publish
+
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
@@ -79,7 +81,7 @@ def build(names):
         if proc.returncode != 0:
             failed.append("{}:\n{}".format(name, log))
             continue
-        os.replace(tmp, out)
+        atomic_publish(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths

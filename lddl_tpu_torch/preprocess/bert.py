@@ -714,8 +714,8 @@ def materialize_rows(batch, config, tok_info, seed, scope):
     plain = {
         # Debug/test row view only (see docstring): the parquet path
         # consumes the columns directly and never takes this branch.
-        name: (col.to_pylist() if isinstance(col, pa.Array)
-               else col.tolist())
+        name: (col.to_pylist() if isinstance(col, pa.Array)  # lddl: disable=python-hot-loop
+               else col.tolist())  # lddl: disable=python-hot-loop
         for name, col in columns.items()
     }
     names = list(plain)

@@ -726,6 +726,8 @@ def _write_txt_shard(rows, out_dir, part_id, masking, bin_size,
             return ("is_random_next: {} - [CLS] {} [SEP] {} [SEP] - "
                     "masked_lm_positions: {} - masked_lm_labels: {} - {}".format(
                         r["is_random_next"], r["A"], r["B"],
+                        # Human-readable debug sink only (never the
+                        # parquet path). -- lddl: disable=python-hot-loop
                         deserialize_np_array(r["masked_lm_positions"]).tolist(),
                         r["masked_lm_labels"], r["num_tokens"]))
         return "is_random_next: {} - [CLS] {} [SEP] {} [SEP] - {}".format(
@@ -1252,7 +1254,7 @@ def _sweep_tmp_debris(out_dir):
             obs.inc("preprocess_stale_tmp_cleaned_total")
         # Best-effort sweep of dead writers' debris: a vanished or
         # unremovable temp file must not fail a completed run.
-        except OSError:
+        except OSError:  # lddl: disable=swallowed-error
             pass
 
 

@@ -232,7 +232,7 @@ class MockObjectStore:
     @staticmethod
     def _gens(odir):
         try:
-            names = os.listdir(odir)
+            names = sorted(os.listdir(odir))
         except (FileNotFoundError, NotADirectoryError):
             return []
         gens = []

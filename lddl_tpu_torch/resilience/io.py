@@ -139,7 +139,7 @@ def with_retries(fn, desc="operation", attempts=None, deadline_s=None,
             # Jitter shapes only WHEN a retry runs, never what is read or
             # written; an unkeyed stream keeps ranks from retrying in step.
             delay = min(cap, base * (2 ** (attempt - 1)))
-            delay *= _jitter_rng.uniform(0.5, 1.5)
+            delay *= _jitter_rng.uniform(0.5, 1.5)  # lddl: disable=rng-flow
             delay = min(delay, max(0.0, deadline_s - elapsed))
             obs_inc("resilience_retry_attempts_total", op=op)
             obs_event("resilience.retry", op=op, attempt=attempt,

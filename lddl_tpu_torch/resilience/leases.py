@@ -184,7 +184,7 @@ def _write_tmp(path, rec, holder):
     tmp = "{}.tmp.{}".format(path, holder)
     # Pre-publish scratch with a holder-unique name, promoted only via
     # os.link / atomic_publish below; a torn temp is never trusted.
-    with open(tmp, "wb") as f:
+    with open(tmp, "wb") as f:  # lddl: disable=atomic-publish
         f.write(json.dumps(rec, sort_keys=True).encode("utf-8"))
         f.flush()
         os.fsync(f.fileno())
@@ -217,7 +217,7 @@ def _try_create(path, rec, holder):
         except FileExistsError:
             return False
         # EPERM/ENOTSUP: the mount refuses hard links; the O_EXCL path
-        # below makes the same exclusive create.
+        # below makes the same exclusive create. -- lddl: disable=swallowed-error
         except OSError:
             pass
         try:

@@ -27,6 +27,7 @@ import os
 import numpy as np
 
 from .preprocess.arrowcols import int32_list_array
+from .resilience.io import atomic_write, write_table_atomic
 
 SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
 
@@ -147,10 +148,8 @@ def _bert_columns(rng, n, lo, hi, tokens, masking):
 
 
 def _write_num_samples(out_dir, counts):
-    tmp = os.path.join(out_dir, ".num_samples.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump(counts, f, sort_keys=True)
-    os.replace(tmp, os.path.join(out_dir, ".num_samples.json"))
+    atomic_write(os.path.join(out_dir, ".num_samples.json"),
+                 json.dumps(counts, sort_keys=True))
 
 
 def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
@@ -160,7 +159,6 @@ def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
     (bin k holds samples of k*bin_size+1 .. (k+1)*bin_size tokens) and the
     ``.num_samples.json`` cache; returns {basename: count}."""
     import pyarrow as pa
-    import pyarrow.parquet as pq
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     counts = {}
@@ -172,8 +170,8 @@ def write_balanced_shards(out_dir, tokens, num_bins=4, bin_size=128,
             cols = _bert_columns(rng, n, lo, hi, tokens, masking)
             cols["bin_id"] = pa.array(np.full(n, k, dtype=np.int64))
             name = "shard-{}.parquet_{}".format(i, k)
-            pq.write_table(pa.table(cols), os.path.join(out_dir, name),
-                           compression="lz4")
+            write_table_atomic(pa.table(cols), os.path.join(out_dir, name),
+                               compression="lz4")
             counts[name] = n
     _write_num_samples(out_dir, counts)
     return counts
@@ -187,7 +185,6 @@ def write_unbinned_shards(out_dir, tokens, num_shards=2,
     ``max_tokens`` tokens (specials included) and the
     ``.num_samples.json`` cache; returns {basename: count}."""
     import pyarrow as pa
-    import pyarrow.parquet as pq
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     counts = {}
@@ -195,8 +192,8 @@ def write_unbinned_shards(out_dir, tokens, num_shards=2,
         cols = _bert_columns(rng, samples_per_shard, min_tokens, max_tokens,
                              tokens, masking)
         name = "shard-{}.parquet".format(i)
-        pq.write_table(pa.table(cols), os.path.join(out_dir, name),
-                       compression="lz4")
+        write_table_atomic(pa.table(cols), os.path.join(out_dir, name),
+                           compression="lz4")
         counts[name] = samples_per_shard
     _write_num_samples(out_dir, counts)
     return counts
@@ -213,7 +210,6 @@ def write_packed_shards(out_dir, tokens, num_samples=1024, num_shards=2,
     each footer, and the ``.num_samples.json`` cache of row counts.
     Returns (counts {basename: rows}, stats of ``pack_columns``)."""
     import pyarrow as pa
-    import pyarrow.parquet as pq
     from .preprocess.packing import pack_columns, packed_schema
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -235,8 +231,8 @@ def write_packed_shards(out_dir, tokens, num_samples=1024, num_shards=2,
     for i in range(num_shards):
         name = "shard-{}.parquet".format(i)
         rows = table.take(np.arange(i, n_rows, num_shards))
-        pq.write_table(rows, os.path.join(out_dir, name),
-                       compression="lz4")
+        write_table_atomic(rows, os.path.join(out_dir, name),
+                           compression="lz4")
         counts[name] = rows.num_rows
     _write_num_samples(out_dir, counts)
     return counts, stats
@@ -254,7 +250,6 @@ def write_bart_shards(out_dir, vocab_size, num_shards=2,
     loader window of up to 1022 clean tokens is always full. Returns
     {basename: count}."""
     import pyarrow as pa
-    import pyarrow.parquet as pq
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     counts = {}
@@ -276,8 +271,8 @@ def write_bart_shards(out_dir, vocab_size, num_shards=2,
                           "sentence_ids": _int32_lists(ids),
                           "sentence_lens": _int32_lists(lens)})
         name = "shard-{}.parquet".format(i)
-        pq.write_table(table, os.path.join(out_dir, name),
-                       compression="lz4")
+        write_table_atomic(table, os.path.join(out_dir, name),
+                           compression="lz4")
         counts[name] = samples_per_shard
     _write_num_samples(out_dir, counts)
     return counts

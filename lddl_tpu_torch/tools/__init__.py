@@ -1,4 +1,5 @@
-"""Operator tools over the port's telemetry: ``pipeline_status`` (fleet
-health, rollups, windowed rates and alert rules) and ``trace_summary``
-(per-stage span tables and the fleet's merged trace). Run each as
-``python -m lddl_tpu_torch.tools.<name>``."""
+"""Operator tools over the port: ``pipeline_status`` (fleet health,
+rollups, windowed rates, alert rules and the analyzer's verdict),
+``trace_summary`` (per-stage span tables and the fleet's merged trace)
+and ``lddl_check`` (the static analyzer's CLI; ``ci_check.sh`` wraps
+it). Run each as ``python -m lddl_tpu_torch.tools.<name>``."""

@@ -1,0 +1,43 @@
+#!/usr/bin/env bash
+# Fast static gate for the port: its determinism/SPMD-safety analyzer
+# plus a syntax pass over lddl_tpu_torch (pyflakes when available,
+# compileall otherwise). Counterpart of tools/ci_check.sh.
+#
+# Two modes:
+#   lddl_tpu_torch/tools/ci_check.sh         pre-commit default: report
+#                                            findings only for files changed
+#                                            vs git HEAD (the flow analysis
+#                                            still spans the whole tree, and
+#                                            the content-hash cache makes
+#                                            the warm run sub-second)
+#   lddl_tpu_torch/tools/ci_check.sh --full  full-tree report + the
+#                                            lddl_tpu_torch_check.sarif
+#                                            artifact at the repo root (read
+#                                            by lddl_tpu_torch.tools.
+#                                            pipeline_status)
+#
+# Extra arguments after the mode flag pass through to
+# lddl_tpu_torch.tools.lddl_check.
+set -euo pipefail
+cd "$(dirname "$0")/../.."
+
+MODE="changed"
+if [ "${1:-}" = "--full" ]; then
+    MODE="full"
+    shift
+fi
+
+if [ "$MODE" = "full" ]; then
+    python -m lddl_tpu_torch.tools.lddl_check \
+        --sarif lddl_tpu_torch_check.sarif "$@"
+    echo "ci_check: SARIF artifact written to lddl_tpu_torch_check.sarif"
+else
+    python -m lddl_tpu_torch.tools.lddl_check --changed-only "$@"
+fi
+
+if python -c "import pyflakes" >/dev/null 2>&1; then
+    python -m pyflakes lddl_tpu_torch
+else
+    python -m compileall -q lddl_tpu_torch
+fi
+echo "ci_check: OK"

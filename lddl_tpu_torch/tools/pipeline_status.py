@@ -33,9 +33,11 @@ out.json`` additionally writes one clock-aligned Chrome trace spanning
 every host (open in Perfetto); ``lddl_tpu_torch.tools.trace_summary
 --merge`` does the same plus summary tables.
 
-The reference's "static analysis" line (the analyzer's SARIF verdict)
-is left out: the port has no analyzer yet, so the report carries no
-such section.
+The report's ``static_analysis`` section (and the text output's
+"static analysis" line) is the port's analyzer verdict: the finding
+counts of the ``lddl_tpu_torch_check.sarif`` artifact that
+``lddl_tpu_torch/tools/ci_check.sh --full`` writes at the repo root
+(null when no artifact exists).
 
 All wall-clock reads happen inside ``fleet.aggregate``; this tool only
 formats the report.
@@ -43,10 +45,44 @@ formats the report.
 
 import argparse
 import json
+import os
 import sys
 import time
 
+from ..analysis.core import DEFAULT_SARIF, REPO_ROOT
 from .trace_summary import _table
+
+
+def load_static_analysis(repo_root):
+    """Finding count + per-rule tally from the port's SARIF artifact
+    (``lddl_tpu_torch/tools/ci_check.sh --full``), so the static-analysis
+    verdict shows up on the same status surface as the fleet and alerts.
+    New findings gate CI ("error" level); baselined ones ride along as
+    "note"/baselineState=unchanged. None when no artifact exists.
+    Counterpart of ``tools/bench_trajectory.py:load_static_analysis``."""
+    path = os.path.join(repo_root, DEFAULT_SARIF)
+    try:
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+        run = doc["runs"][0]
+    except (OSError, ValueError, KeyError, IndexError):
+        return None
+    new, baselined = 0, 0
+    by_rule = {}
+    for res in run.get("results", ()):
+        if res.get("baselineState") == "unchanged":
+            baselined += 1
+        else:
+            new += 1
+        rid = res.get("ruleId", "?")
+        by_rule[rid] = by_rule.get(rid, 0) + 1
+    return {
+        "new": new,
+        "baselined": baselined,
+        "by_rule": by_rule,
+        "rules_enabled": len(run.get("tool", {}).get("driver", {})
+                             .get("rules", ())),
+    }
 
 
 def _fmt_age(age):
@@ -226,6 +262,14 @@ def format_report(report):
                                           "trend"]))
         if gauge_rows:
             out.append(_table(gauge_rows, ["host", "gauge", "last", ""]))
+    sa = report.get("static_analysis")
+    if sa:
+        tally = ", ".join("{}={}".format(k, v)
+                          for k, v in sorted(sa["by_rule"].items()))
+        out.append("")
+        out.append("static analysis: {} new, {} baselined finding(s)"
+                   "{}".format(sa["new"], sa["baselined"],
+                               "; by rule: " + tally if tally else ""))
     alerts = report.get("alerts")
     if alerts:
         out.append("")
@@ -267,6 +311,9 @@ def run_once(args):
     # chaos/CI runs export LDDL_TPU_STORAGE_BACKEND into the whole
     # fleet, so the operator's status probe names the same store).
     report["storage_backend"] = storage.active_name()
+    # Static-analysis verdict from the ci_check --full SARIF artifact, so
+    # the operator sees the gate on the same surface as the fleet.
+    report["static_analysis"] = load_static_analysis(REPO_ROOT)
     if args.alerts:
         from ..observability import alerts as alerts_mod
         report["alerts"] = alerts_mod.evaluate_file(

@@ -42,7 +42,8 @@ def expand_outdir_and_mkdir(outdir):
 def get_all_files_paths_under(root):
     """All file paths under ``root``, sorted; hidden directories skipped."""
     out = []
-    # Walk order is unobservable: the list is sorted before it is returned.
+    # Walk order is unobservable: the list is sorted before it is
+    # returned. -- lddl: disable=unsorted-iteration
     for dirpath, dirnames, filenames in os.walk(root):
         dirnames[:] = [d for d in dirnames if not d.startswith(".")]
         out.extend(os.path.join(dirpath, f) for f in filenames)
@@ -227,9 +228,9 @@ def write_num_samples_cache(dir_path, counts, with_sizes=False):
         for name in sorted(counts):
             try:
                 sizes[name] = os.path.getsize(os.path.join(dir_path, name))
-            except OSError:
-                # A racing unlink leaves the entry size-less: it then
-                # reads as untrusted and is recounted from its footer.
+            # A racing unlink just leaves the entry size-less: it then
+            # reads as untrusted and is recounted from its footer.
+            except OSError:  # lddl: disable=swallowed-error
                 pass
         payload[NUM_SAMPLES_SIZES_KEY] = sizes
     atomic_write(os.path.join(dir_path, NUM_SAMPLES_CACHE_NAME),

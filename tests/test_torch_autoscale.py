@@ -223,3 +223,33 @@ def test_step_reads_real_aggregate(tmp_path):
     ob = obs_by_pkg["lddl_tpu_torch"]
     assert ob["backlog_docs"] == 900
     assert ob["decision"] == "scale_up"
+
+
+# ----------------------------------------------------- clock-free contract
+
+
+def test_autoscale_not_wall_clock_allowlisted():
+    """The port's analyzer must COVER its autoscale.py: scale decisions
+    derive from the aggregate report, never from a clock read of their
+    own. A glob allow over observability/* would silently exempt it;
+    the port's clock rules allowlist its observability files one by
+    one, as the reference's do, and find nothing in autoscale.py."""
+    from lddl_tpu_torch import analysis
+    from lddl_tpu_torch.analysis.flow_rules import WallClockFlowRule
+    from lddl_tpu_torch.analysis.rules import WallClockRule
+    for allow in (WallClockRule.allow, WallClockFlowRule.allow):
+        assert "lddl_tpu_torch/observability/*" not in allow
+        assert not any("autoscale" in pat for pat in allow)
+        assert "lddl_tpu_torch/observability/fleet.py" in allow
+    path = "lddl_tpu_torch/observability/autoscale.py"
+    assert WallClockRule().applies_to(path)
+    assert WallClockFlowRule().applies_to(path)
+    with open(os.path.join(fc.REPO_ROOT, path)) as f:
+        src = f.read()
+    found, suppressed = analysis.analyze_source(
+        src, path, analysis.get_rules(["wall-clock"]))
+    assert found == [] and suppressed == []
+    clocked = src + "\n\ndef _now():\n    import time\n    return time.time()\n"
+    found, _ = analysis.analyze_source(
+        clocked, path, analysis.get_rules(["wall-clock"]))
+    assert [f.rule for f in found] == ["wall-clock"]

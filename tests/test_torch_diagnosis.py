@@ -511,9 +511,11 @@ def _status(tool, argv, capsys, monkeypatch, now):
 def test_pipeline_status_window_alerts_and_backend(tmp_path, capsys,
                                                    monkeypatch):
     """One port-written spool, copied once per package: each package's
-    status tool over its copy, with the same rules and the wall clock
-    pinned, prints the same report (the reference's ``static_analysis``
-    key dropped by name) and exits with the same code."""
+    status tool over its copy, with the same rules, the wall clock
+    pinned and each analyzer's SARIF read from one directory holding the
+    same artifact under both names, prints the same report (its
+    ``static_analysis`` section included) and exits with the same
+    code."""
     root = str(tmp_path / "spool")
     fleet.configure(root, holder_id="cli", ttl=30, interval=3600)
     obs.inc("elastic_units_completed_total", 4, phase="gather")
@@ -530,6 +532,17 @@ def test_pipeline_status_window_alerts_and_backend(tmp_path, capsys,
     for name in tools:
         roots[name] = str(tmp_path / name)
         shutil.copytree(root, roots[name])
+    sarif_dir = tmp_path / "sarif"
+    sarif_dir.mkdir()
+    sarif = {"version": "2.1.0", "runs": [{
+        "tool": {"driver": {"name": "lddl-check", "rules": [
+            {"id": "wall-clock"}, {"id": "global-rng"}]}},
+        "results": [{"ruleId": "wall-clock",
+                     "baselineState": "unchanged"}]}]}
+    for name in ("lddl_check.sarif", "lddl_tpu_torch_check.sarif"):
+        (sarif_dir / name).write_text(json.dumps(sarif))
+    loaders = {name: tool.load_static_analysis
+               for name, tool in tools.items()}
 
     def run_both(extra, rules=None, json_mode=True):
         outs = {}
@@ -538,10 +551,15 @@ def test_pipeline_status_window_alerts_and_backend(tmp_path, capsys,
             if rules is not None:
                 argv += ["--alerts", _write_rules(
                     os.path.join(roots[name], "rules.json"), rules)]
+            monkeypatch.setattr(
+                tool, "load_static_analysis",
+                lambda _root, load=loaders[name]: load(str(sarif_dir)))
             rc, text = _status(tool, argv, capsys, monkeypatch, now)
             if json_mode:
                 doc = json.loads(text.replace(roots[name], "ROOT"))
-                doc.pop("static_analysis", None)
+                assert doc["static_analysis"] == {
+                    "new": 0, "baselined": 1, "by_rule": {"wall-clock": 1},
+                    "rules_enabled": 2}
                 outs[name] = (rc, doc)
             else:
                 outs[name] = (rc, text.replace(roots[name], "ROOT"))
@@ -578,14 +596,20 @@ def test_pipeline_status_window_alerts_and_backend(tmp_path, capsys,
     assert rc == 0
     assert "loader bound verdict: input-bound" in text
     assert "window: last 120s" in text
-    assert "static analysis" not in text
+    assert ("static analysis: 0 new, 1 baselined finding(s); by rule: "
+            "wall-clock=1") in text
 
 
 def test_pipeline_status_help_names_the_left_out_line():
-    """The port's status tool says in its ``--help`` that the reference's
-    static-analysis line is left out (the analyzer is not ported)."""
-    help_text = fc.port_tool("pipeline_status").__doc__
-    assert "static analysis" in help_text and "no analyzer" in help_text
+    """The static-analysis line the port's status tool once left out is
+    back: its ``--help`` names the section and the port's own SARIF
+    artifact, and no longer says the port has no analyzer."""
+    tool = fc.port_tool("pipeline_status")
+    help_text = tool.__doc__
+    assert "static analysis" in help_text and "no analyzer" not in help_text
+    assert "lddl_tpu_torch_check.sarif" in help_text
+    assert "ci_check.sh --full" in help_text
+    assert tool.load_static_analysis(str(fc.REPO_ROOT) + "/nowhere") is None
 
 
 def test_backend_latency_histogram_from_io_ops(tmp_path):

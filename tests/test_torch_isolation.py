@@ -2,7 +2,8 @@
 scripts at the root) imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
 package loads no JAX and no HF package (``tokenizers`` is imported only
 lazily, by ``native/gen_tables.py`` when the tables are regenerated by
-hand), the preprocess workers and the loader's process workers import no
+hand), the preprocess workers, the downloaders (CLIs and spawned sharding
+workers), the analyzer and the loader's process workers import no
 torch, and entry points refuse to fall back to the CPU when CUDA is asked
 for (explicitly or by default) and absent."""
 
@@ -95,7 +96,19 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.observability.alerts, "
             "lddl_tpu_torch.observability.autoscale, "
             "lddl_tpu_torch.tools, lddl_tpu_torch.tools.pipeline_status, "
-            "lddl_tpu_torch.tools.trace_summary; "
+            "lddl_tpu_torch.tools.trace_summary, "
+            "lddl_tpu_torch.tools.lddl_check, lddl_tpu_torch.download, "
+            "lddl_tpu_torch.download.utils, "
+            "lddl_tpu_torch.download.wikipedia, "
+            "lddl_tpu_torch.download.books, "
+            "lddl_tpu_torch.download.openwebtext, "
+            "lddl_tpu_torch.download.common_crawl, "
+            "lddl_tpu_torch.analysis, lddl_tpu_torch.analysis.core, "
+            "lddl_tpu_torch.analysis.project, lddl_tpu_torch.analysis.rules, "
+            "lddl_tpu_torch.analysis.dataflow, "
+            "lddl_tpu_torch.analysis.flow_rules, "
+            "lddl_tpu_torch.analysis.concurrency, "
+            "lddl_tpu_torch.analysis.sarif; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'lddl_tpu', 'transformers', "
             "'tokenizers')); "
@@ -144,6 +157,47 @@ def test_preprocess_workers_import_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_download_workers_and_analyzer_import_no_torch(tmp_path):
+    """The downloaders are CPU stages: a CLI process, and each spawned
+    sharding worker (which imports its CLI module and the parse function
+    it unpickles), loads no torch, no JAX and no HF package; nor does
+    the analyzer, its CLI (a full run over the port's tree, rules and
+    all) or the status tool that reads its SARIF. A real pool of 2
+    spawned workers reports what it imported."""
+    code = ("import sys, concurrent.futures, multiprocessing, "
+            "lddl_tpu_torch.download.wikipedia, "
+            "lddl_tpu_torch.download.books, "
+            "lddl_tpu_torch.download.openwebtext, "
+            "lddl_tpu_torch.download.common_crawl, "
+            "lddl_tpu_torch.tools.pipeline_status; "
+            "from lddl_tpu_torch.download.utils import shard_files_parallel; "
+            "from lddl_tpu_torch.download.books import parse_book_file; "
+            "from lddl_tpu_torch.tools import lddl_check; "
+            "assert lddl_check.main(['--no-cache', '--json']) == 0; "
+            "d = sys.argv[1]; "
+            "open(d + '/b.txt', 'w').write('a book'); "
+            "assert shard_files_parallel([d + '/b.txt'] * 2, d, 2, "
+            "parse_book_file, num_processes=2) == 2; "
+            "probe = ('__import__(\"lddl_tpu_torch.download.books\") and "
+            "sorted(m for m in __import__(\"sys\").modules if "
+            "m.split(\".\")[0] in (\"torch\", \"jax\", \"lddl_tpu\", "
+            "\"transformers\", \"tokenizers\"))'); "
+            "ctx = multiprocessing.get_context('spawn'); "
+            "pool = concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx); "
+            "workers = [pool.submit(eval, probe).result() for _ in range(2)]; "
+            "pool.shutdown(); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lddl_tpu', 'transformers', 'tokenizers')); "
+            "print(bad, workers); "
+            "sys.exit(1 if bad or any(workers) else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[] [[], []]" in proc.stdout
 
 
 def test_loader_worker_modules_import_no_torch():

@@ -9,9 +9,10 @@ inertness and padding-efficiency tests of ``tests/test_observability.py``):
 - one SIGTERM handler chain: the registry's end-of-process export and
   ``install_signal_flush`` flush once, chain a Python handler, and die
   by the signal under ``SIG_DFL``;
-- the stage files open the reference's top-level stage spans
-  (``lddl_tpu.analysis.rules.STAGE_SPANS``), held by a plain AST walk
-  (the port has no analyzer yet);
+- the stage files open the reference's top-level stage spans: the
+  port's ``stage-span`` rule (``lddl_tpu_torch.analysis.rules``) holds
+  them, its ``STAGE_SPANS`` pinned as the reference's with each path
+  mapped;
 - a telemetry-armed port preprocess -> balance -> load is byte-equal to
   a live telemetry-off ``lddl_tpu`` run, and its static preprocess and
   balance counters equal a live telemetry-armed ``lddl_tpu`` run's for
@@ -23,7 +24,6 @@ Each side runs in its own metrics directory (both registries would
 export into the same ``metrics-rank<r>-pid<p>`` names otherwise).
 """
 
-import ast
 import importlib
 import json
 import os
@@ -231,33 +231,20 @@ def test_one_sigterm_handler_chain(tmp_path, mode):
     assert os.path.exists(jsonl[:-len(".jsonl")] + ".prom")
 
 
-# ------------------------------------------------- stage spans (AST walk)
-
-
-def _spans_opened(source, path):
-    """Names of every ``with <x>.span("<name>", ...)`` in a source."""
-    names = set()
-    for node in ast.walk(ast.parse(source, path)):
-        if not isinstance(node, (ast.With, ast.AsyncWith)):
-            continue
-        for item in node.items:
-            call = item.context_expr
-            if (isinstance(call, ast.Call)
-                    and getattr(call.func, "attr",
-                                getattr(call.func, "id", None)) == "span"
-                    and call.args and isinstance(call.args[0], ast.Constant)):
-                names.add(call.args[0].value)
-    return names
+# --------------------------------------------- stage spans (stage-span)
 
 
 def test_every_stage_entry_point_opens_a_top_level_span():
-    """The port's stage files open the reference's stage spans: the set
-    is ``lddl_tpu.analysis.rules.STAGE_SPANS`` (pinned as
-    ``tests/test_observability.py`` pins it), mapped onto
-    ``lddl_tpu_torch/``. The walk still fails a stage file that loses
-    its span."""
-    from lddl_tpu.analysis.rules import STAGE_SPANS
-    assert set(STAGE_SPANS.items()) == {
+    """The port's stage files open the reference's stage spans, held by
+    the port's own ``stage-span`` rule: its ``STAGE_SPANS`` is
+    ``lddl_tpu.analysis.rules.STAGE_SPANS`` (pinned as
+    ``tests/test_observability.py`` pins it) with each path mapped onto
+    ``lddl_tpu_torch/``, the rule finds nothing in the port's stage
+    files, and it still fails a stage file that loses its span."""
+    from lddl_tpu.analysis.rules import STAGE_SPANS as REF_SPANS
+    from lddl_tpu_torch import analysis
+    from lddl_tpu_torch.analysis.rules import STAGE_SPANS
+    assert set(REF_SPANS.items()) == {
         ("lddl_tpu/preprocess/runner.py", ("preprocess.run",)),
         ("lddl_tpu/preprocess/steal.py", ("preprocess.gather",
                                           "preprocess.finalize")),
@@ -265,18 +252,21 @@ def test_every_stage_entry_point_opens_a_top_level_span():
         ("lddl_tpu/loader/dataloader.py", ("loader.epoch",)),
         ("lddl_tpu/ingest/incremental.py", ("ingest.run",)),
     }
+    assert STAGE_SPANS == {"lddl_tpu_torch/" + p.split("/", 1)[1]: names
+                           for p, names in REF_SPANS.items()}
+    rule = analysis.get_rules(["stage-span"])
     missing = {}
-    for ref_path, names in STAGE_SPANS.items():
-        path = os.path.join(fc.REPO_ROOT, "lddl_tpu_torch",
-                            ref_path.split("/", 1)[1])
-        with open(path) as f:
-            opened = _spans_opened(f.read(), path)
-        lost = set(names) - opened
-        if lost:
-            missing[path] = sorted(lost)
+    for path in STAGE_SPANS:
+        with open(os.path.join(fc.REPO_ROOT, path)) as f:
+            found, _ = analysis.analyze_source(f.read(), path, rule)
+        if found:
+            missing[path] = [x.message for x in found]
     assert not missing, missing
-    assert _spans_opened("def balance_shards(a, b):\n    return None\n",
-                         "balancer.py") == set()
+    bare = "def balance_shards(a, b):\n    return None\n"
+    found, _ = analysis.analyze_source(
+        bare, "lddl_tpu_torch/balance/balancer.py", rule)
+    assert [x.rule for x in found] == ["stage-span"]
+    assert '"balance.run"' in found[0].message
 
 
 # ------------------------------------------------------ trace_summary
