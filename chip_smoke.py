@@ -108,7 +108,7 @@ exits non-zero):
    phase 8's bert_large under the thread and then the process loader,
    continuing their epochs, through ``prefetch_to_device`` (depth 2),
    each step ending in a device sync (``float(loss)``, so the
-   prefetcher's gap is the step): 24 counted steps a mode after 2 with
+   prefetcher's gap is the step): 16 counted steps a mode after 2 with
    step ms, batches/s consumed, the attribution report and its stage
    seconds, the processes holding a CUDA context (this one alone; no
    worker with torch mapped) and the launch counts (24 of each
@@ -207,10 +207,24 @@ exits non-zero):
    Printed: each source's seconds and documents, the preprocess, balance
    and step seconds, the analyzer's cold and warm seconds and its
    findings by rule.
+15. bert_large's pipelined encoder: a world of 1 over NCCL (explicit
+   ``tcp://`` address, world size and rank), ``make_mesh({"pp": 1, "dp":
+   1})``; the 24 layers of a seeded bert_large (LayerNorm scales and
+   biases from seed 1, so mean(y**2) depends on every layer) through
+   ``stack_layer_params`` into ``make_pipelined_encoder(mesh, cfg,
+   n_micro=4)`` and ``reference_encoder(cfg)``; x the model's bf16
+   embeddings of a batch of 16 at L=512 from phase 4's shards through
+   ``prefetch_to_device``, mask its padded attention mask. The forward
+   and the gradients of mean(y.float()**2) for x and every layer
+   parameter agree within PIPE_BAR; the pipelined forward + backward
+   launches ``onekv_fwd`` and ``onekv_bwd`` 96 times each (24 layers x 4
+   microbatches), the unpipelined one 24; host-clock ms of both and
+   their ratio.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
-``download`` is phase 14's), the card line, and last
+``download`` is phase 14's, ``pipeline`` phase 15's pipelined run), the
+card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -264,7 +278,7 @@ DATA_FILES = 64
 DATA_TARGET, DATA_BIN = 512, 64
 DATA_BINS = [DATA_BIN * (i + 1) for i in range(DATA_TARGET // DATA_BIN)]
 DATA_SHARDS = 64
-DATA_LOADER_BATCHES = 400    # loader alone: batches timed after the first
+DATA_LOADER_BATCHES = 200    # loader alone: batches timed after the first
 DATA_STEPS_PER_BIN = 2       # bert_large steps in each bin reached
 DATA_MAX_BATCHES = 400       # batches drawn, at most, to reach the bins
 MASK_ROWS, MASK_WIDTH = 4096, 512
@@ -274,7 +288,7 @@ BUCKET_MIN_ROWS = 2048       # the bucket whose masking is timed, at least
 # The loader runtime under load (phase 9), on phase 8's balanced shards.
 LOADER_WORKERS = 4           # workers a bin, thread or process
 LOADER_ID_BATCHES = 128      # batches hashed in each of the three runs
-LOADER_STEPS = 24            # counted bert_large steps a worker mode
+LOADER_STEPS = 16            # counted bert_large steps a worker mode
 LOADER_WARM_STEPS = 2        # steps before the counted ones
 LOADER_KILL = "worker:kill:nth=5:path=w1:flag={}"
 LOADER_STAGES = ("shard_fetch", "shard_read", "decode", "collate", "ipc",
@@ -351,6 +365,20 @@ DOWNLOAD_WORKERS = 4         # --number-of-sharding-processes
 DOWNLOAD_PRE_WORKERS = 4     # the preprocess CLI's --local-workers
 DOWNLOAD_BAL_SHARDS = 8
 DOWNLOAD_STEPS_PER_BIN = 2
+# bert_large's pipelined encoder (phase 15): pp = 1, PIPE_MICRO
+# microbatches of one batch of 16 at L=512, against the unpipelined
+# stack on the same weights. Both run bf16 activations through the same
+# kernels; they differ only in the matmuls' rows (4 x 512 against 16 x
+# 512) and in a parameter's gradient being the sum of the microbatches'
+# bf16 contributions, so the forward, gx and every layer gradient are
+# held to PIPE_BAR of their largest magnitude, the cross-package bf16 bar
+# (test_torch_models.py::test_bf16_logits_close_to_flax). attention.key
+# .bias has a zero gradient in exact arithmetic (the softmax ignores a
+# shift shared by all keys): it is held to PIPE_BAR of its layer's
+# largest gradient magnitude instead.
+PIPE_MICRO = 4
+PIPE_BAR = 5e-2
+PIPE_REPEATS = 3     # timed forward + backward of each, after a warm-up
 
 
 
@@ -3937,6 +3965,161 @@ def download_and_analyzer_path(fa, card):
     return launches
 
 
+def pipeline_path(fa, card):
+    """bert_large's encoder as a GPipe pipeline on the card: a world of 1
+    over NCCL, a {pp: 1, dp: 1} mesh, the 24 layers of a seeded
+    bert_large (LayerNorm scales and biases drawn from a seed, so the
+    loss depends on every layer) stacked into ``make_pipelined_encoder``
+    (``PIPE_MICRO`` microbatches) and ``reference_encoder``; x the
+    model's embeddings of a batch of 16 at L=512 from phase 4's shards,
+    mask its padded attention mask. Holds the forward and the gradients
+    of mean(y.float()**2) for x and every layer parameter, pipelined
+    against unpipelined, to PIPE_BAR; counts the single-block kernels of
+    each; times both. Returns the pipelined run's launch counts."""
+    import torch.distributed as dist
+
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import BertConfig, BertForPreTraining
+    from lddl_tpu_torch.parallel import (init_distributed, make_mesh,
+                                         make_pipelined_encoder,
+                                         reference_encoder,
+                                         stack_layer_params)
+    from lddl_tpu_torch.testing import write_balanced_shards, write_vocab
+
+    device = init_distributed(
+        init_method="tcp://127.0.0.1:{}".format(free_port()), world_size=1,
+        rank=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        if dist.get_backend() != "nccl" or device != torch.device("cuda", 0):
+            raise AssertionError("want nccl on cuda:0")
+        mesh = make_mesh({"pp": 1, "dp": 1})
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        write_balanced_shards(os.path.join(tmp, "shards"), tokens,
+                              num_bins=len(BINS), bin_size=128,
+                              shards_per_bin=2, samples_per_shard=64,
+                              masking=True, seed=0)
+        loader = get_bert_pretrain_data_loader(
+            os.path.join(tmp, "shards"), vocab_file=vocab, batch_size=16,
+            fixed_seq_lengths=BINS, shuffle_buffer_size=256,
+            shuffle_buffer_warmup_factor=4, base_seed=12345)
+        it = iter(prefetch_to_device(loader))
+        try:
+            batch = next(b for b in it if b["input_ids"].shape[1] == 512)
+        finally:
+            it.close()
+        mask = batch["attention_mask"]
+        pad = 1.0 - float(mask.float().mean())
+        if pad <= 0:
+            raise AssertionError("the L=512 batch has no padding")
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg).eval()
+        with torch.no_grad():
+            x = model.embeddings(batch["input_ids"], batch["token_type_ids"])
+        stacked = stack_layer_params(model.state_dict(), cfg.num_layers)
+        del model
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for rest, t in stacked.items():
+            if rest.endswith("norm.weight") or rest.endswith("norm.bias"):
+                t.copy_((1.0 if rest.endswith("weight") else 0.0)
+                        + 0.5 * torch.randn(t.shape, generator=g,
+                                            device="cuda"))
+        with torch.device("cuda"):
+            pipe = make_pipelined_encoder(mesh, cfg, PIPE_MICRO)
+            flat = reference_encoder(cfg)
+        pipe.load_stacked(stacked)
+        flat.load_stacked(stacked)
+        del stacked
+
+        def run(module):
+            xi = x.detach().clone().requires_grad_()
+            module.zero_grad(set_to_none=True)
+            y = module(xi, mask)
+            y.float().pow(2).mean().backward()
+            torch.cuda.synchronize()
+            return y.detach(), xi.grad
+
+        zero_launches(fa)
+        y_p, gx_p = run(pipe)
+        launches = read_launches(fa)
+        zero_launches(fa)
+        y_f, gx_f = run(flat)
+        flat_launches = read_launches(fa)
+        want = cfg.num_layers * PIPE_MICRO
+        print("pipelined encoder launches {}; unpipelined {}".format(
+            launches, flat_launches), flush=True)
+        if launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": want, "onekv_bwd": want}:
+            raise AssertionError("the pipelined encoder launched {} (want "
+                                 "{} of each single-block kernel)".format(
+                                     launches, want))
+        if flat_launches != dict.fromkeys(KERNELS, 0) | {
+                "onekv_fwd": cfg.num_layers, "onekv_bwd": cfg.num_layers}:
+            raise AssertionError("the unpipelined stack launched {}".format(
+                flat_launches))
+
+        def err(a, b):
+            return float((a.float() - b.float()).abs().max()), float(
+                b.float().abs().max())
+
+        checks = {"y": err(y_p, y_f), "gx": err(gx_p, gx_f)}
+        grads_f = dict(flat.named_parameters())
+        layer_max = {}
+        for name, p in flat.named_parameters():
+            layer = name.split(".")[0]
+            layer_max[layer] = max(layer_max.get(layer, 0.0),
+                                   float(p.grad.abs().max()))
+        for name, p in pipe.named_parameters():
+            diff, scale = err(p.grad, grads_f[name].grad)
+            if name.endswith("attention.key.bias"):
+                scale = layer_max[name.split(".")[0]]
+            checks[name] = (diff, scale)
+        if not all(torch.isfinite(t).all() for t in (y_p, gx_p)):
+            raise AssertionError("non-finite pipelined output or gx")
+        ratios = {k: d / s if s > 0 else math.inf
+                  for k, (d, s) in checks.items()}
+        worst = sorted(ratios, key=ratios.get)[-3:]
+        print("pipelined vs unpipelined (pp=1, n_micro={}, B=16, L=512, pad "
+              "share {:.4f}): y max |diff| {:.3e} of max {:.3e}; gx {:.3e} of "
+              "{:.3e}; {} layer gradients, worst {} (bar {})".format(
+                  PIPE_MICRO, pad, *checks["y"], *checks["gx"],
+                  len(checks) - 2, {k: "{:.3e}".format(ratios[k])
+                                    for k in worst}, PIPE_BAR), flush=True)
+        bad = {k: r for k, r in ratios.items() if not r <= PIPE_BAR}
+        if bad or len(checks) - 2 != len(grads_f):
+            raise AssertionError("pipelined and unpipelined disagree: {}"
+                                 .format(bad))
+        del y_p, gx_p, y_f, gx_f
+
+        times = {"pipelined": [], "unpipelined": []}
+        for i in range(PIPE_REPEATS + 1):
+            for what, module in (("pipelined", pipe), ("unpipelined", flat)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(module)
+                if i:
+                    times[what].append(time.perf_counter() - t0)
+        ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
+        print("bert_large encoder forward + backward, B=16, L=512: pipelined "
+              "(pp=1, n_micro={}) {:.2f} ms, unpipelined {:.2f} ms, ratio "
+              "{:.3f}, mean of {} each after a warm-up, host clock ({})"
+              .format(PIPE_MICRO, ms["pipelined"], ms["unpipelined"],
+                      ms["pipelined"] / ms["unpipelined"], PIPE_REPEATS,
+                      card), flush=True)
+        del pipe, flat
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+
+
 def main():
     global torch
     import torch
@@ -4007,7 +4190,8 @@ def main():
               ("12", "bert_elastic", lambda: elastic_path(fa, card, shared)),
               ("13", "fleet", lambda: fleet_path(fa, card, shared)),
               ("14", "download",
-               lambda: download_and_analyzer_path(fa, card))]
+               lambda: download_and_analyzer_path(fa, card)),
+              ("15", "pipeline", lambda: pipeline_path(fa, card))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

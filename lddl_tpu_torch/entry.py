@@ -10,8 +10,10 @@ Counterpart of ``__graft_entry__.py`` (``entry``, ``_mesh_axes_for``,
   moments) on a world of n ranks over a mesh with real dp/fsdp/tp/sp
   axes. It joins the process group when one is up (a world of n, e.g.
   under ``torchrun``), else starts n local processes: NCCL, one card
-  each, by default; gloo on the CPU with ``device="cpu"``. The pipeline
-  leg of the reference's dryrun waits for the pipeline's port.
+  each, by default; gloo on the CPU with ``device="cpu"``. At n >= 2 its
+  pipeline leg runs tiny BERT's encoder as a GPipe pipeline over a
+  {pp: 2, dp: n // 2} mesh on the first 2·(n // 2) ranks against the
+  unpipelined stack (``pp2_gpipe_max_err``).
 """
 
 import functools
@@ -19,7 +21,8 @@ import functools
 import numpy as np
 import torch
 
-from .testing import fake_bart_batch, fake_pretrain_batch
+from .testing import (fake_bart_batch, fake_hidden_states,
+                      fake_pretrain_batch)
 
 
 def _example_batch(vocab_size, batch, seq_len, seed=0):
@@ -150,16 +153,57 @@ def _dryrun_rank(n_devices):
                     .format(n_params, n_moments))
             out["{}_fsdp_sharded".format(kind)] = [n_params, n_moments]
         out["{}_loss".format(kind)] = value
+    out["pp2_gpipe_max_err"] = _pipeline_leg(n_devices)
     if dist.get_rank() == 0:
         print("dryrun_multichip ok: world={} {}".format(
             dist.get_world_size(), out), flush=True)
     return out
 
 
+def _pipeline_leg(n_devices):
+    """The reference dryrun's pipeline leg: one forward of tiny BERT's
+    encoder (4 rows of 32, ``n_micro`` 2) as a GPipe pipeline over a {pp:
+    2, dp: pp_used // 2} mesh on the first pp_used = 2·(n // 2) ranks,
+    against the unpipelined stack on the same weights. Returns the max
+    |error| (below 0.1, the reference's bar); None at n = 1 and on the
+    ranks outside the mesh, which still take part in making it."""
+    if n_devices < 2:
+        return None
+    from .models import BertConfig, BertForPreTraining
+    from .parallel import (make_mesh, make_pipelined_encoder,
+                           reference_encoder, stack_layer_params)
+    pp_used = 2 * (n_devices // 2)
+    mesh = make_mesh({"pp": 2, "dp": pp_used // 2}, ranks=range(pp_used))
+    if mesh.get_coordinate() is None:
+        return None
+    device = torch.device("cpu")
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    cfg = BertConfig.tiny(attention_impl="dense")
+    torch.manual_seed(0)
+    with device:
+        stacked = stack_layer_params(BertForPreTraining(cfg).state_dict(),
+                                     cfg.num_layers)
+        pipe = make_pipelined_encoder(mesh, cfg, n_micro=2)
+        ref = reference_encoder(cfg)
+    batch = _example_batch(cfg.vocab_size, batch=4, seq_len=32)
+    x = torch.from_numpy(fake_hidden_states(4, 32, cfg.hidden_size,
+                                            seed=0)).to(device)
+    mask = torch.from_numpy(batch["attention_mask"]).to(device)
+    with torch.no_grad():
+        y_pipe = pipe.load_stacked(stacked)(x, mask)
+        y_ref = ref.load_stacked(stacked)(x, mask)
+    err = float((y_pipe.float() - y_ref.float()).abs().max())
+    if not err < 0.1:
+        raise AssertionError("pipeline drift vs reference: {}".format(err))
+    return err
+
+
 def dryrun_multichip(n_devices, device=None):
     """One sharded train step of tiny BERT and BART on a world of
-    ``n_devices`` ranks; returns rank 0's summary (mesh, losses, counts
-    of fsdp-sharded parameters and moments)."""
+    ``n_devices`` ranks, then the pipeline leg; returns rank 0's summary
+    (mesh, losses, counts of fsdp-sharded parameters and moments,
+    ``pp2_gpipe_max_err``)."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         if dist.get_world_size() != n_devices:

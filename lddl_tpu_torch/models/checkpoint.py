@@ -58,7 +58,8 @@ def _payload(model, optimizer, step):
         if not state:
             state["step"] = torch.zeros((), dtype=torch.float32)
             state["exp_avg"] = torch.zeros_like(
-                p, memory_format=torch.preserve_format)
+                p, dtype=optimizer.mu_dtype,
+                memory_format=torch.preserve_format)
             state["exp_avg_sq"] = torch.zeros_like(
                 p, memory_format=torch.preserve_format)
         moments[names[p]] = {k: state[k]

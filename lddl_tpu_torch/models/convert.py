@@ -86,7 +86,8 @@ def load_flax_train_state(model, optimizer, params, mu, nu, count):
         name = names[p]
         optimizer.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": exp_avg[name].to(p.device, p.dtype),
+            "exp_avg": exp_avg[name].to(p.device,
+                                        optimizer.mu_dtype or p.dtype),
             "exp_avg_sq": exp_avg_sq[name].to(p.device, p.dtype),
         }
     optimizer.set_step_count(int(count))

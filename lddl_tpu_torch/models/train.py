@@ -111,6 +111,71 @@ def _param_groups(params):
     return [{"params": group} for group in groups.values()]
 
 
+class LowMuAdamW(torch.optim.Optimizer):
+    """AdamW whose first moment is stored in ``mu_dtype`` (bf16 halves its
+    bytes at rest), in optax's order (``scale_by_adam(mu_dtype=)``, then
+    ``add_decayed_weights`` and the learning rate): the update uses the
+    fp32 moment computed from the stored one, b1 times it rounded to
+    ``mu_dtype`` first, as JAX's product of a Python float and a bf16
+    array is, and only what is stored is cast. torch's foreach AdamW
+    refuses state of another dtype than its parameter's, so this is the
+    port's own foreach update. The state keeps AdamW's keys (``step``,
+    ``exp_avg``, ``exp_avg_sq``); a moment that ``load_state_dict`` cast
+    to its parameter's dtype is cast back, losslessly, at the next step."""
+
+    def __init__(self, params, lr, betas, eps, weight_decay, mu_dtype):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    def _state(self, p):
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32)
+            state["exp_avg"] = torch.zeros_like(
+                p, dtype=self.mu_dtype, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+        elif state["exp_avg"].dtype != self.mu_dtype:
+            state["exp_avg"] = state["exp_avg"].to(self.mu_dtype)
+        state["step"] += 1
+        return state
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            states = [self._state(p) for p in params]
+            grads = [p.grad for p in params]
+            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            mu = [t.float() for t in torch._foreach_mul(
+                [s["exp_avg"] for s in states], b1_mu)]
+            m = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(m, mu)
+            v = torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2)
+            torch._foreach_add_(v, torch._foreach_mul(
+                [s["exp_avg_sq"] for s in states], b2))
+            counts = [int(s["step"]) for s in states]
+            one = torch.tensor(1.0)
+            bc1 = [float(one - torch.tensor(b1) ** c) for c in counts]
+            bc2 = [float(one - torch.tensor(b2) ** c) for c in counts]
+            den = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(m, bc1)
+            torch._foreach_div_(upd, den)
+            torch._foreach_add_(upd, torch._foreach_mul(
+                params, group["weight_decay"]))
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            for s, m_i, v_i in zip(states, m, v):
+                s["exp_avg"].copy_(m_i)
+                s["exp_avg_sq"].copy_(v_i)
+
+
 class ClippedAdamW:
     """Global-norm clipping, then ``torch.optim.AdamW`` under a
     ``LambdaLR`` stepped after every update — optax's
@@ -119,13 +184,21 @@ class ClippedAdamW:
     CUDA, so a run on the CPU goes through the same code."""
 
     def __init__(self, params, learning_rate, weight_decay, warmup_steps,
-                 total_steps, b1, b2, clip_norm):
+                 total_steps, b1, b2, clip_norm, mu_dtype=None):
         self.params = [p for p in params if p.requires_grad]
         self.clip_norm = clip_norm
+        self.mu_dtype = mu_dtype
         decay_steps = max(total_steps, warmup_steps + 1)
-        self.optimizer = torch.optim.AdamW(
-            _param_groups(self.params), lr=learning_rate, betas=(b1, b2),
-            eps=1e-8, weight_decay=weight_decay, foreach=True)
+        if mu_dtype is None:
+            self.optimizer = torch.optim.AdamW(
+                _param_groups(self.params), lr=learning_rate,
+                betas=(b1, b2), eps=1e-8, weight_decay=weight_decay,
+                foreach=True)
+        else:
+            self.optimizer = LowMuAdamW(
+                _param_groups(self.params), lr=learning_rate,
+                betas=(b1, b2), eps=1e-8, weight_decay=weight_decay,
+                mu_dtype=mu_dtype)
 
         def factor(count):
             if learning_rate == 0:
@@ -205,10 +278,14 @@ class ClippedAdamW:
 
 def make_optimizer(params, learning_rate=1e-4, weight_decay=0.01,
                    warmup_steps=100, total_steps=10000, b1=0.9, b2=0.999,
-                   clip_norm=1.0):
-    """AdamW with warmup-cosine schedule and global-norm clipping."""
+                   clip_norm=1.0, mu_dtype=None):
+    """AdamW with warmup-cosine schedule and global-norm clipping.
+
+    ``mu_dtype`` (e.g. ``torch.bfloat16``) stores the first Adam moment in
+    that dtype (``LowMuAdamW``), a memory option; None keeps torch's
+    foreach AdamW with fp32 moments. The second moment stays fp32."""
     return ClippedAdamW(params, learning_rate, weight_decay, warmup_steps,
-                        total_steps, b1, b2, clip_norm)
+                        total_steps, b1, b2, clip_norm, mu_dtype)
 
 
 def mlm_gather_cap(seq_len, n_samples_per_row=1):

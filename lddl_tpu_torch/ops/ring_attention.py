@@ -25,25 +25,8 @@ jnp: there is no Pallas kernel here.
 
 import torch
 
+from ..parallel.distributed import rotate
 from .flash_attention import NEG_BIG
-
-
-def _rotate(tensors, group):
-    """Send each tensor to the next rank of ``group``'s ring and receive
-    the previous rank's."""
-    import torch.distributed as dist
-    n = dist.get_world_size(group)
-    r = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (r + 1) % n)
-    prv = dist.get_global_rank(group, (r - 1) % n)
-    outs = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for t, out in zip(tensors, outs):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
-        ops.append(dist.P2POp(dist.irecv, out, prv, group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return outs
 
 
 def _scores(q, k, mask, scale):
@@ -76,7 +59,7 @@ class _RingAttention(torch.autograd.Function):
             m = m_new
             # The last block's rotation would only be discarded.
             if step < n - 1:
-                k_blk, v_blk, mask_blk = _rotate([k_blk, v_blk, mask_blk],
+                k_blk, v_blk, mask_blk = rotate([k_blk, v_blk, mask_blk],
                                                  group)
         l = l.clamp_min(1e-30)
         out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
@@ -108,10 +91,10 @@ class _RingAttention(torch.autograd.Function):
             # Each block's gradients travel with it; after the last block
             # one more hop brings them to the block's own rank.
             if step < n - 1:
-                k_blk, v_blk, mask_blk, dk_blk, dv_blk = _rotate(
+                k_blk, v_blk, mask_blk, dk_blk, dv_blk = rotate(
                     [k_blk, v_blk, mask_blk, dk_blk, dv_blk], group)
             else:
-                dk_blk, dv_blk = _rotate([dk_blk, dv_blk], group)
+                dk_blk, dv_blk = rotate([dk_blk, dv_blk], group)
         return (dq.to(q.dtype), dk_blk.to(k.dtype), dv_blk.to(v.dtype),
                 None, None)
 

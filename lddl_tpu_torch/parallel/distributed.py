@@ -173,6 +173,26 @@ class ThreadGroupCommunicator(Communicator):
         return results
 
 
+def rotate(tensors, group, shift=1):
+    """Send each tensor ``shift`` ranks on around ``group``'s ring and
+    receive the tensor of the rank ``shift`` back: 1 hands to the next
+    rank, -1 to the previous one. One batch of p2p ops, which every rank
+    of the group must issue in the same order."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (r + shift) % n)
+    prv = dist.get_global_rank(group, (r - shift) % n)
+    outs = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, out in zip(tensors, outs):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
+        ops.append(dist.P2POp(dist.irecv, out, prv, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
 def _group_is_up():
     import torch.distributed as dist
     return dist.is_available() and dist.is_initialized()

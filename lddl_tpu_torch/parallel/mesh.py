@@ -14,7 +14,7 @@ Canonical axis names (a subset may be present):
     fsdp  fully-sharded DP       (batch dim + param shards)
     tp    tensor parallel        (heads, MLP and vocabulary dims)
     sp    sequence parallel      (sequence dim)
-    pp    pipeline parallel      (layer stages; not ported yet)
+    pp    pipeline parallel      (encoder layer stages, parallel.pipeline)
 
 Batches are sharded over ``DATA_AXES = ('dp', 'fsdp')``: every rank that
 shares a (dp, fsdp) coordinate, i.e. the tp and sp peers, gets the same
@@ -40,20 +40,28 @@ REPLICA_AXES = (AXIS_DP, AXIS_SP)
 _AMBIENT = contextvars.ContextVar("lddl_tpu_torch_mesh", default=None)
 
 
-def make_mesh(axis_sizes, device_type=None):
+def make_mesh(axis_sizes, device_type=None, ranks=None):
     """A ``DeviceMesh`` over the ranks of the default process group from
     {axis_name: size}; size -1 means "absorb the rest".
 
     Axis order follows the insertion order of ``axis_sizes``, rank-major
     as ``init_device_mesh`` lays it out. Axes of size 1 are kept.
     ``device_type`` defaults to the group's: ``cuda`` under NCCL, ``cpu``
-    under gloo. The process group must be up (``init_distributed``)."""
+    under gloo. The process group must be up (``init_distributed``).
+
+    ``ranks`` (the reference's ``devices``) lays the mesh over those world
+    ranks only, in order. Every rank of the world still calls it, since
+    making a group is collective; a rank outside gets a mesh whose
+    ``get_coordinate()`` is None and must not use it. Such a mesh may
+    have one data axis and one replica axis at most: their flattened
+    groups would be made by the mesh's ranks alone."""
+    import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh needs the process group: call "
                            "parallel.init_distributed() first")
-    n = dist.get_world_size()
+    n = dist.get_world_size() if ranks is None else len(ranks)
     names = list(axis_sizes.keys())
     sizes = list(axis_sizes.values())
     if sizes.count(-1) > 1:
@@ -69,15 +77,24 @@ def make_mesh(axis_sizes, device_type=None):
         raise ValueError(
             "mesh {} needs {} devices, have {}".format(
                 dict(zip(names, sizes)), math.prod(sizes), n))
-    shape = dict(zip(names, sizes))
-    if shape.get(AXIS_PP, 1) > 1:
-        raise NotImplementedError(
-            "pp > 1: the pipeline (lddl_tpu/parallel/pipeline.py) is the "
-            "port's next slice")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    mesh = init_device_mesh(device_type, tuple(sizes),
-                            mesh_dim_names=tuple(names))
+    if ranks is None:
+        mesh = init_device_mesh(device_type, tuple(sizes),
+                                mesh_dim_names=tuple(names))
+    else:
+        flat = [axes for axes in (data_axes_of(names),
+                                  tuple(a for a in names
+                                        if a in REPLICA_AXES))
+                if len(axes) > 1]
+        if flat:
+            raise ValueError("a mesh over some ranks cannot flatten {}"
+                             .format(flat))
+        mesh = DeviceMesh(device_type,
+                          torch.tensor(list(ranks)).reshape(sizes),
+                          mesh_dim_names=tuple(names))
+        if mesh.get_coordinate() is None:
+            return mesh
     # Make the flattened groups now, at one point of every rank's program
     # (making a group is collective over the world).
     axes_mesh(mesh, mesh_data_axes(mesh))

@@ -268,14 +268,15 @@ def mesh_world():
     errors = {}
     for name, axes in (("two_inferred", {"dp": -1, "tp": -1}),
                        ("indivisible", {"dp": -1, "tp": 3}),
-                       ("too_many", {"dp": 3, "tp": 4}),
-                       ("pp", {"pp": 2, "dp": 2})):
+                       ("too_many", {"dp": 3, "tp": 4})):
         try:
             make_mesh(axes)
             errors[name] = None
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             errors[name] = "{}: {}".format(type(e).__name__, e)
     out["errors"] = errors
+    pp = make_mesh({"pp": 2, "dp": 2})
+    out["pp_mesh"] = dict(zip(pp.mesh_dim_names, pp.mesh.shape))
     try:
         resolve_device()
     except RuntimeError as e:
@@ -339,3 +340,63 @@ def ring_world(path, bert_kw, bart_kw):
     except NotImplementedError as e:
         res["packed"] = str(e)
     return res
+
+
+def _count_p2p(counts):
+    """Make torch.distributed's point-to-point and collective calls count
+    themselves into ``counts``; returns the undo. (``isend``/``irecv``
+    are left alone: ``P2POp`` checks their identity, and
+    ``batch_isend_irecv`` counts them.)"""
+    import torch.distributed as dist
+    names = ("batch_isend_irecv", "broadcast", "all_reduce", "send", "recv")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    return lambda: [setattr(dist, n, f) for n, f in saved.items()]
+
+
+def pipeline_world(path, cfg_kw, cases, train_spec=None):
+    """A rank of the pipeline checks: for each ``(axes, n_micro, dtype)``
+    of ``cases`` (dtype a torch attribute name), the mesh, this rank's
+    stage of ``make_pipelined_encoder`` loaded from the stacked weights
+    in ``path`` (``w.<rest>`` arrays, plus ``x`` and ``mask``), its
+    output ``y``, the gradients of mean(y.float()**2) for ``x`` and the
+    stage's layers ({state-dict name: numpy}), the torch.distributed
+    calls it made ({name: count}) and the rank rule on the mesh. Then,
+    with ``train_spec``, ``train_world(train_spec)``. Returns {"cases":
+    [...], "train": ...}."""
+    from ..loader.sharding import process_dp_info
+    from ..models import BertConfig
+    from .mesh import make_mesh
+    from .pipeline import make_pipelined_encoder
+    data = dict(np.load(path))
+    stacked = {k[2:]: torch.from_numpy(v) for k, v in data.items()
+               if k.startswith("w.")}
+    out = []
+    for axes, n_micro, dtype in cases:
+        cfg = BertConfig.tiny(dtype=getattr(torch, dtype), **cfg_kw)
+        mesh = make_mesh(axes)
+        enc = make_pipelined_encoder(mesh, cfg, n_micro).load_stacked(
+            stacked)
+        x = torch.from_numpy(data["x"]).requires_grad_()
+        calls = {}
+        undo = _count_p2p(calls)
+        try:
+            y = enc(x, torch.from_numpy(data["mask"]))
+            y.float().pow(2).mean().backward()
+        finally:
+            undo()
+        out.append({"y": _np(y), "gx": _np(x.grad),
+                    "grads": {n: _np(p.grad)
+                              for n, p in enc.named_parameters()},
+                    "calls": calls, "stage": enc.stage,
+                    "dp_info": process_dp_info(mesh)})
+    return {"cases": out,
+            "train": train_world(train_spec) if train_spec else None}

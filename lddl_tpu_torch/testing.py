@@ -1,8 +1,9 @@
 """Synthetic data for tests and the chip smoke run.
 
-- ``fake_pretrain_batch``, ``fake_bart_batch``: numpy batches in the BERT
-  and BART loaders' contracts (counterparts of
-  ``lddl_tpu/models/testing.py``).
+- ``fake_pretrain_batch``, ``fake_packed_pretrain_batch``,
+  ``fake_bart_batch``: numpy batches in the BERT, packed BERT and BART
+  loaders' contracts (counterparts of ``lddl_tpu/models/testing.py``);
+  ``fake_hidden_states``: a random encoder input.
 - ``write_vocab``: a ``vocab.txt`` made from a seed, the five special
   tokens first.
 - ``write_balanced_shards``: balanced, length-binned schema-v2 BERT shards
@@ -47,6 +48,49 @@ def fake_pretrain_batch(vocab_size, batch, seq_len, seed=0,
                            -1).astype(np.int32),
         "next_sentence_labels": rng.integers(0, 2, (batch,)).astype(np.int32),
     }
+
+
+def fake_packed_pretrain_batch(vocab_size, rows, seq_len, max_per_row,
+                               seed=0):
+    """A numpy batch in the packed loader's contract
+    (``loader.bert.BertPackedCollate`` / ``BertPrepackedCollate``): two
+    samples a row (one when ``max_per_row`` is 1), block-diagonal
+    segments, per-slot NSP labels padded with -1; the input keys of
+    ``BertForPreTrainingPacked``."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, vocab_size, (rows, seq_len)).astype(np.int32)
+    n_samples = min(2, max_per_row)
+    half = seq_len // 2 if n_samples == 2 else seq_len
+    segments = np.ones((rows, seq_len), np.int32)
+    segments[:, half:] = n_samples
+    position_ids = np.concatenate(
+        [np.arange(half), np.arange(seq_len - half)]).astype(np.int32)
+    position_ids = np.broadcast_to(position_ids, (rows, seq_len)).copy()
+    cls_positions = np.zeros((rows, max_per_row), np.int32)
+    if n_samples == 2:
+        cls_positions[:, 1] = half
+    nsp = np.full((rows, max_per_row), -1, np.int32)
+    nsp[:, :n_samples] = rng.integers(0, 2,
+                                      (rows, n_samples)).astype(np.int32)
+    return {
+        "input_ids": ids,
+        "token_type_ids": np.zeros((rows, seq_len), np.int32),
+        "attention_mask": np.ones((rows, seq_len), np.int32),
+        "segments": segments,
+        "position_ids": position_ids,
+        "cls_positions": cls_positions,
+        "next_sentence_labels": nsp,
+        "labels": np.where(rng.random((rows, seq_len)) < 0.15, ids,
+                           -1).astype(np.int32),
+    }
+
+
+def fake_hidden_states(batch, seq_len, hidden, seed=0):
+    """Standard-normal float32 activations [batch, seq_len, hidden] from
+    ``np.random.default_rng(seed)``: an encoder stack's input, as the
+    reference dryrun's pipeline leg draws it."""
+    return np.random.default_rng(seed).standard_normal(
+        (batch, seq_len, hidden)).astype(np.float32)
 
 
 def fake_bart_batch(vocab_size, batch, seq_len, seed=0):

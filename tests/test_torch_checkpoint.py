@@ -37,13 +37,13 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _setup(seed, **cfg_kw):
+def _setup(seed, mu_dtype=None, **cfg_kw):
     cfg = BertConfig.tiny(dtype=torch.float32, attention_impl="dense",
                           **cfg_kw)
     torch.manual_seed(seed)
     model = BertForPreTraining(cfg)
     opt = make_optimizer(model.parameters(), learning_rate=1e-3,
-                         warmup_steps=1, total_steps=10)
+                         warmup_steps=1, total_steps=10, mu_dtype=mu_dtype)
     return model, opt, make_train_step(model, opt)
 
 
@@ -98,6 +98,32 @@ def test_checkpoint_roundtrip_and_exact_resume(tmp_path):
     other(batch, seed=0)
     other(batch, seed=0)
     assert float(other(batch, seed=1)["loss"]) != float(m_straight["loss"])
+
+
+def test_checkpoint_keeps_a_bf16_first_moment(tmp_path):
+    """make_optimizer(mu_dtype=bf16): the first moment is saved and
+    restored in bf16, into an optimizer that has not stepped yet, and the
+    resumed step equals the live one bit for bit."""
+    ckpt = str(tmp_path / "ckpt")
+    model, opt, step = _setup(0, mu_dtype=torch.bfloat16)
+    batch = _batch()
+    for _ in range(2):
+        step(batch, seed=0)
+    save_train_state(ckpt, model, opt, 2)
+    fresh, fresh_opt, fresh_step = _setup(99, mu_dtype=torch.bfloat16)
+    assert restore_train_state(ckpt, fresh, fresh_opt) == 2
+    live, restored = (_optimizer_leaves(model, opt),
+                      _optimizer_leaves(fresh, fresh_opt))
+    for key in live:
+        assert live[key].dtype == restored[key].dtype, key
+        assert torch.equal(live[key], restored[key]), key
+    assert {v.dtype for (_, k), v in live.items() if k == "exp_avg"} == {
+        torch.bfloat16}
+    assert float(fresh_step(batch, seed=0)["loss"]) == float(
+        step(batch, seed=0)["loss"])
+    for (name, a), b in zip(model.state_dict().items(),
+                            fresh.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 def test_checkpoint_keep_prunes_old_steps(tmp_path):

@@ -1,12 +1,12 @@
 """The port's BERT (lddl_tpu_torch.models) against lddl_tpu's flax model
 with the same (converted) parameters.
 
-Tolerances: fp32 logits agree to 1e-5 (absolute and relative): both sides
-run the same fp32 products and differ only in summation order and in the
-LayerNorm variance formula. The bf16 case is held to 5e-2 of max |ref|:
-both take the dense softmax in bf16 (flax sums in bf16, torch in fp32
-before it rounds), and every layer rounds its activations to bf16 at
-slightly different places.
+Tolerances: fp32 logits agree to 1e-5 (absolute and relative), at tiny
+and at bert_base's widths: both sides run the same fp32 products and
+differ only in summation order and in the LayerNorm variance formula.
+The bf16 case is held to 5e-2 of max |ref|: both take the dense softmax
+in bf16 (flax sums in bf16, torch in fp32 before it rounds), and every
+layer rounds its activations to bf16 at slightly different places.
 """
 
 import numpy as np
@@ -102,6 +102,23 @@ def test_logits_match_flax(impl, l):
     jcfg, tcfg = _cfgs(attention_impl=impl)
     batch = _batch(jcfg.vocab_size, 3, l, seed=l)
     params = _flax_params(jcfg, batch, seed=1)
+    j_mlm, j_nsp = JBert(jcfg).apply(
+        {"params": params}, batch["input_ids"], batch["token_type_ids"],
+        batch["attention_mask"], deterministic=True)
+    t_mlm, t_nsp = _port_logits(_port_model(tcfg, params), batch)
+    np.testing.assert_allclose(t_mlm, np.asarray(j_mlm), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(t_nsp, np.asarray(j_nsp), rtol=TOL, atol=TOL)
+
+
+def test_logits_match_flax_bert_base():
+    """fp32 logits at bert_base's widths (vocab 30522, hidden 768, 12
+    layers, 12 heads) at B=2, L=128 with a padded row, the flax weights
+    through the converter: within the tiny cases' TOL."""
+    kw = dict(hidden_dropout=0.0, attention_dropout=0.0)
+    jcfg = JBertConfig.bert_base(dtype=jnp.float32, **kw)
+    tcfg = BertConfig.bert_base(dtype=torch.float32, **kw)
+    batch = _batch(jcfg.vocab_size, 2, 128, seed=11)
+    params = _flax_params(jcfg, batch, seed=3)
     j_mlm, j_nsp = JBert(jcfg).apply(
         {"params": params}, batch["input_ids"], batch["token_type_ids"],
         batch["attention_mask"], deterministic=True)

@@ -120,6 +120,20 @@ def test_ffd_pack_and_pack_columns_match_reference(masking):
     assert tprep.pack_meta_of(128, 4) == jprep.pack_meta_of(128, 4)
 
 
+@pytest.mark.parametrize("max_per_row", [1, 8])
+def test_fake_packed_pretrain_batch_matches_reference(max_per_row):
+    """The port's synthetic packed batch equals lddl_tpu's array for array,
+    dtypes included."""
+    from lddl_tpu.models.testing import fake_packed_pretrain_batch as j_fake
+    want = j_fake(512, 3, 64, max_per_row, seed=4)
+    got = ttesting.fake_packed_pretrain_batch(512, 3, 64, max_per_row,
+                                              seed=4)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_packed_shard_writer_matches_reference(tmp_path):
     """testing.write_packed_shards (the port's pack_columns) against
     lddl_tpu's write_packed_shard on the same samples: the same packed

@@ -174,7 +174,7 @@ def test_make_mesh_4_ranks(mesh_world):
         assert errors["two_inferred"].startswith("ValueError: at most one")
         assert errors["indivisible"].startswith("ValueError: cannot infer")
         assert errors["too_many"].startswith("ValueError: mesh")
-        assert errors["pp"].startswith("NotImplementedError")
+        assert out["pp_mesh"] == {"pp": 2, "dp": 2}
 
 
 def test_process_dp_info_on_a_real_mesh(mesh_world):

@@ -98,6 +98,84 @@ def test_optimizer_update_matches_optax():
                                    atol=1e-6)
 
 
+def test_optimizer_mu_dtype_matches_optax():
+    """make_optimizer(mu_dtype=bf16): three clipped updates against optax's
+    adamw(mu_dtype=bfloat16) on the same gradients, and the stored first
+    moments equal bit for bit (bf16: the same fp32 moment rounded once)."""
+    import jax.numpy as jnp
+    import optax
+    from lddl_tpu.models.train import make_optimizer as j_make
+    g = np.random.default_rng(2)
+    w0 = g.standard_normal((4, 5)).astype(np.float32)
+    tx = j_make(learning_rate=1e-2, warmup_steps=1, total_steps=6,
+                mu_dtype=jnp.bfloat16)
+    params = {"w": w0}
+    state = tx.init(params)
+    p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    opt = make_optimizer([p], learning_rate=1e-2, warmup_steps=1,
+                         total_steps=6, mu_dtype=torch.bfloat16)
+    for step in range(3):
+        grad = (g.standard_normal((4, 5)) * (3.0 if step % 2 else 0.05)
+                ).astype(np.float32)
+        updates, state = tx.update({"w": grad}, state, params)
+        params = optax.apply_updates(params, updates)
+        p.grad = torch.from_numpy(grad.copy())
+        opt.step()
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   np.asarray(params["w"]), rtol=1e-6,
+                                   atol=1e-6)
+        mu = opt.optimizer.state[p]["exp_avg"]
+        assert mu.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            mu.float().numpy(),
+            np.asarray(state[1][0].mu["w"], np.float32))
+        np.testing.assert_allclose(
+            opt.optimizer.state[p]["exp_avg_sq"].numpy(),
+            np.asarray(state[1][0].nu["w"]), rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("mu_dtype,want", [(None, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+def test_optimizer_mu_dtype_opt_in(mu_dtype, want):
+    """The counterpart of tests/test_models.py's mu_dtype test: the first
+    moment is stored in mu_dtype (fp32 by default), the second in fp32,
+    and a train step of tiny BERT is finite."""
+    from lddl_tpu_torch.testing import fake_pretrain_batch
+    cfg = BertConfig.tiny()
+    torch.manual_seed(0)
+    model = BertForPreTraining(cfg)
+    opt = make_optimizer(model.parameters(), warmup_steps=1, total_steps=5,
+                         mu_dtype=mu_dtype)
+    batch = {k: torch.from_numpy(v) for k, v in
+             fake_pretrain_batch(cfg.vocab_size, 8, 32).items()}
+    metrics = make_train_step(model, opt)(batch)
+    assert np.isfinite(float(metrics["loss"]))
+    for p in model.parameters():
+        state = opt.optimizer.state[p]
+        assert state["exp_avg"].dtype == want
+        assert state["exp_avg_sq"].dtype == torch.float32
+        assert torch.isfinite(p).all()
+
+
+def test_optimizer_mu_dtype_none_is_torch_adamw():
+    """mu_dtype=None keeps torch's foreach AdamW: the same update, bit for
+    bit, as the optimizer built without the argument."""
+    g = np.random.default_rng(3)
+    w0 = g.standard_normal((6, 3)).astype(np.float32)
+    ps = [torch.nn.Parameter(torch.from_numpy(w0.copy())) for _ in range(2)]
+    opts = [make_optimizer([ps[0]], learning_rate=1e-2, warmup_steps=1,
+                           total_steps=6),
+            make_optimizer([ps[1]], learning_rate=1e-2, warmup_steps=1,
+                           total_steps=6, mu_dtype=None)]
+    assert type(opts[1].optimizer) is torch.optim.AdamW
+    for _ in range(3):
+        grad = g.standard_normal((6, 3)).astype(np.float32)
+        for p, opt in zip(ps, opts):
+            p.grad = torch.from_numpy(grad.copy())
+            opt.step()
+        assert torch.equal(ps[0], ps[1])
+
+
 @pytest.fixture(scope="module")
 def shards(tmp_path_factory):
     from lddl_tpu_torch.testing import write_balanced_shards, write_vocab
