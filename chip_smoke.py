@@ -9,22 +9,30 @@ exits non-zero):
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
    (two sources: ``attention_fwd.cu``, both forwards;
    ``online_attention_bwd.cu``, the backward of both regimes) with nvcc
-   for sm_90a, one nvcc per source, all started together; print ptxas's
-   register/spill lines, a register/spill summary of each of the six
-   kernels at D=64 and D=128 and, from ``cuobjdump -sass``, the HGMMA
-   (wgmma) instructions of the six kernels, none of which may be 0;
+   for sm_90a, one nvcc per source not built yet, all started together,
+   and the build's seconds; print ptxas's register/spill lines (kept
+   beside each library, so a cached build has them), a register/spill
+   summary of each of the six kernels at D=64 and D=128 and of the three
+   online kernels at D=256 (which must spill 0 bytes) and, from
+   ``cuobjdump -sass``, the HGMMA (wgmma) instructions of every kernel,
+   none of which may be 0;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
    ``F.scaled_dot_product_attention`` (its backward via autograd.grad):
    the single-block kernels at bert_large's bins (plus L=128, 200, 896
    and D=128 at L=512), the online-softmax kernels at bart_base's B=8, H=12,
-   L=1024 (plus L=2048 and D=128 at L_pad 640), each shape with padding
-   masks and with segment ids 1-3 plus a batch row masked entirely, and
+   L=1024 (plus L=2048, D=128 at L_pad 640, phase 16's D=256 shape B=8,
+   H=3, L=1024 and D=256 at L_pad 640), each shape with padding masks and
+   with segment ids 1-3 plus a batch row masked entirely, and
    the single-block kernels at the packed phase's shape (B=16, H=16,
    L=512, D=64) with packed rows' segment ids 1-8, timed there too
    against SDPA under the equivalent block-diagonal mask; every kernel
-   bit-identical in two launches, at every checked shape; then the
+   bit-identical in two launches, at every checked shape; the online
+   kernels timed at both B=8, L=1024 shapes (D=64 and D=256);
+   ``flash_attention`` at head dims it zero-pads (8, 32, 96 at L=512 on
+   the single-block pair, 160 at L=1024 on the online kernels), forward
+   and gradients against the plain versions at the true D; then the
    backward against the library's per L at B=16, H=16, D=64 (L 256-1024);
    every time is device time (``cuda_time_ms`` holds the stream while the
    calls queue);
@@ -220,11 +228,20 @@ exits non-zero):
    launches ``onekv_fwd`` and ``onekv_bwd`` 96 times each (24 layers x 4
    microbatches), the unpipelined one 24; host-clock ms of both and
    their ratio.
+16. bart_base's widths at head dim 256: phase 6's path (the same loader,
+   shards, steps and checks) with ``num_heads=3``, so hidden 768 makes
+   head_dim 256 and "auto" sends the encoder's self-attention to the
+   D=256 builds of the three online kernels (6 launches of each a step,
+   in the counted steps and in a profiled step); the decoder stays dense.
+   Host-clock step ms beside phase 6's.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
-``download`` is phase 14's, ``pipeline`` phase 15's pipelined run), the
-card line, and last
+``download`` is phase 14's, ``pipeline`` phase 15's pipelined run,
+``bart_d256`` phase 16's; the ``_d256`` rows are the online kernels'
+D=256 builds, timed at phase 16's shape and counted in phase 16 alone,
+and the other online rows count every path but phase 16), the card
+line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -253,6 +270,8 @@ STEPS = 16           # counted BERT steps
 PROFILE_STEPS = 6    # then a profiled window of further steps
 BART_STEPS = 8       # counted BART steps (the first is warm-up)
 BART_BATCH, BART_L = 8, 1024
+BART_D256_HEADS = 3  # phase 16: bart_base's widths at head dim 256
+D256_PATH = "bart_d256"  # phase 16, the one path at head dim 256
 # Packed rows: pack_seq_length, rows per batch (the binned L=512 bin's
 # 8192 padded tokens a step) and samples per row at most (the preprocess
 # CLI's default).
@@ -693,15 +712,20 @@ def backward_by_length(fa):
 
 def check_online_kernels(fa):
     """Online-softmax kernels vs plain versions at bart_base's shape, at
-    L=2048 and at D=128 (L_pad 640), each with padding masks and with
-    segment ids 1-3 plus a batch row masked entirely; the two backward
-    kernels must give bit-identical results in two launches. Timings at
-    bart_base's shape. Returns the kernels' JSON entries (launch counts
-    filled in later)."""
-    main = (BART_BATCH, BART_L, 12, 64)
+    L=2048, at D=128 (L_pad 640), at phase 16's D=256 shape (B=8, L=1024,
+    H=3) and at the reference's D=256 case (L=600, L_pad 640), each with
+    padding masks and with segment ids 1-3 plus a batch row masked
+    entirely; every kernel must give bit-identical results in two
+    launches. Timings at bart_base's shape and at phase 16's. Returns the
+    kernels' JSON entries (launch counts filled in later): the D=64 rows
+    under the kernels' names, the D=256 rows with a ``_d256`` suffix."""
+    main = {64: (BART_BATCH, BART_L, 12, 64),
+            256: (BART_BATCH, BART_L, BART_D256_HEADS, 256)}
     max_abs = {}
     for (b, l, h, d), segments in (
-            (shape, seg) for shape in (main, (2, 2048, 4, 64), (4, 600, 4, 128))
+            (shape, seg) for shape in (main[64], (2, 2048, 4, 64),
+                                       (4, 600, 4, 128), main[256],
+                                       (2, 600, 2, 256))
             for seg in (False, True)):
         q, k, v, do, mask = attention_inputs(b, l, h, d, seed=l + d + 1,
                                              segments=segments)
@@ -735,16 +759,28 @@ def check_online_kernels(fa):
             "O": rel_err(o, o_ref), "LSE": rel_err(lse, lse_ref),
             "dQ": rel_err(dq, dq_ref), "dK": rel_err(dk, dk_ref),
             "dV": rel_err(dv, dv_ref)})
-        if (b, l, h, d) == main and not segments:
+        if (b, l, h, d) == main.get(d) and not segments:
             def abs_err(a, r):
                 return float((a.float() - r.float()).abs().max())
-            max_abs["online_fwd"] = max(abs_err(o, o_ref),
-                                        abs_err(lse, lse_ref))
-            max_abs["online_bwd_dq"] = abs_err(dq, dq_ref)
-            max_abs["online_bwd_dkv"] = max(abs_err(dk, dk_ref),
-                                            abs_err(dv, dv_ref))
+            max_abs[d] = {
+                "online_fwd": max(abs_err(o, o_ref), abs_err(lse, lse_ref)),
+                "online_bwd_dq": abs_err(dq, dq_ref),
+                "online_bwd_dkv": max(abs_err(dk, dk_ref),
+                                      abs_err(dv, dv_ref))}
+    return (time_online_kernels(fa, main[64], max_abs[64], "",
+                                lambda path: path != D256_PATH)
+            + time_online_kernels(fa, main[256], max_abs[256], "_d256",
+                                  lambda path: path == D256_PATH))
 
-    b, l, h, d = main
+
+def time_online_kernels(fa, shape, max_abs, suffix, counts_path):
+    """The three online kernels at ``shape`` with padding masks: kernel
+    and plain version in turns and SDPA's forward and backward (two turns
+    around the port's); returns their JSON entries, named with
+    ``suffix``. Each entry carries the wrapper's counter (``counter``) and
+    which paths' launches it counts (``counts_path``, a predicate on the
+    path's name); ``main`` takes both out of the entry."""
+    b, l, h, d = shape
     q, k, v, do, mask = attention_inputs(b, l, h, d, seed=11)
     qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, mask, None)
     scale = 1.0 / math.sqrt(d)
@@ -772,9 +808,9 @@ def check_online_kernels(fa):
                   {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
               lib["fwd"], [round(x, 4) for x in lib_bwd_turns]), flush=True)
     pair = t["online_bwd_dq"][0] + t["online_bwd_dkv"][0]
-    print("online backward pair: dQ + dK/dV {:.4f} ms, library backward "
-          "{:.4f} ms (mean of two turns), ratio {:.2f}".format(pair, lib["bwd"],
-                                          pair / lib["bwd"]), flush=True)
+    print("online backward pair at D={}: dQ + dK/dV {:.4f} ms, library "
+          "backward {:.4f} ms (mean of two turns), ratio {:.2f}".format(
+              d, pair, lib["bwd"], pair / lib["bwd"]), flush=True)
 
     bh, n = b * h, b * h * l * d
     masks, row = 2 * b * l * 4, bh * l * 4
@@ -793,13 +829,66 @@ def check_online_kernels(fa):
     for name in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
         bms, by = bound(*work[name])
         entries.append({
-            "name": name, "route": "cuda", "source": src[name],
+            "name": name + suffix, "route": "cuda", "source": src[name],
             "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
                 replaces[name]),
             "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
             "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
-            "library_ms": lib["fwd" if name == "online_fwd" else "bwd"]})
+            "library_ms": lib["fwd" if name == "online_fwd" else "bwd"],
+            "shape": {"B": b, "L": l, "H": h, "D": d},
+            "counter": name, "counts_path": counts_path})
     return entries
+
+
+def check_padded_widths(fa):
+    """flash_attention on the card at head dims the kernels are not built
+    for, which it zero-pads to the next built width: D=8, 32 and 96 at
+    L=512 (the single-block pair, at 64, 64 and 128) and D=160 at L=1024
+    (the online kernels, at 256). The forward and the gradients of
+    sum(out * dO) against the plain versions at the true D (no padding,
+    the regime the true D picks), within the kernel bars; each case must
+    have launched its regime's kernels."""
+    b, h = 4, 4
+    for l, d in ((512, 8), (512, 32), (512, 96), (1024, 160)):
+        q, k, v, do, mask = attention_inputs(b, l, h, d, seed=3 * d + 1)
+        onekv = fa._use_onekv(l, d)
+        zero_launches(fa)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fa.flash_attention(qg, kg, vg, kv_mask=mask)
+        dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in read_launches(fa).items() if c}
+        want = ({"onekv_fwd": 1, "onekv_bwd": 1} if onekv else
+                {"online_fwd": 1, "online_bwd_dq": 1, "online_bwd_dkv": 1})
+        if launched != want:
+            raise AssertionError("D={} L={} launched {}, want {}".format(
+                d, l, launched, want))
+
+        def flat(t):      # [B, L, H, D] -> [B*H, L, D], D unpadded
+            return t.permute(0, 2, 1, 3).reshape(b * h, l, d).contiguous()
+
+        qb, kb, vb, dob = (flat(t) for t in (q, k, v, do))
+        maskb = mask.contiguous()
+        qmaskb = torch.ones_like(maskb)
+        scale = 1.0 / math.sqrt(d)
+        fwd = fa.onekv_fwd_plain if onekv else fa.online_fwd_plain
+        o_ref, lse_ref = fwd(qb, kb, vb, maskb, qmaskb, scale)
+        delta = (dob.float() * o_ref.float()).sum(-1)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+        if onekv:
+            grads_ref = fa.onekv_bwd_plain(*args)
+        else:
+            grads_ref = ((fa.online_bwd_dq_plain(*args),)
+                         + fa.online_bwd_dkv_plain(*args))
+        torch.cuda.synchronize()
+        e = {"O": rel_err(out.detach(), fa._from_bh(o_ref, b, l, h, d))}
+        for name, got, ref in zip(("dQ", "dK", "dV"), (dq, dk, dv),
+                                  grads_ref):
+            e[name] = rel_err(got, fa._from_bh(ref, b, l, h, d))
+        check_errors("padded D={} (kernel width {}) L={} {}".format(
+            d, fa.kernel_head_dim(d), l, "single-block" if onekv
+            else "online"), e)
+
 
 def ptxas_summary(log):
     """{(kernel, D): "N registers, X bytes spill stores, Y bytes spill
@@ -856,8 +945,11 @@ def profile_window(step, batches, n):
     """torch.profiler over ``n`` train steps: device time by kernel group
     and the device's busy share of the window's wall time. Returns the
     (ms, launches, name) rows of the device's kernels and the steps'
-    sequence lengths."""
-    from torch.profiler import ProfilerActivity, profile
+    sequence lengths. A warm-up step (the first batch again) runs under
+    the profiler before the window and its records are dropped: a
+    kernel of the first profiled step has gone unrecorded (one of a BART
+    step's six online_fwd launches)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     todo = [next(batches) for _ in range(n)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -865,13 +957,23 @@ def profile_window(step, batches, n):
         step(batch)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in todo:
-            step(batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        step(todo[0])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+        t0 = time.perf_counter()
+        marks_ms = 0.0      # host time of the step marks inside the window
+        for i, batch in enumerate(todo):
+            step(batch)
+            if i == n - 1:          # the window ends with the last step
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            prof.step()
+            if i < n - 1:
+                marks_ms += (time.perf_counter() - t1) * 1e3
     events = prof.key_averages()
     # User annotations (e.g. Optimizer.step) also show on the device
     # track; they have a CPU twin of the same name, kernels do not.
@@ -903,10 +1005,12 @@ def profile_window(step, batches, n):
     busy = sum(groups.values())
     print("profile: {} steps, L={}, device busy {:.1f} ms; wall {:.1f} ms "
           "unprofiled (idle share {:.1%}), {:.1f} ms profiled (idle share "
-          "{:.1%}); {} kernel launches per step".format(
+          "{:.1%}; its {} step marks took {:.3f} ms of host time); {} "
+          "kernel launches per step".format(
               n, [b["input_ids"].shape[1] for b in todo], busy,
               plain_wall_ms, 1 - busy / plain_wall_ms, wall_ms,
-              1 - busy / wall_ms, launches // n), flush=True)
+              1 - busy / wall_ms, n - 1, marks_ms, launches // n),
+          flush=True)
     for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
         print("profile group {:48s} {:9.2f} ms {:6.1%}".format(
             group, ms, ms / busy), flush=True)
@@ -1064,9 +1168,12 @@ def bert_path(fa, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def bart_path(fa, card):
-    """bart_base denoising steps at L=1024 from the port's BART loader;
-    returns the launch counts of the counted steps."""
+def bart_path(fa, card, shared, num_heads=None):
+    """bart_base denoising steps at L=1024 from the port's BART loader
+    (phase 6; with ``num_heads`` phase 16: bart_base's widths with that
+    many heads, whose head dim the encoder's online kernels take);
+    returns the launch counts of the counted steps. Phase 6 leaves its
+    step ms in ``shared`` for phase 16 to print beside its own."""
     from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BartConfig, BartForPreTraining,
@@ -1090,8 +1197,13 @@ def bart_path(fa, card):
             shuffle_buffer_warmup_factor=4, base_seed=12345)
 
         torch.manual_seed(0)
+        heads = {} if num_heads is None else {"num_heads": num_heads}
         cfg = BartConfig.bart_base(attention_dropout=0.0,
-                                   attention_impl="auto")
+                                   attention_impl="auto", **heads)
+        label = "bart_base" + ("" if num_heads is None else
+                               " H={} (D={})".format(
+                                   cfg.num_heads,
+                                   cfg.hidden_size // cfg.num_heads))
         with torch.device("cuda"):
             model = BartForPreTraining(cfg)
         opt = make_optimizer(model.parameters(), learning_rate=1e-4,
@@ -1128,16 +1240,23 @@ def bart_path(fa, card):
                                  "({} steps x {} encoder layers)".format(
                                      launches, want, BART_STEPS,
                                      cfg.num_encoder_layers))
-        print("launches over {} bart steps: {}".format(BART_STEPS, launches),
-              flush=True)
+        print("launches over {} {} steps: {}".format(BART_STEPS, label,
+                                                    launches), flush=True)
         dts = [r[0] for r in rows[1:]]          # the first is warm-up
         ms = 1e3 * sum(dts) / len(dts)
-        print("bart_base step L={} B={}: {:.2f} ms mean of {} steps "
+        print("{} step L={} B={}: {:.2f} ms mean of {} steps "
               "(min {:.2f}, max {:.2f}), {:.0f} decoder tokens/s, {:.0f} "
               "real encoder tokens/s ({})".format(
-                  BART_L, BART_BATCH, ms, len(dts), 1e3 * min(dts),
+                  label, BART_L, BART_BATCH, ms, len(dts), 1e3 * min(dts),
                   1e3 * max(dts), BART_BATCH * BART_L / (ms / 1e3),
                   sum(r[1] for r in rows[1:]) / sum(dts), card), flush=True)
+        if num_heads is None:
+            shared["bart_step_ms"] = ms
+        elif "bart_step_ms" in shared:
+            print("{} step {:.2f} ms beside phase 6's bart_base (H=12, "
+                  "D=64) {:.2f} ms, ratio {:.2f} (host clock)".format(
+                      label, ms, shared["bart_step_ms"],
+                      ms / shared["bart_step_ms"]), flush=True)
 
         it = iter(prefetch_to_device(loader))
         try:
@@ -1171,7 +1290,7 @@ def bart_path(fa, card):
                 torch.isfinite(a).all():
             raise AssertionError("bad bart logits {}".format(tuple(a.shape)))
         err = rel_err(a, r)
-        print("bart flash vs dense logits: rel err {:.2e}".format(err),
+        print("{} flash vs dense logits: rel err {:.2e}".format(label, err),
               flush=True)
         if err > 5e-2:
             raise AssertionError("flash and dense bart logits disagree")
@@ -4139,7 +4258,9 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build(["attention_fwd", "online_attention_bwd"])
-    print("build: {:.1f} s".format(time.perf_counter() - t0), flush=True)
+    print("build: {:.1f} s (one nvcc for each source not built yet, in "
+          "parallel; with the D=256 instantiations of the three online "
+          "kernels)".format(time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
@@ -4153,10 +4274,17 @@ def main():
                                                   "onekv_bwd_dkv_kernel"))):
         regs = ptxas_summary(_build.build_logs.get(lib, ""))
         for kernel in wanted:
-            for d in (64, 128):
+            for d in (64, 128, 256):
+                if d == 256 and kernel.startswith("onekv"):
+                    continue    # the single-block regime stops at D=128
                 print("ptxas summary {}<{}>: {}".format(
                     kernel, d, regs.get((kernel, d), "not reported")),
                     flush=True)
+                if d == 256 and " 0 bytes spill stores, 0 bytes spill " \
+                        "loads" not in " " + regs.get((kernel, d), ""):
+                    raise AssertionError("{}<256> spills or was not "
+                                         "reported: {}".format(
+                                             kernel, regs.get((kernel, d))))
         hgmma = hgmma_counts(libs[lib])
         for fn, n in sorted(hgmma.items()):
             print("sass {}: {} HGMMA in {}".format(lib, n, fn), flush=True)
@@ -4167,8 +4295,13 @@ def main():
                     kernel, hgmma))
 
     kernels = check_kernels(fa) + check_online_kernels(fa)
+    check_padded_widths(fa)
     backward_by_length(fa)
     by_name = {e["name"]: e for e in kernels}
+    # (the wrapper's counter, which paths it counts) of each entry
+    counting = {n: (e.pop("counter", n),
+                    e.pop("counts_path", lambda path: True))
+                for n, e in by_name.items()}
     print("forward kernels: " + "; ".join(
         "{} {:.4f} ms vs library {:.4f} ms, ratio {:.2f}".format(
             n, by_name[n]["ms"], by_name[n]["library_ms"],
@@ -4178,10 +4311,10 @@ def main():
         print(json.dumps({"kernels": kernels}))
         return 0
     by_path = {}
-    shared = {}  # what phases 11-12 leave for phase 13
+    shared = {}  # what phases 11-12 leave for 13, phase 6 for 16
     phases = [("4", "bert_binned", lambda: bert_path(fa, card)),
               ("5", "bert_packed", lambda: packed_path(fa, card)),
-              ("6", "bart", lambda: bart_path(fa, card)),
+              ("6", "bart", lambda: bart_path(fa, card, shared)),
               ("7", "bert_sharded", lambda: distributed_path(fa, card)),
               ("8-9", ("bert_data", "bert_loader"),
                lambda: data_path(fa, card)),
@@ -4191,7 +4324,9 @@ def main():
               ("13", "fleet", lambda: fleet_path(fa, card, shared)),
               ("14", "download",
                lambda: download_and_analyzer_path(fa, card)),
-              ("15", "pipeline", lambda: pipeline_path(fa, card))]
+              ("15", "pipeline", lambda: pipeline_path(fa, card)),
+              ("16", D256_PATH,
+               lambda: bart_path(fa, card, shared, BART_D256_HEADS))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()
@@ -4206,8 +4341,10 @@ def main():
         if "elastic_tmp" in shared:
             shutil.rmtree(shared["elastic_tmp"], ignore_errors=True)
     for entry in kernels:
-        entry["launches_by_path"] = {path: counts[entry["name"]]
-                                     for path, counts in by_path.items()}
+        counter, counts_path = counting[entry["name"]]
+        entry["launches_by_path"] = {
+            path: counts[counter] for path, counts in by_path.items()
+            if counts_path(path)}
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,9 +4,10 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface and compiles on its
 own into ``ops/_build/<name>-<hash>.so`` for ``sm_90a`` (the build
 directory is git-ignored; the hash of the source, the shared headers
 ``csrc/*.cuh`` and the flags names the library, so an edited source or
-header rebuilds). Nothing is built when a module is
-imported: the first kernel call builds, or ``build()`` does it up front,
-starting one ``nvcc`` per source at once.
+header rebuilds). ptxas's report is kept beside each library as
+``<name>-<hash>.log``, so a cached build still has it. Nothing is built
+when a module is imported: the first kernel call builds, or ``build()``
+does it up front, starting one ``nvcc`` per source at once.
 """
 
 import ctypes
@@ -27,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded = {}
-# ptxas's report (registers, shared memory, spills) of each build.
+# ptxas's report (registers, shared memory, spills) of each library
+# ``build`` returned, built now or before.
 build_logs = {}
 
 
@@ -60,30 +62,39 @@ def _target(name):
 
 def build(names):
     """Compile every named source not yet built, all ``nvcc`` processes
-    started together; returns {name: path of the shared library}. Raises
-    with the compiler's output when a build fails."""
+    started together; returns {name: path of the shared library} and
+    fills ``build_logs``. Raises with the compiler's output when a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs, paths = {}, {}
     for name in names:
         src, out = _target(name)
         paths[name] = out
-        if os.path.isfile(out):
+        log = out[:-len(".so")] + ".log"
+        if os.path.isfile(out) and os.path.isfile(log):
             continue
         tmp = "{}.{}.tmp".format(out, os.getpid())
-        procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, out)
+        log_tmp = "{}.{}.tmp".format(log, os.getpid())
+        with open(log_tmp, "w") as f:
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=f,
+                stderr=subprocess.STDOUT), tmp, out, log_tmp, log)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
+    for name, (proc, tmp, out, log_tmp, log) in procs.items():
+        proc.wait()
         if proc.returncode != 0:
-            failed.append("{}:\n{}".format(name, log))
+            with open(log_tmp) as f:
+                failed.append("{}:\n{}".format(name, f.read()))
+            os.remove(log_tmp)
             continue
+        atomic_publish(log_tmp, log)    # the log first: a library has one
         atomic_publish(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for name, out in paths.items():
+        with open(out[:-len(".so")] + ".log") as f:
+            build_logs[name] = f.read()
     return paths
 
 

@@ -30,7 +30,10 @@
 // disallowed and spread over all L_pad keys, as in the reference.
 // Layout: q/k/v/dO/dQ/dK/dV [B*H, L_pad, D] bf16, masks int32 [B, L_pad],
 // LSE and delta (rowsum(dO * O), computed outside) fp32 [B*H, L_pad].
-// L_pad is a multiple of 128; D is 64 or 128 (template).
+// L_pad is a multiple of 128; D is 64, 128 or 256 (template; the wrapper
+// zero-pads any other head dim up to one of them). The single-block
+// kernels are built at D=64 and 128 only: the reference's single-block
+// regime never takes a wider head.
 //
 // What bounds them on this card: at the BART path's shape (B=8, H=12,
 // L_pad 1024, D=64) dQ does 38.7 GFLOP of bf16 products and dK/dV 51.5
@@ -62,13 +65,31 @@
 // result into the warpgroup's own (now dead) input rows in the swizzled
 // layout and stores it by TMA.
 //
+// At D=256 (Plan below) the shared memory and the registers run out:
+// - dK/dV of 64 key rows and all 256 columns would take 256 fp32
+//   registers a thread, beside S^T and dP^T, where a consumer has 240. So
+//   a dK/dV item is 64 keys, both consumer warpgroups compute the same
+//   S^T and dP^T tiles over all of D, and each keeps half of D's columns
+//   of dK and dV (64 + 64 registers, as at D=128). The score products are
+//   done twice, 1.5x the tensor work of the undivided body; it needs no
+//   atomics and no exchange through shared memory, and a two-pass walk
+//   (dV, then dK) would recompute S^T and stream Q and dO twice. The two
+//   warpgroups meet at a named barrier before staging their halves in the
+//   item's K and V panels, which both read until their last tile.
+// - A dQ item stays 128 queries (dQ of 64 rows: 128 registers a thread,
+//   plus S and dP). Its resident Q and dO take 128 KB, so it has one item
+//   buffer and one ring stage (64 KB of K and V): the tile loads are not
+//   overlapped with the products.
+// - The 64-key dK/dV item's K and V take 64 KB: one item buffer, two ring
+//   stages of Q and dO (64 KB each).
+//
 // Every kernel runs a persistent grid of at most one block per SM; a
 // block walks the items blockIdx.x, blockIdx.x + gridDim.x, ... At L_pad
 // 256 an item streams only 4 tiles, and a block of its own per item left
 // the loads of its own rows, the first tiles and the epilogue exposed.
-// Items' own rows are double-buffered, so the producer loads the next
-// item's rows and tiles while the consumers finish the current one; the
-// ring runs on across items.
+// Up to D=128 items' own rows are double-buffered, so the producer loads
+// the next item's rows and tiles while the consumers finish the current
+// one; the ring runs on across items.
 
 #include <math.h>
 
@@ -92,24 +113,33 @@ constexpr float NEG_BIG = -1e9f;
 static_assert(2 * CONSUMER_REGS * 128 + PRODUCER_REGS * 128 <= 65536,
               "the register file of one SM");
 
-// Ring stages: three at D=64; two at D=128, where the two item buffers
-// take 128 KB.
-template <int D>
-__host__ __device__ constexpr int stages() {
-  return D == 64 ? 3 : 2;
-}
-
-// Shared memory: two item buffers of two resident operands of ROWS rows,
-// the ring's stages of two streamed STEP-row tiles and of `slices` row
-// slices, the barriers, and room to align the base to 1024 bytes.
-template <int D>
-constexpr size_t smem_bytes(int slices) {
-  return 2 * 2 * (D / PANEL) * RES_PANEL +
-         stages<D>() * (2 * (D / PANEL) * RING_PANEL + slices * SLICE) +
-         (2 * stages<D>() + 4) * 8 + 1024;
-}
-
-static_assert(smem_bytes<128>(3) <= 232448, "227 KB of shared memory");
+// How a body (DKV: the dK/dV body, else the dQ body) divides its work
+// and its shared memory at head dim D.
+template <int D, bool DKV>
+struct Plan {
+  static constexpr int DN = D / PANEL;
+  // Both consumer warpgroups take the item's rows, each half of D's
+  // columns of the accumulators (dK/dV at D=256); otherwise each takes 64
+  // rows and all the columns.
+  static constexpr bool SPLIT = DKV && D == 256;
+  static constexpr int IROWS = SPLIT ? STEP : ROWS;  // rows of a work item
+  // Item buffers: two (the next item's rows load while the consumers
+  // finish the current one) up to D=128, one at D=256.
+  static constexpr int RB = D == 256 ? 1 : 2;
+  // Ring stages: three at D=64; two at D=128, where the two item buffers
+  // take 128 KB; at D=256 two for dK/dV and one for dQ.
+  static constexpr int PS = D == 64 ? 3 : (D == 128 || DKV) ? 2 : 1;
+  static constexpr int RES_P = IROWS * ROW_BYTES;   // a resident panel
+  static constexpr int RES = 2 * DN * RES_P;        // an item's two operands
+  static constexpr int SLICES = DKV ? 3 : 1;        // row slices a stage
+  // The item buffers, the ring's stages of two streamed STEP-row tiles
+  // and their row slices, the barriers, and room to align the base to
+  // 1024 bytes.
+  static constexpr size_t SMEM = RB * RES +
+                                 PS * (2 * DN * RING_PANEL + SLICES * SLICE) +
+                                 (2 * PS + 2 * RB) * 8 + 1024;
+  static_assert(SMEM <= 232448, "227 KB of shared memory");
+};
 
 __device__ __forceinline__ float bias(int km, int qm) {
   return (km > 0 && km == qm) ? 0.0f : NEG_BIG;
@@ -125,25 +155,26 @@ __device__ __forceinline__ void dkv_body(
     const int* __restrict__ kmask, const int* __restrict__ qmask,
     const float* __restrict__ lse, const float* __restrict__ delta, int BH,
     int L, int H, float scale) {
-  constexpr int DN = D / PANEL;
-  constexpr int PS = stages<D>();
-  constexpr int RES = 2 * DN * RES_PANEL;          // K and V of one item
-  uint8_t* res = align_1024(smem_raw);             // two item buffers
-  uint8_t* ring = res + 2 * RES;                   // per stage: Q, then dO
+  using P = Plan<D, true>;
+  constexpr int DN = P::DN, PS = P::PS, RB = P::RB;
+  constexpr int AN = P::SPLIT ? DN / 2 : DN;       // accumulator panels
+  constexpr int RES = P::RES, RES_P = P::RES_P, IROWS = P::IROWS;
+  uint8_t* res = align_1024(smem_raw);             // RB item buffers
+  uint8_t* ring = res + RB * RES;                  // per stage: Q, then dO
   uint8_t* slices = ring + PS * 2 * DN * RING_PANEL;   // qmask, lse, delta
   uint64_t* full = reinterpret_cast<uint64_t*>(slices + PS * 3 * SLICE);
   uint64_t* empty = full + PS;
   uint64_t* res_full = empty + PS;
-  uint64_t* res_empty = res_full + 2;
+  uint64_t* res_empty = res_full + RB;
 
-  const int nblk = L / ROWS, nitems = BH * nblk, ntiles = L / STEP;
+  const int nblk = L / IROWS, nitems = BH * nblk, ntiles = L / STEP;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < PS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NCONSUMER);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < RB; ++i) {
       mbar_init(&res_full[i], 1);
       mbar_init(&res_empty[i], 2);
     }
@@ -153,23 +184,23 @@ __device__ __forceinline__ void dkv_body(
 
   if (threadIdx.x >= NCONSUMER) {
     // Producer: per item, K and V once (into the item's buffer, once the
-    // item two back has stored its results from it), then the Q/dO ring.
+    // item RB back has stored its results from it), then the Q/dO ring.
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x != NCONSUMER) return;
     int t = 0;
     for (int item = blockIdx.x, j = 0; item < nitems;
          item += gridDim.x, ++j) {
-      const int bh = item / nblk, k0 = (item % nblk) * ROWS, b = bh / H;
-      const int row0 = bh * L, rb = j & 1;
+      const int bh = item / nblk, k0 = (item % nblk) * IROWS, b = bh / H;
+      const int row0 = bh * L, rb = j % RB;
       uint8_t* sK = res + rb * RES;
-      uint8_t* sV = sK + DN * RES_PANEL;
-      mbar_wait(&res_empty[rb], ((j >> 1) & 1) ^ 1);
+      uint8_t* sV = sK + DN * RES_P;
+      mbar_wait(&res_empty[rb], ((j / RB) & 1) ^ 1);
       mbar_arrive_expect_tx(&res_full[rb], RES);
       for (int p = 0; p < DN; ++p)
-        for (int h = 0; h < ROWS / STEP; ++h) {
-          tma_load_2d(sK + p * RES_PANEL + h * RING_PANEL, map_k, p * PANEL,
+        for (int h = 0; h < IROWS / STEP; ++h) {
+          tma_load_2d(sK + p * RES_P + h * RING_PANEL, map_k, p * PANEL,
                       row0 + k0 + h * STEP, &res_full[rb]);
-          tma_load_2d(sV + p * RES_PANEL + h * RING_PANEL, map_v, p * PANEL,
+          tma_load_2d(sV + p * RES_P + h * RING_PANEL, map_v, p * PANEL,
                       row0 + k0 + h * STEP, &res_full[rb]);
         }
       for (int i = 0; i < ntiles; ++i, ++t) {
@@ -194,13 +225,17 @@ __device__ __forceinline__ void dkv_body(
     return;
   }
 
-  // Consumers: warpgroup wg owns key rows [64 wg, 64 wg + 64) of an
-  // item. Its thread holds accumulator rows r and r + 8 (keys) and, for
-  // each 8-column chunk j, columns 8j + c and 8j + c + 1 (queries).
+  // Consumers: warpgroup wg owns key rows [64 kr, 64 kr + 64) of an
+  // item (kr = wg; kr = 0 under SPLIT, where the item is those 64 rows)
+  // and the accumulators' panels [p0, p0 + AN) (all of them, or half
+  // under SPLIT). Its thread holds accumulator rows r and r + 8 (keys)
+  // and, for each 8-column chunk j, columns 8j + c and 8j + c + 1
+  // (queries) of the score tiles.
   setmaxnreg_inc<CONSUMER_REGS>();
   const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
   const int r = 16 * (wtid / 32) + (wtid % 32) / 4, c = 2 * (wtid % 4);
-  float dk[DN][32], dv[DN][32], st[32], dpt[32];
+  const int kr = P::SPLIT ? 0 : wg, p0 = P::SPLIT ? wg * AN : 0;
+  float dk[AN][32], dv[AN][32], st[32], dpt[32];
   uint32_t pt[4][4], dst[4][4];   // P^T and dS^T as bf16 A fragments
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -210,19 +245,19 @@ __device__ __forceinline__ void dkv_body(
   int t = 0;
   for (int item = blockIdx.x, j = 0; item < nitems;
        item += gridDim.x, ++j) {
-    const int bh = item / nblk, k0 = (item % nblk) * ROWS, b = bh / H;
-    const int row0 = bh * L, rb = j & 1;
+    const int bh = item / nblk, k0 = (item % nblk) * IROWS, b = bh / H;
+    const int row0 = bh * L, rb = j % RB;
     uint8_t* sK = res + rb * RES;
-    uint8_t* sV = sK + DN * RES_PANEL;
-    const int km0 = kmask[(size_t)b * L + k0 + STEP * wg + r];
-    const int km1 = kmask[(size_t)b * L + k0 + STEP * wg + r + 8];
-    const uint8_t* myK = sK + wg * RING_PANEL;   // the warpgroup's rows
-    const uint8_t* myV = sV + wg * RING_PANEL;
+    uint8_t* sV = sK + DN * RES_P;
+    const int km0 = kmask[(size_t)b * L + k0 + STEP * kr + r];
+    const int km1 = kmask[(size_t)b * L + k0 + STEP * kr + r + 8];
+    const uint8_t* myK = sK + kr * RING_PANEL;   // the warpgroup's rows
+    const uint8_t* myV = sV + kr * RING_PANEL;
 #pragma unroll
     for (int i = 0; i < 32; ++i)
 #pragma unroll
-      for (int p = 0; p < DN; ++p) dk[p][i] = dv[p][i] = 0.0f;
-    mbar_wait(&res_full[rb], (j >> 1) & 1);
+      for (int p = 0; p < AN; ++p) dk[p][i] = dv[p][i] = 0.0f;
+    mbar_wait(&res_full[rb], (j / RB) & 1);
 
     for (int i = 0; i < ntiles; ++i, ++t) {
       const int s = t % PS;
@@ -238,7 +273,7 @@ __device__ __forceinline__ void dkv_body(
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < D / 16; ++k)
-        wgmma_ss<0>(st, kmajor_desc(myK + (k / 4) * RES_PANEL, k % 4),
+        wgmma_ss<0>(st, kmajor_desc(myK + (k / 4) * RES_P, k % 4),
                     kmajor_desc(sQ + (k / 4) * RING_PANEL, k % 4), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -261,23 +296,24 @@ __device__ __forceinline__ void dkv_body(
       fence_regs(pt);
       fence_regs(dpt);
 #pragma unroll
-      for (int p = 0; p < DN; ++p) fence_regs(dv[p]);
+      for (int p = 0; p < AN; ++p) fence_regs(dv[p]);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < DN; ++p)
+      for (int p = 0; p < AN; ++p)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(dv[p], pt[kk], mnmajor_desc(sdO + p * RING_PANEL, kk));
+          wgmma_rs<1>(dv[p], pt[kk],
+                      mnmajor_desc(sdO + (p0 + p) * RING_PANEL, kk));
 #pragma unroll
       for (int k = 0; k < D / 16; ++k)
-        wgmma_ss<0>(dpt, kmajor_desc(myV + (k / 4) * RES_PANEL, k % 4),
+        wgmma_ss<0>(dpt, kmajor_desc(myV + (k / 4) * RES_P, k % 4),
                     kmajor_desc(sdO + (k / 4) * RING_PANEL, k % 4), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dpt);
       fence_regs(pt);
 #pragma unroll
-      for (int p = 0; p < DN; ++p) fence_regs(dv[p]);
+      for (int p = 0; p < AN; ++p) fence_regs(dv[p]);
 
       // dS^T = P^T (dP^T - delta) scale, rounded to bf16 as the A operand.
 #pragma unroll
@@ -293,37 +329,41 @@ __device__ __forceinline__ void dkv_body(
       // dK += dS^T Q (Q as an MN-major B).
       fence_regs(dst);
 #pragma unroll
-      for (int p = 0; p < DN; ++p) fence_regs(dk[p]);
+      for (int p = 0; p < AN; ++p) fence_regs(dk[p]);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < DN; ++p)
+      for (int p = 0; p < AN; ++p)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(dk[p], dst[kk], mnmajor_desc(sQ + p * RING_PANEL, kk));
+          wgmma_rs<1>(dk[p], dst[kk],
+                      mnmajor_desc(sQ + (p0 + p) * RING_PANEL, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dst);
 #pragma unroll
-      for (int p = 0; p < DN; ++p) fence_regs(dk[p]);
+      for (int p = 0; p < AN; ++p) fence_regs(dk[p]);
       mbar_arrive(&empty[s]);
     }
 
-    // The warpgroup's K and V rows are dead: stage dK and dV there as
-    // bf16 in the swizzled layout; one thread stores them by TMA and, once
-    // the store has read them, frees the buffer for the item two on.
+    // The warpgroup's K and V rows are dead (under SPLIT once the other
+    // warpgroup, which reads all the item's panels, is past its last
+    // tile): stage dK and dV there as bf16 in the swizzled layout; one
+    // thread stores them by TMA and, once the store has read them, frees
+    // the buffer for the item RB on.
+    if (P::SPLIT) named_barrier(3, NCONSUMER);
 #pragma unroll
-    for (int p = 0; p < DN; ++p) {
-      acc_to_panel(dk[p], sK + p * RES_PANEL + wg * RING_PANEL, wtid);
-      acc_to_panel(dv[p], sV + p * RES_PANEL + wg * RING_PANEL, wtid);
+    for (int p = 0; p < AN; ++p) {
+      acc_to_panel(dk[p], sK + (p0 + p) * RES_P + kr * RING_PANEL, wtid);
+      acc_to_panel(dv[p], sV + (p0 + p) * RES_P + kr * RING_PANEL, wtid);
     }
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wtid == 0) {
-      for (int p = 0; p < DN; ++p) {
-        tma_store_2d(map_dk, sK + p * RES_PANEL + wg * RING_PANEL,
-                     p * PANEL, row0 + k0 + wg * STEP);
-        tma_store_2d(map_dv, sV + p * RES_PANEL + wg * RING_PANEL,
-                     p * PANEL, row0 + k0 + wg * STEP);
+      for (int p = p0; p < p0 + AN; ++p) {
+        tma_store_2d(map_dk, sK + p * RES_P + kr * RING_PANEL, p * PANEL,
+                     row0 + k0 + kr * STEP);
+        tma_store_2d(map_dv, sV + p * RES_P + kr * RING_PANEL, p * PANEL,
+                     row0 + k0 + kr * STEP);
       }
       tma_store_commit_and_wait_read();
       mbar_arrive(&res_empty[rb]);
@@ -340,16 +380,16 @@ __device__ __forceinline__ void dq_body(
     const CUtensorMap* map_dq, const int* __restrict__ kmask,
     const int* __restrict__ qmask, const float* __restrict__ lse,
     const float* __restrict__ delta, int BH, int L, int H, float scale) {
-  constexpr int DN = D / PANEL;
-  constexpr int PS = stages<D>();
-  constexpr int RES = 2 * DN * RES_PANEL;          // Q and dO of one item
-  uint8_t* res = align_1024(smem_raw);
-  uint8_t* ring = res + 2 * RES;                   // per stage: K, then V
+  using P = Plan<D, false>;
+  constexpr int DN = P::DN, PS = P::PS, RB = P::RB, RES = P::RES;
+  static_assert(P::IROWS == ROWS && P::RES_P == RES_PANEL, "128-row items");
+  uint8_t* res = align_1024(smem_raw);             // RB item buffers
+  uint8_t* ring = res + RB * RES;                  // per stage: K, then V
   uint8_t* slices = ring + PS * 2 * DN * RING_PANEL;   // kmask
   uint64_t* full = reinterpret_cast<uint64_t*>(slices + PS * SLICE);
   uint64_t* empty = full + PS;
   uint64_t* res_full = empty + PS;
-  uint64_t* res_empty = res_full + 2;
+  uint64_t* res_empty = res_full + RB;
 
   const int nblk = L / ROWS, nitems = BH * nblk, ntiles = L / STEP;
 
@@ -358,7 +398,7 @@ __device__ __forceinline__ void dq_body(
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NCONSUMER);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < RB; ++i) {
       mbar_init(&res_full[i], 1);
       mbar_init(&res_empty[i], 2);
     }
@@ -374,10 +414,10 @@ __device__ __forceinline__ void dq_body(
     for (int item = blockIdx.x, j = 0; item < nitems;
          item += gridDim.x, ++j) {
       const int bh = item / nblk, q0 = (item % nblk) * ROWS, b = bh / H;
-      const int row0 = bh * L, rb = j & 1;
+      const int row0 = bh * L, rb = j % RB;
       uint8_t* sQ = res + rb * RES;
       uint8_t* sdO = sQ + DN * RES_PANEL;
-      mbar_wait(&res_empty[rb], ((j >> 1) & 1) ^ 1);
+      mbar_wait(&res_empty[rb], ((j / RB) & 1) ^ 1);
       mbar_arrive_expect_tx(&res_full[rb], RES);
       for (int p = 0; p < DN; ++p)
         for (int h = 0; h < ROWS / STEP; ++h) {
@@ -421,7 +461,7 @@ __device__ __forceinline__ void dq_body(
   for (int item = blockIdx.x, j = 0; item < nitems;
        item += gridDim.x, ++j) {
     const int bh = item / nblk, q0 = (item % nblk) * ROWS, b = bh / H;
-    const int row0 = bh * L, rb = j & 1;
+    const int row0 = bh * L, rb = j % RB;
     uint8_t* sQ = res + rb * RES;
     uint8_t* sdO = sQ + DN * RES_PANEL;
     const int qrow = q0 + STEP * wg + r;
@@ -437,7 +477,7 @@ __device__ __forceinline__ void dq_body(
     for (int i = 0; i < 32; ++i)
 #pragma unroll
       for (int p = 0; p < DN; ++p) dq[p][i] = 0.0f;
-    mbar_wait(&res_full[rb], (j >> 1) & 1);
+    mbar_wait(&res_full[rb], (j / RB) & 1);
 
     for (int i = 0; i < ntiles; ++i, ++t) {
       const int s = t % PS;
@@ -554,9 +594,9 @@ LDDL_DQ_KERNEL(onekv_bwd_dq_kernel)
 #undef LDDL_DKV_KERNEL
 #undef LDDL_DQ_KERNEL
 
-// Blocks of a launch over BH * L / ROWS work items: at most one per SM.
-inline cudaError_t grid_size(int BH, int L, int* grid) {
-  *grid = BH * (L / ROWS);
+// Blocks of a launch over BH * L / rows work items: at most one per SM.
+inline cudaError_t grid_size(int BH, int L, int rows, int* grid) {
+  *grid = BH * (L / rows);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -575,8 +615,9 @@ int launch_dq(Kernel kernel, const void* q, const void* k, const void* v,
   const void* ptrs[5] = {q, k, v, dout, dq};
   cudaError_t err = make_maps(maps, ptrs, 5, BH, L, D);
   int grid = 0;
-  if (err == cudaSuccess) err = grid_size(BH, L, &grid);
-  const size_t smem = smem_bytes<D>(1);
+  if (err == cudaSuccess)
+    err = grid_size(BH, L, Plan<D, false>::IROWS, &grid);
+  const size_t smem = Plan<D, false>::SMEM;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -598,8 +639,9 @@ int launch_dkv(Kernel kernel, const void* q, const void* k, const void* v,
   const void* ptrs[6] = {q, k, v, dout, dk, dv};
   cudaError_t err = make_maps(maps, ptrs, 6, BH, L, D);
   int grid = 0;
-  if (err == cudaSuccess) err = grid_size(BH, L, &grid);
-  const size_t smem = smem_bytes<D>(3);
+  if (err == cudaSuccess)
+    err = grid_size(BH, L, Plan<D, true>::IROWS, &grid);
+  const size_t smem = Plan<D, true>::SMEM;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -644,6 +686,9 @@ int lddl_online_bwd_dq(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dq<128>(online_bwd_dq_kernel<128>, q, k, v, kmask, qmask,
                           dout, lse, delta, dq, BH, L, H, scale, s);
+  if (D == 256)
+    return launch_dq<256>(online_bwd_dq_kernel<256>, q, k, v, kmask, qmask,
+                          dout, lse, delta, dq, BH, L, H, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -658,6 +703,10 @@ int lddl_online_bwd_dkv(const void* q, const void* k, const void* v,
                           dout, lse, delta, dk, dv, BH, L, H, scale, s);
   if (D == 128)
     return launch_dkv<128>(online_bwd_dkv_kernel<128>, q, k, v, kmask,
+                           qmask, dout, lse, delta, dk, dv, BH, L, H, scale,
+                           s);
+  if (D == 256)
+    return launch_dkv<256>(online_bwd_dkv_kernel<256>, q, k, v, kmask,
                            qmask, dout, lse, delta, dk, dv, BH, L, H, scale,
                            s);
   return (int)cudaErrorInvalidValue;

@@ -36,6 +36,17 @@ Conventions shared with the reference: layout ``[B*H, L_pad, D]`` with L
 padded to a multiple of 128; int32 masks ``[B, L_pad]``; a query attends
 a key iff ``kmask > 0 and kmask == qmask``; scale 1/sqrt(D); padded query
 rows are computed and dropped.
+
+Head dims: the reference's kernels take any D. The port's are built at
+D=64 and 128 (all five) and at D=256 (the three online kernels; the
+reference's single-block regime never takes D > 128). ``_prep`` zero-pads
+any other D up to the next built width (``kernel_head_dim``) on every
+device, and the outputs are sliced back. Padding is exact: zero columns
+of Q and K leave Q K^T as it is, zero columns of V and dO give zero
+columns of O, dQ, dK and dV and leave dP and delta as they are. The scale
+stays 1/sqrt(D) of the true D, and ``_use_onekv`` decides on the true D,
+as the reference does. A head dim above 256 raises (wgmma's N, the width
+of the P V product, is at most 256).
 """
 
 import ctypes
@@ -52,6 +63,8 @@ NEG_BIG = -1e9
 # plain forward walks the same tiles, so its bf16 rounding of P matches
 # the kernel's.
 ONLINE_STEP = 64
+# Head dims the kernels are built for, narrowest first.
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def pad_seq_len(l):
@@ -74,12 +87,24 @@ def single_block_serves(seq_len, head_dim):
     return l_pad >= 256 and _use_onekv(l_pad, head_dim)
 
 
+def kernel_head_dim(d):
+    """The built width that serves head dim ``d``: the narrowest of
+    KERNEL_HEAD_DIMS that holds it. Raises above 256."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError("head_dim {} is above 256, the widest the attention "
+                     "kernels take (wgmma's N is at most 256)".format(d))
+
+
 def _prep_one(t, l_pad):
-    """[B, L, H, D] -> padded [B*H, L_pad, D], contiguous."""
+    """[B, L, H, D] -> [B*H, L_pad, D_k], contiguous: L zero-padded to
+    ``l_pad`` and D to D_k = kernel_head_dim(D)."""
     b, l, h, d = t.shape
-    if l_pad != l:
-        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, l_pad - l))
-    return t.permute(0, 2, 1, 3).reshape(b * h, l_pad, d).contiguous()
+    dk = kernel_head_dim(d)
+    if l_pad != l or dk != d:
+        t = torch.nn.functional.pad(t, (0, dk - d, 0, 0, 0, l_pad - l))
+    return t.permute(0, 2, 1, 3).reshape(b * h, l_pad, dk).contiguous()
 
 
 def _prep_mask(m, l_pad):
@@ -91,9 +116,10 @@ def _prep_mask(m, l_pad):
 
 
 def _prep(q, k, v, kv_mask, q_mask):
-    """Pad L to a multiple of 128 and move to the kernel layout. Masks are
-    binary validity or per-token segment ids; q_mask defaults to all ones,
-    and then a non-binary kv_mask normalizes to 0/1."""
+    """Pad L to a multiple of 128 and D to a built width, and move to the
+    kernel layout; the shape returned holds the true D. Masks are binary
+    validity or per-token segment ids; q_mask defaults to all ones, and
+    then a non-binary kv_mask normalizes to 0/1."""
     b, l, h, d = q.shape
     l_pad = pad_seq_len(l)
     if q_mask is None:
@@ -105,7 +131,8 @@ def _prep(q, k, v, kv_mask, q_mask):
 
 
 def _from_bh(t, b, l, h, d):
-    return t.reshape(b, h, -1, d).permute(0, 2, 1, 3)[:, :l]
+    """[B*H, L_pad, D_k] -> [B, L, H, D]: the inverse of _prep_one."""
+    return t.reshape(b, h, -1, t.shape[-1])[..., :d].permute(0, 2, 1, 3)[:, :l]
 
 
 def _scores(qb, kb, maskb, qmaskb, scale):
@@ -231,9 +258,11 @@ def _check_operands(tensors, masks, rows, online=False):
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError("kernel operands must be contiguous and "
                                  "16-byte aligned")
-    if d not in (64, 128):
-        raise ValueError("the CUDA attention kernels take head_dim 64 or "
-                         "128, got {}".format(d))
+    if d not in KERNEL_HEAD_DIMS:
+        kernel_head_dim(d)      # names the limit above 256
+        raise ValueError("the CUDA attention kernels take head_dim 64, 128 "
+                         "or 256 (flash_attention zero-pads the others up "
+                         "to one of them), got {}".format(d))
     if l_pad % 128:
         raise ValueError("L_pad {} is not a multiple of 128".format(l_pad))
     if not online and not _use_onekv(l_pad, d):
@@ -378,7 +407,8 @@ online_bwd_dkv.launches = 0
 
 
 def _fwd(qb, kb, vb, maskb, qmaskb, l_pad, d):
-    """The forward of the regime ``_use_onekv`` picks: (O, LSE)."""
+    """The forward of the regime ``_use_onekv`` picks for the true head
+    dim ``d`` (the operands may be zero-padded wider): (O, LSE)."""
     fwd = onekv_fwd if _use_onekv(l_pad, d) else online_fwd
     return fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
 

@@ -169,6 +169,8 @@ def train_world(spec):
     out["params"] = full_state(model)
     out["param_types"] = sorted({type(p).__name__
                                  for p in model.parameters()})
+    out["moment_dtypes"] = sorted({str(st["exp_avg"].dtype) for st in
+                                   opt.optimizer.state.values()})
     return out
 
 

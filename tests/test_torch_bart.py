@@ -1,8 +1,10 @@
 """The port's BART (lddl_tpu_torch.models.bart) against lddl_tpu's flax
 model with the same (converted) parameters: the param-tree round trip,
 logits on the dense path and on the attention kernels' online regime
-(L=1000 pads to 1024), causal decoding, the batch loss, and train steps
-against make_sharded_train_step with ``batch_loss=bart_batch_loss``.
+(L=1000 pads to 1024), at head_dim 64 and at head_dim 256 (hidden 256,
+one head: the online kernels' widest build), causal decoding, the batch
+loss, and train steps against make_sharded_train_step with
+``batch_loss=bart_batch_loss``.
 
 Tolerances: fp32 logits agree to 1e-5, absolute and relative: both sides
 run the same fp32 products and differ only in summation order (the online
@@ -108,11 +110,16 @@ def test_convert_round_trip():
         np.asarray(params["decoder_0"]["cross_attention"]["key"]["kernel"]).T)
 
 
-@pytest.mark.parametrize("impl,l", [("dense", 24), ("auto", 1000)])
-def test_logits_match_flax(impl, l):
+@pytest.mark.parametrize("impl,l,heads", [
+    pytest.param("dense", 24, {}, id="dense-24"),
+    pytest.param("auto", 1000, {}, id="auto-1000"),
+    pytest.param("auto", 1000, {"hidden_size": 256, "num_heads": 1},
+                 id="auto-1000-d256")])
+def test_logits_match_flax(impl, l, heads):
     """fp32 logits, with a padded encoder row; at L=1000 both packages'
-    "auto" takes the online-softmax kernels for the encoder."""
-    jcfg, tcfg = _cfgs(attention_impl=impl)
+    "auto" takes the online-softmax kernels for the encoder (at head_dim
+    64, and at 256 with one head of hidden 256)."""
+    jcfg, tcfg = _cfgs(attention_impl=impl, **heads)
     batch = _batch(jcfg.vocab_size, 2, l, seed=l)
     params = _flax_params(jcfg, batch, seed=1)
     want = JBart(jcfg).apply({"params": params}, *_inputs(batch),
@@ -231,13 +238,23 @@ def test_three_train_steps_match_reference(tmp_path):
     _compare_steps(jcfg, tcfg, t_batches, 3)
 
 
+def _online_step(**heads):
+    jcfg, tcfg = _cfgs(num_encoder_layers=1, num_decoder_layers=1,
+                       attention_impl="auto", **heads)
+    _compare_steps(jcfg, tcfg, [_batch(jcfg.vocab_size, 2, 1000, seed=7)],
+                   1)
+
+
 def test_train_step_through_online_kernels_matches_reference():
     """One fp32 step at L=1000: the encoder's forward and backward run the
     online regime in both packages (the port's plain versions here)."""
-    jcfg, tcfg = _cfgs(num_encoder_layers=1, num_decoder_layers=1,
-                       attention_impl="auto")
-    _compare_steps(jcfg, tcfg, [_batch(jcfg.vocab_size, 2, 1000, seed=7)],
-                   1)
+    _online_step()
+
+
+def test_train_step_through_online_kernels_at_head_dim_256():
+    """The same step at head_dim 256 (hidden 256, one head): the port's
+    D=256 plain versions against the reference's online kernels."""
+    _online_step(hidden_size=256, num_heads=1)
 
 
 def test_batch_loss_and_ignore_index_are_exclusive():

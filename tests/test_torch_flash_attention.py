@@ -3,6 +3,10 @@ single-block and the online-softmax regimes, against the reference's
 Pallas kernels in interpret mode and against the dense reference, forward
 and gradients.
 
+Head dims: 64, 128 and 256 run as they are; 8, 32, 96 and 160 are
+zero-padded by the port to the next built width (64, 128 or 256) and
+held against the reference at their true D.
+
 On the CPU the port's wrappers run the kernels' plain PyTorch versions;
 the CUDA kernels themselves are held against those plain versions on the
 card (the CUDA-gated test below, and chip_smoke.py).
@@ -14,6 +18,7 @@ values), and the gradients chain three products.
 """
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -84,12 +89,17 @@ def _jax_out_and_grads(fn, q, k, v, ct):
 
 CASES = ([(l, 64, "padding") for l in (200, 256, 384, 512, 640, 896)]
          + [(l, 128, "padding") for l in (256, 512)]
-         + [(384, 64, "nonbinary"), (256, 64, "all_masked")])
-# The online-softmax regime: L_pad 1024 and above at D=64, and L_pad 640
-# at D=128 (above the single-block bound of 512 there).
+         + [(384, 64, "nonbinary"), (256, 64, "all_masked")]
+         # Head dims zero-padded to a built width (8, 32 -> 64, 96 -> 128).
+         + [(512, d, "padding") for d in (8, 32, 96)])
+# The online-softmax regime: L_pad 1024 and above at D=64, L_pad 640 at
+# D=128 (above the single-block bound of 512 there), and D > 128 at any
+# L_pad: D=256 (the reference's own case, L_pad 640, and 1024) and 160,
+# zero-padded to 256.
 ONLINE_CASES = ([(l, 64, "padding") for l in (1000, 1152, 2048)]
                 + [(1024, 64, "nonbinary"), (1024, 64, "all_masked"),
-                   (600, 128, "padding")])
+                   (600, 128, "padding"), (600, 256, "padding"),
+                   (1024, 256, "padding"), (1024, 160, "padding")])
 
 
 @pytest.mark.parametrize("l,d,mask_kind", CASES + ONLINE_CASES)
@@ -220,14 +230,95 @@ def test_onekv_backward_plain_matches_online_pair(l, d, mask_kind):
 
 
 def test_dispatch_bounds_match_reference():
-    """The regime predicates agree with the reference's."""
+    """The regime predicates agree with the reference's, on the true head
+    dim. Each head dim up to 256 maps to the narrowest built width that
+    holds it; above 256 the port raises, naming the limit."""
     for l in (100, 128, 200, 256, 512, 640, 896, 897, 1024, 1152, 2048):
-        for d in (32, 64, 96, 128, 256):
+        for d in (8, 32, 64, 96, 128, 160, 256):
             l_pad = jfa.pad_seq_len(l)
             assert tfa.pad_seq_len(l) == l_pad
             assert tfa._use_onekv(l_pad, d) == jfa._use_onekv(l_pad, d)
             assert (tfa.single_block_serves(l, d)
                     == jfa.single_block_serves(l, d))
+            # The padded width keeps the true D's regime.
+            assert (tfa._use_onekv(l_pad, tfa.kernel_head_dim(d))
+                    == tfa._use_onekv(l_pad, d))
+    assert [tfa.kernel_head_dim(d) for d in (1, 8, 64, 65, 96, 128, 129,
+                                             160, 256)] == [
+        64, 64, 64, 128, 128, 128, 256, 256, 256]
+    for d in (257, 512):
+        with pytest.raises(ValueError, match="256"):
+            tfa.kernel_head_dim(d)
+        q = torch.zeros((1, 128, 1, d))
+        with pytest.raises(ValueError, match="256"):
+            tfa.flash_attention(q, q, q,
+                                kv_mask=torch.ones((1, 128), dtype=torch.int32))
+    # The kernels' own check takes only the built widths.
+    m = torch.ones((1, 128), dtype=torch.int32)
+    for d, match in ((96, "64, 128 or 256"), (512, "256")):
+        t = torch.zeros((2, 128, d), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            tfa._check_operands([t] * 3, [m, m], [], online=True)
+    t = torch.zeros((2, 1024, 256), dtype=torch.bfloat16)
+    assert tfa._check_operands([t] * 3, [m.repeat(1, 8)] * 2, [],
+                               online=True) == 2
+    with pytest.raises(ValueError, match="single-block"):
+        tfa._check_operands([t[:, :512].contiguous()] * 3,
+                            [m.repeat(1, 4)] * 2, [])
+
+
+@pytest.mark.parametrize("l,d", [(512, 8), (512, 32), (512, 96),
+                                 (1024, 160), (600, 200)])
+def test_padded_plain_matches_unpadded(l, d):
+    """Zero-padding D is exact: the plain versions of the regime the true
+    D picks, on the operands _prep pads to the built width and sliced
+    back, against the same plain versions on the unpadded operands, with
+    the same scale 1/sqrt(D) of the true D; forward O and LSE, and dQ, dK
+    and dV given the unpadded LSE and delta. fp32 operands: the products
+    gain only exact zero terms, so within 1e-6 of max |ref|."""
+    b, h = 2, 2
+    q, k, v, ct, mask = _inputs(b, l, h, d, seed=9 * l + d)
+    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+        _t(q), _t(k), _t(v), _t(mask), None)
+    dk = tfa.kernel_head_dim(d)
+    assert qb.shape == (b * h, l_pad, dk) and dk > d
+    assert not qb[..., d:].any()
+    dob = tfa._prep_one(_t(ct), l_pad)
+
+    def unpadded(x):
+        x = torch.nn.functional.pad(_t(x), (0, 0, 0, 0, 0, l_pad - l))
+        return x.permute(0, 2, 1, 3).reshape(b * h, l_pad, d).contiguous()
+
+    uq, uk, uv, udo = (unpadded(x) for x in (q, k, v, ct))
+    scale = 1.0 / d ** 0.5
+    onekv = tfa._use_onekv(l_pad, d)
+    fwd = tfa.onekv_fwd_plain if onekv else tfa.online_fwd_plain
+    o_ref, lse_ref = fwd(uq, uk, uv, maskb, qmaskb, scale)
+    o, lse = fwd(qb, kb, vb, maskb, qmaskb, scale)
+    delta = (udo * o_ref).sum(-1)
+    if onekv:
+        want = tfa.onekv_bwd_plain(uq, uk, uv, maskb, qmaskb, udo, lse_ref,
+                                   delta, scale)
+        got = tfa.onekv_bwd_plain(qb, kb, vb, maskb, qmaskb, dob, lse_ref,
+                                  delta, scale)
+    else:
+        args = (maskb, qmaskb)
+        want = ((tfa.online_bwd_dq_plain(uq, uk, uv, *args, udo, lse_ref,
+                                         delta, scale),)
+                + tfa.online_bwd_dkv_plain(uq, uk, uv, *args, udo, lse_ref,
+                                           delta, scale))
+        got = ((tfa.online_bwd_dq_plain(qb, kb, vb, *args, dob, lse_ref,
+                                        delta, scale),)
+               + tfa.online_bwd_dkv_plain(qb, kb, vb, *args, dob, lse_ref,
+                                          delta, scale))
+    for name, g, w in zip(("O", "LSE", "dQ", "dK", "dV"),
+                          (o, lse) + tuple(got), (o_ref, lse_ref) + want):
+        if g.dim() == 3:
+            assert not g[..., d:].any(), name
+            g = g[..., :d]
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.abs().max()),
+                                   err_msg=name)
 
 
 def test_mask_arguments_are_validated():
@@ -263,13 +354,43 @@ def test_build_target_hashes_shared_headers(tmp_path, monkeypatch):
     assert _build._target("k")[1] not in (first, second)
 
 
+def test_build_keeps_ptxas_report_of_cached_library(tmp_path, monkeypatch):
+    """A second build of an unchanged source runs no compiler and still
+    fills ``build_logs`` with the first build's ptxas report, kept beside
+    the library; a library whose report is missing is built again. A shell
+    script stands in for nvcc and counts its runs."""
+    from lddl_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_bytes(b"// kernel\n")
+    runs = tmp_path / "runs"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho run >> "{}"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info: 0 bytes spill stores"\n'
+                    .format(runs))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_logs", {})
+    path = _build.build(["k"])["k"]
+    assert os.path.isfile(path)
+    assert _build.build_logs == {"k": "ptxas info: 0 bytes spill stores\n"}
+    _build.build_logs.clear()
+    assert _build.build(["k"])["k"] == path
+    assert _build.build_logs == {"k": "ptxas info: 0 bytes spill stores\n"}
+    assert runs.read_text().count("run") == 1
+    os.remove(path[:-len(".so")] + ".log")
+    _build.build(["k"])
+    assert runs.read_text().count("run") == 2
+    assert _build.build_logs["k"] == "ptxas info: 0 bytes spill stores\n"
+
+
 @pytest.mark.parametrize("source", sorted(tfa._ENTRY_POINTS))
 def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
     own with the single-block backward beside it (no nvcc needed)."""
-    import os
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
@@ -285,6 +406,19 @@ def test_entry_points_match_c_sources(source):
         e.startswith("lddl_online_bwd") for e in tfa._ENTRY_POINTS[source])
     assert (source == "attention_fwd") == any(
         e.endswith("_fwd") for e in tfa._ENTRY_POINTS[source])
+    # Each entry point dispatches the built widths: every width of
+    # KERNEL_HEAD_DIMS for the online kernels, up to 128 for the
+    # single-block ones (the reference's single-block regime stops there).
+    for entry in tfa._ENTRY_POINTS[source]:
+        start = text.index("int {}(".format(entry))
+        end = text.find("\n}", start)
+        widths = tuple(int(w) for w in
+                       re.findall(r"if \(D == (\d+)\)", text[start:end]))
+        want = (tfa.KERNEL_HEAD_DIMS if "online" in entry
+                else tuple(w for w in tfa.KERNEL_HEAD_DIMS if w <= 128))
+        assert widths == want, (entry, widths)
+        for w in widths:
+            assert "<{}>".format(w) in text[start:end], (entry, w)
 
 
 @pytest.mark.parametrize("source", ["attention_fwd", "online_attention_bwd"])
@@ -292,12 +426,18 @@ def test_kernel_tile_width_matches_plain_walk(source):
     """The width of the tiles a kernel walks (STEP in its source) is the
     plain online versions' ONLINE_STEP, so their bf16 rounding of P and dS
     stays the kernel's (no nvcc needed)."""
-    import os
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
-        widths = re.findall(r"constexpr int STEP = (\d+);", f.read())
+        text = f.read()
+    widths = re.findall(r"constexpr int STEP = (\d+);", text)
     assert widths == [str(tfa.ONLINE_STEP)]
+    # At D=256 the bodies split D between the consumer warpgroups and own
+    # STEP rows (a block's queries, or a dK/dV item's keys): still whole
+    # STEP-wide tiles, walked in the same order.
+    split = re.findall(r"SPLIT \? (\w+) : ROWS;", text)
+    assert split == ["STEP"], split
+    assert re.search(r"SPLIT = (DKV && )?D == 256;", text)
 
 
 @pytest.fixture
@@ -311,7 +451,8 @@ def cuda_device():
 @pytest.mark.parametrize("mask_kind", ["padding", "segments"])
 @pytest.mark.parametrize("l,d", [(128, 64), (200, 64), (512, 64),
                                  (896, 64), (512, 128), (1024, 64),
-                                 (2048, 64), (600, 128)])
+                                 (2048, 64), (600, 128), (1024, 256),
+                                 (600, 256)])
 def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
     """The CUDA kernels of the regime the shape takes against their plain
     versions on the card, in bf16: 2e-2 of max |ref| for O and the

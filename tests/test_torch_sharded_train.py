@@ -173,7 +173,8 @@ def test_sharded_steps_match_reference(mesh, dtype, tmp_path):
                    STEPS)
 
 
-def _unsharded(batches, tmp_path, clip_norm=1.0, extra=None, **cfg):
+def _unsharded(batches, tmp_path, clip_norm=1.0, extra=None, mu_dtype=None,
+               **cfg):
     """The port's one-device steps on the global batches from seed-0
     weights (saved to ``params.npz``): (metrics, params, out), ``out``
     holding every update's clip norm and the first update's gradients,
@@ -186,7 +187,8 @@ def _unsharded(batches, tmp_path, clip_norm=1.0, extra=None, **cfg):
         CFG, dtype=torch.float32, attention_impl="flash", **cfg)))
     np.savez(tmp_path / "params.npz",
              **{k: v.numpy() for k, v in model.state_dict().items()})
-    opt = make_optimizer(model.parameters(), clip_norm=clip_norm, **OPT)
+    opt = make_optimizer(model.parameters(), clip_norm=clip_norm,
+                         mu_dtype=mu_dtype, **OPT)
     out = {}
     ptest.record_clip(model, opt, out)
     step = make_train_step(model, opt)
@@ -236,6 +238,29 @@ def test_unequal_masked_label_counts_across_dp_ranks(tmp_path):
     _assert_grads(res[0], grads)
     _assert_params(res[0]["params"], want_params,
                    STEPS)
+
+
+def test_low_precision_first_moment_matches_unsharded(tmp_path):
+    """mu_dtype=torch.bfloat16 (LowMuAdamW: the first Adam moment stored
+    in bf16) on {fsdp: 2, tp: 2} against the one-device run with the
+    same option: metrics, clip norms and first gradients, and the
+    parameters within the _assert_params bars after every step. Those
+    bars are wider than what bf16 moments change against fp32 ones (a
+    few 1e-5 after three steps), so every rank must also hold its first
+    moments in bf16."""
+    batches = _batches()
+    want, want_params, grads = _unsharded(batches, tmp_path,
+                                          mu_dtype=torch.bfloat16)
+    res = run_world(4, ptest.train_world, dict(
+        mesh={"fsdp": 2, "tp": 2},
+        cfg=dict(CFG, dtype=torch.float32, attention_impl="flash"),
+        params=str(tmp_path / "params.npz"),
+        batches=_save(tmp_path / "batches.npz", batches),
+        opt=dict(OPT, mu_dtype=torch.bfloat16), steps=STEPS), device="cpu")
+    assert [r["moment_dtypes"] for r in res] == [["torch.bfloat16"]] * 4
+    _assert_metrics(res[0]["metrics"], want, RTOL)
+    _assert_grads(res[0], grads)
+    _assert_params(res[0]["params"], want_params, STEPS)
 
 
 def test_engaged_clip_takes_the_unsharded_norm(tmp_path):
