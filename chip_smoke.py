@@ -7,15 +7,18 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (two sources: ``attention_fwd.cu``, both forwards;
-   ``online_attention_bwd.cu``, the backward of both regimes) with nvcc
-   for sm_90a, one nvcc per source not built yet, all started together,
-   and the build's seconds; print ptxas's register/spill lines (kept
-   beside each library, so a cached build has them), a register/spill
-   summary of each of the six kernels at D=64 and D=128 and of the three
-   online kernels at D=256 (which must spill 0 bytes) and, from
-   ``cuobjdump -sass``, the HGMMA (wgmma) instructions of every kernel,
-   none of which may be 0;
+   (three sources: ``attention_fwd.cu``, both bf16 forwards;
+   ``online_attention_bwd.cu``, the bf16 backward of both regimes;
+   ``attention_f32.cu``, the fp32 builds of all of them) with nvcc for
+   sm_90a, one nvcc per source not built yet, all started together, and
+   the build's seconds; print ptxas's register/spill lines (kept beside
+   each library, so a cached build has them), a register/spill summary
+   of each of the six kernels at D=64 and D=128 and of the three online
+   kernels at D=256 (which must spill 0 bytes in bf16) and, from
+   ``cuobjdump -sass``, the HGMMA (wgmma) instructions of every bf16
+   kernel, none of which may be 0, and the FFMA of every fp32 kernel,
+   none of which may be 0, with no tensor-core instruction (HMMA, HGMMA)
+   in the fp32 library;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
@@ -30,6 +33,15 @@ exits non-zero):
    against SDPA under the equivalent block-diagonal mask; every kernel
    bit-identical in two launches, at every checked shape; the online
    kernels timed at both B=8, L=1024 shapes (D=64 and D=256);
+   the fp32 builds (TF32 off for the plain side, asserted) at the
+   single-block pair's B=16, H=16, L 512 and 896 (D=64) and L=512
+   (D=128), the online trio's B=8, H=12, L=1024 and L=2048 (D=64), L=1024
+   (D=128) and B=8, H=3, L=1024 and L=600 (D=256), each with padding
+   masks, segment ids 1-3 and packed rows' segment ids 1-8: within
+   F32_BAR of max |ref| (the LSE F32_BAR absolute), bit-identical in two
+   launches, and timed at the bf16 rows' shapes against their plain
+   versions and SDPA at fp32 under the additive mask, beside their FFMA
+   and 3xTF32 bounds;
    ``flash_attention`` at head dims it zero-pads (8, 32, 96 at L=512 on
    the single-block pair, 160 at L=1024 on the online kernels), forward
    and gradients against the plain versions at the true D; then the
@@ -234,13 +246,29 @@ exits non-zero):
    D=256 builds of the three online kernels (6 launches of each a step,
    in the counted steps and in a profiled step); the decoder stays dense.
    Host-clock step ms beside phase 6's.
+17. bert_large at fp32: phase 4's model (``dtype=torch.float32``),
+   loader and train step, F32_STEPS_PER_BIN steps in each of the four
+   bins (the first of a bin a warm-up) with finite losses; the counters
+   must show ``onekv_fwd_f32`` and ``onekv_bwd_f32`` 24 times a step of
+   L_pad >= 256 and no bf16 kernel; step ms beside phase 4's; then at
+   L=512 one train step with flash against one with dense from the same
+   parameters, batch and dropout seed (learning rate 0, no clipping):
+   losses within F32_LOSS_RTOL, global gradient norms within
+   F32_NORM_RTOL;
+18. bart_base at fp32: phase 6's loader and train step at
+   ``dtype=torch.float32``, BART_F32_STEPS steps at B=8, L=1024 (the
+   first a warm-up), the encoder on the online trio's fp32 builds (6
+   launches of each a step, no bf16 kernel), step ms beside phase 6's,
+   and the same flash-against-dense train step.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
 ``download`` is phase 14's, ``pipeline`` phase 15's pipelined run,
 ``bart_d256`` phase 16's; the ``_d256`` rows are the online kernels'
 D=256 builds, timed at phase 16's shape and counted in phase 16 alone,
-and the other online rows count every path but phase 16), the card
+and the other online rows count every path but phase 16; the ``_f32``
+rows are the fp32 builds, counted in every path and launched only in
+phases 17-18, with ``bound_3xtf32_ms`` beside the FFMA bound), the card
 line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
@@ -265,6 +293,21 @@ torch = None
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of each kernel.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# fp32 on the CUDA cores (FFMA), the fp32 kernels' bound; and TF32 on the
+# tensor cores, which a 3xTF32 split (three products a product) would use.
+PEAK_F32_FLOPS = 66.9e12
+PEAK_TF32_FLOPS = 494.7e12
+# The fp32 kernels against their plain versions: O and the gradients
+# within F32_BAR of max |ref|, the LSE within F32_BAR absolute (both sides
+# compute in fp32; only the summation order differs).
+F32_BAR = 1e-5
+# Phases 17-18 (fp32): steps a bin (the first a warm-up), BART steps (the
+# first a warm-up), and the bars on one flash step against one dense
+# step: the loss (relative) and the global gradient norm (relative).
+F32_STEPS_PER_BIN = 3
+BART_F32_STEPS = 3
+F32_LOSS_RTOL = 1e-5
+F32_NORM_RTOL = 1e-4
 BINS = [128, 256, 384, 512]
 STEPS = 16           # counted BERT steps
 PROFILE_STEPS = 6    # then a profiled window of further steps
@@ -432,8 +475,10 @@ def rel_err(got, ref):
     return float((got.float() - ref).abs().max() / ref.abs().max())
 
 
-def attention_inputs(b, l, h, d, seed, segments=False, packed=False):
-    """q, k, v, dO [B, L, H, D] bf16 and an int32 [B, L] mask: padding
+def attention_inputs(b, l, h, d, seed, segments=False, packed=False,
+                     dtype=None):
+    """q, k, v, dO [B, L, H, D] in ``dtype`` (bf16 when None) and an int32
+    [B, L] mask: padding
     (row 0 full, the others 1 up to a random length), or with
     ``segments`` per-token segment ids 1-3 up to that length and the last
     batch row masked entirely (the kernels then take it as both masks),
@@ -441,7 +486,7 @@ def attention_inputs(b, l, h, d, seed, segments=False, packed=False):
     random cuts and a padded tail."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((b, l, h, d), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype or torch.bfloat16) for _ in range(4))
     if packed:
         return q, k, v, do, packed_segments(b, l, g)
     lens = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
@@ -467,18 +512,20 @@ def packed_segments(b, l, g):
                        seg).to(torch.int32)
 
 
-def bound(nbytes, flops):
-    """The least time (ms) the card needs for the work, and what sets it."""
+def bound(nbytes, flops, peak=PEAK_BF16_FLOPS):
+    """The least time (ms) the card needs for the work, at ``peak``
+    FLOP/s, and what sets it."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_BF16_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-def check_errors(what, e):
-    """Print the relative errors ``e`` and raise past the bars: 2e-2 of
-    max |ref| for O and the gradients, 1e-3 for the LSE."""
+def check_errors(what, e, bar=2e-2, lse_bar=1e-3):
+    """Print the errors ``e`` and raise past the bars: ``bar`` of max
+    |ref| for O and the gradients, ``lse_bar`` for the LSE (bf16: 2e-2
+    and 1e-3 of max |ref|)."""
     bad = {n: x for n, x in e.items()
-           if not x <= (1e-3 if n == "LSE" else 2e-2)}
+           if not x <= (lse_bar if n.startswith("LSE") else bar)}
     print("kernel check {}: {}".format(what, " ".join(
         "{}={:.2e}".format(n, x) for n, x in e.items())), flush=True)
     if bad:
@@ -488,6 +535,10 @@ def check_errors(what, e):
 
 FWD_SRC = "lddl_tpu_torch/ops/csrc/attention_fwd.cu"
 BWD_SRC = "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"
+F32_SRC = "lddl_tpu_torch/ops/csrc/attention_f32.cu"
+# The TPU kernel each port kernel replaces (lddl_tpu/ops/flash_attention.py).
+REPLACES = {"onekv_fwd": 441, "onekv_bwd": 459, "online_fwd": 64,
+            "online_bwd_dq": 104, "online_bwd_dkv": 133}
 
 
 def check_repeat(what, names, first, second):
@@ -517,13 +568,16 @@ def library_calls(q, k, v, do, mask, segments=False):
     (autograd.grad) gives dQ, dK and dV together. With ``segments`` the
     mask is the kernels' block-diagonal one as a boolean [B, 1, L, L]
     (a padding query attends every key, which averages them uniformly,
-    as the kernels' all-masked rows do)."""
+    as the kernels' all-masked rows do). fp32 inputs take the mask as
+    the kernels' additive fp32 bias (0 or -1e9)."""
     ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     keep = mask[:, None, None, :] > 0
     if segments:
         keep = (keep & (mask[:, None, :, None] == mask[:, None, None, :])
                 | (mask == 0)[:, None, :, None])
+    if q.dtype == torch.float32:
+        keep = torch.where(keep, 0.0, -1e9).to(torch.float32)
 
     def fwd():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -626,12 +680,14 @@ def check_kernels(fa):
     time_packed(fa, fwd_bytes, bwd_bytes)
     return [
         {"name": "onekv_fwd", "route": "cuda", "source": FWD_SRC,
-         "replaces": "lddl_tpu/ops/flash_attention.py:441",
+         "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
+             REPLACES["onekv_fwd"]),
          "launches": 0, "max_abs_err": max_abs["fwd"], "ms": t["fwd"][0],
          "plain_ms": t["fwd"][1], "bound_ms": fb, "bound_by": fby,
          "library_ms": lib["fwd"]},
         {"name": "onekv_bwd", "route": "cuda", "source": BWD_SRC,
-         "replaces": "lddl_tpu/ops/flash_attention.py:459",
+         "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
+             REPLACES["onekv_bwd"]),
          "launches": 0, "max_abs_err": max_abs["bwd"], "ms": t["bwd"][0],
          "plain_ms": t["bwd"][1], "bound_ms": bb, "bound_by": bby,
          "library_ms": lib["bwd"]},
@@ -823,20 +879,169 @@ def time_online_kernels(fa, shape, max_abs, suffix, counts_path):
     }
     src = {"online_fwd": FWD_SRC, "online_bwd_dq": BWD_SRC,
            "online_bwd_dkv": BWD_SRC}
-    replaces = {"online_fwd": 64, "online_bwd_dq": 104,
-                "online_bwd_dkv": 133}
     entries = []
     for name in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
         bms, by = bound(*work[name])
         entries.append({
             "name": name + suffix, "route": "cuda", "source": src[name],
             "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
-                replaces[name]),
+                REPLACES[name]),
             "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
             "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
             "library_ms": lib["fwd" if name == "online_fwd" else "bwd"],
             "shape": {"B": b, "L": l, "H": h, "D": d},
             "counter": name, "counts_path": counts_path})
+    return entries
+
+
+def check_f32_kernels(fa):
+    """The fp32 builds of the five kernels against their plain versions on
+    the card, whose products run in full fp32 (TF32 off, asserted): the
+    single-block pair at B=16, H=16 at L 512 and 896 (D=64) and L=512
+    (D=128), the online trio at bart_base's B=8, H=12, L=1024 and at
+    L=2048 (D=64), at L=1024 (D=128) and at phase 16's B=8, H=3, L=1024
+    and L=600 (D=256); each shape with padding masks, with segment ids
+    1-3 plus a batch row masked entirely, and with packed rows' segment
+    ids 1-8. Every output within F32_BAR (of max |ref|; absolute for the
+    LSE) and bit-identical in two launches. Then the timing rows at the
+    bf16 rows' shapes; returns their JSON entries (launch counts filled
+    in later)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for fp32 matmuls: the plain "
+                             "versions would not compute in fp32")
+    onekv = [(16, 512, 16, 64), (16, 896, 16, 64), (16, 512, 16, 128)]
+    online = [(BART_BATCH, BART_L, 12, 64), (2, 2048, 4, 64),
+              (4, 1024, 4, 128), (BART_BATCH, BART_L, BART_D256_HEADS, 256),
+              (2, 600, 2, 256)]
+    timed = {(16, 512, 16, 64): ("onekv_fwd", "onekv_bwd"),
+             (BART_BATCH, BART_L, 12, 64): ("online_fwd", "online_bwd_dq",
+                                            "online_bwd_dkv")}
+    max_abs = {}
+    for (b, l, h, d), kind in ((shape, kind) for shape in onekv + online
+                               for kind in ("padding", "segments",
+                                            "packed")):
+        segments = kind != "padding"
+        q, k, v, do, mask = attention_inputs(
+            b, l, h, d, seed=l + d + 2, segments=kind == "segments",
+            packed=kind == "packed", dtype=torch.float32)
+        qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = fa._prep(
+            q, k, v, mask, mask if segments else None)
+        single = fa._use_onekv(l_pad, d)
+        if single != ((b, l, h, d) in onekv):
+            raise AssertionError("L_pad {} at D={} is not in the regime "
+                                 "checked".format(l_pad, d))
+        scale = 1.0 / math.sqrt(d)
+        what = "fp32 {} B={} L={} H={} D={} {}".format(
+            "single-block" if single else "online", b, l, h, d,
+            {"padding": "padding", "segments": "segments 1-3",
+             "packed": "packed segments 1-8"}[kind])
+        fwd = fa.onekv_fwd if single else fa.online_fwd
+        fwd_plain = fa.onekv_fwd_plain if single else fa.online_fwd_plain
+        o, lse = fwd(qb, kb, vb, maskb, qmaskb, scale)
+        torch.cuda.synchronize()
+        check_repeat(what, ("O", "LSE"), (o, lse),
+                     fwd(qb, kb, vb, maskb, qmaskb, scale))
+        o_ref, lse_ref = fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+        dob = fa._prep_one(do, l_pad)
+        delta = (dob * o_ref).sum(-1)
+        args = (qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
+        if single:
+            def bwd():
+                return fa.onekv_bwd(*args)
+            grads_ref = fa.onekv_bwd_plain(*args)
+        else:
+            def bwd():
+                return (fa.online_bwd_dq(*args),) + fa.online_bwd_dkv(*args)
+            grads_ref = ((fa.online_bwd_dq_plain(*args),)
+                         + fa.online_bwd_dkv_plain(*args))
+        grads = bwd()
+        torch.cuda.synchronize()
+        check_repeat(what, ("dQ", "dK", "dV"), grads, bwd())
+        torch.cuda.synchronize()
+        e = {"O": rel_err(o, o_ref),
+             "LSE abs": float((lse - lse_ref).abs().max())}
+        for name, got, ref in zip(("dQ", "dK", "dV"), grads, grads_ref):
+            e[name] = rel_err(got, ref)
+        check_errors(what, e, F32_BAR, F32_BAR)
+        if (b, l, h, d) in timed and kind == "padding":
+            err = {n: float((g - r).abs().max()) for n, g, r in zip(
+                ("O", "LSE", "dQ", "dK", "dV"), (o, lse) + tuple(grads),
+                (o_ref, lse_ref) + tuple(grads_ref))}
+            fwd_err = max(err["O"], err["LSE"])
+            max_abs.update(
+                {"onekv_fwd": fwd_err,
+                 "onekv_bwd": max(err["dQ"], err["dK"], err["dV"])}
+                if single else
+                {"online_fwd": fwd_err, "online_bwd_dq": err["dQ"],
+                 "online_bwd_dkv": max(err["dK"], err["dV"])})
+    return [row for shape, names in timed.items()
+            for row in time_f32_kernels(fa, shape, names, max_abs)]
+
+
+def time_f32_kernels(fa, shape, names, max_abs):
+    """The fp32 kernels ``names`` (one regime's) at ``shape`` with padding
+    masks: kernel and plain version in turns, and SDPA at fp32 under the
+    kernels' additive mask (forward, and backward in two turns around
+    the port's). Bound: bytes of fp32 operands at 3.35 TB/s against the
+    reference's products at the FFMA peak; ``bound_3xtf32_ms`` the same
+    products three times at the TF32 peak. Returns the JSON entries."""
+    b, l, h, d = shape
+    q, k, v, do, mask = attention_inputs(b, l, h, d, seed=7,
+                                         dtype=torch.float32)
+    qb, kb, vb, maskb, qmaskb, _ = fa._prep(q, k, v, mask, None)
+    scale = 1.0 / math.sqrt(d)
+    single = names[0] == "onekv_fwd"
+    fwd_plain = fa.onekv_fwd_plain if single else fa.online_fwd_plain
+    o, lse = fwd_plain(qb, kb, vb, maskb, qmaskb, scale)
+    dob = fa._prep_one(do, l)
+    delta = (dob * o).sum(-1)
+    fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
+    bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+    lib_fwd, lib_bwd = library_calls(q, k, v, do, mask)
+    lib_bwd_turns = [cuda_time_ms(lib_bwd)]
+    t = {name: time_turns(
+        lambda: getattr(fa, name)(*(fwd_in if "fwd" in name else bwd_in)),
+        lambda: getattr(fa, name + "_plain")(
+            *(fwd_in if "fwd" in name else bwd_in)))
+        for name in names}
+    lib_bwd_turns.append(cuda_time_ms(lib_bwd))
+    lib = {"fwd": cuda_time_ms(lib_fwd),
+           "bwd": sum(lib_bwd_turns) / len(lib_bwd_turns)}
+    print("fp32 timings B={} L={} H={} D={} (ms; plain, kernel, kernel, "
+          "plain): {}; library fwd {:.4f}, library bwd turns {}".format(
+              b, l, h, d, json.dumps(
+                  {n: [round(x, 4) for x in v[2]] for n, v in t.items()}),
+              lib["fwd"], [round(x, 4) for x in lib_bwd_turns]), flush=True)
+
+    n = b * h * l * d
+    masks, row = 2 * b * l * 4, b * h * l * 4
+    product = 2 * b * h * l * l * d
+    work = {   # (bytes: fp32 operands, each read once, each output written
+               #  once; the reference's products, FLOP)
+        "onekv_fwd": (4 * n * 4 + masks + row, 2 * product),
+        "onekv_bwd": (7 * n * 4 + masks + 2 * row, 5 * product),
+        "online_fwd": (4 * n * 4 + masks + row, 2 * product),
+        "online_bwd_dq": (5 * n * 4 + masks + 2 * row, 3 * product),
+        "online_bwd_dkv": (6 * n * 4 + masks + 2 * row, 4 * product),
+    }
+    entries = []
+    for name in names:
+        nbytes, flops = work[name]
+        bms, by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        entries.append({
+            "name": name + "_f32", "route": "cuda", "source": F32_SRC,
+            "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
+                REPLACES[name]),
+            "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
+            "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
+            "library_ms": lib["fwd" if "fwd" in name else "bwd"],
+            "bound_3xtf32_ms": 3 * flops / PEAK_TF32_FLOPS * 1e3,
+            "shape": {"B": b, "L": l, "H": h, "D": d}})
+        print("fp32 {}: {:.4f} ms, bound {:.4f} ms ({}; 3xTF32 {:.4f}), "
+              "plain {:.4f} ms, SDPA at fp32 {:.4f} ms".format(
+                  name, t[name][0], bms, by,
+                  entries[-1]["bound_3xtf32_ms"], t[name][1],
+                  entries[-1]["library_ms"]), flush=True)
     return entries
 
 
@@ -897,7 +1102,7 @@ def ptxas_summary(log):
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'\S*?([a-z_]+_kernel)ILi(\d+)E", line)
+                      r"'\S*?([a-z_]+(?:_f32)?_kernel)ILi(\d+)E", line)
         if m:
             key = (m.group(1), int(m.group(2)))
             out[key] = []
@@ -910,9 +1115,14 @@ def ptxas_summary(log):
     return {k: ", ".join(v) for k, v in out.items()}
 
 
-def hgmma_counts(lib_path):
-    """{kernel function: HGMMA instructions in its SASS} of a built
-    library (cuobjdump from the CUDA toolkit, or Triton's copy)."""
+def sass_opcodes(lib_path):
+    """{kernel function: {opcode: instructions}} of a built library's
+    SASS (cuobjdump from the CUDA toolkit, or Triton's copy), by base
+    mnemonic: the opcode before its first modifier, so ``HFMA2.MMA`` (an
+    fp16 FMA that moves constants) counts as ``HFMA2`` and
+    ``HGMMA.64x64x16.F32.BF16`` as ``HGMMA``."""
+    import collections
+    import re
     tool = shutil.which("cuobjdump")
     candidates = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                "bin", "cuobjdump")]
@@ -935,9 +1145,12 @@ def hgmma_counts(lib_path):
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if fn is not None and m:
+            counts[fn][m.group(1)] += 1
     return counts
 
 
@@ -1024,20 +1237,81 @@ def profile_window(step, batches, n):
     return rows, [b["input_ids"].shape[1] for b in todo]
 
 
-KERNELS = ("onekv_fwd", "onekv_bwd", "online_fwd", "online_bwd_dq",
-           "online_bwd_dkv")
+BF16_KERNELS = ("onekv_fwd", "onekv_bwd", "online_fwd", "online_bwd_dq",
+                "online_bwd_dkv")
+ONLINE_KERNELS = BF16_KERNELS[2:]
+# Every launch counter: the bf16 kernels' (``<wrapper>.launches``) and
+# their fp32 builds' (``<wrapper>.launches_f32``, read as
+# ``<wrapper>_f32``).
+KERNELS = BF16_KERNELS + tuple(n + "_f32" for n in BF16_KERNELS)
 
 
 def zero_launches(fa):
-    for name in KERNELS:
+    for name in BF16_KERNELS:
         getattr(fa, name).launches = 0
+        getattr(fa, name).launches_f32 = 0
 
 
 def read_launches(fa):
-    return {name: getattr(fa, name).launches for name in KERNELS}
+    counts = {n: getattr(fa, n).launches for n in BF16_KERNELS}
+    counts.update({n + "_f32": getattr(fa, n).launches_f32
+                   for n in BF16_KERNELS})
+    return counts
 
 
-def bert_path(fa, card):
+def flash_vs_dense_step(fa, model, attentions, batch, want, label,
+                        **step_kw):
+    """One train step with the flash path against one with the dense
+    path (``attentions``: the attention modules switched), from the same
+    parameters, batch and dropout seed: each with a fresh optimizer of
+    learning rate 0 and no clipping, so both draw the same dropout masks,
+    the parameters stay as they are and the raw gradients are left in
+    place. The flash step must launch ``want`` (counter: launches) and
+    nothing else; the losses must agree within F32_LOSS_RTOL and the
+    global gradient norms within F32_NORM_RTOL."""
+    from lddl_tpu_torch.models import make_optimizer, make_train_step
+    out = {}
+    for impl in ("flash", "dense"):
+        for attn in attentions:
+            attn.attention_impl = impl
+        opt = make_optimizer(model.parameters(), learning_rate=0.0,
+                             clip_norm=math.inf)
+        zero_launches(fa)
+        loss = float(make_train_step(model, opt, **step_kw)(batch,
+                                                            seed=0)["loss"])
+        launched = read_launches(fa)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        norm = float(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))))
+        out[impl] = (loss, norm)
+        del opt, grads
+        if launched != dict.fromkeys(KERNELS, 0) | (
+                want if impl == "flash" else {}):
+            raise AssertionError("{} {} step launched {} (want {})".format(
+                label, impl, launched, want if impl == "flash" else {}))
+    (f_loss, f_norm), (d_loss, d_norm) = out["flash"], out["dense"]
+    rel_loss = abs(f_loss - d_loss) / abs(d_loss)
+    rel_norm = abs(f_norm - d_norm) / d_norm
+    print("{} flash vs dense train step (L={}): loss {!r} vs {!r} (rel "
+          "{:.2e}, bar {:.0e}), gradient norm {!r} vs {!r} (rel {:.2e}, bar "
+          "{:.0e})".format(label, batch["input_ids"].shape[1], f_loss,
+                          d_loss, rel_loss, F32_LOSS_RTOL, f_norm, d_norm,
+                          rel_norm, F32_NORM_RTOL), flush=True)
+    if not (math.isfinite(f_loss) and rel_loss <= F32_LOSS_RTOL
+            and rel_norm <= F32_NORM_RTOL):
+        raise AssertionError("{}: the flash step disagrees with the dense "
+                             "one".format(label))
+
+
+def bert_path(fa, card, shared, dtype=None):
+    """bert_large steps from the binned loader: phase 4 (bf16
+    activations, STEPS steps as the loader draws them, a profiled window
+    and flash against dense logits) or, with ``dtype`` (torch.float32),
+    phase 17: the same model, loader and train step at that dtype,
+    F32_STEPS_PER_BIN steps in each bin (the first a warm-up), on the
+    fp32 kernels, and one flash train step against one dense at L=512.
+    Phase 4 leaves its step ms a bin in ``shared`` for phase 17. Returns
+    the launch counts of the counted steps."""
     from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
@@ -1060,36 +1334,53 @@ def bert_path(fa, card):
             fixed_seq_lengths=BINS, shuffle_buffer_size=256,
             shuffle_buffer_warmup_factor=4, base_seed=12345)
 
+        f32 = dtype is not None
+        suffix = "_f32" if f32 else ""
+        label = "bert_large" + (" fp32" if f32 else "")
         torch.manual_seed(0)
         cfg = BertConfig.bert_large(attention_dropout=0.0,
-                                    attention_impl="auto")
+                                    attention_impl="auto",
+                                    **({"dtype": dtype} if f32 else {}))
         with torch.device("cuda"):
             model = BertForPreTraining(cfg)
         opt = make_optimizer(model.parameters(), learning_rate=1e-4,
                              warmup_steps=4, total_steps=100)
         step = make_train_step(model, opt)
 
+        # bf16: the first STEPS batches; fp32: F32_STEPS_PER_BIN in each
+        # bin, the batches of a bin that has them skipped.
+        n_steps = F32_STEPS_PER_BIN * len(BINS) if f32 else STEPS
         zero_launches(fa)
-        rows, it = [], iter(prefetch_to_device(loader))
+        rows, last, it = [], {}, iter(prefetch_to_device(loader))
         try:
-            for i in range(STEPS):
-                batch = next(it)
+            for batch in it:
+                l_bin = batch["input_ids"].shape[1]
+                if f32 and sum(r[0] == l_bin for r in rows) == \
+                        F32_STEPS_PER_BIN:
+                    continue
                 t0 = time.perf_counter()
                 metrics = step(batch)
                 loss = float(metrics["loss"])  # syncs the device
                 dt = time.perf_counter() - t0
-                l_bin = batch["input_ids"].shape[1]
                 real = int(batch["attention_mask"].sum())
                 rows.append((l_bin, dt, real, loss))
-                print("step {:2d} L={} loss={:.4f} mlm_acc={:.4f} {:.1f} ms"
-                      .format(i, l_bin, loss, float(metrics["mlm_accuracy"]),
-                              dt * 1e3), flush=True)
+                last[l_bin] = batch
+                print("{}step {:2d} L={} loss={:.4f} mlm_acc={:.4f} {:.1f} "
+                      "ms".format("fp32 " if f32 else "", len(rows) - 1,
+                                  l_bin, loss,
+                                  float(metrics["mlm_accuracy"]), dt * 1e3),
+                      flush=True)
                 if not math.isfinite(loss):
                     raise AssertionError("non-finite loss at step {}"
-                                         .format(i))
+                                         .format(len(rows) - 1))
+                if len(rows) == n_steps:
+                    break
         finally:
             it.close()
         launches = read_launches(fa)
+        if len(rows) != n_steps:
+            raise AssertionError("{} steps drawn of {}".format(len(rows),
+                                                               n_steps))
 
         kernel_steps = sum(1 for r in rows
                            if fa.single_block_serves(r[0], 64))
@@ -1099,13 +1390,13 @@ def bert_path(fa, card):
             raise AssertionError("no kernel bin was drawn")
         want = cfg.num_layers * kernel_steps
         if launches != dict.fromkeys(KERNELS, 0) | {
-                "onekv_fwd": want, "onekv_bwd": want}:
+                "onekv_fwd" + suffix: want, "onekv_bwd" + suffix: want}:
             raise AssertionError("launch counts {} != {} per kernel ({} "
                                  "kernel-bin steps x {} layers)".format(
                                      launches, want, kernel_steps,
                                      cfg.num_layers))
         print("launches over {} steps ({} in kernel bins): {}".format(
-            STEPS, kernel_steps, launches), flush=True)
+            len(rows), kernel_steps, launches), flush=True)
 
         per_bin = {}
         seen = set()
@@ -1119,9 +1410,24 @@ def bert_path(fa, card):
             ms = 1e3 * sum(dts) / len(dts)
             toks = 16 * l_bin * len(dts) / sum(dts)
             real = sum(x[1] for x in per_bin[l_bin]) / sum(dts)
-            print("bert_large step L={}: {:.2f} ms mean of {} steps, {:.0f} "
-                  "padded tokens/s, {:.0f} real tokens/s ({})".format(
-                      l_bin, ms, len(dts), toks, real, card), flush=True)
+            beside = shared.get("bert_step_ms", {}).get(l_bin)
+            print("{} step L={}: {:.2f} ms mean of {} steps, {:.0f} "
+                  "padded tokens/s, {:.0f} real tokens/s{} ({})".format(
+                      label, l_bin, ms, len(dts), toks, real,
+                      "" if not f32 or beside is None else
+                      "; phase 4's bf16 step {:.2f} ms, ratio {:.2f} (host "
+                      "clock)".format(beside, ms / beside), card),
+                  flush=True)
+            if not f32:
+                shared.setdefault("bert_step_ms", {})[l_bin] = ms
+
+        if f32:
+            flash_vs_dense_step(
+                fa, model, [getattr(model, "layer_{}".format(i)).attention
+                            for i in range(cfg.num_layers)],
+                last[BINS[-1]], {"onekv_fwd_f32": cfg.num_layers,
+                                 "onekv_bwd_f32": cfg.num_layers}, label)
+            return launches
 
         it = iter(prefetch_to_device(loader))
         try:
@@ -1168,12 +1474,16 @@ def bert_path(fa, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def bart_path(fa, card, shared, num_heads=None):
+def bart_path(fa, card, shared, num_heads=None, dtype=None):
     """bart_base denoising steps at L=1024 from the port's BART loader
     (phase 6; with ``num_heads`` phase 16: bart_base's widths with that
-    many heads, whose head dim the encoder's online kernels take);
-    returns the launch counts of the counted steps. Phase 6 leaves its
-    step ms in ``shared`` for phase 16 to print beside its own."""
+    many heads, whose head dim the encoder's online kernels take; with
+    ``dtype`` (torch.float32) phase 18: bart_base at that dtype on the
+    online kernels' fp32 builds, BART_F32_STEPS steps, then one flash
+    train step against one dense, in place of the profiled step and the
+    eval logits); returns the launch counts of the counted steps. Phase
+    6 leaves its step ms in ``shared`` for phases 16 and 18 to print
+    beside their own."""
     from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BartConfig, BartForPreTraining,
@@ -1197,13 +1507,19 @@ def bart_path(fa, card, shared, num_heads=None):
             shuffle_buffer_warmup_factor=4, base_seed=12345)
 
         torch.manual_seed(0)
-        heads = {} if num_heads is None else {"num_heads": num_heads}
+        f32 = dtype is not None
+        suffix = "_f32" if f32 else ""
+        n_steps = BART_F32_STEPS if f32 else BART_STEPS
+        kw = {} if num_heads is None else {"num_heads": num_heads}
+        if f32:
+            kw["dtype"] = dtype
         cfg = BartConfig.bart_base(attention_dropout=0.0,
-                                   attention_impl="auto", **heads)
+                                   attention_impl="auto", **kw)
         label = "bart_base" + ("" if num_heads is None else
                                " H={} (D={})".format(
                                    cfg.num_heads,
-                                   cfg.hidden_size // cfg.num_heads))
+                                   cfg.hidden_size // cfg.num_heads)) + (
+                                       " fp32" if f32 else "")
         with torch.device("cuda"):
             model = BartForPreTraining(cfg)
         opt = make_optimizer(model.parameters(), learning_rate=1e-4,
@@ -1213,7 +1529,7 @@ def bart_path(fa, card, shared, num_heads=None):
         zero_launches(fa)
         rows, it = [], iter(prefetch_to_device(loader))
         try:
-            for i in range(BART_STEPS):
+            for i in range(n_steps):
                 batch = next(it)
                 t0 = time.perf_counter()
                 metrics = step(batch)
@@ -1232,15 +1548,14 @@ def bart_path(fa, card, shared, num_heads=None):
         finally:
             it.close()
         launches = read_launches(fa)
-        want = cfg.num_encoder_layers * BART_STEPS
+        want = cfg.num_encoder_layers * n_steps
         if launches != dict.fromkeys(KERNELS, 0) | {
-                "online_fwd": want, "online_bwd_dq": want,
-                "online_bwd_dkv": want}:
+                name + suffix: want for name in ONLINE_KERNELS}:
             raise AssertionError("launch counts {} != {} per online kernel "
                                  "({} steps x {} encoder layers)".format(
-                                     launches, want, BART_STEPS,
+                                     launches, want, n_steps,
                                      cfg.num_encoder_layers))
-        print("launches over {} {} steps: {}".format(BART_STEPS, label,
+        print("launches over {} {} steps: {}".format(n_steps, label,
                                                     launches), flush=True)
         dts = [r[0] for r in rows[1:]]          # the first is warm-up
         ms = 1e3 * sum(dts) / len(dts)
@@ -1250,13 +1565,23 @@ def bart_path(fa, card, shared, num_heads=None):
                   label, BART_L, BART_BATCH, ms, len(dts), 1e3 * min(dts),
                   1e3 * max(dts), BART_BATCH * BART_L / (ms / 1e3),
                   sum(r[1] for r in rows[1:]) / sum(dts), card), flush=True)
-        if num_heads is None:
+        if num_heads is None and not f32:
             shared["bart_step_ms"] = ms
         elif "bart_step_ms" in shared:
-            print("{} step {:.2f} ms beside phase 6's bart_base (H=12, "
-                  "D=64) {:.2f} ms, ratio {:.2f} (host clock)".format(
+            print("{} step {:.2f} ms beside phase 6's bart_base (bf16, "
+                  "H=12, D=64) {:.2f} ms, ratio {:.2f} (host clock)".format(
                       label, ms, shared["bart_step_ms"],
                       ms / shared["bart_step_ms"]), flush=True)
+
+        encoders = [getattr(model, "encoder_{}".format(i)).self_attention
+                    for i in range(cfg.num_encoder_layers)]
+        if f32:
+            flash_vs_dense_step(
+                fa, model, encoders, batch,
+                {name + suffix: cfg.num_encoder_layers
+                 for name in ONLINE_KERNELS}, label,
+                batch_loss=bart_batch_loss)
+            return launches
 
         it = iter(prefetch_to_device(loader))
         try:
@@ -1266,10 +1591,10 @@ def bart_path(fa, card, shared, num_heads=None):
             it.close()
         counts = {name: sum(c for _, c, n in prof_rows
                             if name + "_kernel" in n)
-                  for name in KERNELS[2:]}
+                  for name in ONLINE_KERNELS}
         print("kernels in a profiled bart step: {}".format(counts),
               flush=True)
-        if counts != dict.fromkeys(KERNELS[2:], cfg.num_encoder_layers):
+        if counts != dict.fromkeys(ONLINE_KERNELS, cfg.num_encoder_layers):
             raise AssertionError("a profiled step launched {} (want {} "
                                  "each)".format(counts,
                                                 cfg.num_encoder_layers))
@@ -1280,9 +1605,8 @@ def bart_path(fa, card, shared, num_heads=None):
         inputs = [batch[k] for k in model.BATCH_INPUTS]
         outs = {}
         for impl in ("flash", "dense"):
-            for i in range(cfg.num_encoder_layers):
-                getattr(model, "encoder_{}".format(i)).self_attention \
-                    .attention_impl = impl
+            for attn in encoders:
+                attn.attention_impl = impl
             with torch.no_grad():
                 outs[impl] = model(*inputs)
         a, r = outs["flash"], outs["dense"]
@@ -4257,10 +4581,12 @@ def main():
     from lddl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    libs = _build.build(["attention_fwd", "online_attention_bwd"])
+    libs = _build.build(["attention_fwd", "online_attention_bwd",
+                         fa.F32_SOURCE])
     print("build: {:.1f} s (one nvcc for each source not built yet, in "
           "parallel; with the D=256 instantiations of the three online "
-          "kernels)".format(time.perf_counter() - t0), flush=True)
+          "kernels and the fp32 builds of all five)".format(
+              time.perf_counter() - t0), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
@@ -4285,7 +4611,8 @@ def main():
                     raise AssertionError("{}<256> spills or was not "
                                          "reported: {}".format(
                                              kernel, regs.get((kernel, d))))
-        hgmma = hgmma_counts(libs[lib])
+        hgmma = {fn: ops["HGMMA"]
+                 for fn, ops in sass_opcodes(libs[lib]).items()}
         for fn, n in sorted(hgmma.items()):
             print("sass {}: {} HGMMA in {}".format(lib, n, fn), flush=True)
         for kernel in wanted:
@@ -4293,8 +4620,36 @@ def main():
             if not found or min(found) == 0:
                 raise AssertionError("no HGMMA in the SASS of {}: {}".format(
                     kernel, hgmma))
+    # The fp32 builds: ptxas's summary of each, FFMA counts, and no
+    # tensor-core instruction at all (HMMA, HGMMA: no TF32 product).
+    regs = ptxas_summary(_build.build_logs.get(fa.F32_SOURCE, ""))
+    ops = sass_opcodes(libs[fa.F32_SOURCE])
+    ffma = {fn: c["FFMA"] for fn, c in ops.items()}
+    # Tensor-core products: HMMA, HGMMA, IMMA, DMMA, ... (any TF32 kind).
+    mma = {fn: sum(n for op, n in c.items() if op.endswith("MMA"))
+           for fn, c in ops.items()}
+    for fn, n in sorted(ffma.items()):
+        print("sass {}: {} FFMA, {} tensor-core MMA in {}".format(
+            fa.F32_SOURCE, n, mma[fn], fn), flush=True)
+    for kernel in ("onekv_fwd", "onekv_bwd_dkv", "onekv_bwd_dq",
+                   "online_fwd", "online_bwd_dq", "online_bwd_dkv"):
+        widths = (64, 128) if kernel.startswith("onekv") else (64, 128, 256)
+        for d in widths:
+            print("ptxas summary {}_f32_kernel<{}>: {}".format(
+                kernel, d, regs.get((kernel + "_f32_kernel", d),
+                                    "not reported")), flush=True)
+        fns = [fn for fn in ffma if kernel + "_f32_kernel" in fn]
+        if len(fns) != len(widths) or not all(ffma[fn] for fn in fns):
+            raise AssertionError("{}_f32_kernel: FFMA in the SASS of {} "
+                                 "(want {} widths)".format(
+                                     kernel, {fn: ffma[fn] for fn in fns},
+                                     len(widths)))
+    if any(mma.values()):
+        raise AssertionError("a tensor-core instruction in the fp32 "
+                             "builds' SASS: {}".format(mma))
 
-    kernels = check_kernels(fa) + check_online_kernels(fa)
+    kernels = (check_kernels(fa) + check_online_kernels(fa)
+               + check_f32_kernels(fa))
     check_padded_widths(fa)
     backward_by_length(fa)
     by_name = {e["name"]: e for e in kernels}
@@ -4311,8 +4666,8 @@ def main():
         print(json.dumps({"kernels": kernels}))
         return 0
     by_path = {}
-    shared = {}  # what phases 11-12 leave for 13, phase 6 for 16
-    phases = [("4", "bert_binned", lambda: bert_path(fa, card)),
+    shared = {}  # what phases 11-12 leave for 13, 4 for 17, 6 for 16, 18
+    phases = [("4", "bert_binned", lambda: bert_path(fa, card, shared)),
               ("5", "bert_packed", lambda: packed_path(fa, card)),
               ("6", "bart", lambda: bart_path(fa, card, shared)),
               ("7", "bert_sharded", lambda: distributed_path(fa, card)),
@@ -4326,7 +4681,11 @@ def main():
                lambda: download_and_analyzer_path(fa, card)),
               ("15", "pipeline", lambda: pipeline_path(fa, card)),
               ("16", D256_PATH,
-               lambda: bart_path(fa, card, shared, BART_D256_HEADS))]
+               lambda: bart_path(fa, card, shared, BART_D256_HEADS)),
+              ("17", "bert_f32",
+               lambda: bert_path(fa, card, shared, torch.float32)),
+              ("18", "bart_f32",
+               lambda: bart_path(fa, card, shared, dtype=torch.float32))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

@@ -8,9 +8,11 @@ run in ``dtype`` (bf16 in training), as flax's ``nn.Dense(dtype=...)``
 does: inputs and weights are cast to ``dtype`` before each product.
 
 The dense path keeps the finite -1e9 bias (a dtype-min bias overflows to
--inf in bf16 and turns an all-masked row into NaN). The flash path calls
-the port's attention kernels (``ops.flash_attention``): the single-block
-ones up to their bound, the online-softmax ones from L_pad 1024.
+-inf in bf16 and turns an all-masked row into NaN) and rounds its softmax
+where the reference's does (``softmax``). The flash path calls the port's
+attention kernels (``ops.flash_attention``), built for bf16 and fp32
+activations: the single-block ones up to their bound, the online-softmax
+ones from L_pad 1024.
 
 Under the sharding plan (``models.sharding``) the ambient mesh
 (``parallel.mesh.set_mesh``) decides the sharded paths:
@@ -101,6 +103,34 @@ def resolve_auto_impl(seq_len, blockwise_ok, attention_dropout,
     return ("flash" if blockwise_ok and effective_dropout == 0.0
             and (single_block_serves(seq_len, head_dim)
                  or pad_seq_len(seq_len) >= 1024) else "dense")
+
+
+class _Softmax(torch.autograd.Function):
+    """Softmax over the last dim, rounded where the reference's
+    ``nn.softmax`` (``jax.nn.softmax``) rounds: x - max, its exp, their
+    sum and the quotient each round to the input dtype (the sum
+    accumulates in fp32 on both sides). The backward is torch.softmax's
+    fused one, y (g - sum(g y)) from the saved output alone (one pass, so
+    no copy of the probabilities in another dtype is kept); like the
+    port's before, it is not bit-equal to flax's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        y = e / e.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return torch.ops.aten._softmax_backward_data(g, y, -1, y.dtype)
+
+
+def softmax(x):
+    """The dense path's softmax over the last dim of ``x``, in x's dtype,
+    bit-identical to flax's ``nn.softmax`` at bf16 on the CPU."""
+    return _Softmax.apply(x)
 
 
 class Dense(nn.Linear):
@@ -219,10 +249,8 @@ class MultiHeadAttention(nn.Module):
             bias = extra_bias if bias is None else bias + extra_bias
         if bias is not None:
             scores = scores + bias.to(self.dtype)
-        # In self.dtype, as the reference's nn.softmax: torch reduces in
-        # fp32 and writes self.dtype, so no fp32 [B, H, Lq, Lk] copy of
-        # the probabilities is made.
-        probs = torch.softmax(scores, dim=-1)
+        # In self.dtype, rounded as the reference's nn.softmax rounds.
+        probs = softmax(scores)
         tp = axis_size(mesh, AXIS_TP)
         if self.training and self.dropout > 0 and tp > 1:
             # Draw all H heads' mask and keep this rank's heads: tp ranks

@@ -16,11 +16,11 @@ the reference:
   replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (``online_bwd_dq``,
   ``online_bwd_dkv``), three kernels launched on their own.
 
-The two forwards are one warp-specialised kernel body (wgmma with the
-scores in registers, K/V fed by a TMA ring) instantiated as two kernels,
-one per regime; the backward is built the same way, a dQ body and a
-dK/dV body instantiated once per regime, each kernel on a persistent
-grid of at most one block per SM. Given LSE and delta the
+In bf16 the two forwards are one warp-specialised kernel body (wgmma
+with the scores in registers, K/V fed by a TMA ring) instantiated as two
+kernels, one per regime; the backward is built the same way, a dQ body
+and a dK/dV body instantiated once per regime, each kernel on a
+persistent grid of at most one block per SM. Given LSE and delta the
 single-block backward computes the online pair's function, so both
 regimes share the bodies; the kernels keep separate names, so that the
 profiler tells the regimes apart. Each kernel has a plain PyTorch version
@@ -29,7 +29,7 @@ stored-dtype operands accumulated in fp32, the fp32 -1e9 bias, P cast to
 V's dtype before P V, dS cast to the input dtype; the online forward
 walks the same 64-wide K/V tiles with a running max). A wrapper takes the
 plain version only for tensors on the CPU; on a CUDA tensor it launches
-its kernel or raises. Each wrapper counts its kernel launches in
+its kernel or raises. Each wrapper counts its bf16 kernel launches in
 ``<wrapper>.launches``.
 
 Conventions shared with the reference: layout ``[B*H, L_pad, D]`` with L
@@ -47,6 +47,16 @@ columns of O, dQ, dK and dV and leave dP and delta as they are. The scale
 stays 1/sqrt(D) of the true D, and ``_use_onekv`` decides on the true D,
 as the reference does. A head dim above 256 raises (wgmma's N, the width
 of the P V product, is at most 256).
+
+Dtypes: the reference's kernels take any float dtype, with fp32
+accumulation and fp32 softmax statistics. The port's kernels are built
+for bf16 (the files above) and fp32: ``csrc/attention_f32.cu`` holds the
+fp32 builds of all five under the same regime names with an ``_f32``
+suffix (``onekv_fwd_f32_kernel``, ...), SIMT fp32 FFMA on the CUDA cores
+(Hopper's tensor cores take no fp32 product). The wrapper picks the build
+by the operands' dtype, never casts fp32 down to bf16 and never routes it
+elsewhere; any other dtype raises on a CUDA tensor. Launches of the fp32
+builds count in ``<wrapper>.launches_f32``.
 """
 
 import ctypes
@@ -65,6 +75,10 @@ NEG_BIG = -1e9
 ONLINE_STEP = 64
 # Head dims the kernels are built for, narrowest first.
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# Operand dtypes the kernels are built for; the fp32 builds are in
+# F32_SOURCE, each entry point named as its bf16 one with an _f32 suffix.
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+F32_SOURCE = "attention_f32"
 
 
 def pad_seq_len(l):
@@ -237,14 +251,18 @@ def _check_cuda(tensors, masks, rows, online=False):
 
 def _check_operands(tensors, masks, rows, online=False):
     """Raise on what the kernels do not take: dtypes, devices, shapes,
-    layout, head dims and lengths. ``tensors`` are [B*H, L_pad, D] bf16,
-    ``masks`` [B, L_pad] int32, ``rows`` (LSE, delta) [B*H, L_pad] fp32.
+    layout, head dims and lengths. ``tensors`` are [B*H, L_pad, D], all
+    bf16 or all fp32, ``masks`` [B, L_pad] int32, ``rows`` (LSE, delta)
+    [B*H, L_pad] fp32.
     The single-block kernels take L_pad inside ``_use_onekv``'s bound, the
     online kernels (``online=True``) any multiple of 128. Returns H."""
-    dev = tensors[0].device
+    dev, operand = tensors[0].device, tensors[0].dtype
     bh, l_pad, d = tensors[0].shape
     b = masks[0].shape[0]
-    for group, dtype, shape in ((tensors, torch.bfloat16, (bh, l_pad, d)),
+    if operand not in KERNEL_DTYPES:
+        raise TypeError("the attention kernels are built for bf16 and fp32 "
+                        "operands; got {}".format(operand))
+    for group, dtype, shape in ((tensors, operand, (bh, l_pad, d)),
                                 (masks, torch.int32, (b, l_pad)),
                                 (rows, torch.float32, (bh, l_pad))):
         for t in group:
@@ -282,6 +300,10 @@ _ENTRY_POINTS = {
                              "lddl_online_bwd_dkv": 10,
                              "lddl_onekv_bwd": 11},
 }
+_ENTRY_POINTS[F32_SOURCE] = {
+    entry + "_f32": n_ptr for source in ("attention_fwd",
+                                         "online_attention_bwd")
+    for entry, n_ptr in _ENTRY_POINTS[source].items()}
 
 
 def _lib(source):
@@ -299,12 +321,17 @@ def _lib(source):
     return lib
 
 
-def _launch(source, entry, tensors, h, scale):
-    """Call one C entry point on the operands' device and current stream;
-    ``tensors`` are its pointer arguments, q first. Raises on a CUDA
-    error from the launch."""
+def _launch(wrapper, source, entry, tensors, h, scale):
+    """Call one C entry point of ``source`` on the operands' device and
+    current stream, or its fp32 build for fp32 operands; ``tensors`` are
+    its pointer arguments, q first. Raises on a CUDA error from the
+    launch; else counts it in ``wrapper.launches`` (bf16) or
+    ``wrapper.launches_f32``."""
     qb = tensors[0]
     bh, l_pad, d = qb.shape
+    f32 = qb.dtype == torch.float32
+    if f32:
+        source, entry = F32_SOURCE, entry + "_f32"
     lib = _lib(source)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream(qb.device).cuda_stream
@@ -313,6 +340,10 @@ def _launch(source, entry, tensors, h, scale):
     if rc != 0:
         raise RuntimeError("{} launch failed: CUDA error {} ({})".format(
             entry, rc, lib.lddl_cuda_error_string(rc).decode()))
+    if f32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
 
 
 def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
@@ -324,13 +355,13 @@ def onekv_fwd(qb, kb, vb, maskb, qmaskb, scale):
     h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [])
     o = torch.empty_like(qb)
     lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
-    _launch("attention_fwd", "lddl_onekv_fwd",
+    _launch(onekv_fwd, "attention_fwd", "lddl_onekv_fwd",
             [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
-    onekv_fwd.launches += 1
     return o, lse
 
 
 onekv_fwd.launches = 0
+onekv_fwd.launches_f32 = 0
 
 
 def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
@@ -342,14 +373,14 @@ def onekv_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
                                scale)
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta])
     dq, dk, dv = (torch.empty_like(t) for t in (qb, kb, vb))
-    _launch("online_attention_bwd", "lddl_onekv_bwd",
+    _launch(onekv_bwd, "online_attention_bwd", "lddl_onekv_bwd",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq, dk, dv], h,
             scale)
-    onekv_bwd.launches += 1
     return dq, dk, dv
 
 
 onekv_bwd.launches = 0
+onekv_bwd.launches_f32 = 0
 
 
 def online_fwd(qb, kb, vb, maskb, qmaskb, scale):
@@ -361,13 +392,13 @@ def online_fwd(qb, kb, vb, maskb, qmaskb, scale):
     h = _check_cuda([qb, kb, vb], [maskb, qmaskb], [], online=True)
     o = torch.empty_like(qb)
     lse = torch.empty((bh, l_pad), dtype=torch.float32, device=qb.device)
-    _launch("attention_fwd", "lddl_online_fwd",
+    _launch(online_fwd, "attention_fwd", "lddl_online_fwd",
             [qb, kb, vb, maskb, qmaskb, o, lse], h, scale)
-    online_fwd.launches += 1
     return o, lse
 
 
 online_fwd.launches = 0
+online_fwd.launches_f32 = 0
 
 
 def online_bwd_dq(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
@@ -379,13 +410,13 @@ def online_bwd_dq(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
                     online=True)
     dq = torch.empty_like(qb)
-    _launch("online_attention_bwd", "lddl_online_bwd_dq",
+    _launch(online_bwd_dq, "online_attention_bwd", "lddl_online_bwd_dq",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dq], h, scale)
-    online_bwd_dq.launches += 1
     return dq
 
 
 online_bwd_dq.launches = 0
+online_bwd_dq.launches_f32 = 0
 
 
 def online_bwd_dkv(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
@@ -397,13 +428,13 @@ def online_bwd_dkv(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     h = _check_cuda([qb, kb, vb, dob], [maskb, qmaskb], [lse, delta],
                     online=True)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
-    _launch("online_attention_bwd", "lddl_online_bwd_dkv",
+    _launch(online_bwd_dkv, "online_attention_bwd", "lddl_online_bwd_dkv",
             [qb, kb, vb, maskb, qmaskb, dob, lse, delta, dk, dv], h, scale)
-    online_bwd_dkv.launches += 1
     return dk, dv
 
 
 online_bwd_dkv.launches = 0
+online_bwd_dkv.launches_f32 = 0
 
 
 def _fwd(qb, kb, vb, maskb, qmaskb, l_pad, d):

@@ -9,9 +9,9 @@ loss, and train steps against make_sharded_train_step with
 Tolerances: fp32 logits agree to 1e-5, absolute and relative: both sides
 run the same fp32 products and differ only in summation order (the online
 regime sums each softmax row tile by tile, at other tile widths). The
-bf16 case is held to 5e-2 of max |ref|: flax takes the dense softmax in
-bf16 while the port takes it in fp32, and each layer rounds its
-activations to bf16 at slightly different places. Loss and metrics 1e-5;
+bf16 case is held to 5e-2 of max |ref|: both take the dense softmax in
+bf16, rounded at the same places, but each layer rounds its activations
+to bf16 at slightly different places. Loss and metrics 1e-5;
 parameters 2e-5 absolute after each step (see test_torch_train.py for
 why).
 """
@@ -255,6 +255,52 @@ def test_train_step_through_online_kernels_at_head_dim_256():
     """The same step at head_dim 256 (hidden 256, one head): the port's
     D=256 plain versions against the reference's online kernels."""
     _online_step(hidden_size=256, num_heads=1)
+
+
+def test_fp32_auto_flash_step_matches_dense(monkeypatch):
+    """An fp32 step at L=1024 with attention_impl="auto": the encoder's
+    self-attention takes the online regime (the port's plain versions
+    here, the fp32 kernels on the card), once a layer, and the step's
+    loss and gradients (learning rate 0 and no clipping, so the
+    parameters stay and the gradients are the raw ones) agree with the
+    same model's dense step within 1e-5 relative (loss, global norm; each
+    gradient within 1e-5 of the largest)."""
+    from lddl_tpu_torch.ops import flash_attention as tfa
+
+    _, tcfg = _cfgs(num_encoder_layers=2, num_decoder_layers=1,
+                    attention_impl="auto")
+    torch.manual_seed(0)
+    model = BartForPreTraining(tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(tcfg.vocab_size, 2, 1024, seed=9).items()}
+    calls = []
+    plain = tfa.online_fwd_plain
+    monkeypatch.setattr(tfa, "online_fwd_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    results = {}
+    for impl in ("auto", "dense"):
+        for i in range(tcfg.num_encoder_layers):
+            getattr(model, "encoder_{}".format(i)).self_attention \
+                .attention_impl = impl
+        opt = make_optimizer(model.parameters(), learning_rate=0.0,
+                             clip_norm=float("inf"))
+        step = make_train_step(model, opt, batch_loss=bart_batch_loss)
+        loss = float(step(batch)["loss"])
+        results[impl] = (loss, [p.grad.clone() for p in model.parameters()])
+    assert len(calls) == tcfg.num_encoder_layers
+
+    (loss, grads), (ref_loss, ref_grads) = results["auto"], results["dense"]
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+
+    def norm(gs):
+        return float(torch.linalg.vector_norm(
+            torch.stack([g.norm() for g in gs])))
+
+    assert abs(norm(grads) - norm(ref_grads)) <= 1e-5 * norm(ref_grads)
+    top = max(float(g.abs().max()) for g in ref_grads)
+    for g, r in zip(grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-5 * top)
 
 
 def test_batch_loss_and_ignore_index_are_exclusive():

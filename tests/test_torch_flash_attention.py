@@ -8,8 +8,10 @@ zero-padded by the port to the next built width (64, 128 or 256) and
 held against the reference at their true D.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions;
-the CUDA kernels themselves are held against those plain versions on the
-card (the CUDA-gated test below, and chip_smoke.py).
+the CUDA kernels themselves, bf16 and fp32 builds, are held against
+those plain versions on the card (the CUDA-gated tests below, and
+chip_smoke.py). The operand checks, the ctypes table and the fp32
+source's instruction set are checked here without nvcc.
 
 Tolerances (fp32 everywhere): 1e-5 for the forward and 1e-4 for the
 gradients, absolute and relative. Both sides compute the same products
@@ -390,7 +392,8 @@ def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
-    own with the single-block backward beside it (no nvcc needed)."""
+    own with the single-block backward beside it; the fp32 source holds
+    all five under the bf16 names with an _f32 suffix (no nvcc needed)."""
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
@@ -402,10 +405,16 @@ def test_entry_points_match_c_sources(source):
         assert all("void*" in x for x in params[:n_ptr]), params
         assert params[n_ptr:] == ["int BH", "int L", "int H", "int D",
                                   "float scale", "void* stream"], params
-    assert (source == "online_attention_bwd") == any(
-        e.startswith("lddl_online_bwd") for e in tfa._ENTRY_POINTS[source])
-    assert (source == "attention_fwd") == any(
-        e.endswith("_fwd") for e in tfa._ENTRY_POINTS[source])
+    if source == tfa.F32_SOURCE:
+        bf16 = {e + "_f32": n for s in ("attention_fwd", "online_attention_bwd")
+                for e, n in tfa._ENTRY_POINTS[s].items()}
+        assert tfa._ENTRY_POINTS[source] == bf16
+    else:
+        assert (source == "online_attention_bwd") == any(
+            e.startswith("lddl_online_bwd")
+            for e in tfa._ENTRY_POINTS[source])
+        assert (source == "attention_fwd") == any(
+            e.endswith("_fwd") for e in tfa._ENTRY_POINTS[source])
     # Each entry point dispatches the built widths: every width of
     # KERNEL_HEAD_DIMS for the online kernels, up to 128 for the
     # single-block ones (the reference's single-block regime stops there).
@@ -419,6 +428,56 @@ def test_entry_points_match_c_sources(source):
         assert widths == want, (entry, widths)
         for w in widths:
             assert "<{}>".format(w) in text[start:end], (entry, w)
+
+
+def test_f32_source_has_no_tensor_core_or_atomic_ops():
+    """The fp32 kernels' code (comments stripped) names no tensor-core
+    product (wgmma, mma.sync, any tf32 kind or conversion) and no atomic
+    operation: every product is an fp32 FFMA, and each output element is
+    written once (no nvcc needed)."""
+    import re
+    from lddl_tpu_torch.ops import _build
+    with open(os.path.join(_build._CSRC, tfa.F32_SOURCE + ".cu")) as f:
+        text = f.read()
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S).lower()
+    for word in ("tf32", "wgmma", "mma", "atomic", "__expf", "__logf",
+                 "__fdividef", "use_fast_math"):
+        assert word not in code, word
+    for word in ("expf(", "logf(", "fmaf("):
+        assert word in code, word
+    # Each of the five kernels is instantiated under its bf16 name + _f32.
+    for kernel in ("onekv_fwd", "online_fwd", "onekv_bwd_dq",
+                   "onekv_bwd_dkv", "online_bwd_dq", "online_bwd_dkv"):
+        assert re.search(r"\b{}_f32_kernel\(".format(kernel), code), kernel
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_check_operands_takes_fp32(d):
+    """The kernels' check takes fp32 operands, as bf16, at every built
+    width: the single-block pair up to D=128, the online kernels at all."""
+    m = torch.ones((2, 512), dtype=torch.int32)
+    rows = [torch.zeros((4, 512))] * 2
+    for dtype in tfa.KERNEL_DTYPES:
+        t = torch.zeros((4, 512, d), dtype=dtype)
+        assert tfa._check_operands([t] * 4, [m, m], rows, online=True) == 2
+        if d <= 128:
+            assert tfa._check_operands([t] * 3, [m, m], []) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_check_operands_refuses_other_dtypes(dtype):
+    """fp16 and fp64 operands raise, naming their dtype and the built
+    ones; a bf16/fp32 mix raises, naming both."""
+    m = torch.ones((2, 512), dtype=torch.int32)
+    t = torch.zeros((4, 512, 64), dtype=dtype)
+    with pytest.raises(TypeError, match=r"bf16 and fp32.*{}".format(dtype)):
+        tfa._check_operands([t] * 3, [m, m], [])
+    bf16 = torch.zeros((4, 512, 64), dtype=torch.bfloat16)
+    f32 = torch.zeros((4, 512, 64))
+    for first, second in ((bf16, f32), (f32, bf16)):
+        with pytest.raises(TypeError, match="{} operands.*got {}".format(
+                first.dtype, second.dtype)):
+            tfa._check_operands([first, second, first], [m, m], [])
 
 
 @pytest.mark.parametrize("source", ["attention_fwd", "online_attention_bwd"])
@@ -448,36 +507,54 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
-@pytest.mark.parametrize("l,d", [(128, 64), (200, 64), (512, 64),
-                                 (896, 64), (512, 128), (1024, 64),
-                                 (2048, 64), (600, 128), (1024, 256),
-                                 (600, 256)])
-def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind):
+CUDA_SHAPES = [(128, 64), (200, 64), (512, 64), (896, 64), (512, 128),
+               (1024, 64), (2048, 64), (600, 128), (1024, 256), (600, 256)]
+# (l, d, mask_kind, dtype name): the bf16 cases under their ids of old,
+# the fp32 ones with an -f32 suffix.
+CUDA_CASES = [pytest.param(l, d, kind, dtype, id="{}-{}-{}{}".format(
+                  l, d, kind, "-f32" if dtype == "f32" else ""))
+              for dtype in ("bf16", "f32") for l, d in CUDA_SHAPES
+              for kind in ("padding", "segments")]
+# Bars of a kernel against its plain version on the card: bf16 takes
+# products in another order and rounds P and dS to bf16 at other places
+# (2e-2 of max |ref| for O and the gradients, 1e-3 for the LSE); fp32
+# differs in summation order alone (1e-5 of max |ref|, and 1e-5 absolute
+# for the LSE).
+CUDA_BARS = {"bf16": (2e-2, 1e-3), "f32": (1e-5, 1e-5)}
+
+
+def _dtype(name):
+    return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+
+
+@pytest.mark.parametrize("l,d,mask_kind,dtype", CUDA_CASES)
+def test_cuda_kernels_match_plain(cuda_device, l, d, mask_kind, dtype):
     """The CUDA kernels of the regime the shape takes against their plain
-    versions on the card, in bf16: 2e-2 of max |ref| for O and the
-    gradients, 1e-3 for the LSE. Masks: padding, or segment ids 1-3 with
-    padding and the last batch row masked entirely (both masks). Every
-    kernel gives bit-identical results in two launches."""
+    versions on the card, in bf16 and in fp32 (CUDA_BARS). Masks:
+    padding, or segment ids 1-3 with padding and the last batch row
+    masked entirely (both masks). Every kernel gives bit-identical
+    results in two launches."""
     g = torch.Generator(device=cuda_device).manual_seed(l + d)
     q, k, v, do = (torch.randn((4, l, 4, d), generator=g, device=cuda_device)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(_dtype(dtype)) for _ in range(4))
     mask = torch.ones((4, l), dtype=torch.int32, device=cuda_device)
     mask[1, l // 2:] = 0
     if mask_kind == "segments":
         mask *= torch.randint(1, 4, (4, l), generator=g, device=cuda_device,
                               dtype=torch.int32)
         mask[-1] = 0
-    _check_cuda_kernels(q, k, v, do, mask, mask_kind == "segments")
+    _check_cuda_kernels(q, k, v, do, mask, mask_kind == "segments",
+                        *CUDA_BARS[dtype])
 
 
-def test_cuda_kernels_match_plain_packed_rows(cuda_device):
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_cuda_kernels_match_plain_packed_rows(cuda_device, dtype):
     """Packed rows at L=512, D=64: each row holds up to 8 samples as runs
     of segment ids 1-8 and a padded tail, the ids taken as both masks."""
     b, l, h, d = 4, 512, 4, 64
     g = torch.Generator(device=cuda_device).manual_seed(8)
     q, k, v, do = (torch.randn((b, l, h, d), generator=g, device=cuda_device)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(_dtype(dtype)) for _ in range(4))
     seg = torch.zeros((b, l), dtype=torch.int32, device=cuda_device)
     for r in range(b):
         cuts = torch.sort(torch.randint(1, l, (8,), generator=g,
@@ -486,10 +563,10 @@ def test_cuda_kernels_match_plain_packed_rows(cuda_device):
         seg[r] = 1 + (cols[:, None] >= cuts[None, :7]).sum(-1)
         seg[r, cuts[7]:] = 0
     assert int(seg.max()) == 8
-    _check_cuda_kernels(q, k, v, do, seg, True)
+    _check_cuda_kernels(q, k, v, do, seg, True, *CUDA_BARS[dtype])
 
 
-def _check_cuda_kernels(q, k, v, do, mask, segments):
+def _check_cuda_kernels(q, k, v, do, mask, segments, bar, lse_bar):
     d = q.shape[-1]
     qb, kb, vb, maskb, qmaskb, shape = tfa._prep(
         q, k, v, mask, mask if segments else None)
@@ -518,12 +595,43 @@ def _check_cuda_kernels(q, k, v, do, mask, segments):
     def rel(a, r):
         return float((a.float() - r.float()).abs().max() / r.abs().max())
 
-    assert rel(o, o_ref) <= 2e-2
-    assert rel(lse, lse_ref) <= 1e-3
+    assert rel(o, o_ref) <= bar
+    if q.dtype == torch.float32:
+        assert float((lse - lse_ref).abs().max()) <= lse_bar
+    else:
+        assert rel(lse, lse_ref) <= lse_bar
     o_again, lse_again = fwd(qb, kb, vb, maskb, qmaskb, scale)
     assert torch.equal(o, o_again) and torch.equal(lse, lse_again)
     for a, r in zip(got, want):
-        assert rel(a, r) <= 2e-2
+        assert rel(a, r) <= bar
     again = bwd(qb, kb, vb, maskb, qmaskb, dob, lse_ref, delta, scale)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("l", [512, 1024])
+def test_cuda_f32_flash_launches_f32_kernels(cuda_device, l):
+    """fp32 flash_attention on the card, forward and backward, launches
+    the fp32 builds of its regime's kernels once each (L=512 the
+    single-block pair, L=1024 the online trio) and no bf16 kernel; the
+    output and gradients are fp32."""
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    q, k, v, do = (torch.randn((2, l, 4, 64), generator=g,
+                               device=cuda_device) for _ in range(4))
+    mask = torch.ones((2, l), dtype=torch.int32, device=cuda_device)
+    mask[1, l // 3:] = 0
+    names = ("onekv_fwd", "onekv_bwd", "online_fwd", "online_bwd_dq",
+             "online_bwd_dkv")
+    before = {n: (getattr(tfa, n).launches, getattr(tfa, n).launches_f32)
+              for n in names}
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(qg, kg, vg, kv_mask=mask)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    moved = {n: (getattr(tfa, n).launches - before[n][0],
+                 getattr(tfa, n).launches_f32 - before[n][1])
+             for n in names}
+    want = names[:2] if l == 512 else names[2:]
+    assert moved == {n: (0, int(n in want)) for n in names}
+    assert out.dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t in grads)

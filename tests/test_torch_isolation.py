@@ -256,8 +256,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                      0.125)
     # The operand checks themselves (device-independent).
     assert fa._check_operands([cpu] * 4, [m, m], rows) == 2
+    # fp32 operands have builds of their own; other dtypes and a
+    # bf16/fp32 mix raise.
+    assert fa._check_operands([cpu.float()] * 3, [m, m], []) == 2
     with pytest.raises(TypeError):
-        fa._check_operands([cpu.float()] * 3, [m, m], [])
+        fa._check_operands([cpu.half()] * 3, [m, m], [])
+    with pytest.raises(TypeError):
+        fa._check_operands([cpu, cpu.float(), cpu], [m, m], [])
     with pytest.raises(TypeError):
         fa._check_operands([cpu] * 3, [m.long(), m], [])
     with pytest.raises(TypeError):

@@ -5,8 +5,9 @@ Tolerances: fp32 logits agree to 1e-5 (absolute and relative), at tiny
 and at bert_base's widths: both sides run the same fp32 products and
 differ only in summation order and in the LayerNorm variance formula.
 The bf16 case is held to 5e-2 of max |ref|: both take the dense softmax
-in bf16 (flax sums in bf16, torch in fp32 before it rounds), and every
-layer rounds its activations to bf16 at slightly different places.
+in bf16, rounded at the same places (``test_dense_softmax_rounds_like_
+flax``), but every layer rounds its activations to bf16 at slightly
+different places.
 """
 
 import numpy as np
@@ -159,8 +160,8 @@ def test_bf16_logits_close_to_flax():
 def test_dense_attention_bf16_close_to_flax(b, l, hidden, heads):
     """The dense MultiHeadAttention in bf16 against flax's on the same
     inputs, parameters and padding mask: within 2e-2 of max |ref| (bf16
-    products and a bf16 softmax on both sides, rounded at different
-    places; flax sums the softmax in bf16, torch in fp32). The
+    products and a bf16 softmax on both sides; the products round at
+    different places). The
     probabilities the backward keeps are bf16, as flax's: no fp32
     [B, H, L, L] copy is made."""
     import flax.linen as nn
@@ -194,6 +195,40 @@ def test_dense_attention_bf16_close_to_flax(b, l, hidden, heads):
         attn(xt, xt, mt)
     probs = [dtype for shape, dtype in saved if shape == (b, heads, l, l)]
     assert probs and all(dtype == torch.bfloat16 for dtype in probs), saved
+
+
+@pytest.mark.parametrize("b,l,hidden,heads", [(2, 64, 128, 2),
+                                              (2, 200, 256, 4)])
+def test_dense_softmax_rounds_like_flax(b, l, hidden, heads):
+    """The dense path's softmax against flax's ``nn.softmax`` on the same
+    bf16 scores plus the -1e9 bias of a padded row, at the shapes of
+    test_dense_attention_bf16_close_to_flax: the largest difference in
+    bf16 ulps is printed and held to 1. Flax rounds x - max, its exp, the
+    sum (accumulated in fp32) and the quotient to bf16; the port's
+    ``softmax`` rounds at the same four places (0 ulps measured here),
+    where ``torch.softmax``, which rounds once, was 14 and 17 ulps off."""
+    import flax.linen as nn
+    from lddl_tpu_torch.models.attention import softmax
+
+    g = np.random.default_rng(l)
+    scores = 3 * g.standard_normal((b, heads, l, l)).astype(np.float32)
+    mask = np.ones((b, l), np.int32)
+    mask[1, l - l // 3:] = 0
+    bias = np.where(mask[:, None, None, :] > 0, 0.0, -1e9).astype(np.float32)
+    want = np.asarray(nn.softmax(jnp.asarray(scores, jnp.bfloat16)
+                                 + jnp.asarray(bias, jnp.bfloat16), axis=-1))
+    x = (torch.from_numpy(scores).to(torch.bfloat16)
+         + torch.from_numpy(bias).to(torch.bfloat16))
+    got = softmax(x)
+    assert got.dtype == torch.bfloat16
+
+    def bits(a):        # the probabilities are >= 0: bits order as values
+        return torch.as_tensor(np.asarray(a, np.float32)).to(
+            torch.bfloat16).view(torch.int16).numpy().astype(np.int32)
+
+    ulps = int(np.abs(bits(got.float().numpy()) - bits(want)).max())
+    print("dense softmax vs flax: max {} bf16 ulps".format(ulps))
+    assert ulps <= 1
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
@@ -257,3 +292,73 @@ def test_mlm_gather_matches_dense_head():
     pos, gathered, dropped = _mlm_gather_of({"labels": labels})
     assert pos.shape == (2, cap) and gathered.shape == (2, cap)
     assert int(dropped) == 2 * (64 - cap)
+
+
+def test_fp32_auto_flash_step_matches_dense_and_flax(monkeypatch):
+    """A small fp32 BertConfig with attention_impl="auto" at L=512: auto
+    resolves to flash (the single-block pair; head dim 16, zero-padded to
+    64), and the train step runs it in every layer. The step's loss and
+    gradients (learning rate 0 and no clipping, so the parameters stay as
+    they are and the gradients are the raw ones) agree with the same
+    model's dense step within 1e-5 relative (loss, global norm; each
+    gradient within 1e-5 of the largest), and with the flax model's at
+    fp32 ("auto" too) within the same bars. The fp32 products differ
+    only in summation order."""
+    from lddl_tpu.models.train import bert_batch_loss as j_loss
+    from lddl_tpu_torch.models import make_optimizer, make_train_step
+    from lddl_tpu_torch.models.attention import resolve_auto_impl
+    from lddl_tpu_torch.ops import flash_attention as tfa
+
+    l = 512
+    jcfg, tcfg = _cfgs(attention_impl="auto", max_position_embeddings=l,
+                       mlm_gather=False)
+    head_dim = tcfg.hidden_size // tcfg.num_heads
+    assert resolve_auto_impl(l, True, 0.0, False, head_dim=head_dim) == \
+        "flash"
+    batch = _batch(jcfg.vocab_size, 2, l, seed=13)
+    params = _flax_params(jcfg, batch, seed=4)
+    model = _port_model(tcfg, params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    calls = []
+    plain = tfa.onekv_fwd_plain
+    monkeypatch.setattr(tfa, "onekv_fwd_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    results = {}
+    for impl in ("auto", "dense"):
+        for i in range(tcfg.num_layers):
+            getattr(model, "layer_{}".format(i)).attention.attention_impl = \
+                impl
+        opt = make_optimizer(model.parameters(), learning_rate=0.0,
+                             clip_norm=float("inf"))
+        loss = float(make_train_step(model, opt)(tbatch)["loss"])
+        results[impl] = (loss, {n: p.grad.clone()
+                                for n, p in model.named_parameters()})
+    assert len(calls) == tcfg.num_layers       # auto took flash, once a layer
+
+    def j_objective(p):
+        out = JBert(jcfg).apply({"params": p}, batch["input_ids"],
+                                batch["token_type_ids"],
+                                batch["attention_mask"], deterministic=True)
+        return j_loss(out, batch)[0]
+
+    j_value, j_grads = jax.value_and_grad(j_objective)(params)
+    results["flax"] = (float(j_value), {
+        n: torch.from_numpy(np.asarray(g)) for n, g in
+        flax_to_state_dict(jax.device_get(j_grads)).items()})
+
+    loss, grads = results["auto"]
+    norm = float(torch.linalg.vector_norm(
+        torch.stack([g.norm() for g in grads.values()])))
+    top = max(float(g.abs().max()) for g in grads.values())
+    for ref in ("dense", "flax"):
+        ref_loss, ref_grads = results[ref]
+        assert set(ref_grads) == set(grads)
+        assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss), ref
+        ref_norm = float(torch.linalg.vector_norm(
+            torch.stack([g.norm() for g in ref_grads.values()])))
+        assert abs(norm - ref_norm) <= 1e-5 * ref_norm, ref
+        for name, g in grads.items():
+            np.testing.assert_allclose(g.numpy(), ref_grads[name].numpy(),
+                                       rtol=0, atol=1e-5 * top,
+                                       err_msg="{} {}".format(ref, name))
