@@ -7,18 +7,21 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (three sources: ``attention_fwd.cu``, both bf16 forwards;
+   (four sources: ``attention_fwd.cu``, both bf16 forwards;
    ``online_attention_bwd.cu``, the bf16 backward of both regimes;
-   ``attention_f32.cu``, the fp32 builds of all of them) with nvcc for
-   sm_90a, one nvcc per source not built yet, all started together, and
-   the build's seconds; print ptxas's register/spill lines (kept beside
-   each library, so a cached build has them), a register/spill summary
-   of each of the six kernels at D=64 and D=128 and of the three online
-   kernels at D=256 (which must spill 0 bytes in bf16) and, from
-   ``cuobjdump -sass``, the HGMMA (wgmma) instructions of every bf16
-   kernel, none of which may be 0, and the FFMA of every fp32 kernel,
-   none of which may be 0, with no tensor-core instruction (HMMA, HGMMA)
-   in the fp32 library;
+   ``attention_f32_bwd.cu``, the fp32 backward of both regimes at D=64
+   and 128, 3xTF32 wgmma; ``attention_f32.cu``, the fp32 forwards and the
+   online fp32 backward at D=256, SIMT FFMA) with nvcc for sm_90a, one
+   nvcc per source not built yet, all started together, and the build's
+   seconds; print ptxas's register/spill lines (kept beside each library,
+   so a cached build has them), a register/spill summary of each of the
+   six kernels at D=64 and D=128 and of the three online kernels at D=256
+   (which must spill 0 bytes in bf16, as must the 3xTF32 fp32 backward at
+   D=64 and 128) and, from ``cuobjdump -sass``, the HGMMA (wgmma)
+   instructions of every bf16 kernel, none of which may be 0, the TF32
+   HGMMA of every 3xTF32 kernel, none of which may be 0, and the FFMA of
+   every SIMT fp32 kernel, none of which may be 0, with no tensor-core
+   instruction (HMMA, HGMMA) in the SIMT fp32 library;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
@@ -41,7 +44,7 @@ exits non-zero):
    F32_BAR of max |ref| (the LSE F32_BAR absolute), bit-identical in two
    launches, and timed at the bf16 rows' shapes against their plain
    versions and SDPA at fp32 under the additive mask, beside their FFMA
-   and 3xTF32 bounds;
+   and 3xTF32 bounds (the backward rows are the 3xTF32 kernels);
    ``flash_attention`` at head dims it zero-pads (8, 32, 96 at L=512 on
    the single-block pair, 160 at L=1024 on the online kernels), forward
    and gradients against the plain versions at the true D; then the
@@ -254,12 +257,15 @@ exits non-zero):
    L=512 one train step with flash against one with dense from the same
    parameters, batch and dropout seed (learning rate 0, no clipping):
    losses within F32_LOSS_RTOL, global gradient norms within
-   F32_NORM_RTOL;
+   F32_NORM_RTOL; then one profiled step at L=512 (``profile_window``):
+   the fp32 attention kernels' device time, 24 launches of each, their
+   share of the step's device time, and the idle share;
 18. bart_base at fp32: phase 6's loader and train step at
    ``dtype=torch.float32``, BART_F32_STEPS steps at B=8, L=1024 (the
    first a warm-up), the encoder on the online trio's fp32 builds (6
    launches of each a step, no bf16 kernel), step ms beside phase 6's,
-   and the same flash-against-dense train step.
+   the same flash-against-dense train step, and a profiled step as
+   phase 17's (6 launches of each fp32 online kernel).
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
@@ -268,8 +274,10 @@ line (``launches`` summed over the paths, ``launches_by_path`` per path:
 D=256 builds, timed at phase 16's shape and counted in phase 16 alone,
 and the other online rows count every path but phase 16; the ``_f32``
 rows are the fp32 builds, counted in every path and launched only in
-phases 17-18, with ``bound_3xtf32_ms`` beside the FFMA bound), the card
-line, and last
+phases 17-18, with ``bound_ffma_ms`` and ``bound_3xtf32_ms`` beside
+``bound_ms``, which takes the FFMA peak for the SIMT kernels and the
+TF32 peak, three times over, for the 3xTF32 ones), the card line, and
+last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -536,6 +544,7 @@ def check_errors(what, e, bar=2e-2, lse_bar=1e-3):
 FWD_SRC = "lddl_tpu_torch/ops/csrc/attention_fwd.cu"
 BWD_SRC = "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"
 F32_SRC = "lddl_tpu_torch/ops/csrc/attention_f32.cu"
+F32_BWD_SRC = "lddl_tpu_torch/ops/csrc/attention_f32_bwd.cu"
 # The TPU kernel each port kernel replaces (lddl_tpu/ops/flash_attention.py).
 REPLACES = {"onekv_fwd": 441, "onekv_bwd": 459, "online_fwd": 64,
             "online_bwd_dq": 104, "online_bwd_dkv": 133}
@@ -983,8 +992,10 @@ def time_f32_kernels(fa, shape, names, max_abs):
     masks: kernel and plain version in turns, and SDPA at fp32 under the
     kernels' additive mask (forward, and backward in two turns around
     the port's). Bound: bytes of fp32 operands at 3.35 TB/s against the
-    reference's products at the FFMA peak; ``bound_3xtf32_ms`` the same
-    products three times at the TF32 peak. Returns the JSON entries."""
+    reference's products at the peak of the kernel's own operations: the
+    FFMA peak for the SIMT kernels (the forwards), the TF32 peak three
+    times over for the 3xTF32 backward; ``bound_ffma_ms`` and
+    ``bound_3xtf32_ms`` give both. Returns the JSON entries."""
     b, l, h, d = shape
     q, k, v, do, mask = attention_inputs(b, l, h, d, seed=7,
                                          dtype=torch.float32)
@@ -1027,21 +1038,27 @@ def time_f32_kernels(fa, shape, names, max_abs):
     entries = []
     for name in names:
         nbytes, flops = work[name]
-        bms, by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        tf32 = "_bwd" in name        # the 3xTF32 kernels
+        bms, by = (bound(nbytes, 3 * flops, PEAK_TF32_FLOPS) if tf32
+                   else bound(nbytes, flops, PEAK_F32_FLOPS))
         entries.append({
-            "name": name + "_f32", "route": "cuda", "source": F32_SRC,
+            "name": name + "_f32", "route": "cuda",
+            "source": F32_BWD_SRC if tf32 else F32_SRC,
             "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
                 REPLACES[name]),
             "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
             "plain_ms": t[name][1], "bound_ms": bms, "bound_by": by,
             "library_ms": lib["fwd" if "fwd" in name else "bwd"],
-            "bound_3xtf32_ms": 3 * flops / PEAK_TF32_FLOPS * 1e3,
+            "bound_ffma_ms": bound(nbytes, flops, PEAK_F32_FLOPS)[0],
+            "bound_3xtf32_ms": bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0],
             "shape": {"B": b, "L": l, "H": h, "D": d}})
-        print("fp32 {}: {:.4f} ms, bound {:.4f} ms ({}; 3xTF32 {:.4f}), "
-              "plain {:.4f} ms, SDPA at fp32 {:.4f} ms".format(
-                  name, t[name][0], bms, by,
-                  entries[-1]["bound_3xtf32_ms"], t[name][1],
-                  entries[-1]["library_ms"]), flush=True)
+        row = entries[-1]
+        print("fp32 {}: {:.4f} ms, bound {:.4f} ms ({}; FFMA {:.4f}, 3xTF32 "
+              "{:.4f}, {:.1%} of it), plain {:.4f} ms, SDPA at fp32 {:.4f} "
+              "ms".format(name, t[name][0], bms, by, row["bound_ffma_ms"],
+                          row["bound_3xtf32_ms"],
+                          row["bound_3xtf32_ms"] / t[name][0], t[name][1],
+                          row["library_ms"]), flush=True)
     return entries
 
 
@@ -1115,12 +1132,13 @@ def ptxas_summary(log):
     return {k: ", ".join(v) for k, v in out.items()}
 
 
-def sass_opcodes(lib_path):
+def sass_opcodes(lib_path, full=False):
     """{kernel function: {opcode: instructions}} of a built library's
     SASS (cuobjdump from the CUDA toolkit, or Triton's copy), by base
     mnemonic: the opcode before its first modifier, so ``HFMA2.MMA`` (an
     fp16 FMA that moves constants) counts as ``HFMA2`` and
-    ``HGMMA.64x64x16.F32.BF16`` as ``HGMMA``."""
+    ``HGMMA.64x64x16.F32.BF16`` as ``HGMMA``; with ``full``, by the whole
+    opcode, modifiers included (``HGMMA.64x32x8.F32.TF32``)."""
     import collections
     import re
     tool = shutil.which("cuobjdump")
@@ -1147,10 +1165,10 @@ def sass_opcodes(lib_path):
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = collections.Counter()
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                     line)
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.\w+)*)", line)
         if fn is not None and m:
-            counts[fn][m.group(1)] += 1
+            counts[fn][m.group(1) + (m.group(2) if full else "")] += 1
     return counts
 
 
@@ -1259,6 +1277,27 @@ def read_launches(fa):
     return counts
 
 
+def profile_f32_step(step, batches, attentions, impl, want, label):
+    """Phases 17-18 after their checks (which leave the attention modules
+    dense): the modules back to ``impl``, then one train step of
+    ``batches`` under profile_window, whose kernels must include ``want``
+    (kernel name: launches). Prints the fp32 attention kernels' device
+    time and their share of the step's device time; profile_window prints
+    the idle share."""
+    for attn in attentions:
+        attn.attention_impl = impl
+    rows, _ = profile_window(step, batches, 1)
+    busy = sum(r[0] for r in rows)
+    counts = {k: sum(c for _, c, n in rows if k in n) for k in want}
+    ms = sum(m for m, _, n in rows if "_f32_kernel" in n)
+    print("{} profiled step: fp32 attention kernels {:.2f} ms of {:.2f} ms "
+          "of device time ({:.1%}); launches {}".format(
+              label, ms, busy, ms / busy, counts), flush=True)
+    if counts != want:
+        raise AssertionError("{}: the profiled step launched {} (want {})"
+                             .format(label, counts, want))
+
+
 def flash_vs_dense_step(fa, model, attentions, batch, want, label,
                         **step_kw):
     """One train step with the flash path against one with the dense
@@ -1309,9 +1348,10 @@ def bert_path(fa, card, shared, dtype=None):
     and flash against dense logits) or, with ``dtype`` (torch.float32),
     phase 17: the same model, loader and train step at that dtype,
     F32_STEPS_PER_BIN steps in each bin (the first a warm-up), on the
-    fp32 kernels, and one flash train step against one dense at L=512.
-    Phase 4 leaves its step ms a bin in ``shared`` for phase 17. Returns
-    the launch counts of the counted steps."""
+    fp32 kernels, one flash train step against one dense at L=512, then
+    a profiled step at L=512. Phase 4 leaves its step ms a bin in
+    ``shared`` for phase 17. Returns the launch counts of the counted
+    steps."""
     from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
@@ -1422,11 +1462,24 @@ def bert_path(fa, card, shared, dtype=None):
                 shared.setdefault("bert_step_ms", {})[l_bin] = ms
 
         if f32:
+            attentions = [getattr(model, "layer_{}".format(i)).attention
+                          for i in range(cfg.num_layers)]
             flash_vs_dense_step(
-                fa, model, [getattr(model, "layer_{}".format(i)).attention
-                            for i in range(cfg.num_layers)],
-                last[BINS[-1]], {"onekv_fwd_f32": cfg.num_layers,
-                                 "onekv_bwd_f32": cfg.num_layers}, label)
+                fa, model, attentions, last[BINS[-1]],
+                {"onekv_fwd_f32": cfg.num_layers,
+                 "onekv_bwd_f32": cfg.num_layers}, label)
+            it = iter(prefetch_to_device(loader))
+            try:
+                profile_f32_step(
+                    step, (b for b in it
+                           if b["input_ids"].shape[1] == BINS[-1]),
+                    attentions, cfg.attention_impl,
+                    dict.fromkeys(("onekv_fwd_f32_kernel",
+                                   "onekv_bwd_dkv_f32_kernel",
+                                   "onekv_bwd_dq_f32_kernel"),
+                                  cfg.num_layers), label)
+            finally:
+                it.close()
             return launches
 
         it = iter(prefetch_to_device(loader))
@@ -1480,8 +1533,9 @@ def bart_path(fa, card, shared, num_heads=None, dtype=None):
     many heads, whose head dim the encoder's online kernels take; with
     ``dtype`` (torch.float32) phase 18: bart_base at that dtype on the
     online kernels' fp32 builds, BART_F32_STEPS steps, then one flash
-    train step against one dense, in place of the profiled step and the
-    eval logits); returns the launch counts of the counted steps. Phase
+    train step against one dense and a profiled step, in place of the
+    bf16 profiled step and the eval logits); returns the launch counts of
+    the counted steps. Phase
     6 leaves its step ms in ``shared`` for phases 16 and 18 to print
     beside their own."""
     from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
@@ -1581,6 +1635,14 @@ def bart_path(fa, card, shared, num_heads=None, dtype=None):
                 {name + suffix: cfg.num_encoder_layers
                  for name in ONLINE_KERNELS}, label,
                 batch_loss=bart_batch_loss)
+            it = iter(prefetch_to_device(loader))
+            try:
+                profile_f32_step(
+                    step, it, encoders, cfg.attention_impl,
+                    {name + "_f32_kernel": cfg.num_encoder_layers
+                     for name in ONLINE_KERNELS}, label)
+            finally:
+                it.close()
             return launches
 
         it = iter(prefetch_to_device(loader))
@@ -4563,6 +4625,71 @@ def pipeline_path(fa, card):
         dist.destroy_process_group()
 
 
+# The fp32 kernels and the head dims each is built at, by source: the
+# SIMT FFMA library and the 3xTF32 one (fa.f32_source routes the entry
+# points between them).
+F32_KERNELS = {
+    "attention_f32": {"onekv_fwd": (64, 128), "online_fwd": (64, 128, 256),
+                      "online_bwd_dq": (256,), "online_bwd_dkv": (256,)},
+    "attention_f32_bwd": {"onekv_bwd_dkv": (64, 128),
+                          "onekv_bwd_dq": (64, 128),
+                          "online_bwd_dq": (64, 128),
+                          "online_bwd_dkv": (64, 128)},
+}
+
+
+def check_f32_builds(fa, libs):
+    """Phase 2's fp32 part: ptxas's summary of every fp32 kernel, which
+    must spill 0 bytes in the 3xTF32 library; the SIMT library's FFMA in
+    every kernel and no tensor-core instruction at all (HMMA, HGMMA: no
+    TF32 product); the 3xTF32 library's TF32 HGMMA in every kernel."""
+    from lddl_tpu_torch.ops import _build
+    simt, tf32 = fa.F32_SOURCE, fa.F32_BWD_SOURCE
+    for source, kernels in F32_KERNELS.items():
+        regs = ptxas_summary(_build.build_logs.get(source, ""))
+        for kernel, widths in kernels.items():
+            for d in widths:
+                summary = regs.get((kernel + "_f32_kernel", d),
+                                   "not reported")
+                print("ptxas summary {} {}_f32_kernel<{}>: {}".format(
+                    source, kernel, d, summary), flush=True)
+                if source == tf32 and " 0 bytes spill stores, 0 bytes " \
+                        "spill loads" not in " " + summary:
+                    raise AssertionError("{}_f32_kernel<{}> spills or was "
+                                         "not reported: {}".format(
+                                             kernel, d, summary))
+    ops = sass_opcodes(libs[simt])
+    ffma = {fn: c["FFMA"] for fn, c in ops.items()}
+    # Tensor-core products: HMMA, HGMMA, IMMA, DMMA, ... (any TF32 kind).
+    mma = {fn: sum(n for op, n in c.items() if op.endswith("MMA"))
+           for fn, c in ops.items()}
+    for fn, n in sorted(ffma.items()):
+        print("sass {}: {} FFMA, {} tensor-core MMA in {}".format(
+            simt, n, mma[fn], fn), flush=True)
+    for kernel, widths in F32_KERNELS[simt].items():
+        fns = [fn for fn in ffma if kernel + "_f32_kernel" in fn]
+        if len(fns) != len(widths) or not all(ffma[fn] for fn in fns):
+            raise AssertionError("{}_f32_kernel: FFMA in the SASS of {} "
+                                 "(want {} widths)".format(
+                                     kernel, {fn: ffma[fn] for fn in fns},
+                                     len(widths)))
+    if any(mma.values()):
+        raise AssertionError("a tensor-core instruction in the SIMT fp32 "
+                             "builds' SASS: {}".format(mma))
+    hgmma = {fn: sum(n for op, n in c.items()
+                     if op.startswith("HGMMA.") and ".TF32" in op)
+             for fn, c in sass_opcodes(libs[tf32], full=True).items()}
+    for fn, n in sorted(hgmma.items()):
+        print("sass {}: {} TF32 HGMMA in {}".format(tf32, n, fn), flush=True)
+    for kernel, widths in F32_KERNELS[tf32].items():
+        fns = [fn for fn in hgmma if kernel + "_f32_kernel" in fn]
+        if len(fns) != len(widths) or not all(hgmma[fn] for fn in fns):
+            raise AssertionError("{}_f32_kernel: TF32 HGMMA in the SASS of "
+                                 "{} (want {} widths)".format(
+                                     kernel, {fn: hgmma[fn] for fn in fns},
+                                     len(widths)))
+
+
 def main():
     global torch
     import torch
@@ -4582,7 +4709,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build(["attention_fwd", "online_attention_bwd",
-                         fa.F32_SOURCE])
+                         fa.F32_SOURCE, fa.F32_BWD_SOURCE])
     print("build: {:.1f} s (one nvcc for each source not built yet, in "
           "parallel; with the D=256 instantiations of the three online "
           "kernels and the fp32 builds of all five)".format(
@@ -4620,33 +4747,7 @@ def main():
             if not found or min(found) == 0:
                 raise AssertionError("no HGMMA in the SASS of {}: {}".format(
                     kernel, hgmma))
-    # The fp32 builds: ptxas's summary of each, FFMA counts, and no
-    # tensor-core instruction at all (HMMA, HGMMA: no TF32 product).
-    regs = ptxas_summary(_build.build_logs.get(fa.F32_SOURCE, ""))
-    ops = sass_opcodes(libs[fa.F32_SOURCE])
-    ffma = {fn: c["FFMA"] for fn, c in ops.items()}
-    # Tensor-core products: HMMA, HGMMA, IMMA, DMMA, ... (any TF32 kind).
-    mma = {fn: sum(n for op, n in c.items() if op.endswith("MMA"))
-           for fn, c in ops.items()}
-    for fn, n in sorted(ffma.items()):
-        print("sass {}: {} FFMA, {} tensor-core MMA in {}".format(
-            fa.F32_SOURCE, n, mma[fn], fn), flush=True)
-    for kernel in ("onekv_fwd", "onekv_bwd_dkv", "onekv_bwd_dq",
-                   "online_fwd", "online_bwd_dq", "online_bwd_dkv"):
-        widths = (64, 128) if kernel.startswith("onekv") else (64, 128, 256)
-        for d in widths:
-            print("ptxas summary {}_f32_kernel<{}>: {}".format(
-                kernel, d, regs.get((kernel + "_f32_kernel", d),
-                                    "not reported")), flush=True)
-        fns = [fn for fn in ffma if kernel + "_f32_kernel" in fn]
-        if len(fns) != len(widths) or not all(ffma[fn] for fn in fns):
-            raise AssertionError("{}_f32_kernel: FFMA in the SASS of {} "
-                                 "(want {} widths)".format(
-                                     kernel, {fn: ffma[fn] for fn in fns},
-                                     len(widths)))
-    if any(mma.values()):
-        raise AssertionError("a tensor-core instruction in the fp32 "
-                             "builds' SASS: {}".format(mma))
+    check_f32_builds(fa, libs)
 
     kernels = (check_kernels(fa) + check_online_kernels(fa)
                + check_f32_kernels(fa))

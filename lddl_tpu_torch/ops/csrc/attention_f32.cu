@@ -1,16 +1,17 @@
-// fp32 attention for Hopper (sm_90a): fp32 builds of the five attention
-// Pallas kernels in lddl_tpu/ops/flash_attention.py, beside the bf16 ones
-// of attention_fwd.cu and online_attention_bwd.cu. Three kernel bodies,
-// each instantiated under the bf16 set's regime names with an _f32
-// suffix, so that the profiler tells them apart, with a C entry point per
-// kernel call of the bf16 set:
+// fp32 attention for Hopper (sm_90a) in SIMT fp32 FFMA: the fp32 builds
+// of the two forward Pallas kernels in lddl_tpu/ops/flash_attention.py at
+// every built width, and of the online backward pair at D=256, beside the
+// bf16 kernels of attention_fwd.cu and online_attention_bwd.cu. The fp32
+// backward at D=64 and 128 (both regimes) runs on the tensor cores in
+// 3xTF32 in attention_f32_bwd.cu; its tiles do not fit shared memory at
+// D=256. Three kernel bodies, each instantiated under the bf16 set's
+// regime names with an _f32 suffix, so that the profiler tells them
+// apart, with a C entry point per kernel call of the bf16 set:
 //
 //   onekv_fwd_f32_kernel       replaces _onekv_fwd_kernel (lddl_onekv_fwd_f32)
 //   online_fwd_f32_kernel      replaces _fwd_kernel       (lddl_online_fwd_f32)
-//   onekv_bwd_dkv_f32_kernel } together replace _onekv_bwd_kernel
-//   onekv_bwd_dq_f32_kernel  } (lddl_onekv_bwd_f32 launches both)
-//   online_bwd_dq_f32_kernel   replaces _bwd_dq_kernel    (lddl_online_bwd_dq_f32)
-//   online_bwd_dkv_f32_kernel  replaces _bwd_dkv_kernel   (lddl_online_bwd_dkv_f32)
+//   online_bwd_dq_f32_kernel   replaces _bwd_dq_kernel    (lddl_online_bwd_dq_f32, D=256)
+//   online_bwd_dkv_f32_kernel  replaces _bwd_dkv_kernel   (lddl_online_bwd_dkv_f32, D=256)
 //
 // What they compute: the bf16 kernels' function (attention_fwd.cu and
 // online_attention_bwd.cu say it in full) on fp32 operands, where the
@@ -32,17 +33,15 @@
 // [B, L_pad], LSE and delta (rowsum(dO * O), computed outside) fp32
 // [B*H, L_pad]. L_pad is a multiple of 128; D is 64, 128 or 256
 // (template; the wrapper zero-pads any other head dim up to one of them).
-// The single-block kernels are built at D=64 and 128 only: the
+// The single-block forward is built at D=64 and 128 only: the
 // reference's single-block regime never takes a wider head.
 //
-// What bounds them on this card: Hopper's tensor cores take no fp32
-// product (their fp32-input kinds round to a 10-bit mantissa, another
-// result), so every product is an fp32 FFMA on the CUDA cores, 66.9
-// TFLOP/s. At bert_large's largest kernel bin (B=16, H=16, L_pad 512,
-// D=64) the forward does 17.2 GFLOP against 135 MB of operands: 0.26 ms
-// of FFMA against 0.04 ms of bytes, and the backward 43 GFLOP (the
-// reference's five products; these kernels recompute S and dP, seven):
-// the CUDA cores bound them all, by 6x or more.
+// What bounds them on this card: every product is an fp32 FFMA on the
+// CUDA cores, 66.9 TFLOP/s (a 3xTF32 build on the tensor cores is
+// attention_f32_bwd.cu's design). At bert_large's largest kernel bin (B=16,
+// H=16, L_pad 512, D=64) the forward does 17.2 GFLOP against 135 MB of
+// operands: 0.26 ms of FFMA against 0.04 ms of bytes; the CUDA cores bound
+// it, by 6x.
 //
 // Design (SIMT, a simple kernel first): a block of 256 threads, a 16 x 16
 // grid, owns ROWS = 64 rows of one (batch*head): queries (fwd, dq) or
@@ -439,33 +438,12 @@ online_fwd_f32_kernel(const float* q, const float* k, const float* v,
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
-onekv_bwd_dq_f32_kernel(const float* q, const float* k, const float* v,
-                        const int* kmask, const int* qmask,
-                        const float* dout, const float* lse,
-                        const float* delta, float* dq, int L, int H,
-                        float scale) {
-  dq_body<D>(q, k, v, kmask, qmask, dout, lse, delta, dq, L, H, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
 online_bwd_dq_f32_kernel(const float* q, const float* k, const float* v,
                          const int* kmask, const int* qmask,
                          const float* dout, const float* lse,
                          const float* delta, float* dq, int L, int H,
                          float scale) {
   dq_body<D>(q, k, v, kmask, qmask, dout, lse, delta, dq, L, H, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-onekv_bwd_dkv_f32_kernel(const float* q, const float* k, const float* v,
-                         const int* kmask, const int* qmask,
-                         const float* dout, const float* lse,
-                         const float* delta, float* dk, float* dv, int L,
-                         int H, float scale) {
-  dkv_body<D>(q, k, v, kmask, qmask, dout, lse, delta, dk, dv, L, H,
-              scale);
 }
 
 template <int D>
@@ -530,27 +508,14 @@ int launch_dkv(Kernel kernel, const void* q, const void* k, const void* v,
                 (const float*)delta, (float*)dk, (float*)dv, L, H, scale);
 }
 
-// The single-block backward: dK/dV, then dQ.
-template <int D>
-int launch_onekv(const void* q, const void* k, const void* v,
-                 const void* km, const void* qm, const void* dout,
-                 const void* lse, const void* delta, void* dq, void* dk,
-                 void* dv, int BH, int L, int H, float scale,
-                 cudaStream_t stream) {
-  const int err = launch_dkv<D>(onekv_bwd_dkv_f32_kernel<D>, q, k, v, km,
-                                qm, dout, lse, delta, dk, dv, BH, L, H,
-                                scale, stream);
-  if (err != 0) return err;
-  return launch_dq<D>(onekv_bwd_dq_f32_kernel<D>, q, k, v, km, qm, dout,
-                      lse, delta, dq, BH, L, H, scale, stream);
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes), the bf16 entry points' arguments
-// under an _f32 name. Each returns the cudaError_t of its launches: 0 on
-// success, cudaErrorInvalidValue at a head dim that is not built. Inputs
-// are checked by the Python wrapper.
+// under an _f32 name (the online backward pair's at D=256 alone; at D=64
+// and 128 its entry points are attention_f32_bwd.cu's). Each returns the
+// cudaError_t of its launches: 0 on success, cudaErrorInvalidValue at a
+// head dim that is not built here. Inputs are checked by the Python
+// wrapper.
 extern "C" {
 
 int lddl_onekv_fwd_f32(const void* q, const void* k, const void* v,
@@ -584,33 +549,12 @@ int lddl_online_fwd_f32(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-int lddl_onekv_bwd_f32(const void* q, const void* k, const void* v,
-                       const void* kmask, const void* qmask,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, int BH, int L, int H,
-                       int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_onekv<64>(q, k, v, kmask, qmask, dout, lse, delta, dq, dk,
-                            dv, BH, L, H, scale, s);
-  if (D == 128)
-    return launch_onekv<128>(q, k, v, kmask, qmask, dout, lse, delta, dq,
-                             dk, dv, BH, L, H, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 int lddl_online_bwd_dq_f32(const void* q, const void* k, const void* v,
                            const void* kmask, const void* qmask,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int BH, int L, int H,
                            int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dq<64>(online_bwd_dq_f32_kernel<64>, q, k, v, kmask,
-                         qmask, dout, lse, delta, dq, BH, L, H, scale, s);
-  if (D == 128)
-    return launch_dq<128>(online_bwd_dq_f32_kernel<128>, q, k, v, kmask,
-                          qmask, dout, lse, delta, dq, BH, L, H, scale, s);
   if (D == 256)
     return launch_dq<256>(online_bwd_dq_f32_kernel<256>, q, k, v, kmask,
                           qmask, dout, lse, delta, dq, BH, L, H, scale, s);
@@ -623,14 +567,6 @@ int lddl_online_bwd_dkv_f32(const void* q, const void* k, const void* v,
                             const void* delta, void* dk, void* dv, int BH,
                             int L, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dkv<64>(online_bwd_dkv_f32_kernel<64>, q, k, v, kmask,
-                          qmask, dout, lse, delta, dk, dv, BH, L, H, scale,
-                          s);
-  if (D == 128)
-    return launch_dkv<128>(online_bwd_dkv_f32_kernel<128>, q, k, v, kmask,
-                           qmask, dout, lse, delta, dk, dv, BH, L, H, scale,
-                           s);
   if (D == 256)
     return launch_dkv<256>(online_bwd_dkv_f32_kernel<256>, q, k, v, kmask,
                            qmask, dout, lse, delta, dk, dv, BH, L, H, scale,

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised
-// attention kernels (attention_fwd.cu, online_attention_bwd.cu):
-// mbarriers, TMA tile loads and stores (2-D tensor maps with the 128-byte
-// swizzle), bulk copies, wgmma shared-memory descriptors and the
-// m64n64k16 bf16 -> fp32 wgmma in its two forms (A and B from shared
-// memory; A from registers), the wgmma fence/commit/wait, setmaxnreg,
-// named barriers, and the host-side tensor-map encoder
-// (cuTensorMapEncodeTiled, looked up through the runtime so the library
-// needs no -lcuda).
+// attention kernels (attention_fwd.cu, online_attention_bwd.cu,
+// attention_f32_bwd.cu): mbarriers, TMA tile loads and stores (2-D tensor
+// maps with the 128-byte swizzle, bf16 and fp32), bulk copies, wgmma
+// shared-memory descriptors, the m64n64k16 bf16 -> fp32 wgmma in its two
+// forms (A and B from shared memory; A from registers), the m64nNk8 tf32
+// wgmma and the tf32 split of the 3xTF32 products, the wgmma
+// fence/commit/wait, setmaxnreg, named barriers, and the host-side
+// tensor-map encoder (cuTensorMapEncodeTiled, looked up through the
+// runtime so the library needs no -lcuda).
 //
 // Tile convention: an operand tile is a column panel of 64 bf16 (128
 // bytes) per row, rows stored back to back, as TMA writes it with
@@ -261,6 +262,121 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TRANS_B));
 }
 
+// ---- tf32 wgmma (attention_f32_bwd.cu) -------------------------------------
+//
+// An fp32 operand tile uses the same 128-byte swizzled panels: 32 fp32 a
+// panel row (PANEL_F32), and a k8 step of tf32 is 32 bytes, as bf16's
+// k16 step is, so a panel is four k steps. tf32 wgmma takes K-major
+// operands only (no transpose). The values stored for it are tf32
+// (cvt.rna: the low 13 bits 0), so that the tensor core reads them whole.
+
+constexpr int PANEL_F32 = 32;            // fp32 columns of a panel row
+
+// A K-major operand at k8 step `kstep` of a tile whose 32-column panels
+// lie `panel_bytes` apart: panel kstep / 4, 32 bytes a step within it.
+__device__ __forceinline__ uint64_t kmajor_desc_tf32(const uint8_t* tile,
+                                                     int panel_bytes,
+                                                     int kstep) {
+  return sw128_desc(tile + (kstep / 4) * panel_bytes + 32 * (kstep % 4), 16,
+                    GROUP_BYTES);
+}
+
+// x rounded to tf32 (10-bit mantissa, to nearest, ties away from zero).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact), so
+// that |x - (hi + lo)| <= 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_f32(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define LDDL_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define LDDL_D16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define LDDL_D32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define LDDL_OUT8(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7])
+#define LDDL_OUT16(d)                                                        \
+  LDDL_OUT8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),            \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define LDDL_OUT32(d)                                                        \
+  LDDL_OUT16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31])
+
+// d[64 x N] (+)= A[64 x 8] B[8 x N] in tf32 with fp32 accumulation, A and
+// B K-major from shared memory (descriptors); scale_d 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d);
+
+// d[64 x N] (+)= A[64 x 8] B[8 x N], A from registers: the m64k8 tf32
+// fragment, a[0] (row g, column t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4); g = 16 * warp + lane / 4, t = lane % 4.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d);
+
+#define LDDL_TF32_SS(N, DREGS, OUTS, IA, IB, IS)                             \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss_tf32<N>(                          \
+      float(&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {             \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k8.f32.tf32.tf32 " DREGS ", %" #IA ", %" #IB               \
+                 ", p, 1, 1;\n}\n"                                           \
+                 : OUTS(d)                                                   \
+                 : "l"(da), "l"(db), "r"(scale_d));                          \
+  }
+LDDL_TF32_SS(16, LDDL_D8, LDDL_OUT8, 8, 9, 10)
+LDDL_TF32_SS(32, LDDL_D16, LDDL_OUT16, 16, 17, 18)
+#undef LDDL_TF32_SS
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " LDDL_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : LDDL_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef LDDL_D8
+#undef LDDL_D16
+#undef LDDL_D32
+#undef LDDL_OUT8
+#undef LDDL_OUT16
+#undef LDDL_OUT32
+
 #undef LDDL_WGMMA_D32
 #undef LDDL_WGMMA_OUT32
 
@@ -342,6 +458,26 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base,
   const cuuint32_t box[2] = {PANEL, 64};
   const cuuint32_t elem[2] = {1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                      const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map over a row-major [rows, cols] fp32 matrix, boxes of
+// `box_rows` rows x 32 columns (128 bytes) with the 128-byte swizzle.
+inline cudaError_t make_map_f32(CUtensorMap* map, const void* base,
+                                uint64_t rows, uint64_t cols, int box_rows) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(float)};
+  const cuuint32_t box[2] = {PANEL_F32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                       const_cast<void*>(base), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,

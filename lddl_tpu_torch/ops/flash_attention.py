@@ -50,13 +50,18 @@ of the P V product, is at most 256).
 
 Dtypes: the reference's kernels take any float dtype, with fp32
 accumulation and fp32 softmax statistics. The port's kernels are built
-for bf16 (the files above) and fp32: ``csrc/attention_f32.cu`` holds the
-fp32 builds of all five under the same regime names with an ``_f32``
-suffix (``onekv_fwd_f32_kernel``, ...), SIMT fp32 FFMA on the CUDA cores
-(Hopper's tensor cores take no fp32 product). The wrapper picks the build
-by the operands' dtype, never casts fp32 down to bf16 and never routes it
-elsewhere; any other dtype raises on a CUDA tensor. Launches of the fp32
-builds count in ``<wrapper>.launches_f32``.
+for bf16 (the files above) and fp32, the fp32 builds under the same
+regime names with an ``_f32`` suffix (``onekv_fwd_f32_kernel``, ...) in
+two sources (``f32_source`` picks one by entry point and head dim):
+``csrc/attention_f32_bwd.cu`` holds the backward of both regimes at D=64
+and 128 on the tensor cores, every product 3xTF32 (each operand split
+into two tf32 halves, three wgmma a product, fp32 accuracy);
+``csrc/attention_f32.cu`` holds both forwards and the online backward at
+D=256 (whose 3xTF32 tiles do not fit shared memory), SIMT fp32 FFMA on
+the CUDA cores. The wrapper picks the build by the operands' dtype, never
+casts fp32 down to bf16 and never routes it elsewhere; any other dtype
+raises on a CUDA tensor. Launches of the fp32 builds count in
+``<wrapper>.launches_f32``.
 """
 
 import ctypes
@@ -75,10 +80,14 @@ NEG_BIG = -1e9
 ONLINE_STEP = 64
 # Head dims the kernels are built for, narrowest first.
 KERNEL_HEAD_DIMS = (64, 128, 256)
-# Operand dtypes the kernels are built for; the fp32 builds are in
-# F32_SOURCE, each entry point named as its bf16 one with an _f32 suffix.
+# Operand dtypes the kernels are built for; each fp32 entry point is named
+# as its bf16 one with an _f32 suffix, in F32_BWD_SOURCE (the backward at
+# the head dims of F32_BWD_HEAD_DIMS, 3xTF32 wgmma) or else F32_SOURCE
+# (SIMT FFMA).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 F32_SOURCE = "attention_f32"
+F32_BWD_SOURCE = "attention_f32_bwd"
+F32_BWD_HEAD_DIMS = (64, 128)
 
 
 def pad_seq_len(l):
@@ -300,10 +309,21 @@ _ENTRY_POINTS = {
                              "lddl_online_bwd_dkv": 10,
                              "lddl_onekv_bwd": 11},
 }
+_ENTRY_POINTS[F32_BWD_SOURCE] = {
+    entry + "_f32": n_ptr
+    for entry, n_ptr in _ENTRY_POINTS["online_attention_bwd"].items()}
 _ENTRY_POINTS[F32_SOURCE] = {
     entry + "_f32": n_ptr for source in ("attention_fwd",
                                          "online_attention_bwd")
-    for entry, n_ptr in _ENTRY_POINTS[source].items()}
+    for entry, n_ptr in _ENTRY_POINTS[source].items()
+    if entry != "lddl_onekv_bwd"}
+
+
+def f32_source(entry, d):
+    """The source of the fp32 entry point ``entry`` at head dim ``d``."""
+    if entry in _ENTRY_POINTS[F32_BWD_SOURCE] and d in F32_BWD_HEAD_DIMS:
+        return F32_BWD_SOURCE
+    return F32_SOURCE
 
 
 def _lib(source):
@@ -331,7 +351,8 @@ def _launch(wrapper, source, entry, tensors, h, scale):
     bh, l_pad, d = qb.shape
     f32 = qb.dtype == torch.float32
     if f32:
-        source, entry = F32_SOURCE, entry + "_f32"
+        entry += "_f32"
+        source = f32_source(entry, d)
     lib = _lib(source)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream(qb.device).cuda_stream

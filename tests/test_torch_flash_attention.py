@@ -11,7 +11,7 @@ On the CPU the port's wrappers run the kernels' plain PyTorch versions;
 the CUDA kernels themselves, bf16 and fp32 builds, are held against
 those plain versions on the card (the CUDA-gated tests below, and
 chip_smoke.py). The operand checks, the ctypes table and the fp32
-source's instruction set are checked here without nvcc.
+sources' instruction sets are checked here without nvcc.
 
 Tolerances (fp32 everywhere): 1e-5 for the forward and 1e-4 for the
 gradients, absolute and relative. Both sides compute the same products
@@ -392,8 +392,11 @@ def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
-    own with the single-block backward beside it; the fp32 source holds
-    all five under the bf16 names with an _f32 suffix (no nvcc needed)."""
+    own with the single-block backward beside it; the two fp32 sources
+    hold all five under the bf16 names with an _f32 suffix, the backward
+    in the 3xTF32 source and the forwards in the SIMT one, which also
+    holds the online backward pair at the widths the 3xTF32 source does
+    not build (no nvcc needed)."""
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
@@ -405,10 +408,14 @@ def test_entry_points_match_c_sources(source):
         assert all("void*" in x for x in params[:n_ptr]), params
         assert params[n_ptr:] == ["int BH", "int L", "int H", "int D",
                                   "float scale", "void* stream"], params
-    if source == tfa.F32_SOURCE:
+    f32 = source in (tfa.F32_SOURCE, tfa.F32_BWD_SOURCE)
+    if f32:
         bf16 = {e + "_f32": n for s in ("attention_fwd", "online_attention_bwd")
                 for e, n in tfa._ENTRY_POINTS[s].items()}
-        assert tfa._ENTRY_POINTS[source] == bf16
+        assert (tfa._ENTRY_POINTS[tfa.F32_SOURCE]
+                | tfa._ENTRY_POINTS[tfa.F32_BWD_SOURCE]) == bf16
+        assert (source == tfa.F32_BWD_SOURCE) == all(
+            "_bwd" in e for e in tfa._ENTRY_POINTS[source])
     else:
         assert (source == "online_attention_bwd") == any(
             e.startswith("lddl_online_bwd")
@@ -417,7 +424,9 @@ def test_entry_points_match_c_sources(source):
             e.endswith("_fwd") for e in tfa._ENTRY_POINTS[source])
     # Each entry point dispatches the built widths: every width of
     # KERNEL_HEAD_DIMS for the online kernels, up to 128 for the
-    # single-block ones (the reference's single-block regime stops there).
+    # single-block ones (the reference's single-block regime stops there);
+    # an fp32 entry point, those of them that f32_source routes to this
+    # source.
     for entry in tfa._ENTRY_POINTS[source]:
         start = text.index("int {}(".format(entry))
         end = text.find("\n}", start)
@@ -425,30 +434,67 @@ def test_entry_points_match_c_sources(source):
                        re.findall(r"if \(D == (\d+)\)", text[start:end]))
         want = (tfa.KERNEL_HEAD_DIMS if "online" in entry
                 else tuple(w for w in tfa.KERNEL_HEAD_DIMS if w <= 128))
+        if f32:
+            want = tuple(w for w in want
+                         if tfa.f32_source(entry, w) == source)
         assert widths == want, (entry, widths)
         for w in widths:
             assert "<{}>".format(w) in text[start:end], (entry, w)
 
 
-def test_f32_source_has_no_tensor_core_or_atomic_ops():
-    """The fp32 kernels' code (comments stripped) names no tensor-core
-    product (wgmma, mma.sync, any tf32 kind or conversion) and no atomic
-    operation: every product is an fp32 FFMA, and each output element is
-    written once (no nvcc needed)."""
+def _code(name):
+    """The code of ``csrc/<name>``, comments stripped, lower case."""
     import re
     from lddl_tpu_torch.ops import _build
-    with open(os.path.join(_build._CSRC, tfa.F32_SOURCE + ".cu")) as f:
+    with open(os.path.join(_build._CSRC, name)) as f:
         text = f.read()
-    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S).lower()
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S).lower()
+
+
+def test_f32_source_has_no_tensor_core_or_atomic_ops():
+    """The SIMT fp32 kernels' code (comments stripped) names no
+    tensor-core product (wgmma, mma.sync, any tf32 kind or conversion) and
+    no atomic operation: every product is an fp32 FFMA, and each output
+    element is written once; it holds both forwards and the online
+    backward pair at D=256 (no nvcc needed)."""
+    import re
+    code = _code(tfa.F32_SOURCE + ".cu")
     for word in ("tf32", "wgmma", "mma", "atomic", "__expf", "__logf",
                  "__fdividef", "use_fast_math"):
         assert word not in code, word
     for word in ("expf(", "logf(", "fmaf("):
         assert word in code, word
-    # Each of the five kernels is instantiated under its bf16 name + _f32.
-    for kernel in ("onekv_fwd", "online_fwd", "onekv_bwd_dq",
-                   "onekv_bwd_dkv", "online_bwd_dq", "online_bwd_dkv"):
+    # Its kernels are instantiated under their bf16 names + _f32.
+    for kernel in ("onekv_fwd", "online_fwd", "online_bwd_dq",
+                   "online_bwd_dkv"):
         assert re.search(r"\b{}_f32_kernel\(".format(kernel), code), kernel
+    for kernel in ("onekv_bwd_dq", "onekv_bwd_dkv"):
+        assert "{}_f32_kernel".format(kernel) not in code, kernel
+
+
+def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics():
+    """The 3xTF32 fp32 backward's code (comments stripped) takes its
+    products on tf32 wgmma (``wgmma_ss_tf32`` and ``wgmma_rs_tf32``,
+    whose m64nNk8 .tf32 instructions are in hopper_tiles.cuh) of operands
+    split by ``split_tf32`` (cvt.rna: tests/test_torch_tf32x3.py emulates
+    that split), uses expf and no fast-math intrinsic, no atomic
+    operation, and instantiates the four backward kernels under their
+    bf16 names + _f32 (no nvcc needed)."""
+    import re
+    code = _code(tfa.F32_BWD_SOURCE + ".cu")
+    header = _code("hopper_tiles.cuh")
+    for word in ("atomic", "__expf", "__logf", "__fdividef",
+                 "use_fast_math", "bf16", "mma.sync"):
+        assert word not in code, word
+    for word in ("wgmma_ss_tf32<", "wgmma_rs_tf32<", "split_tf32(", "expf("):
+        assert word in code, word
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\w*k8"
+                     r"\.f32\.tf32\.tf32", header)
+    assert "cvt.rna.tf32.f32" in header
+    for kernel in ("onekv_bwd_dq", "onekv_bwd_dkv", "online_bwd_dq",
+                   "online_bwd_dkv"):
+        assert re.search(r"\b{}_f32_kernel\)".format(kernel), code), kernel
+
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

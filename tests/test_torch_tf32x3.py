@@ -1,0 +1,146 @@
+"""The 3xTF32 arithmetic of the fp32 backward kernels
+(``lddl_tpu_torch/ops/csrc/attention_f32_bwd.cu``), emulated on the CPU.
+
+The kernels split every fp32 operand x into hi = tf32(x) and lo =
+tf32(x - hi), both rounded as ``cvt.rna.tf32.f32`` rounds (to nearest,
+ties away from zero, a 10-bit mantissa), and take each product a b as
+lo_a hi_b + hi_a lo_b + hi_a hi_b in fp32, dropping lo_a lo_b. Here the
+same split is taken through an int32 view of the fp32 values, the five
+products of the backward (S, dP, dQ, dK, dV) are taken that way on the
+CPU, and the gradients are held against the reference's fp32 backward
+(``lddl_tpu.ops.flash_attention.flash_attention_bwd``, its Pallas kernels
+in interpret mode, as its own tests run them) on the reference's own
+forward: within 1e-5 of max |ref|, the bar the kernels are held to
+against their plain versions on the card (``chip_smoke.F32_BAR``,
+``CUDA_BARS["f32"]``), with a margin of 4. The tensor core's own fp32
+sums (which truncate) are the kernels' other source of error, and only
+the card shows them.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from lddl_tpu_torch.ops import flash_attention as tfa
+
+# lddl_tpu.ops re-exports the function under the module's name.
+jfa = importlib.import_module("lddl_tpu.ops.flash_attention")
+
+F32_BAR = 1e-5
+MARGIN = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def tf32_rna(x):
+    """fp32 ``x`` rounded to tf32 as cvt.rna.tf32.f32 rounds it: half an
+    ulp of the 10-bit mantissa (bit 12) added to the magnitude, which
+    carries into the exponent where it must, and the low 13 bits
+    cleared (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def mm3(a, b):
+    """a @ b in 3xTF32, the two small products summed first."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """The kernels' backward in the kernel layout with every product in
+    3xTF32: (dQ, dK, dV)."""
+    b = maskb.shape[0]
+    bh, l_pad, _ = qb.shape
+    allowed = ((maskb[:, None, :] > 0)
+               & (maskb[:, None, :] == qmaskb[:, :, None]))
+    bias = torch.where(allowed, 0.0, tfa.NEG_BIG).to(torch.float32)
+    s = mm3(qb, kb.transpose(1, 2)) * scale
+    s = (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
+        bh, l_pad, l_pad)
+    p = torch.exp(s - lse[..., None])
+    dp = mm3(dob, vb.transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    return (mm3(ds, kb), mm3(ds.transpose(1, 2), qb),
+            mm3(p.transpose(1, 2), dob))
+
+
+def test_split_is_within_2_to_the_minus_21():
+    """On normal floats across the exponent range: hi and lo are tf32
+    (the low 13 bits 0), |x - (hi + lo)| <= 2^-21 |x|, and hi is x
+    rounded to nearest (|x - hi| <= 2^-11 |x|)."""
+    g = np.random.default_rng(19)
+    mant = g.uniform(1.0, 2.0, 200_000)
+    x = (np.sign(g.standard_normal(mant.size)) * mant
+         * np.exp2(g.integers(-100, 100, mant.size))).astype(np.float32)
+    # Ties and values next to a carry into the exponent.
+    x[:4] = np.array([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, 2 - 2.0 ** -23,
+                      -(1 + 2.0 ** -11)], np.float32)
+    hi, lo = split(torch.from_numpy(x))
+    for t in (hi, lo):
+        assert not (t.view(torch.int32) & 0x1FFF).any()
+    x64 = x.astype(np.float64)
+    hi64, lo64 = hi.numpy().astype(np.float64), lo.numpy().astype(np.float64)
+    assert np.all(np.abs(x64 - (hi64 + lo64)) <= 2.0 ** -21 * np.abs(x64))
+    assert np.all(np.abs(x64 - hi64) <= 2.0 ** -11 * np.abs(x64))
+    # Ties round away from zero, as cvt.rna does.
+    assert hi[0] == np.float32(1 + 2.0 ** -10)
+    assert hi[1] == np.float32(1 + 2 * 2.0 ** -10)
+    assert hi[2] == np.float32(2.0)
+    assert hi[3] == np.float32(-(1 + 2.0 ** -10))
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("l", [200, 512])
+@pytest.mark.parametrize("d", [64, 128])
+def test_emulated_split_matches_reference_backward(d, l, mask_kind):
+    """dQ, dK and dV with every product in 3xTF32 against the reference's
+    fp32 backward at D=64 and 128, L_pad 256 and 512, padding masks or
+    segment ids 1-3 (both masks, one batch row masked entirely): within
+    F32_BAR / MARGIN of max |ref|."""
+    b, h = 2, 2
+    g = np.random.default_rng(100 * d + l + (mask_kind == "segments"))
+    q, k, v, ct = (g.standard_normal((b, l, h, d)).astype(np.float32)
+                   for _ in range(4))
+    mask = np.ones((b, l), np.int32)
+    mask[1, l - l // 3:] = 0
+    qmask = None
+    if mask_kind == "segments":
+        mask = mask * g.integers(1, 4, (b, l)).astype(np.int32)
+        mask[-1] = 0
+        qmask = mask
+    kw = {} if qmask is None else {"q_mask": jnp.asarray(qmask)}
+    jq, jk, jv, jct, jmask = (jnp.asarray(x) for x in (q, k, v, ct, mask))
+    j_out, j_lse = jfa.flash_attention_fwd(jq, jk, jv, jmask, **kw)
+    refs = jfa.flash_attention_bwd(jq, jk, jv, jmask, j_out, j_lse, jct,
+                                   **kw)
+
+    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+        *(torch.from_numpy(x) for x in (q, k, v, mask)),
+        None if qmask is None else torch.from_numpy(qmask))
+    dob = tfa._prep_one(torch.from_numpy(ct), l_pad)
+    ob = tfa._prep_one(torch.from_numpy(np.array(j_out)), l_pad)
+    lse = torch.from_numpy(np.array(j_lse)).reshape(b * h, l_pad)
+    delta = (dob * ob).sum(-1)
+    got = emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                       1.0 / d ** 0.5)
+    for name, x, ref in zip(("dQ", "dK", "dV"), got, refs):
+        x = tfa._from_bh(x, b, l, h, d).numpy()
+        ref = np.asarray(ref)
+        err = np.abs(x - ref).max() / np.abs(ref).max()
+        assert err <= F32_BAR / MARGIN, (name, err)
