@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The fp32 attention backward of two checkouts on one card, in turns.
+"""The fp32 attention kernels of two checkouts on one card, in turns.
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
@@ -10,10 +10,11 @@ example ``git archive <commit> lddl_tpu_torch | tar -x -C DIR``). Each
 measurement runs in a process of its own, OTHER first, in the order
 other, this, this, other:
 
-- the fp32 backward kernels' device time at the main paths' shapes, as
+- the fp32 kernels' device time at the main paths' shapes, as
   ``chip_smoke.time_f32_kernels`` takes it (padding masks, seed 7):
-  ``onekv_bwd`` at B=16, H=16, L=512 and ``online_bwd_dq`` /
-  ``online_bwd_dkv`` at B=8, H=12, L=1024, all D=64;
+  ``onekv_fwd`` and ``onekv_bwd`` at B=16, H=16, L=512 and
+  ``online_fwd``, ``online_bwd_dq`` and ``online_bwd_dkv`` at B=8, H=12,
+  L=1024, all D=64;
 - then, once each (other, this), chip_smoke's phases 17-18 (bert_large
   and bart_base at fp32) with their profiled step, which prints the fp32
   attention kernels' share of a step's device time.
@@ -54,8 +55,10 @@ def child(tree, what):
         cs.bart_path(fa, card, shared, dtype=torch.float32)
         return
     out = {}
-    for (b, l, h, d), names in (((16, 512, 16, 64), ("onekv_bwd",)),
-                                ((8, 1024, 12, 64), ("online_bwd_dq",
+    for (b, l, h, d), names in (((16, 512, 16, 64), ("onekv_fwd",
+                                                     "onekv_bwd")),
+                                ((8, 1024, 12, 64), ("online_fwd",
+                                                     "online_bwd_dq",
                                                      "online_bwd_dkv"))):
         q, k, v, do, mask = cs.attention_inputs(b, l, h, d, seed=7,
                                                 dtype=torch.float32)
@@ -66,9 +69,11 @@ def child(tree, what):
         o, lse = plain(qb, kb, vb, maskb, qmaskb, scale)
         dob = fa._prep_one(do, l)
         delta = (dob * o).sum(-1)
-        args = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
+        fwd_in = (qb, kb, vb, maskb, qmaskb, scale)
+        bwd_in = (qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale)
         for name in names:
             fn = getattr(fa, name)
+            args = fwd_in if name.endswith("_fwd") else bwd_in
             out[name] = cs.cuda_time_ms(lambda: fn(*args))
     print("AB {} {} ({})".format(tree, json.dumps(out), cs.card_line()),
           flush=True)

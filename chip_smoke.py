@@ -7,16 +7,17 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (four sources: ``attention_fwd.cu``, both bf16 forwards;
+   (five sources: ``attention_fwd.cu``, both bf16 forwards;
    ``online_attention_bwd.cu``, the bf16 backward of both regimes;
-   ``attention_f32_bwd.cu``, the fp32 backward of both regimes at D=64
-   and 128, 3xTF32 wgmma; ``attention_f32.cu``, the fp32 forwards and the
-   online fp32 backward at D=256, SIMT FFMA) with nvcc for sm_90a, one
+   ``attention_f32_fwd.cu`` and ``attention_f32_bwd.cu``, the fp32
+   forwards and the fp32 backward of both regimes at D=64 and 128, 3xTF32
+   wgmma; ``attention_f32.cu``, the three online fp32 kernels at D=256,
+   SIMT FFMA) with nvcc for sm_90a, one
    nvcc per source not built yet, all started together, and the build's
    seconds; print ptxas's register/spill lines (kept beside each library,
    so a cached build has them), a register/spill summary of each of the
    six kernels at D=64 and D=128 and of the three online kernels at D=256
-   (which must spill 0 bytes in bf16, as must the 3xTF32 fp32 backward at
+   (which must spill 0 bytes in bf16, as must the 3xTF32 fp32 kernels at
    D=64 and 128) and, from ``cuobjdump -sass``, the HGMMA (wgmma)
    instructions of every bf16 kernel, none of which may be 0, the TF32
    HGMMA of every 3xTF32 kernel, none of which may be 0, and the FFMA of
@@ -42,9 +43,10 @@ exits non-zero):
    (D=128) and B=8, H=3, L=1024 and L=600 (D=256), each with padding
    masks, segment ids 1-3 and packed rows' segment ids 1-8: within
    F32_BAR of max |ref| (the LSE F32_BAR absolute), bit-identical in two
-   launches, and timed at the bf16 rows' shapes against their plain
-   versions and SDPA at fp32 under the additive mask, beside their FFMA
-   and 3xTF32 bounds (the backward rows are the 3xTF32 kernels);
+   launches, and timed at the bf16 rows' shapes (D=64, and the online
+   trio at D=256) against their plain versions and SDPA at fp32 under the
+   additive mask, beside their FFMA and 3xTF32 bounds (each row bound by
+   its own kind: 3xTF32 at D=64 and 128, FFMA at D=256);
    ``flash_attention`` at head dims it zero-pads (8, 32, 96 at L=512 on
    the single-block pair, 160 at L=1024 on the online kernels), forward
    and gradients against the plain versions at the true D; then the
@@ -543,8 +545,7 @@ def check_errors(what, e, bar=2e-2, lse_bar=1e-3):
 
 FWD_SRC = "lddl_tpu_torch/ops/csrc/attention_fwd.cu"
 BWD_SRC = "lddl_tpu_torch/ops/csrc/online_attention_bwd.cu"
-F32_SRC = "lddl_tpu_torch/ops/csrc/attention_f32.cu"
-F32_BWD_SRC = "lddl_tpu_torch/ops/csrc/attention_f32_bwd.cu"
+CSRC = "lddl_tpu_torch/ops/csrc/{}.cu"
 # The TPU kernel each port kernel replaces (lddl_tpu/ops/flash_attention.py).
 REPLACES = {"onekv_fwd": 441, "onekv_bwd": 459, "online_fwd": 64,
             "online_bwd_dq": 104, "online_bwd_dkv": 133}
@@ -913,8 +914,8 @@ def check_f32_kernels(fa):
     1-3 plus a batch row masked entirely, and with packed rows' segment
     ids 1-8. Every output within F32_BAR (of max |ref|; absolute for the
     LSE) and bit-identical in two launches. Then the timing rows at the
-    bf16 rows' shapes; returns their JSON entries (launch counts filled
-    in later)."""
+    bf16 rows' shapes, the D=256 ones named with a ``_d256`` suffix;
+    returns their JSON entries (launch counts filled in later)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for fp32 matmuls: the plain "
                              "versions would not compute in fp32")
@@ -922,10 +923,11 @@ def check_f32_kernels(fa):
     online = [(BART_BATCH, BART_L, 12, 64), (2, 2048, 4, 64),
               (4, 1024, 4, 128), (BART_BATCH, BART_L, BART_D256_HEADS, 256),
               (2, 600, 2, 256)]
+    trio = ("online_fwd", "online_bwd_dq", "online_bwd_dkv")
     timed = {(16, 512, 16, 64): ("onekv_fwd", "onekv_bwd"),
-             (BART_BATCH, BART_L, 12, 64): ("online_fwd", "online_bwd_dq",
-                                            "online_bwd_dkv")}
-    max_abs = {}
+             (BART_BATCH, BART_L, 12, 64): trio,
+             (BART_BATCH, BART_L, BART_D256_HEADS, 256): trio}
+    max_abs = {}     # {shape: {kernel: max |err|}}
     for (b, l, h, d), kind in ((shape, kind) for shape in onekv + online
                                for kind in ("padding", "segments",
                                             "packed")):
@@ -977,14 +979,14 @@ def check_f32_kernels(fa):
                 ("O", "LSE", "dQ", "dK", "dV"), (o, lse) + tuple(grads),
                 (o_ref, lse_ref) + tuple(grads_ref))}
             fwd_err = max(err["O"], err["LSE"])
-            max_abs.update(
+            max_abs[(b, l, h, d)] = (
                 {"onekv_fwd": fwd_err,
                  "onekv_bwd": max(err["dQ"], err["dK"], err["dV"])}
                 if single else
                 {"online_fwd": fwd_err, "online_bwd_dq": err["dQ"],
                  "online_bwd_dkv": max(err["dK"], err["dV"])})
     return [row for shape, names in timed.items()
-            for row in time_f32_kernels(fa, shape, names, max_abs)]
+            for row in time_f32_kernels(fa, shape, names, max_abs[shape])]
 
 
 def time_f32_kernels(fa, shape, names, max_abs):
@@ -992,10 +994,12 @@ def time_f32_kernels(fa, shape, names, max_abs):
     masks: kernel and plain version in turns, and SDPA at fp32 under the
     kernels' additive mask (forward, and backward in two turns around
     the port's). Bound: bytes of fp32 operands at 3.35 TB/s against the
-    reference's products at the peak of the kernel's own operations: the
-    FFMA peak for the SIMT kernels (the forwards), the TF32 peak three
-    times over for the 3xTF32 backward; ``bound_ffma_ms`` and
-    ``bound_3xtf32_ms`` give both. Returns the JSON entries."""
+    reference's products at the peak of the kernel's own operations, by
+    its source (``f32_source``): the TF32 peak three times over for the
+    3xTF32 kernels (D=64 and 128), the FFMA peak for the SIMT ones
+    (D=256); ``bound_ffma_ms`` and ``bound_3xtf32_ms`` give both. Rows at
+    D=256 are named with a ``_d256`` suffix and count no path's launches
+    (no path runs fp32 at D=256). Returns the JSON entries."""
     b, l, h, d = shape
     q, k, v, do, mask = attention_inputs(b, l, h, d, seed=7,
                                          dtype=torch.float32)
@@ -1038,12 +1042,13 @@ def time_f32_kernels(fa, shape, names, max_abs):
     entries = []
     for name in names:
         nbytes, flops = work[name]
-        tf32 = "_bwd" in name        # the 3xTF32 kernels
+        source = fa.f32_source("lddl_{}_f32".format(name), d)
+        tf32 = source != fa.F32_SOURCE      # the 3xTF32 kernels
         bms, by = (bound(nbytes, 3 * flops, PEAK_TF32_FLOPS) if tf32
                    else bound(nbytes, flops, PEAK_F32_FLOPS))
         entries.append({
-            "name": name + "_f32", "route": "cuda",
-            "source": F32_BWD_SRC if tf32 else F32_SRC,
+            "name": name + "_f32" + ("_d256" if d == 256 else ""),
+            "route": "cuda", "source": CSRC.format(source),
             "replaces": "lddl_tpu/ops/flash_attention.py:{}".format(
                 REPLACES[name]),
             "launches": 0, "max_abs_err": max_abs[name], "ms": t[name][0],
@@ -1052,13 +1057,17 @@ def time_f32_kernels(fa, shape, names, max_abs):
             "bound_ffma_ms": bound(nbytes, flops, PEAK_F32_FLOPS)[0],
             "bound_3xtf32_ms": bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0],
             "shape": {"B": b, "L": l, "H": h, "D": d}})
+        if d == 256:
+            entries[-1].update({"counter": name + "_f32",
+                                "counts_path": lambda path: False})
         row = entries[-1]
-        print("fp32 {}: {:.4f} ms, bound {:.4f} ms ({}; FFMA {:.4f}, 3xTF32 "
-              "{:.4f}, {:.1%} of it), plain {:.4f} ms, SDPA at fp32 {:.4f} "
-              "ms".format(name, t[name][0], bms, by, row["bound_ffma_ms"],
-                          row["bound_3xtf32_ms"],
-                          row["bound_3xtf32_ms"] / t[name][0], t[name][1],
-                          row["library_ms"]), flush=True)
+        print("fp32 {} D={}: {:.4f} ms, bound {:.4f} ms ({}; FFMA {:.4f}, "
+              "3xTF32 {:.4f}, {:.1%} of it), plain {:.4f} ms, SDPA at fp32 "
+              "{:.4f} ms".format(name, d, t[name][0], bms, by,
+                                 row["bound_ffma_ms"],
+                                 row["bound_3xtf32_ms"],
+                                 row["bound_3xtf32_ms"] / t[name][0],
+                                 t[name][1], row["library_ms"]), flush=True)
     return entries
 
 
@@ -4626,11 +4635,12 @@ def pipeline_path(fa, card):
 
 
 # The fp32 kernels and the head dims each is built at, by source: the
-# SIMT FFMA library and the 3xTF32 one (fa.f32_source routes the entry
-# points between them).
+# SIMT FFMA library and the two 3xTF32 ones (fa.f32_source routes the
+# entry points between them).
 F32_KERNELS = {
-    "attention_f32": {"onekv_fwd": (64, 128), "online_fwd": (64, 128, 256),
-                      "online_bwd_dq": (256,), "online_bwd_dkv": (256,)},
+    "attention_f32": {"online_fwd": (256,), "online_bwd_dq": (256,),
+                      "online_bwd_dkv": (256,)},
+    "attention_f32_fwd": {"onekv_fwd": (64, 128), "online_fwd": (64, 128)},
     "attention_f32_bwd": {"onekv_bwd_dkv": (64, 128),
                           "onekv_bwd_dq": (64, 128),
                           "online_bwd_dq": (64, 128),
@@ -4640,11 +4650,11 @@ F32_KERNELS = {
 
 def check_f32_builds(fa, libs):
     """Phase 2's fp32 part: ptxas's summary of every fp32 kernel, which
-    must spill 0 bytes in the 3xTF32 library; the SIMT library's FFMA in
+    must spill 0 bytes in the 3xTF32 libraries; the SIMT library's FFMA in
     every kernel and no tensor-core instruction at all (HMMA, HGMMA: no
-    TF32 product); the 3xTF32 library's TF32 HGMMA in every kernel."""
+    TF32 product); each 3xTF32 library's TF32 HGMMA in every kernel."""
     from lddl_tpu_torch.ops import _build
-    simt, tf32 = fa.F32_SOURCE, fa.F32_BWD_SOURCE
+    simt = fa.F32_SOURCE
     for source, kernels in F32_KERNELS.items():
         regs = ptxas_summary(_build.build_logs.get(source, ""))
         for kernel, widths in kernels.items():
@@ -4653,7 +4663,7 @@ def check_f32_builds(fa, libs):
                                    "not reported")
                 print("ptxas summary {} {}_f32_kernel<{}>: {}".format(
                     source, kernel, d, summary), flush=True)
-                if source == tf32 and " 0 bytes spill stores, 0 bytes " \
+                if source != simt and " 0 bytes spill stores, 0 bytes " \
                         "spill loads" not in " " + summary:
                     raise AssertionError("{}_f32_kernel<{}> spills or was "
                                          "not reported: {}".format(
@@ -4676,18 +4686,21 @@ def check_f32_builds(fa, libs):
     if any(mma.values()):
         raise AssertionError("a tensor-core instruction in the SIMT fp32 "
                              "builds' SASS: {}".format(mma))
-    hgmma = {fn: sum(n for op, n in c.items()
-                     if op.startswith("HGMMA.") and ".TF32" in op)
-             for fn, c in sass_opcodes(libs[tf32], full=True).items()}
-    for fn, n in sorted(hgmma.items()):
-        print("sass {}: {} TF32 HGMMA in {}".format(tf32, n, fn), flush=True)
-    for kernel, widths in F32_KERNELS[tf32].items():
-        fns = [fn for fn in hgmma if kernel + "_f32_kernel" in fn]
-        if len(fns) != len(widths) or not all(hgmma[fn] for fn in fns):
-            raise AssertionError("{}_f32_kernel: TF32 HGMMA in the SASS of "
-                                 "{} (want {} widths)".format(
-                                     kernel, {fn: hgmma[fn] for fn in fns},
-                                     len(widths)))
+    for tf32 in (s for s in F32_KERNELS if s != simt):
+        hgmma = {fn: sum(n for op, n in c.items()
+                         if op.startswith("HGMMA.") and ".TF32" in op)
+                 for fn, c in sass_opcodes(libs[tf32], full=True).items()}
+        for fn, n in sorted(hgmma.items()):
+            print("sass {}: {} TF32 HGMMA in {}".format(tf32, n, fn),
+                  flush=True)
+        for kernel, widths in F32_KERNELS[tf32].items():
+            fns = [fn for fn in hgmma if kernel + "_f32_kernel" in fn]
+            if len(fns) != len(widths) or not all(hgmma[fn] for fn in fns):
+                raise AssertionError("{}_f32_kernel: TF32 HGMMA in the SASS "
+                                     "of {} (want {} widths)".format(
+                                         kernel, {fn: hgmma[fn]
+                                                  for fn in fns},
+                                         len(widths)))
 
 
 def main():
@@ -4709,7 +4722,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build(["attention_fwd", "online_attention_bwd",
-                         fa.F32_SOURCE, fa.F32_BWD_SOURCE])
+                         fa.F32_SOURCE, fa.F32_FWD_SOURCE,
+                         fa.F32_BWD_SOURCE])
     print("build: {:.1f} s (one nvcc for each source not built yet, in "
           "parallel; with the D=256 instantiations of the three online "
           "kernels and the fp32 builds of all five)".format(

@@ -1,15 +1,15 @@
-// fp32 attention for Hopper (sm_90a) in SIMT fp32 FFMA: the fp32 builds
-// of the two forward Pallas kernels in lddl_tpu/ops/flash_attention.py at
-// every built width, and of the online backward pair at D=256, beside the
-// bf16 kernels of attention_fwd.cu and online_attention_bwd.cu. The fp32
-// backward at D=64 and 128 (both regimes) runs on the tensor cores in
-// 3xTF32 in attention_f32_bwd.cu; its tiles do not fit shared memory at
-// D=256. Three kernel bodies, each instantiated under the bf16 set's
-// regime names with an _f32 suffix, so that the profiler tells them
-// apart, with a C entry point per kernel call of the bf16 set:
+// fp32 attention for Hopper (sm_90a) in SIMT fp32 FFMA, at D=256: the
+// fp32 builds of the online forward and the online backward pair of
+// lddl_tpu/ops/flash_attention.py at the one width whose 3xTF32 tiles do
+// not fit shared memory, beside the bf16 kernels of attention_fwd.cu and
+// online_attention_bwd.cu. At D=64 and 128 the fp32 kernels run on the
+// tensor cores in 3xTF32: the forwards in attention_f32_fwd.cu, the
+// backward of both regimes in attention_f32_bwd.cu. Three kernel bodies,
+// each instantiated under the bf16 set's online names with an _f32 suffix,
+// so that the profiler tells them apart, with a C entry point per kernel
+// call of the bf16 set:
 //
-//   onekv_fwd_f32_kernel       replaces _onekv_fwd_kernel (lddl_onekv_fwd_f32)
-//   online_fwd_f32_kernel      replaces _fwd_kernel       (lddl_online_fwd_f32)
+//   online_fwd_f32_kernel      replaces _fwd_kernel       (lddl_online_fwd_f32, D=256)
 //   online_bwd_dq_f32_kernel   replaces _bwd_dq_kernel    (lddl_online_bwd_dq_f32, D=256)
 //   online_bwd_dkv_f32_kernel  replaces _bwd_dkv_kernel   (lddl_online_bwd_dkv_f32, D=256)
 //
@@ -31,28 +31,26 @@
 // two launches give bit-identical results.
 // Layout: q/k/v/o/dO/dQ/dK/dV [B*H, L_pad, D] fp32, masks int32
 // [B, L_pad], LSE and delta (rowsum(dO * O), computed outside) fp32
-// [B*H, L_pad]. L_pad is a multiple of 128; D is 64, 128 or 256
-// (template; the wrapper zero-pads any other head dim up to one of them).
-// The single-block forward is built at D=64 and 128 only: the
-// reference's single-block regime never takes a wider head.
+// [B*H, L_pad]. L_pad is a multiple of 128; D is 256 (template; the
+// wrapper zero-pads any head dim between 129 and 255 up to it).
 //
 // What bounds them on this card: every product is an fp32 FFMA on the
-// CUDA cores, 66.9 TFLOP/s (a 3xTF32 build on the tensor cores is
-// attention_f32_bwd.cu's design). At bert_large's largest kernel bin (B=16,
-// H=16, L_pad 512, D=64) the forward does 17.2 GFLOP against 135 MB of
-// operands: 0.26 ms of FFMA against 0.04 ms of bytes; the CUDA cores bound
-// it, by 6x.
+// CUDA cores, 66.9 TFLOP/s. At phase 16's shape (B=8, H=3, L_pad 1024,
+// D=256) the forward does 25.8 GFLOP against 101 MB of operands: 0.39 ms
+// of FFMA against 0.03 ms of bytes; the CUDA cores bound it. A 3xTF32 build
+// does not fit: a 64-row item takes 128 KB in hi and lo, and a 64 x 256
+// fp32 O with a tile's partial product 256 registers a thread.
 //
 // Design (SIMT, a simple kernel first): a block of 256 threads, a 16 x 16
 // grid, owns ROWS = 64 rows of one (batch*head): queries (fwd, dq) or
 // keys (dkv). It stages its own rows in shared memory once and walks the
-// other side in tiles of COLS rows (64 at D=64; 32 at D=128 and 256, so
-// that two staged fp32 tiles of 256 columns fit beside the block's own
-// rows). Staged rows are padded to D + 1 floats, so that the 16 threads
-// of a row group, reading 16 rows at one column, hit 16 banks. Each
-// thread owns a 4 x (COLS/16) patch of every score tile (rows ty*4 + i,
-// columns tx + 16 j): its products run down D in order, and a row's max
-// and sum are finished by shuffles over the 16 threads of a half-warp.
+// other side in tiles of COLS = 32 rows, so that two staged fp32 tiles of
+// 256 columns fit beside the block's own rows. Staged rows are padded to
+// D + 1 floats, so that the 16 threads of a row group, reading 16 rows at
+// one column, hit 16 banks. Each thread owns a 4 x (COLS/16) patch of
+// every score tile (rows ty*4 + i, columns tx + 16 j): its products run
+// down D in order, and a row's max and sum are finished by shuffles over
+// the 16 threads of a half-warp.
 // P (fwd), dS (dq), or P^T and dS^T (dkv) then pass through shared memory
 // to the output products, where a thread owns a 4 x (D/16) patch of the
 // block's output rows (columns tx + 16 c) in registers.
@@ -76,7 +74,7 @@ constexpr float NEG_BIG = -1e9f;
 // tile.
 template <int D>
 struct Tile {
-  static constexpr int COLS = D == 64 ? 64 : 32;
+  static constexpr int COLS = 32;
   static constexpr int CPT = COLS / TX;
   static constexpr int DPT = D / TX;
   static constexpr int LD = D + 1;
@@ -422,14 +420,6 @@ __device__ __forceinline__ void dkv_body(
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
-onekv_fwd_f32_kernel(const float* q, const float* k, const float* v,
-                     const int* kmask, const int* qmask, float* o,
-                     float* lse, int L, int H, float scale) {
-  fwd_body<D>(q, k, v, kmask, qmask, o, lse, L, H, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
 online_fwd_f32_kernel(const float* q, const float* k, const float* v,
                       const int* kmask, const int* qmask, float* o,
                       float* lse, int L, int H, float scale) {
@@ -510,39 +500,19 @@ int launch_dkv(Kernel kernel, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes), the bf16 entry points' arguments
-// under an _f32 name (the online backward pair's at D=256 alone; at D=64
-// and 128 its entry points are attention_f32_bwd.cu's). Each returns the
+// Plain C interface (loaded with ctypes), the bf16 online entry points'
+// arguments under an _f32 name, at D=256 alone (at D=64 and 128 they are
+// attention_f32_fwd.cu's and attention_f32_bwd.cu's). Each returns the
 // cudaError_t of its launches: 0 on success, cudaErrorInvalidValue at a
 // head dim that is not built here. Inputs are checked by the Python
 // wrapper.
 extern "C" {
-
-int lddl_onekv_fwd_f32(const void* q, const void* k, const void* v,
-                       const void* kmask, const void* qmask, void* o,
-                       void* lse, int BH, int L, int H, int D, float scale,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_fwd<64>(onekv_fwd_f32_kernel<64>, q, k, v, kmask, qmask,
-                          o, lse, BH, L, H, scale, s);
-  if (D == 128)
-    return launch_fwd<128>(onekv_fwd_f32_kernel<128>, q, k, v, kmask, qmask,
-                           o, lse, BH, L, H, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 int lddl_online_fwd_f32(const void* q, const void* k, const void* v,
                         const void* kmask, const void* qmask, void* o,
                         void* lse, int BH, int L, int H, int D, float scale,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_fwd<64>(online_fwd_f32_kernel<64>, q, k, v, kmask, qmask,
-                          o, lse, BH, L, H, scale, s);
-  if (D == 128)
-    return launch_fwd<128>(online_fwd_f32_kernel<128>, q, k, v, kmask,
-                           qmask, o, lse, BH, L, H, scale, s);
   if (D == 256)
     return launch_fwd<256>(online_fwd_f32_kernel<256>, q, k, v, kmask,
                            qmask, o, lse, BH, L, H, scale, s);

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised
-// attention kernels (attention_fwd.cu, online_attention_bwd.cu,
-// attention_f32_bwd.cu): mbarriers, TMA tile loads and stores (2-D tensor
-// maps with the 128-byte swizzle, bf16 and fp32), bulk copies, wgmma
-// shared-memory descriptors, the m64n64k16 bf16 -> fp32 wgmma in its two
-// forms (A and B from shared memory; A from registers), the m64nNk8 tf32
-// wgmma and the tf32 split of the 3xTF32 products, the wgmma
-// fence/commit/wait, setmaxnreg, named barriers, and the host-side
-// tensor-map encoder (cuTensorMapEncodeTiled, looked up through the
-// runtime so the library needs no -lcuda).
+// attention kernels (attention_fwd.cu, online_attention_bwd.cu, and
+// through tf32x3_tiles.cuh attention_f32_fwd.cu and attention_f32_bwd.cu):
+// mbarriers, TMA tile loads and stores (2-D tensor maps with the 128-byte
+// swizzle, bf16 and fp32), bulk copies, wgmma shared-memory descriptors,
+// the m64n64k16 bf16 -> fp32 wgmma in its two forms (A and B from shared
+// memory; A from registers), the m64nNk8 tf32 wgmma and the tf32 split of
+// the 3xTF32 products, the wgmma fence/commit/wait, setmaxnreg, named
+// barriers, quad reductions, and the host-side tensor-map encoder
+// (cuTensorMapEncodeTiled, looked up through the runtime so the library
+// needs no -lcuda).
 //
 // Tile convention: an operand tile is a column panel of 64 bf16 (128
 // bytes) per row, rows stored back to back, as TMA writes it with
@@ -40,6 +41,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The same, by pointer arithmetic on the shared array: the compiler then
+// keeps the accesses through the result in the shared space (LDS/STS),
+// where align_1024's round trip through an integer leaves them generic
+// (LD/ST).
+__device__ __forceinline__ uint8_t* align_1024_shared(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // ---- mbarriers -----------------------------------------------------------
@@ -154,6 +163,18 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Max and sum over the four lanes of a quad (lanes that differ in their
+// low two bits), which hold one row of a wgmma accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ---- register budget -------------------------------------------------------
 
 template <int N>
@@ -262,7 +283,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TRANS_B));
 }
 
-// ---- tf32 wgmma (attention_f32_bwd.cu) -------------------------------------
+// ---- tf32 wgmma (tf32x3_tiles.cuh) ------------------------------------------
 //
 // An fp32 operand tile uses the same 128-byte swizzled panels: 32 fp32 a
 // panel row (PANEL_F32), and a k8 step of tf32 is 32 bytes, as bf16's
@@ -356,6 +377,7 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
   }
 LDDL_TF32_SS(16, LDDL_D8, LDDL_OUT8, 8, 9, 10)
 LDDL_TF32_SS(32, LDDL_D16, LDDL_OUT16, 16, 17, 18)
+LDDL_TF32_SS(64, LDDL_D32, LDDL_OUT32, 32, 33, 34)
 #undef LDDL_TF32_SS
 
 template <>

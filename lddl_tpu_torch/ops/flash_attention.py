@@ -52,16 +52,17 @@ Dtypes: the reference's kernels take any float dtype, with fp32
 accumulation and fp32 softmax statistics. The port's kernels are built
 for bf16 (the files above) and fp32, the fp32 builds under the same
 regime names with an ``_f32`` suffix (``onekv_fwd_f32_kernel``, ...) in
-two sources (``f32_source`` picks one by entry point and head dim):
-``csrc/attention_f32_bwd.cu`` holds the backward of both regimes at D=64
-and 128 on the tensor cores, every product 3xTF32 (each operand split
-into two tf32 halves, three wgmma a product, fp32 accuracy);
-``csrc/attention_f32.cu`` holds both forwards and the online backward at
-D=256 (whose 3xTF32 tiles do not fit shared memory), SIMT fp32 FFMA on
-the CUDA cores. The wrapper picks the build by the operands' dtype, never
-casts fp32 down to bf16 and never routes it elsewhere; any other dtype
-raises on a CUDA tensor. Launches of the fp32 builds count in
-``<wrapper>.launches_f32``.
+three sources (``f32_source`` picks one by entry point and head dim). At
+D=64 and 128 every fp32 kernel runs on the tensor cores, every product
+3xTF32 (each operand split into two tf32 halves, three wgmma a product,
+fp32 accuracy): ``csrc/attention_f32_fwd.cu`` holds both forwards,
+``csrc/attention_f32_bwd.cu`` the backward of both regimes, on the
+shared ``csrc/tf32x3_tiles.cuh``. At D=256, whose 3xTF32 tiles do not
+fit shared memory, ``csrc/attention_f32.cu`` holds the three online
+kernels in SIMT fp32 FFMA on the CUDA cores. The wrapper picks the build
+by the operands' dtype, never casts fp32 down to bf16 and never routes it
+elsewhere; any other dtype raises on a CUDA tensor. Launches of the fp32
+builds count in ``<wrapper>.launches_f32``.
 """
 
 import ctypes
@@ -81,13 +82,14 @@ ONLINE_STEP = 64
 # Head dims the kernels are built for, narrowest first.
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Operand dtypes the kernels are built for; each fp32 entry point is named
-# as its bf16 one with an _f32 suffix, in F32_BWD_SOURCE (the backward at
-# the head dims of F32_BWD_HEAD_DIMS, 3xTF32 wgmma) or else F32_SOURCE
-# (SIMT FFMA).
+# as its bf16 one with an _f32 suffix, in F32_FWD_SOURCE (the forwards) or
+# F32_BWD_SOURCE (the backward) at the head dims of F32_TF32_HEAD_DIMS
+# (3xTF32 wgmma), or else in F32_SOURCE (SIMT FFMA).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 F32_SOURCE = "attention_f32"
+F32_FWD_SOURCE = "attention_f32_fwd"
 F32_BWD_SOURCE = "attention_f32_bwd"
-F32_BWD_HEAD_DIMS = (64, 128)
+F32_TF32_HEAD_DIMS = (64, 128)
 
 
 def pad_seq_len(l):
@@ -309,20 +311,24 @@ _ENTRY_POINTS = {
                              "lddl_online_bwd_dkv": 10,
                              "lddl_onekv_bwd": 11},
 }
-_ENTRY_POINTS[F32_BWD_SOURCE] = {
-    entry + "_f32": n_ptr
-    for entry, n_ptr in _ENTRY_POINTS["online_attention_bwd"].items()}
+_ENTRY_POINTS.update({
+    f32: {entry + "_f32": n_ptr
+          for entry, n_ptr in _ENTRY_POINTS[bf16].items()}
+    for f32, bf16 in ((F32_FWD_SOURCE, "attention_fwd"),
+                      (F32_BWD_SOURCE, "online_attention_bwd"))})
 _ENTRY_POINTS[F32_SOURCE] = {
     entry + "_f32": n_ptr for source in ("attention_fwd",
                                          "online_attention_bwd")
     for entry, n_ptr in _ENTRY_POINTS[source].items()
-    if entry != "lddl_onekv_bwd"}
+    if entry.startswith("lddl_online")}
 
 
 def f32_source(entry, d):
     """The source of the fp32 entry point ``entry`` at head dim ``d``."""
-    if entry in _ENTRY_POINTS[F32_BWD_SOURCE] and d in F32_BWD_HEAD_DIMS:
-        return F32_BWD_SOURCE
+    if d in F32_TF32_HEAD_DIMS:
+        for source in (F32_FWD_SOURCE, F32_BWD_SOURCE):
+            if entry in _ENTRY_POINTS[source]:
+                return source
     return F32_SOURCE
 
 

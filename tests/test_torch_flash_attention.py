@@ -392,11 +392,11 @@ def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
-    own with the single-block backward beside it; the two fp32 sources
-    hold all five under the bf16 names with an _f32 suffix, the backward
-    in the 3xTF32 source and the forwards in the SIMT one, which also
-    holds the online backward pair at the widths the 3xTF32 source does
-    not build (no nvcc needed)."""
+    own with the single-block backward beside it; the three fp32 sources
+    hold all five under the bf16 names with an _f32 suffix, the forwards
+    in one 3xTF32 source, the backward in the other, and the online three
+    in the SIMT one at the width the 3xTF32 sources do not build (no nvcc
+    needed)."""
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
@@ -408,14 +408,19 @@ def test_entry_points_match_c_sources(source):
         assert all("void*" in x for x in params[:n_ptr]), params
         assert params[n_ptr:] == ["int BH", "int L", "int H", "int D",
                                   "float scale", "void* stream"], params
-    f32 = source in (tfa.F32_SOURCE, tfa.F32_BWD_SOURCE)
+    f32_sources = (tfa.F32_SOURCE, tfa.F32_FWD_SOURCE, tfa.F32_BWD_SOURCE)
+    f32 = source in f32_sources
     if f32:
         bf16 = {e + "_f32": n for s in ("attention_fwd", "online_attention_bwd")
                 for e, n in tfa._ENTRY_POINTS[s].items()}
-        assert (tfa._ENTRY_POINTS[tfa.F32_SOURCE]
-                | tfa._ENTRY_POINTS[tfa.F32_BWD_SOURCE]) == bf16
+        assert {e: n for s in f32_sources
+                for e, n in tfa._ENTRY_POINTS[s].items()} == bf16
         assert (source == tfa.F32_BWD_SOURCE) == all(
             "_bwd" in e for e in tfa._ENTRY_POINTS[source])
+        assert (source == tfa.F32_FWD_SOURCE) == all(
+            "_fwd" in e for e in tfa._ENTRY_POINTS[source])
+        assert (source == tfa.F32_SOURCE) == all(
+            e.startswith("lddl_online") for e in tfa._ENTRY_POINTS[source])
     else:
         assert (source == "online_attention_bwd") == any(
             e.startswith("lddl_online_bwd")
@@ -455,8 +460,9 @@ def test_f32_source_has_no_tensor_core_or_atomic_ops():
     """The SIMT fp32 kernels' code (comments stripped) names no
     tensor-core product (wgmma, mma.sync, any tf32 kind or conversion) and
     no atomic operation: every product is an fp32 FFMA, and each output
-    element is written once; it holds both forwards and the online
-    backward pair at D=256 (no nvcc needed)."""
+    element is written once; it holds the online forward and the online
+    backward pair, at D=256, and no single-block kernel (no nvcc
+    needed)."""
     import re
     code = _code(tfa.F32_SOURCE + ".cu")
     for word in ("tf32", "wgmma", "mma", "atomic", "__expf", "__logf",
@@ -465,35 +471,42 @@ def test_f32_source_has_no_tensor_core_or_atomic_ops():
     for word in ("expf(", "logf(", "fmaf("):
         assert word in code, word
     # Its kernels are instantiated under their bf16 names + _f32.
-    for kernel in ("onekv_fwd", "online_fwd", "online_bwd_dq",
-                   "online_bwd_dkv"):
+    for kernel in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
         assert re.search(r"\b{}_f32_kernel\(".format(kernel), code), kernel
-    for kernel in ("onekv_bwd_dq", "onekv_bwd_dkv"):
+    for kernel in ("onekv_fwd", "onekv_bwd_dq", "onekv_bwd_dkv"):
         assert "{}_f32_kernel".format(kernel) not in code, kernel
 
 
-def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics():
-    """The 3xTF32 fp32 backward's code (comments stripped) takes its
-    products on tf32 wgmma (``wgmma_ss_tf32`` and ``wgmma_rs_tf32``,
-    whose m64nNk8 .tf32 instructions are in hopper_tiles.cuh) of operands
-    split by ``split_tf32`` (cvt.rna: tests/test_torch_tf32x3.py emulates
-    that split), uses expf and no fast-math intrinsic, no atomic
-    operation, and instantiates the four backward kernels under their
-    bf16 names + _f32 (no nvcc needed)."""
+@pytest.mark.parametrize("source, kernels", [
+    (tfa.F32_FWD_SOURCE, ("onekv_fwd", "online_fwd")),
+    (tfa.F32_BWD_SOURCE, ("onekv_bwd_dq", "onekv_bwd_dkv", "online_bwd_dq",
+                          "online_bwd_dkv"))])
+def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics(source, kernels):
+    """Each 3xTF32 fp32 source, the forwards' and the backward's, with the
+    3xTF32 pieces it includes (``tf32x3_tiles.cuh``; comments stripped),
+    takes its products on tf32 wgmma (``wgmma_ss_tf32`` and
+    ``wgmma_rs_tf32``, whose m64nNk8 .tf32 instructions are in
+    hopper_tiles.cuh) of operands split by ``split_tf32`` (cvt.rna:
+    tests/test_torch_tf32x3.py emulates that split), uses expf (and the
+    forward logf) and no fast-math intrinsic, no atomic operation, and
+    instantiates its kernels under their bf16 names + _f32 (no nvcc
+    needed)."""
     import re
-    code = _code(tfa.F32_BWD_SOURCE + ".cu")
+    own = _code(source + ".cu")
+    assert '#include "tf32x3_tiles.cuh"' in own
+    code = own + _code("tf32x3_tiles.cuh")
     header = _code("hopper_tiles.cuh")
     for word in ("atomic", "__expf", "__logf", "__fdividef",
                  "use_fast_math", "bf16", "mma.sync"):
         assert word not in code, word
     for word in ("wgmma_ss_tf32<", "wgmma_rs_tf32<", "split_tf32(", "expf("):
         assert word in code, word
+    assert ("logf(" in own) == (source == tfa.F32_FWD_SOURCE)
     assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\w*k8"
                      r"\.f32\.tf32\.tf32", header)
     assert "cvt.rna.tf32.f32" in header
-    for kernel in ("onekv_bwd_dq", "onekv_bwd_dkv", "online_bwd_dq",
-                   "online_bwd_dkv"):
-        assert re.search(r"\b{}_f32_kernel\)".format(kernel), code), kernel
+    for kernel in kernels:
+        assert re.search(r"\b{}_f32_kernel\)".format(kernel), own), kernel
 
 
 

@@ -1,20 +1,24 @@
-"""The 3xTF32 arithmetic of the fp32 backward kernels
-(``lddl_tpu_torch/ops/csrc/attention_f32_bwd.cu``), emulated on the CPU.
+"""The 3xTF32 arithmetic of the fp32 kernels at D=64 and 128
+(``lddl_tpu_torch/ops/csrc/attention_f32_fwd.cu`` and
+``attention_f32_bwd.cu``), emulated on the CPU.
 
 The kernels split every fp32 operand x into hi = tf32(x) and lo =
 tf32(x - hi), both rounded as ``cvt.rna.tf32.f32`` rounds (to nearest,
 ties away from zero, a 10-bit mantissa), and take each product a b as
 lo_a hi_b + hi_a lo_b + hi_a hi_b in fp32, dropping lo_a lo_b. Here the
-same split is taken through an int32 view of the fp32 values, the five
-products of the backward (S, dP, dQ, dK, dV) are taken that way on the
-CPU, and the gradients are held against the reference's fp32 backward
-(``lddl_tpu.ops.flash_attention.flash_attention_bwd``, its Pallas kernels
-in interpret mode, as its own tests run them) on the reference's own
-forward: within 1e-5 of max |ref|, the bar the kernels are held to
-against their plain versions on the card (``chip_smoke.F32_BAR``,
-``CUDA_BARS["f32"]``), with a margin of 4. The tensor core's own fp32
-sums (which truncate) are the kernels' other source of error, and only
-the card shows them.
+same split is taken through an int32 view of the fp32 values, and the
+products are taken that way on the CPU: the forward's two (S, and P V
+tile by tile of the kernel's walk, each tile's product from zero and
+added to the rescaled O in fp32) and the backward's five (S, dP, dQ, dK,
+dV). O and the LSE are held against the reference's fp32 forward
+(``lddl_tpu.ops.flash_attention.flash_attention_fwd``), the gradients
+against its fp32 backward (``flash_attention_bwd``) on its own forward,
+its Pallas kernels in interpret mode, as its own tests run them: within
+1e-5 of max |ref| (1e-5 absolute for the LSE), the bar the kernels are
+held to against their plain versions on the card
+(``chip_smoke.F32_BAR``, ``CUDA_BARS["f32"]``), with a margin of 4. The
+tensor core's own fp32 sums (which truncate) are the kernels' other
+source of error, and only the card shows them.
 """
 
 import importlib
@@ -62,17 +66,50 @@ def mm3(a, b):
     return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
 
 
-def emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
-    """The kernels' backward in the kernel layout with every product in
-    3xTF32: (dQ, dK, dV)."""
+# Keys of a K/V tile of the forward's walk, by head dim (the TR of
+# FwdPlan in attention_f32_fwd.cu).
+FWD_TILE = {64: 64, 128: 32}
+
+
+def _biased_scores(qb, kb, maskb, qmaskb, scale):
+    """S = Q K^T * scale + bias with Q K^T in 3xTF32, [B*H, L_pad, L_pad]."""
     b = maskb.shape[0]
     bh, l_pad, _ = qb.shape
     allowed = ((maskb[:, None, :] > 0)
                & (maskb[:, None, :] == qmaskb[:, :, None]))
     bias = torch.where(allowed, 0.0, tfa.NEG_BIG).to(torch.float32)
     s = mm3(qb, kb.transpose(1, 2)) * scale
-    s = (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
+    return (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
         bh, l_pad, l_pad)
+
+
+def emulated_fwd(qb, kb, vb, maskb, qmaskb, scale):
+    """The kernels' forward in the kernel layout with every product in
+    3xTF32: S whole, then the walk over the kernel's K/V tiles with the
+    running max m and denominator l; each tile's P V starts from zero and
+    is added to O rescaled by exp(m - m_new). Returns (O, LSE)."""
+    bh, l_pad, d = qb.shape
+    tr = FWD_TILE[d]
+    s = _biased_scores(qb, kb, maskb, qmaskb, scale)
+    m = torch.full((bh, l_pad, 1), -float("inf"))
+    l = torch.zeros((bh, l_pad, 1))
+    o = torch.zeros((bh, l_pad, d))
+    for j in range(0, l_pad, tr):
+        st = s[:, :, j:j + tr]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + mm3(p, vb[:, j:j + tr])
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return o / l, (m + torch.log(l)).squeeze(-1)
+
+
+def emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """The kernels' backward in the kernel layout with every product in
+    3xTF32: (dQ, dK, dV)."""
+    s = _biased_scores(qb, kb, maskb, qmaskb, scale)
     p = torch.exp(s - lse[..., None])
     dp = mm3(dob, vb.transpose(1, 2))
     ds = p * (dp - delta[..., None]) * scale
@@ -144,3 +181,42 @@ def test_emulated_split_matches_reference_backward(d, l, mask_kind):
         ref = np.asarray(ref)
         err = np.abs(x - ref).max() / np.abs(ref).max()
         assert err <= F32_BAR / MARGIN, (name, err)
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("d, l", [(64, 200), (64, 512), (128, 200),
+                                  (128, 512), (64, 1024)])
+def test_emulated_split_matches_reference_forward(d, l, mask_kind):
+    """O and the LSE of the forward with every product in 3xTF32, walked
+    over the kernel's tiles, against the reference's fp32 forward at D=64
+    and 128: L_pad 256 and 512 (the single-block regime) and 1024 at D=64
+    (the online one), padding masks or segment ids 1-3 (both masks, one
+    batch row masked entirely). O within F32_BAR / MARGIN of max |ref|,
+    the LSE within F32_BAR / MARGIN absolute."""
+    b, h = 2, 2
+    g = np.random.default_rng(200 * d + l + (mask_kind == "segments"))
+    q, k, v = (g.standard_normal((b, l, h, d)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((b, l), np.int32)
+    mask[1, l - l // 3:] = 0
+    qmask = None
+    if mask_kind == "segments":
+        mask = mask * g.integers(1, 4, (b, l)).astype(np.int32)
+        mask[-1] = 0
+        qmask = mask
+    kw = {} if qmask is None else {"q_mask": jnp.asarray(qmask)}
+    j_out, j_lse = jfa.flash_attention_fwd(
+        *(jnp.asarray(x) for x in (q, k, v, mask)), **kw)
+
+    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+        *(torch.from_numpy(x) for x in (q, k, v, mask)),
+        None if qmask is None else torch.from_numpy(qmask))
+    assert tfa._use_onekv(l_pad, d) == (l_pad <= 512)
+    o, lse = emulated_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+    o = tfa._from_bh(o, b, l, h, d).numpy()
+    ref = np.asarray(j_out)
+    err = np.abs(o - ref).max() / np.abs(ref).max()
+    assert err <= F32_BAR / MARGIN, ("O", err)
+    lse_ref = np.asarray(j_lse).reshape(b * h, l_pad)
+    err = np.abs(lse.numpy() - lse_ref).max()
+    assert err <= F32_BAR / MARGIN, ("LSE", err)
