@@ -14,10 +14,13 @@ other, this, this, other:
   ``chip_smoke.time_f32_kernels`` takes it (padding masks, seed 7):
   ``onekv_fwd`` and ``onekv_bwd`` at B=16, H=16, L=512 and
   ``online_fwd``, ``online_bwd_dq`` and ``online_bwd_dkv`` at B=8, H=12,
-  L=1024, all D=64;
-- then, once each (other, this), chip_smoke's phases 17-18 (bert_large
-  and bart_base at fp32) with their profiled step, which prints the fp32
-  attention kernels' share of a step's device time.
+  L=1024, all D=64, and ``online_bwd_dq`` and ``online_bwd_dkv`` at
+  phase 16's D=256 shape (B=8, H=3, L=1024), keyed with a ``_d256``
+  suffix;
+- then, once each (other, this), chip_smoke's phases 17-19 (bert_large
+  and bart_base at fp32, and bart_base at three heads, D=256, in fp32)
+  with their profiled step, which prints the fp32 attention kernels'
+  share of a step's device time.
 
 This script's ``chip_smoke.py`` drives both checkouts; only the kernels
 and the modules under them come from the checkout measured. Prints one
@@ -53,12 +56,16 @@ def child(tree, what):
         card, shared = cs.card_line(), {}
         cs.bert_path(fa, card, shared, torch.float32)
         cs.bart_path(fa, card, shared, dtype=torch.float32)
+        cs.bart_path(fa, card, shared, cs.BART_D256_HEADS,
+                     dtype=torch.float32)
         return
     out = {}
     for (b, l, h, d), names in (((16, 512, 16, 64), ("onekv_fwd",
                                                      "onekv_bwd")),
                                 ((8, 1024, 12, 64), ("online_fwd",
                                                      "online_bwd_dq",
+                                                     "online_bwd_dkv")),
+                                ((8, 1024, 3, 256), ("online_bwd_dq",
                                                      "online_bwd_dkv"))):
         q, k, v, do, mask = cs.attention_inputs(b, l, h, d, seed=7,
                                                 dtype=torch.float32)
@@ -74,7 +81,8 @@ def child(tree, what):
         for name in names:
             fn = getattr(fa, name)
             args = fwd_in if name.endswith("_fwd") else bwd_in
-            out[name] = cs.cuda_time_ms(lambda: fn(*args))
+            key = name + ("_d256" if d == 256 else "")
+            out[key] = cs.cuda_time_ms(lambda: fn(*args))
     print("AB {} {} ({})".format(tree, json.dumps(out), cs.card_line()),
           flush=True)
 

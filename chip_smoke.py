@@ -10,15 +10,16 @@ exits non-zero):
    (five sources: ``attention_fwd.cu``, both bf16 forwards;
    ``online_attention_bwd.cu``, the bf16 backward of both regimes;
    ``attention_f32_fwd.cu`` and ``attention_f32_bwd.cu``, the fp32
-   forwards and the fp32 backward of both regimes at D=64 and 128, 3xTF32
-   wgmma; ``attention_f32.cu``, the three online fp32 kernels at D=256,
-   SIMT FFMA) with nvcc for sm_90a, one
+   forwards and the fp32 backward of both regimes at D=64 and 128 and the
+   fp32 online backward pair at D=256, 3xTF32 wgmma;
+   ``attention_f32.cu``, the fp32 online forward at D=256, SIMT FFMA)
+   with nvcc for sm_90a, one
    nvcc per source not built yet, all started together, and the build's
    seconds; print ptxas's register/spill lines (kept beside each library,
    so a cached build has them), a register/spill summary of each of the
    six kernels at D=64 and D=128 and of the three online kernels at D=256
-   (which must spill 0 bytes in bf16, as must the 3xTF32 fp32 kernels at
-   D=64 and 128) and, from ``cuobjdump -sass``, the HGMMA (wgmma)
+   (which must spill 0 bytes in bf16, as must every 3xTF32 fp32 kernel)
+   and, from ``cuobjdump -sass``, the HGMMA (wgmma)
    instructions of every bf16 kernel, none of which may be 0, the TF32
    HGMMA of every 3xTF32 kernel, none of which may be 0, and the FFMA of
    every SIMT fp32 kernel, none of which may be 0, with no tensor-core
@@ -267,7 +268,12 @@ exits non-zero):
    first a warm-up), the encoder on the online trio's fp32 builds (6
    launches of each a step, no bf16 kernel), step ms beside phase 6's,
    the same flash-against-dense train step, and a profiled step as
-   phase 17's (6 launches of each fp32 online kernel).
+   phase 17's (6 launches of each fp32 online kernel);
+19. bart_base at three heads in fp32: phase 18 with phase 16's widths
+   (``num_heads=3``, head dim 256), BART_F32_STEPS steps, the encoder on
+   the fp32 online trio's D=256 builds (the 3xTF32 backward pair and the
+   SIMT forward; 6 launches of each a step, no other kernel), the same
+   flash-against-dense train step and a profiled step. No cut of width.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
@@ -275,8 +281,10 @@ line (``launches`` summed over the paths, ``launches_by_path`` per path:
 ``bart_d256`` phase 16's; the ``_d256`` rows are the online kernels'
 D=256 builds, timed at phase 16's shape and counted in phase 16 alone,
 and the other online rows count every path but phase 16; the ``_f32``
-rows are the fp32 builds, counted in every path and launched only in
-phases 17-18, with ``bound_ffma_ms`` and ``bound_3xtf32_ms`` beside
+rows are the fp32 builds, launched only in phases 17-19: the
+``_f32_d256`` rows counted in phase 19 (``bart_f32_d256``) alone, the
+other ``_f32`` rows in every path but phase 19, with
+``bound_ffma_ms`` and ``bound_3xtf32_ms`` beside
 ``bound_ms``, which takes the FFMA peak for the SIMT kernels and the
 TF32 peak, three times over, for the 3xTF32 ones), the card line, and
 last
@@ -325,6 +333,7 @@ BART_STEPS = 8       # counted BART steps (the first is warm-up)
 BART_BATCH, BART_L = 8, 1024
 BART_D256_HEADS = 3  # phase 16: bart_base's widths at head dim 256
 D256_PATH = "bart_d256"  # phase 16, the one path at head dim 256
+F32_D256_PATH = "bart_f32_d256"  # phase 19, the one fp32 path at D=256
 # Packed rows: pack_seq_length, rows per batch (the binned L=512 bin's
 # 8192 padded tokens a step) and samples per row at most (the preprocess
 # CLI's default).
@@ -998,8 +1007,9 @@ def time_f32_kernels(fa, shape, names, max_abs):
     its source (``f32_source``): the TF32 peak three times over for the
     3xTF32 kernels (D=64 and 128), the FFMA peak for the SIMT ones
     (D=256); ``bound_ffma_ms`` and ``bound_3xtf32_ms`` give both. Rows at
-    D=256 are named with a ``_d256`` suffix and count no path's launches
-    (no path runs fp32 at D=256). Returns the JSON entries."""
+    D=256 are named with a ``_d256`` suffix and count phase 19's launches
+    alone, the others every path's but phase 19's. Returns the JSON
+    entries."""
     b, l, h, d = shape
     q, k, v, do, mask = attention_inputs(b, l, h, d, seed=7,
                                          dtype=torch.float32)
@@ -1057,9 +1067,11 @@ def time_f32_kernels(fa, shape, names, max_abs):
             "bound_ffma_ms": bound(nbytes, flops, PEAK_F32_FLOPS)[0],
             "bound_3xtf32_ms": bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0],
             "shape": {"B": b, "L": l, "H": h, "D": d}})
-        if d == 256:
-            entries[-1].update({"counter": name + "_f32",
-                                "counts_path": lambda path: False})
+        d256 = d == 256
+        entries[-1].update({
+            "counter": name + "_f32",
+            "counts_path": lambda path, d256=d256: (
+                (path == F32_D256_PATH) == d256)})
         row = entries[-1]
         print("fp32 {} D={}: {:.4f} ms, bound {:.4f} ms ({}; FFMA {:.4f}, "
               "3xTF32 {:.4f}, {:.1%} of it), plain {:.4f} ms, SDPA at fp32 "
@@ -1543,10 +1555,10 @@ def bart_path(fa, card, shared, num_heads=None, dtype=None):
     ``dtype`` (torch.float32) phase 18: bart_base at that dtype on the
     online kernels' fp32 builds, BART_F32_STEPS steps, then one flash
     train step against one dense and a profiled step, in place of the
-    bf16 profiled step and the eval logits); returns the launch counts of
-    the counted steps. Phase
-    6 leaves its step ms in ``shared`` for phases 16 and 18 to print
-    beside their own."""
+    bf16 profiled step and the eval logits; with both, phase 19: phase
+    18 at phase 16's widths, on the fp32 builds at D=256); returns the
+    launch counts of the counted steps. Phase 6 leaves its step ms in
+    ``shared`` for phases 16, 18 and 19 to print beside their own."""
     from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
                                        prefetch_to_device)
     from lddl_tpu_torch.models import (BartConfig, BartForPreTraining,
@@ -4638,13 +4650,12 @@ def pipeline_path(fa, card):
 # SIMT FFMA library and the two 3xTF32 ones (fa.f32_source routes the
 # entry points between them).
 F32_KERNELS = {
-    "attention_f32": {"online_fwd": (256,), "online_bwd_dq": (256,),
-                      "online_bwd_dkv": (256,)},
+    "attention_f32": {"online_fwd": (256,)},
     "attention_f32_fwd": {"onekv_fwd": (64, 128), "online_fwd": (64, 128)},
     "attention_f32_bwd": {"onekv_bwd_dkv": (64, 128),
                           "onekv_bwd_dq": (64, 128),
-                          "online_bwd_dq": (64, 128),
-                          "online_bwd_dkv": (64, 128)},
+                          "online_bwd_dq": (64, 128, 256),
+                          "online_bwd_dkv": (64, 128, 256)},
 }
 
 
@@ -4781,7 +4792,7 @@ def main():
         print(json.dumps({"kernels": kernels}))
         return 0
     by_path = {}
-    shared = {}  # what phases 11-12 leave for 13, 4 for 17, 6 for 16, 18
+    shared = {}  # what 11-12 leave for 13, 4 for 17, 6 for 16, 18-19
     phases = [("4", "bert_binned", lambda: bert_path(fa, card, shared)),
               ("5", "bert_packed", lambda: packed_path(fa, card)),
               ("6", "bart", lambda: bart_path(fa, card, shared)),
@@ -4800,7 +4811,10 @@ def main():
               ("17", "bert_f32",
                lambda: bert_path(fa, card, shared, torch.float32)),
               ("18", "bart_f32",
-               lambda: bart_path(fa, card, shared, dtype=torch.float32))]
+               lambda: bart_path(fa, card, shared, dtype=torch.float32)),
+              ("19", F32_D256_PATH,
+               lambda: bart_path(fa, card, shared, BART_D256_HEADS,
+                                 dtype=torch.float32))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

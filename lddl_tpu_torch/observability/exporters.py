@@ -27,6 +27,9 @@ from . import tracing
 from .registry import ENV_DIR, ENV_RANK, metrics_dir, rank, registry
 
 _EXPORT_INTERVAL_ENV = "LDDL_TPU_METRICS_INTERVAL_S"
+# How long stopping the exporter waits for an export in progress (file
+# writes: milliseconds; the bound keeps a hung filesystem from hanging it).
+_STOP_JOIN_S = 30.0
 
 _thread_lock = threading.Lock()
 _exporter = {"thread": None, "stop": None}
@@ -307,8 +310,15 @@ def start_periodic_export(interval_s=None):
 
 
 def stop_periodic_export():
+    """Stop the exporter thread and wait out an export it has begun, so
+    that the files of that export are whole when this returns: ``disable``
+    disarms the directory next, and an export still running would then
+    drop its remaining writes (the .prom file, the trace flush)."""
     with _thread_lock:
-        if _exporter["stop"] is not None:
-            _exporter["stop"].set()
+        thread, stop = _exporter["thread"], _exporter["stop"]
+        if stop is not None:
+            stop.set()
         _exporter["thread"] = None
         _exporter["stop"] = None
+    if thread is not None and thread is not threading.current_thread():
+        thread.join(timeout=_STOP_JOIN_S)

@@ -8,9 +8,11 @@
 //   onekv_bwd_dkv_f32_kernel } together replace _onekv_bwd_kernel
 //   onekv_bwd_dq_f32_kernel  } (lddl_onekv_bwd_f32 launches both)
 //
-// (all in lddl_tpu/ops/flash_attention.py). Built at D=64 and 128; at
-// D=256 the online pair stays on the SIMT bodies of attention_f32.cu (see
-// BwdPlan). The fp32 forwards at D=64 and 128 are attention_f32_fwd.cu.
+// (all in lddl_tpu/ops/flash_attention.py). Built at D=64 and 128, and
+// the online pair at D=256 (WidePlan: the reference's single-block regime
+// never takes D > 128). The fp32 forwards at D=64 and 128 are
+// attention_f32_fwd.cu; the online forward at D=256 is attention_f32.cu's
+// SIMT body.
 //
 // What they compute: attention_f32.cu's backward, on fp32 operands:
 //   S  = Q K^T * scale + bias, bias = 0 where kmask > 0 && kmask == qmask,
@@ -31,7 +33,8 @@
 // fp32 products, dK/dV 51.5; three TF32 products each are 116 and 155
 // GFLOP, 0.23 and 0.31 ms at 494.7 TFLOP/s, against 0.58 and 0.77 ms of
 // FFMA at 66.9. Operands are 31-38 MB (~0.01 ms at 3.35 TB/s): the tensor
-// cores bound them. At the TF32 peak a k8 wgmma with both operands in
+// cores bound them. bart_base at three heads (B=8, H=3, D=256) does the
+// same products. At the TF32 peak a k8 wgmma with both operands in
 // shared memory reads 128 bytes a clock at N=64 (the SM's whole
 // shared-memory rate) and 192 at N=32, so the score products are bound by
 // shared memory before the tensor cores.
@@ -71,11 +74,75 @@ using namespace lddl_tf32x3;
 //   KB for dQ), two landing stages of 16 KB: 226 KB for dK/dV.
 // - D=128: one consumer warpgroup, items of 64 rows (128 KB), tiles of 16
 //   rows (the same bytes as at D=64).
-// - D=256 is not built here: an item's 64 rows alone would take 256 KB in
-//   hi and lo.
+// - D=256 (the online pair): WidePlan below.
 template <int D, bool DKV>
-using BwdPlan = Plan<D, D == 64 ? 2 : 1, D == 64 ? 32 : 16, 2, 2, 0,
-                     DKV ? 2 : 1, DKV ? 3 : 1>;
+struct BwdPlanOf {
+  using type = Plan<D, D == 64 ? 2 : 1, D == 64 ? 32 : 16, 2, 2, 0,
+                    DKV ? 2 : 1, DKV ? 3 : 1>;
+};
+
+// At D=256 an item's 64 rows would take 256 KB in hi and lo, so the wide
+// bodies keep the item in fp32 (Q and dO, or K and V: 128 KB) and split
+// each k8 slice of it into register fragments at its product, on
+// tf32x3_tiles.cuh's wide pieces. Two consumer warpgroups both hold the
+// item's 64 rows; warpgroup 0 takes S (Q K^T, or K Q^T for dK/dV) and
+// warpgroup 1 dP (dO V^T, or V dO^T), each with the item's operand as the
+// register A and the tile's as B, the k8 steps spread over NACC
+// accumulators, each from zero; they swap the two tiles through shared
+// memory, both compute P and dS, and each keeps two of D's four 64-column
+// chunks of the outputs (dQ: 64 registers a thread; dK and dV: 128). No
+// score product is done twice, and no output is summed across
+// warpgroups. The tile widths are what shared memory leaves; at these N
+// the score products' count of wgmma, more than their work, sets their
+// time (chip_f32_phases.py's variant ndouble). Shared memory:
+// - dQ: K/V tiles of 16 rows, one landing stage (32 KB, hi after the
+//   split in place), their lo halves (32 KB) and K^T in hi and lo (32
+//   KB): 224 KB with the item. The producer loads the next tile once both
+//   score products are done, beside the exchange, P, dS and dS K.
+// - dK/dV: Q/dO tiles of 8 rows, two landing stages (16 KB each), the lo
+//   halves (16 KB) and Q^T and dO^T in hi and lo in one panel row (32
+//   KB): 208 KB.
+template <bool DKV>
+struct WidePlan {
+  static constexpr int D = 256;
+  static constexpr int NWG = 2;                     // consumer warpgroups
+  static constexpr int NC = 128 * NWG;              // consumer threads
+  static constexpr int NTHREADS = NC + 128;         // + the producer's
+  static constexpr int IROWS = 64;                  // rows of a work item
+  static constexpr int TR = DKV ? 8 : 16;           // rows of a streamed tile
+  static constexpr int DP = D / PANEL_F32;          // panels of a D-wide row
+  static constexpr int NCH = 2;                     // chunks a warpgroup keeps
+  static constexpr int ROPS = 2;                    // operands of an item
+  static constexpr int NT = DKV ? 2 : 1;            // operands transposed
+  static constexpr int G = 2;                       // k8 steps a score batch
+  static constexpr int NACC = 4;                    // score accumulators
+  static constexpr int SLICES = DKV ? 3 : 1;        // row slices a tile
+  static constexpr int SLICE = TR * 4;              // bytes of a slice
+  static constexpr int LS = DKV ? 2 : 1;            // landing stages
+  static constexpr int RES_P = IROWS * ROW_BYTES;   // an item panel
+  static constexpr int ITEM_OP = DP * RES_P;        // an item operand, fp32
+  static constexpr int TILE_P = TR * ROW_BYTES;     // a streamed panel
+  static constexpr int RES = ROPS * ITEM_OP;
+  static constexpr int LAND = 2 * DP * TILE_P;      // a stage: two tiles
+  static constexpr int NAT = LAND;                  // their lo halves
+  static constexpr int TPOSE = D * ROW_BYTES;       // the transposed panel
+  static constexpr size_t SMEM = RES + NAT + TPOSE + LS * LAND +
+                                 (LS + 1) * SLICES * SLICE +
+                                 (2 * LS + 2) * 8 + 1024;
+  static_assert(NT * 2 * TR == PANEL_F32,
+                "the transposed operands' hi and lo fill one panel row");
+  static_assert(SMEM <= 232448, "227 KB of shared memory");
+  static_assert(NWG * CONSUMER_REGS + PRODUCER_REGS <= 504,
+                "setmaxnreg's sum a thread slot (512 hangs)");
+};
+
+template <bool DKV>
+struct BwdPlanOf<256, DKV> {
+  using type = WidePlan<DKV>;
+};
+
+template <int D, bool DKV>
+using BwdPlan = typename BwdPlanOf<D, DKV>::type;
 
 // The dK/dV mainloop: per work item (IROWS keys of one batch*head), walk
 // the Q/dO tiles. The maps are the kernel's __grid_constant__ parameters.
@@ -324,6 +391,249 @@ __device__ __forceinline__ void dq_body(
   }
 }
 
+// The dK/dV mainloop at D=256 (WidePlan<true>): per work item (64 keys of
+// one batch*head), walk the Q/dO tiles. Warpgroup 0 computes S^T = K Q^T,
+// warpgroup 1 dP^T = V dO^T; after the swap both hold both tiles and
+// each adds P^T dO and dS^T Q to its two chunks of dV and dK.
+__device__ __forceinline__ void dkv_body_wide(
+    uint8_t* smem_raw, const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const CUtensorMap* map_do,
+    const int* __restrict__ kmask, const int* __restrict__ qmask,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int BH, int L, int H,
+    float scale) {
+  using P = WidePlan<true>;
+  constexpr int TR = P::TR, KC = TR / 8, NCH = P::NCH;
+  const Smem<P> sm(align_1024_shared(smem_raw));
+  const int nblk = L / P::IROWS, nitems = BH * nblk, ntiles = L / TR;
+
+  init_barriers(sm);
+
+  if (threadIdx.x >= P::NC) {
+    // Producer: K and V rows an item, then the Q/dO ring.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != P::NC) return;
+    produce(sm, map_k, map_v, map_q, map_do, BH, L, H,
+            [&](int b, int row, int col, uint8_t* sl, uint64_t* bar) {
+              bulk_load(sl, qmask + (size_t)b * L + col, P::SLICE, bar);
+              bulk_load(sl + P::SLICE, lse + row, P::SLICE, bar);
+              bulk_load(sl + 2 * P::SLICE, delta + row, P::SLICE, bar);
+            });
+    return;
+  }
+
+  // Consumers: both warpgroups hold the item's key rows; a thread holds
+  // rows r and r + 8 (keys) and columns c and c + 1 (queries) of the
+  // score tiles, and its warpgroup's chunks NCH wg + cc of dK and dV.
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
+  const int r = 16 * (wtid / 32) + (wtid % 32) / 4, c = 2 * (wtid % 4);
+  const int* qm = reinterpret_cast<const int*>(
+      sm.slices + P::LS * P::SLICES * P::SLICE);
+  const float* ql = reinterpret_cast<const float*>(qm + TR);
+  const float* qd = ql + TR;
+  float dkacc[NCH][32], dvacc[NCH][32], part[NCH][32];
+  float mine[TR / 2], other[TR / 2];
+  uint32_t phi[KC][4], plo[KC][4], shi[KC][4], slo[KC][4];
+  int t = 0;
+  for (int item = blockIdx.x, j = 0; item < nitems;
+       item += gridDim.x, ++j) {
+    const int bh = item / nblk, k0 = (item % nblk) * P::IROWS, b = bh / H;
+    const size_t krow = (size_t)bh * L + k0;
+    const int km0 = kmask[(size_t)b * L + k0 + r];
+    const int km1 = kmask[(size_t)b * L + k0 + r + 8];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dkacc[cc][i] = dvacc[cc][i] = 0.0f;
+    mbar_wait(sm.res_full, j & 1);
+    permute_item(sm, wg, wtid);
+    named_barrier(2 + wg, 128);
+
+    for (int i = 0; i < ntiles; ++i, ++t) {
+      const int s = t % P::LS;
+      mbar_wait(&sm.full[s], (t / P::LS) & 1);
+      named_barrier(1, P::NC);    // every read of the last tile is done
+      split_tile_inplace(sm, s, threadIdx.x);
+      fence_proxy_async();
+      named_barrier(1, P::NC);    // the split tile is written
+
+      // S^T (warpgroup 0) or dP^T (1), 64 keys x TR queries; the stage
+      // is free once both are done.
+      item_scores(sm, wg, s, wtid, mine);
+      mbar_arrive(&sm.empty[s]);
+      exchange_scores(sm, wg, wtid, mine, other);
+
+      // P^T = exp(S^T scale + bias - LSE), dS^T = P^T (dP^T - delta)
+      // scale, each split into tf32 A fragments.
+#pragma unroll
+      for (int jj = 0; jj < KC; ++jj) {
+        float st[4], dpt[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[e] = wg == 0 ? mine[4 * jj + e] : other[4 * jj + e];
+          dpt[e] = wg == 0 ? other[4 * jj + e] : mine[4 * jj + e];
+        }
+        const int2 m = *reinterpret_cast<const int2*>(qm + 8 * jj + c);
+        const float2 l = *reinterpret_cast<const float2*>(ql + 8 * jj + c);
+        const float2 d = *reinterpret_cast<const float2*>(qd + 8 * jj + c);
+        const float p0 = expf(st[0] * scale + bias(km0, m.x) - l.x);
+        const float p1 = expf(st[1] * scale + bias(km0, m.y) - l.y);
+        const float p2 = expf(st[2] * scale + bias(km1, m.x) - l.x);
+        const float p3 = expf(st[3] * scale + bias(km1, m.y) - l.y);
+        to_frag(p0, p1, p2, p3, phi[jj], plo[jj]);
+        to_frag(p0 * (dpt[0] - d.x) * scale, p1 * (dpt[1] - d.y) * scale,
+                p2 * (dpt[2] - d.x) * scale, p3 * (dpt[3] - d.y) * scale,
+                shi[jj], slo[jj]);
+      }
+
+      // dV += P^T dO, then dK += dS^T Q (dO^T and Q^T), the warpgroup's
+      // chunks, each a tile's partial product added by the threads.
+      fence_frags(phi);
+      fence_frags(plo);
+      fence_frags(shi);
+      fence_frags(slo);
+#pragma unroll
+      for (int cc = 0; cc < NCH; ++cc) undef_f32(part[cc]);
+      wgmma_fence();
+      contract_wide(sm, 1, NCH * wg, part, phi, plo);
+      wgmma_commit();
+      wgmma_wait<0>();
+      add_parts(dvacc, part);
+#pragma unroll
+      for (int cc = 0; cc < NCH; ++cc) undef_f32(part[cc]);
+      wgmma_fence();
+      contract_wide(sm, 0, NCH * wg, part, shi, slo);
+      wgmma_commit();
+      wgmma_wait<0>();
+      add_parts(dkacc, part);
+      fence_frags(phi);
+      fence_frags(plo);
+      fence_frags(shi);
+      fence_frags(slo);
+    }
+
+    // The item's rows are dead: free the item buffer, then store.
+    mbar_arrive(sm.res_empty);
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      store_chunk<P::D>(dk, krow, NCH * wg + cc, r, c, dkacc[cc]);
+      store_chunk<P::D>(dv, krow, NCH * wg + cc, r, c, dvacc[cc]);
+    }
+  }
+}
+
+// The dQ mainloop at D=256 (WidePlan<false>): per work item (64 queries of
+// one batch*head), walk the K/V tiles. Warpgroup 0 computes S = Q K^T,
+// warpgroup 1 dP = dO V^T; after the swap each adds dS K to its two
+// chunks of dQ.
+__device__ __forceinline__ void dq_body_wide(
+    uint8_t* smem_raw, const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const CUtensorMap* map_do,
+    const int* __restrict__ kmask, const int* __restrict__ qmask,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int BH, int L, int H, float scale) {
+  using P = WidePlan<false>;
+  constexpr int TR = P::TR, KC = TR / 8, NCH = P::NCH;
+  const Smem<P> sm(align_1024_shared(smem_raw));
+  const int nblk = L / P::IROWS, nitems = BH * nblk, ntiles = L / TR;
+
+  init_barriers(sm);
+
+  if (threadIdx.x >= P::NC) {
+    // Producer: Q and dO rows an item, then the K/V ring.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != P::NC) return;
+    produce(sm, map_q, map_do, map_k, map_v, BH, L, H,
+            [&](int b, int, int col, uint8_t* sl, uint64_t* bar) {
+              bulk_load(sl, kmask + (size_t)b * L + col, P::SLICE, bar);
+            });
+    return;
+  }
+
+  // Consumers: both warpgroups hold the item's query rows; a thread holds
+  // rows r and r + 8 (queries) and columns 8j + c, 8j + c + 1 (keys) of
+  // the score tiles, and its warpgroup's chunks NCH wg + cc of dQ.
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
+  const int r = 16 * (wtid / 32) + (wtid % 32) / 4, c = 2 * (wtid % 4);
+  const int* km = reinterpret_cast<const int*>(
+      sm.slices + P::LS * P::SLICES * P::SLICE);
+  float dqacc[NCH][32], part[NCH][32], mine[TR / 2], other[TR / 2];
+  uint32_t shi[KC][4], slo[KC][4];
+  int t = 0;
+  for (int item = blockIdx.x, j = 0; item < nitems;
+       item += gridDim.x, ++j) {
+    const int bh = item / nblk, q0 = (item % nblk) * P::IROWS, b = bh / H;
+    const size_t qrow = (size_t)bh * L + q0;
+    const int qm0 = qmask[(size_t)b * L + q0 + r];
+    const int qm1 = qmask[(size_t)b * L + q0 + r + 8];
+    const float lse0 = lse[qrow + r], lse1 = lse[qrow + r + 8];
+    const float dl0 = delta[qrow + r], dl1 = delta[qrow + r + 8];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqacc[cc][i] = 0.0f;
+    mbar_wait(sm.res_full, j & 1);
+    permute_item(sm, wg, wtid);
+    named_barrier(2 + wg, 128);
+
+    for (int i = 0; i < ntiles; ++i, ++t) {
+      const int s = t % P::LS;
+      mbar_wait(&sm.full[s], (t / P::LS) & 1);
+      named_barrier(1, P::NC);    // every read of the last tile is done
+      split_tile_inplace(sm, s, threadIdx.x);
+      fence_proxy_async();
+      named_barrier(1, P::NC);    // the split tile is written
+
+      // S (warpgroup 0) or dP (1), 64 queries x TR keys; the stage is
+      // free once both are done, and the next tile loads beside the rest.
+      item_scores(sm, wg, s, wtid, mine);
+      mbar_arrive(&sm.empty[s]);
+      exchange_scores(sm, wg, wtid, mine, other);
+
+      // P = exp(S scale + bias - LSE); dS = P (dP - delta) scale, split
+      // into tf32 A fragments.
+#pragma unroll
+      for (int jj = 0; jj < KC; ++jj) {
+        float sc[4], dp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[e] = wg == 0 ? mine[4 * jj + e] : other[4 * jj + e];
+          dp[e] = wg == 0 ? other[4 * jj + e] : mine[4 * jj + e];
+        }
+        const int2 m = *reinterpret_cast<const int2*>(km + 8 * jj + c);
+        const float p0 = expf(sc[0] * scale + bias(m.x, qm0) - lse0);
+        const float p1 = expf(sc[1] * scale + bias(m.y, qm0) - lse0);
+        const float p2 = expf(sc[2] * scale + bias(m.x, qm1) - lse1);
+        const float p3 = expf(sc[3] * scale + bias(m.y, qm1) - lse1);
+        to_frag(p0 * (dp[0] - dl0) * scale, p1 * (dp[1] - dl0) * scale,
+                p2 * (dp[2] - dl1) * scale, p3 * (dp[3] - dl1) * scale,
+                shi[jj], slo[jj]);
+      }
+
+      // dQ += dS K (K^T), the warpgroup's chunks, a tile's partial
+      // product added by the threads.
+      fence_frags(shi);
+      fence_frags(slo);
+#pragma unroll
+      for (int cc = 0; cc < NCH; ++cc) undef_f32(part[cc]);
+      wgmma_fence();
+      contract_wide(sm, 0, NCH * wg, part, shi, slo);
+      wgmma_commit();
+      wgmma_wait<0>();
+      add_parts(dqacc, part);
+      fence_frags(shi);
+      fence_frags(slo);
+    }
+
+    mbar_arrive(sm.res_empty);
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+      store_chunk<P::D>(dq, qrow, NCH * wg + cc, r, c, dqacc[cc]);
+  }
+}
+
 // The __global__ kernels: the two regimes run the same bodies under their
 // own names, so the profiler tells them apart.
 #define LDDL_DKV_KERNEL(name)                                               \
@@ -338,8 +648,12 @@ __device__ __forceinline__ void dq_body(
       float* __restrict__ dk, float* __restrict__ dv, int BH, int L, int H, \
       float scale) {                                                        \
     extern __shared__ uint8_t smem_raw[];                                   \
-    dkv_body<D>(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask, qmask,    \
-                lse, delta, dk, dv, BH, L, H, scale);                       \
+    if constexpr (D == 256)                                                 \
+      dkv_body_wide(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask,       \
+                    qmask, lse, delta, dk, dv, BH, L, H, scale);            \
+    else                                                                    \
+      dkv_body<D>(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask, qmask,  \
+                  lse, delta, dk, dv, BH, L, H, scale);                     \
   }
 #define LDDL_DQ_KERNEL(name)                                                \
   template <int D>                                                          \
@@ -352,8 +666,12 @@ __device__ __forceinline__ void dq_body(
       const float* __restrict__ lse, const float* __restrict__ delta,       \
       float* __restrict__ dq, int BH, int L, int H, float scale) {          \
     extern __shared__ uint8_t smem_raw[];                                   \
-    dq_body<D>(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask, qmask,     \
-               lse, delta, dq, BH, L, H, scale);                            \
+    if constexpr (D == 256)                                                 \
+      dq_body_wide(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask, qmask, \
+                   lse, delta, dq, BH, L, H, scale);                        \
+    else                                                                    \
+      dq_body<D>(smem_raw, &map_q, &map_k, &map_v, &map_do, kmask, qmask,   \
+                 lse, delta, dq, BH, L, H, scale);                          \
   }
 
 LDDL_DKV_KERNEL(online_bwd_dkv_f32_kernel)
@@ -441,6 +759,10 @@ int lddl_online_bwd_dq_f32(const void* q, const void* k, const void* v,
     return launch<128, false>(online_bwd_dq_f32_kernel<128>, q, k, v, dout,
                               kmask, qmask, lse, delta, BH, L, H, scale, s,
                               dq);
+  if (D == 256)
+    return launch<256, false>(online_bwd_dq_f32_kernel<256>, q, k, v, dout,
+                              kmask, qmask, lse, delta, BH, L, H, scale, s,
+                              dq);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -456,6 +778,10 @@ int lddl_online_bwd_dkv_f32(const void* q, const void* k, const void* v,
                             dv);
   if (D == 128)
     return launch<128, true>(online_bwd_dkv_f32_kernel<128>, q, k, v, dout,
+                             kmask, qmask, lse, delta, BH, L, H, scale, s,
+                             dk, dv);
+  if (D == 256)
+    return launch<256, true>(online_bwd_dkv_f32_kernel<256>, q, k, v, dout,
                              kmask, qmask, lse, delta, BH, L, H, scale, s,
                              dk, dv);
   return (int)cudaErrorInvalidValue;

@@ -317,10 +317,33 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// The same split by integer arithmetic on the fp32 bits: cvt.rna's
+// rounding for finite values (half an ulp of the 10-bit mantissa added
+// to the magnitude, carrying into the exponent where it must, the low 13
+// bits cleared), in five instructions where two cvt.rna and the
+// subtraction take nine (cvt.rna also tests for inf and NaN). Infinities
+// and NaNs stay what they are, except a NaN whose payload lies in the low
+// 13 bits alone, which becomes an infinity.
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
 template <int N>
 __device__ __forceinline__ void fence_f32(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Defines r without reading it, for a register array whose next wgmma
+// overwrites it (scale_d 0): the compiler then keeps no earlier value of
+// it live (the wgmma's "+f" operands read it as far as the compiler
+// knows).
+template <int N>
+__device__ __forceinline__ void undef_f32(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i])::"memory");
 }
 
 template <int M>
@@ -331,6 +354,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[M][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+#define LDDL_D4 "{%0, %1, %2, %3}"
 #define LDDL_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define LDDL_D16                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
@@ -338,6 +362,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[M][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define LDDL_OUT4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
 #define LDDL_OUT8(d)                                                      \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
       "+f"(d[6]), "+f"(d[7])
@@ -381,6 +406,30 @@ LDDL_TF32_SS(64, LDDL_D32, LDDL_OUT32, 32, 33, 34)
 #undef LDDL_TF32_SS
 
 template <>
+__device__ __forceinline__ void wgmma_rs_tf32<8>(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 " LDDL_D4
+      ", {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : LDDL_OUT4(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " LDDL_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : LDDL_OUT8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db, int scale_d) {
@@ -392,6 +441,8 @@ __device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+#undef LDDL_D4
+#undef LDDL_OUT4
 #undef LDDL_D8
 #undef LDDL_D16
 #undef LDDL_D32

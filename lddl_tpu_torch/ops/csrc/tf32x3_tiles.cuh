@@ -5,7 +5,9 @@
 // the score products (both operands from shared memory), the contracting
 // products (A from registers), a score tile's elements as A fragments, the
 // threads' fp32 sum of per-tile partial products, and the store of an
-// accumulator chunk.
+// accumulator chunk; and the pieces of the wide (D=256) bodies of
+// attention_f32_bwd.cu, whose item is kept in fp32 alone (see "wide
+// bodies" below).
 //
 // 3xTF32: a TF32 product rounds each operand to a 10-bit mantissa, so
 // every operand x is split as hi = tf32(x), lo = tf32(x - hi) (cvt.rna;
@@ -81,6 +83,7 @@ struct Plan {
   static constexpr int SLICES = SLICES_;           // row slices a tile
   static constexpr int SLICE = TR * 4;             // bytes of a slice
   static constexpr int RES_P = IROWS * ROW_BYTES;  // an item buffer panel
+  static constexpr int ITEM_OP = 2 * DP * RES_P;   // an item operand, hi + lo
   static constexpr int TILE_P = TR * ROW_BYTES;    // a streamed panel
   static constexpr int TPOSE_P = D * ROW_BYTES;    // a transposed panel
   static constexpr int TPN = 2 * TR / PANEL_F32;   // its panels: hi, lo cols
@@ -148,8 +151,9 @@ __device__ __forceinline__ void init_barriers(const Smem<P>& sm) {
 }
 
 // The producer thread: per item, the item's own rows of operand `ra` (and
-// `rb` where ROPS is 2) once (into the hi halves of the item buffer, once
-// the last item's consumers are done with it), then the tiles of `sa` and
+// `rb` where ROPS is 2, ITEM_OP bytes on) once (into the hi halves of the
+// item buffer, or the fp32 item of a wide plan, once the last item's
+// consumers are done with it), then the tiles of `sa` and
 // `sb` and their row slices through the landing ring. `slice_src` gives a
 // tile's slices (b, the tile's first row (bh * L + i * TR), its first
 // column i * TR, the stage's slices, the stage's barrier).
@@ -174,7 +178,7 @@ __device__ __forceinline__ void produce(const Smem<P>& sm,
         tma_load_2d(sm.res + p * P::RES_P + h * P::TILE_P, ra,
                     p * PANEL_F32, row0 + r0 + h * TR, sm.res_full);
         if constexpr (P::ROPS == 2)
-          tma_load_2d(sm.res + (2 * DP + p) * P::RES_P + h * P::TILE_P, rb,
+          tma_load_2d(sm.res + P::ITEM_OP + p * P::RES_P + h * P::TILE_P, rb,
                       p * PANEL_F32, row0 + r0 + h * TR, sm.res_full);
       }
     for (int i = 0; i < ntiles; ++i, ++t) {
@@ -417,6 +421,271 @@ __device__ __forceinline__ void store_chunk(float* out, size_t row,
     *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<float2*>(p + 8 * D) =
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// ---- wide bodies (D=256) ------------------------------------------------
+//
+// At D=256 an item's 64 rows are 64 KB of fp32 an operand, 128 KB in hi
+// and lo, so a wide plan keeps the item in fp32 alone (two operands: 128
+// KB) and splits it as it is used: each k8 slice of the warpgroup's A
+// operand into tf32 hi/lo register fragments right before its wgmma
+// (item_scores). A landed tile is split in place (hi over the fp32, lo at
+// the same place of the split tile's buffer, `nat`), beside its
+// transposed copy (`tpose`: one panel row a column of D, hi and lo
+// columns of up to two operands). The two consumer warpgroups each take
+// one score product (the item's operand wg against the tile's operand
+// wg) and hand it to the other through shared memory (exchange_scores),
+// then each keeps NCH 64-column chunks of D of the outputs. A wide plan
+// gives, beside Plan's sizes: ITEM_OP (the bytes of an item operand), G
+// (k8 steps a batch of item_scores), NACC (score accumulators), NT
+// (operands transposed).
+
+// Split task `task`'s chunk x of a landed tile in place: hi over the
+// landed fp32, lo at the same place of `nat`; for the first NT operands
+// also the transposed hi and lo (row n = column n of the tile; operand o
+// in K columns [2 TR o, 2 TR o + TR) hi and the next TR lo, each group of
+// 8 tile rows in the order 0 2 4 6 1 3 5 7).
+template <typename P>
+__device__ __forceinline__ void split_task_inplace(const Smem<P>& sm,
+                                                   uint8_t* land, int task,
+                                                   const float4& x) {
+  constexpr int DP = P::DP, TR = P::TR;
+  const int row = task % TR, ch = (task / TR) % 8;
+  const int p = (task / (8 * TR)) % DP, o = task / (8 * TR * DP);
+  const int slot = task_slot<P>(task);
+  uint32_t h[4], l[4];
+  split_tf32_bits(x.x, h[0], l[0]);
+  split_tf32_bits(x.y, h[1], l[1]);
+  split_tf32_bits(x.z, h[2], l[2]);
+  split_tf32_bits(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(land + slot) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(sm.nat + slot) = make_uint4(l[0], l[1], l[2], l[3]);
+  if (o < P::NT) {
+    const int kl = 8 * (row / 8) + 4 * (row % 2) + (row % 8) / 2;
+    const int chi = 2 * TR * o + kl, clo = chi + TR;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = p * PANEL_F32 + 4 * ch + e;
+      uint8_t* tp = sm.tpose + n * ROW_BYTES;
+      *reinterpret_cast<uint32_t*>(tp + (((chi / 4) ^ (n % 8)) * 16) +
+                                   (chi % 4) * 4) = h[e];
+      *reinterpret_cast<uint32_t*>(tp + (((clo / 4) ^ (n % 8)) * 16) +
+                                   (clo % 4) * 4) = l[e];
+    }
+  }
+}
+
+// All consumers split the landed tile of stage `s` in place and copy its
+// row slices; a thread issues all its loads before its stores.
+template <typename P>
+__device__ __forceinline__ void split_tile_inplace(const Smem<P>& sm, int s,
+                                                   int ctid) {
+  constexpr int NK = 2 * P::DP * 8 * P::TR / P::NC;   // tasks a thread
+  static_assert(NK * P::NC == 2 * P::DP * 8 * P::TR, "whole tasks");
+  uint8_t* land = sm.land + s * P::LAND;
+  float4 x[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k)
+    x[k] = *reinterpret_cast<const float4*>(
+        land + task_slot<P>(ctid + k * P::NC));
+#pragma unroll
+  for (int k = 0; k < NK; ++k) split_task_inplace(sm, land, ctid + k * P::NC,
+                                                  x[k]);
+  copy_slices(sm, s, ctid);
+}
+
+// kmajor_desc_tf32(tile, PANEL_BYTES, k) from the tile's step-0
+// descriptor: the address field counts 16-byte units of a shared-memory
+// address (below 256 KB), so a step's offset adds to it without a carry.
+template <int PANEL_BYTES>
+__device__ __forceinline__ uint64_t desc_at(uint64_t d0, int k) {
+  return d0 + (uint64_t)(((k / 4) * PANEL_BYTES + 32 * (k % 4)) >> 4);
+}
+
+// A warpgroup rewrites item operand `o` in place for item_scores' loads:
+// in each 16-column group of a row, the chunk of lane t holds columns t,
+// t + 4, t + 8 and t + 12 (the A fragment's columns t and t + 4 of the
+// group's two k8 steps), and odd rows keep their panel's two groups
+// swapped, so that a quarter-warp's 16-byte loads (two rows of four lanes)
+// meet eight distinct chunks. Only this warpgroup reads the operand.
+template <typename P>
+__device__ __forceinline__ void permute_item(const Smem<P>& sm, int o,
+                                             int wtid) {
+  uint8_t* base = sm.res + o * P::ITEM_OP;
+#pragma unroll 1
+  for (int u = wtid; u < P::IROWS * P::DP; u += 128) {
+    const int row = u % P::IROWS, sw = row % 8, odd = row & 1;
+    uint8_t* r = base + (u / P::IROWS) * P::RES_P + row * ROW_BYTES;
+    float c[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(r + ((j ^ sw) * 16));
+      c[j][0] = v.x;
+      c[j][1] = v.y;
+      c[j][2] = v.z;
+      c[j][3] = v.w;
+    }
+#pragma unroll
+    for (int gp = 0; gp < 2; ++gp)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        *reinterpret_cast<float4*>(r + (((4 * (gp ^ odd) + t) ^ sw) * 16)) =
+            make_float4(c[4 * gp][t], c[4 * gp + 1][t], c[4 * gp + 2][t],
+                        c[4 * gp + 3][t]);
+  }
+}
+
+// sc[64 x TR] = A B^T over D in 3xTF32: A the item's 64 rows of operand
+// `o` (fp32, as permute_item left it), each k8 slice split into tf32
+// hi/lo register fragments right before its products (two k8 steps of a
+// row in one 16-byte load); B the tile of stage `s`, operand `o`, split
+// in place. k8 step k sums into accumulator k % NACC, each from zero, and
+// the threads add the NACC of them in a fixed order: each sums KS / NACC
+// steps (the tensor core's fp32 sums truncate). Batches of G k8 steps,
+// each batch's fragments in the register set that the batch before last
+// used, once its products are waited for; waits for all of them before
+// it returns.
+template <typename P>
+__device__ __forceinline__ void item_scores(const Smem<P>& sm, int o, int s,
+                                            int wtid,
+                                            float (&sc)[P::TR / 2]) {
+  constexpr int TR = P::TR, KS = P::D / 8, G = P::G, NACC = P::NACC;
+  static_assert(KS % G == 0 && G % 2 == 0 && KS % NACC == 0 &&
+                    NACC % 2 == 0,
+                "whole batches of step pairs, and accumulator pairs");
+  const int g = 16 * (wtid / 32) + (wtid % 32) / 4;
+  // The thread's chunk of the first group of a panel (the second's is
+  // this ^ 4), for rows g and g + 8 alike.
+  const int q0 = (4 * (g & 1) + wtid % 4) ^ (g % 8);
+  const uint8_t* row = sm.res + o * P::ITEM_OP + g * ROW_BYTES;
+  const uint64_t dhi = kmajor_desc_tf32(
+      sm.land + s * P::LAND + o * P::DP * P::TILE_P, P::TILE_P, 0);
+  const uint64_t dlo =
+      kmajor_desc_tf32(sm.nat + o * P::DP * P::TILE_P, P::TILE_P, 0);
+  float acc[NACC][TR / 2];
+  uint32_t fh[2][G][4], fl[2][G][4];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) undef_f32(acc[a]);
+#pragma unroll
+  for (int b = 0; b < KS / G; ++b) {
+    const int set = b % 2;
+    float4 xa[G / 2], xb[G / 2];     // rows g and g + 8
+#pragma unroll
+    for (int j = 0; j < G / 2; ++j) {
+      const int k = b * G + 2 * j;   // steps k, k + 1: panel k / 4
+      const uint8_t* pa = row + (k / 4) * P::RES_P +
+                          ((q0 ^ (4 * ((k % 4) / 2))) * 16);
+      xa[j] = *reinterpret_cast<const float4*>(pa);
+      xb[j] = *reinterpret_cast<const float4*>(pa + 8 * ROW_BYTES);
+    }
+#pragma unroll
+    for (int j = 0; j < G / 2; ++j) {
+      uint32_t(&h0)[4] = fh[set][2 * j];
+      uint32_t(&l0)[4] = fl[set][2 * j];
+      uint32_t(&h1)[4] = fh[set][2 * j + 1];
+      uint32_t(&l1)[4] = fl[set][2 * j + 1];
+      split_tf32_bits(xa[j].x, h0[0], l0[0]);
+      split_tf32_bits(xb[j].x, h0[1], l0[1]);
+      split_tf32_bits(xa[j].y, h0[2], l0[2]);
+      split_tf32_bits(xb[j].y, h0[3], l0[3]);
+      split_tf32_bits(xa[j].z, h1[0], l1[0]);
+      split_tf32_bits(xb[j].z, h1[1], l1[1]);
+      split_tf32_bits(xa[j].w, h1[2], l1[2]);
+      split_tf32_bits(xb[j].w, h1[3], l1[3]);
+    }
+    fence_frags(fh[set]);
+    fence_frags(fl[set]);
+    wgmma_fence();
+    // The two small terms of each step first, each round over the batch.
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const int k = b * G + kk;
+      wgmma_rs_tf32<TR>(acc[k % NACC], fl[set][kk],
+                        desc_at<P::TILE_P>(dhi, k), k >= NACC);
+    }
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const int k = b * G + kk;
+      wgmma_rs_tf32<TR>(acc[k % NACC], fh[set][kk],
+                        desc_at<P::TILE_P>(dlo, k), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const int k = b * G + kk;
+      wgmma_rs_tf32<TR>(acc[k % NACC], fh[set][kk],
+                        desc_at<P::TILE_P>(dhi, k), 1);
+    }
+    wgmma_commit();
+    if (b > 0) wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) fence_f32(acc[a]);
+  // A fixed tree: pairs (0, 1), (2, 3), ..., then their sums in order.
+#pragma unroll
+  for (int i = 0; i < TR / 2; ++i) {
+    float sum = acc[0][i] + acc[1][i];
+#pragma unroll
+    for (int a = 2; a < NACC; a += 2) sum += acc[a][i] + acc[a + 1][i];
+    sc[i] = sum;
+  }
+}
+
+// The two warpgroups swap their score tiles: warpgroup wg's goes where
+// only its own products read (the lo half of the tile's operand wg, once
+// its products are waited for), and the other's comes back into `other`
+// in the same accumulator layout (thread wtid of both holds the same
+// elements).
+template <typename P>
+__device__ __forceinline__ void exchange_scores(const Smem<P>& sm, int wg,
+                                                int wtid,
+                                                const float (&mine)[P::TR / 2],
+                                                float (&other)[P::TR / 2]) {
+  constexpr int N = P::TR / 2, OP = P::DP * P::TILE_P;
+  float* out = reinterpret_cast<float*>(sm.nat + wg * OP) + wtid * N;
+  const float* in =
+      reinterpret_cast<const float*>(sm.nat + (1 - wg) * OP) + wtid * N;
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(out + i) =
+        make_float4(mine[i], mine[i + 1], mine[i + 2], mine[i + 3]);
+  named_barrier(1, P::NC);
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(in + i);
+    other[i] = v.x;
+    other[i + 1] = v.y;
+    other[i + 2] = v.z;
+    other[i + 3] = v.w;
+  }
+}
+
+// part[c] = A X over the tile's rows in 3xTF32 for chunks c0 + c of D, c
+// < NCH: A (64 x TR) the register fragments ahi/alo, X the transposed
+// operand `u` (hi in K steps [2 KC u, 2 KC u + KC), lo in the next KC).
+// Issued, not waited for; each chunk's product starts from zero.
+template <typename P>
+__device__ __forceinline__ void contract_wide(
+    const Smem<P>& sm, int u, int c0, float (&part)[P::NCH][32],
+    uint32_t (&ahi)[P::TR / 8][4], uint32_t (&alo)[P::TR / 8][4]) {
+  constexpr int KC = P::TR / 8;
+  const int khi = 2 * KC * u, klo = khi + KC;
+#pragma unroll
+  for (int c = 0; c < P::NCH; ++c) {
+    const uint8_t* x = sm.tpose + (c0 + c) * 64 * ROW_BYTES;
+#pragma unroll
+    for (int k = 0; k < KC; ++k)
+      wgmma_rs_tf32<64>(part[c], alo[k],
+                        kmajor_desc_tf32(x, P::TPOSE, khi + k), k > 0);
+#pragma unroll
+    for (int k = 0; k < KC; ++k)
+      wgmma_rs_tf32<64>(part[c], ahi[k],
+                        kmajor_desc_tf32(x, P::TPOSE, klo + k), 1);
+#pragma unroll
+    for (int k = 0; k < KC; ++k)
+      wgmma_rs_tf32<64>(part[c], ahi[k],
+                        kmajor_desc_tf32(x, P::TPOSE, khi + k), 1);
   }
 }
 

@@ -52,17 +52,17 @@ Dtypes: the reference's kernels take any float dtype, with fp32
 accumulation and fp32 softmax statistics. The port's kernels are built
 for bf16 (the files above) and fp32, the fp32 builds under the same
 regime names with an ``_f32`` suffix (``onekv_fwd_f32_kernel``, ...) in
-three sources (``f32_source`` picks one by entry point and head dim). At
-D=64 and 128 every fp32 kernel runs on the tensor cores, every product
-3xTF32 (each operand split into two tf32 halves, three wgmma a product,
-fp32 accuracy): ``csrc/attention_f32_fwd.cu`` holds both forwards,
-``csrc/attention_f32_bwd.cu`` the backward of both regimes, on the
-shared ``csrc/tf32x3_tiles.cuh``. At D=256, whose 3xTF32 tiles do not
-fit shared memory, ``csrc/attention_f32.cu`` holds the three online
-kernels in SIMT fp32 FFMA on the CUDA cores. The wrapper picks the build
-by the operands' dtype, never casts fp32 down to bf16 and never routes it
-elsewhere; any other dtype raises on a CUDA tensor. Launches of the fp32
-builds count in ``<wrapper>.launches_f32``.
+three sources (``f32_source`` picks one by entry point and head dim).
+The fp32 kernels run on the tensor cores, every product 3xTF32 (each
+operand split into two tf32 halves, three wgmma a product, fp32
+accuracy), on the shared ``csrc/tf32x3_tiles.cuh``:
+``csrc/attention_f32_fwd.cu`` holds both forwards at D=64 and 128,
+``csrc/attention_f32_bwd.cu`` the backward of both regimes at D=64 and
+128 and the online pair at D=256. The online forward at D=256 is still
+SIMT fp32 FFMA on the CUDA cores, in ``csrc/attention_f32.cu``. The
+wrapper picks the build by the operands' dtype, never casts fp32 down to
+bf16 and never routes it elsewhere; any other dtype raises on a CUDA
+tensor. Launches of the fp32 builds count in ``<wrapper>.launches_f32``.
 """
 
 import ctypes
@@ -83,13 +83,20 @@ ONLINE_STEP = 64
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Operand dtypes the kernels are built for; each fp32 entry point is named
 # as its bf16 one with an _f32 suffix, in F32_FWD_SOURCE (the forwards) or
-# F32_BWD_SOURCE (the backward) at the head dims of F32_TF32_HEAD_DIMS
-# (3xTF32 wgmma), or else in F32_SOURCE (SIMT FFMA).
+# F32_BWD_SOURCE (the backward) at its head dims in F32_TF32_HEAD_DIMS
+# (3xTF32 wgmma), or else in F32_SOURCE (SIMT FFMA: the online forward at
+# D=256).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 F32_SOURCE = "attention_f32"
 F32_FWD_SOURCE = "attention_f32_fwd"
 F32_BWD_SOURCE = "attention_f32_bwd"
-F32_TF32_HEAD_DIMS = (64, 128)
+F32_TF32_HEAD_DIMS = {
+    "lddl_onekv_fwd_f32": (64, 128),
+    "lddl_online_fwd_f32": (64, 128),
+    "lddl_onekv_bwd_f32": (64, 128),
+    "lddl_online_bwd_dq_f32": (64, 128, 256),
+    "lddl_online_bwd_dkv_f32": (64, 128, 256),
+}
 
 
 def pad_seq_len(l):
@@ -317,15 +324,12 @@ _ENTRY_POINTS.update({
     for f32, bf16 in ((F32_FWD_SOURCE, "attention_fwd"),
                       (F32_BWD_SOURCE, "online_attention_bwd"))})
 _ENTRY_POINTS[F32_SOURCE] = {
-    entry + "_f32": n_ptr for source in ("attention_fwd",
-                                         "online_attention_bwd")
-    for entry, n_ptr in _ENTRY_POINTS[source].items()
-    if entry.startswith("lddl_online")}
+    "lddl_online_fwd_f32": _ENTRY_POINTS["attention_fwd"]["lddl_online_fwd"]}
 
 
 def f32_source(entry, d):
     """The source of the fp32 entry point ``entry`` at head dim ``d``."""
-    if d in F32_TF32_HEAD_DIMS:
+    if d in F32_TF32_HEAD_DIMS[entry]:
         for source in (F32_FWD_SOURCE, F32_BWD_SOURCE):
             if entry in _ENTRY_POINTS[source]:
                 return source

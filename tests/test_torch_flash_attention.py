@@ -394,8 +394,9 @@ def test_entry_points_match_c_sources(source):
     two forwards share one source and the online backward pair has its
     own with the single-block backward beside it; the three fp32 sources
     hold all five under the bf16 names with an _f32 suffix, the forwards
-    in one 3xTF32 source, the backward in the other, and the online three
-    in the SIMT one at the width the 3xTF32 sources do not build (no nvcc
+    in one 3xTF32 source (D=64, 128), the backward in the other (D=64,
+    128, and the online pair at 256), and the online forward alone in the
+    SIMT one, at the width the 3xTF32 forwards do not build (no nvcc
     needed)."""
     import re
     from lddl_tpu_torch.ops import _build
@@ -417,10 +418,19 @@ def test_entry_points_match_c_sources(source):
                 for e, n in tfa._ENTRY_POINTS[s].items()} == bf16
         assert (source == tfa.F32_BWD_SOURCE) == all(
             "_bwd" in e for e in tfa._ENTRY_POINTS[source])
-        assert (source == tfa.F32_FWD_SOURCE) == all(
-            "_fwd" in e for e in tfa._ENTRY_POINTS[source])
+        assert (source == tfa.F32_FWD_SOURCE) == (
+            set(tfa._ENTRY_POINTS[source])
+            == {"lddl_onekv_fwd_f32", "lddl_online_fwd_f32"})
         assert (source == tfa.F32_SOURCE) == all(
             e.startswith("lddl_online") for e in tfa._ENTRY_POINTS[source])
+        assert (source == tfa.F32_SOURCE) == (
+            set(tfa._ENTRY_POINTS[source]) == {"lddl_online_fwd_f32"})
+        # The routing by width: the pair at D=256 is 3xTF32, the online
+        # forward there SIMT.
+        for entry in ("lddl_online_bwd_dq_f32", "lddl_online_bwd_dkv_f32"):
+            assert tfa.f32_source(entry, 256) == tfa.F32_BWD_SOURCE
+        assert tfa.f32_source("lddl_online_fwd_f32", 256) == tfa.F32_SOURCE
+        assert set(tfa.F32_TF32_HEAD_DIMS) == set(bf16)
     else:
         assert (source == "online_attention_bwd") == any(
             e.startswith("lddl_online_bwd")
@@ -457,12 +467,12 @@ def _code(name):
 
 
 def test_f32_source_has_no_tensor_core_or_atomic_ops():
-    """The SIMT fp32 kernels' code (comments stripped) names no
+    """The SIMT fp32 kernel's code (comments stripped) names no
     tensor-core product (wgmma, mma.sync, any tf32 kind or conversion) and
     no atomic operation: every product is an fp32 FFMA, and each output
-    element is written once; it holds the online forward and the online
-    backward pair, at D=256, and no single-block kernel (no nvcc
-    needed)."""
+    element is written once; it holds the online forward alone, at D=256:
+    not the online backward pair (3xTF32 since its wide bodies) and no
+    single-block kernel (no nvcc needed)."""
     import re
     code = _code(tfa.F32_SOURCE + ".cu")
     for word in ("tf32", "wgmma", "mma", "atomic", "__expf", "__logf",
@@ -470,11 +480,13 @@ def test_f32_source_has_no_tensor_core_or_atomic_ops():
         assert word not in code, word
     for word in ("expf(", "logf(", "fmaf("):
         assert word in code, word
-    # Its kernels are instantiated under their bf16 names + _f32.
-    for kernel in ("online_fwd", "online_bwd_dq", "online_bwd_dkv"):
+    # Its kernel is instantiated under its bf16 name + _f32.
+    for kernel in ("online_fwd",):
         assert re.search(r"\b{}_f32_kernel\(".format(kernel), code), kernel
-    for kernel in ("onekv_fwd", "onekv_bwd_dq", "onekv_bwd_dkv"):
+    for kernel in ("onekv_fwd", "onekv_bwd_dq", "onekv_bwd_dkv",
+                   "online_bwd_dq", "online_bwd_dkv"):
         assert "{}_f32_kernel".format(kernel) not in code, kernel
+    assert "lddl_online_bwd" not in code
 
 
 @pytest.mark.parametrize("source, kernels", [
@@ -490,7 +502,10 @@ def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics(source, kernels):
     tests/test_torch_tf32x3.py emulates that split), uses expf (and the
     forward logf) and no fast-math intrinsic, no atomic operation, and
     instantiates its kernels under their bf16 names + _f32 (no nvcc
-    needed)."""
+    needed). The backward's online pair is built at D=256 too, on the
+    wide bodies: the item in fp32, its A fragments split at each product
+    (``item_scores``), the tile split in place (``split_tile_inplace``)
+    and the two warpgroups' score tiles swapped (``exchange_scores``)."""
     import re
     own = _code(source + ".cu")
     assert '#include "tf32x3_tiles.cuh"' in own
@@ -507,6 +522,11 @@ def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics(source, kernels):
     assert "cvt.rna.tf32.f32" in header
     for kernel in kernels:
         assert re.search(r"\b{}_f32_kernel\)".format(kernel), own), kernel
+    wide = ("item_scores(", "split_tile_inplace(", "exchange_scores(",
+            "contract_wide(")
+    for word in wide + ("online_bwd_dq_f32_kernel<256>",
+                        "online_bwd_dkv_f32_kernel<256>"):
+        assert (word in own) == (source == tfa.F32_BWD_SOURCE), word
 
 
 

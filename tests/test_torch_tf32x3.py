@@ -1,4 +1,5 @@
-"""The 3xTF32 arithmetic of the fp32 kernels at D=64 and 128
+"""The 3xTF32 arithmetic of the fp32 kernels at D=64 and 128, and of the
+online backward pair at D=256
 (``lddl_tpu_torch/ops/csrc/attention_f32_fwd.cu`` and
 ``attention_f32_bwd.cu``), emulated on the CPU.
 
@@ -10,7 +11,9 @@ same split is taken through an int32 view of the fp32 values, and the
 products are taken that way on the CPU: the forward's two (S, and P V
 tile by tile of the kernel's walk, each tile's product from zero and
 added to the rescaled O in fp32) and the backward's five (S, dP, dQ, dK,
-dV). O and the LSE are held against the reference's fp32 forward
+dV); at D=256 also in the wide bodies' order of work (their tiles, the
+score products' four accumulators, each tile's product from zero).
+O and the LSE are held against the reference's fp32 forward
 (``lddl_tpu.ops.flash_attention.flash_attention_fwd``), the gradients
 against its fp32 backward (``flash_attention_bwd``) on its own forward,
 its Pallas kernels in interpret mode, as its own tests run them: within
@@ -71,16 +74,19 @@ def mm3(a, b):
 FWD_TILE = {64: 64, 128: 32}
 
 
-def _biased_scores(qb, kb, maskb, qmaskb, scale):
-    """S = Q K^T * scale + bias with Q K^T in 3xTF32, [B*H, L_pad, L_pad]."""
+def _bias(maskb, qmaskb, bh):
+    """The fp32 -1e9 bias, [B*H, Lq, Lk]."""
     b = maskb.shape[0]
-    bh, l_pad, _ = qb.shape
     allowed = ((maskb[:, None, :] > 0)
                & (maskb[:, None, :] == qmaskb[:, :, None]))
     bias = torch.where(allowed, 0.0, tfa.NEG_BIG).to(torch.float32)
-    s = mm3(qb, kb.transpose(1, 2)) * scale
-    return (s.view(b, bh // b, l_pad, l_pad) + bias[:, None]).view(
-        bh, l_pad, l_pad)
+    return bias.repeat_interleave(bh // b, dim=0)
+
+
+def _biased_scores(qb, kb, maskb, qmaskb, scale):
+    """S = Q K^T * scale + bias with Q K^T in 3xTF32, [B*H, L_pad, L_pad]."""
+    return (mm3(qb, kb.transpose(1, 2)) * scale
+            + _bias(maskb, qmaskb, qb.shape[0]))
 
 
 def emulated_fwd(qb, kb, vb, maskb, qmaskb, scale):
@@ -108,7 +114,11 @@ def emulated_fwd(qb, kb, vb, maskb, qmaskb, scale):
 
 def emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
     """The kernels' backward in the kernel layout with every product in
-    3xTF32: (dQ, dK, dV)."""
+    3xTF32: (dQ, dK, dV). At D=256, where the kernels are the wide bodies
+    (the online pair alone), in their order of work (emulated_wide_bwd)."""
+    if qb.shape[-1] == 256:
+        return emulated_wide_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                                 scale)
     s = _biased_scores(qb, kb, maskb, qmaskb, scale)
     p = torch.exp(s - lse[..., None])
     dp = mm3(dob, vb.transpose(1, 2))
@@ -142,16 +152,13 @@ def test_split_is_within_2_to_the_minus_21():
     assert hi[3] == np.float32(-(1 + 2.0 ** -10))
 
 
-@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
-@pytest.mark.parametrize("l", [200, 512])
-@pytest.mark.parametrize("d", [64, 128])
-def test_emulated_split_matches_reference_backward(d, l, mask_kind):
-    """dQ, dK and dV with every product in 3xTF32 against the reference's
-    fp32 backward at D=64 and 128, L_pad 256 and 512, padding masks or
-    segment ids 1-3 (both masks, one batch row masked entirely): within
-    F32_BAR / MARGIN of max |ref|."""
+def _backward_case(d, l, mask_kind, seed):
+    """Inputs from ``seed`` at B=2, H=2 (padding masks, or segment ids 1-3
+    on both sides with one batch row masked entirely), the reference's
+    fp32 backward on its own forward, and the kernel-layout operands with
+    dO, the LSE and delta: (refs, args, (b, l, h, d))."""
     b, h = 2, 2
-    g = np.random.default_rng(100 * d + l + (mask_kind == "segments"))
+    g = np.random.default_rng(seed)
     q, k, v, ct = (g.standard_normal((b, l, h, d)).astype(np.float32)
                    for _ in range(4))
     mask = np.ones((b, l), np.int32)
@@ -174,13 +181,94 @@ def test_emulated_split_matches_reference_backward(d, l, mask_kind):
     ob = tfa._prep_one(torch.from_numpy(np.array(j_out)), l_pad)
     lse = torch.from_numpy(np.array(j_lse)).reshape(b * h, l_pad)
     delta = (dob * ob).sum(-1)
-    got = emulated_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta,
-                       1.0 / d ** 0.5)
+    return refs, (qb, kb, vb, maskb, qmaskb, dob, lse, delta,
+                  1.0 / d ** 0.5), (b, l, h, d)
+
+
+def _check_grads(got, refs, shape):
+    b, l, h, d = shape
     for name, x, ref in zip(("dQ", "dK", "dV"), got, refs):
         x = tfa._from_bh(x, b, l, h, d).numpy()
         ref = np.asarray(ref)
         err = np.abs(x - ref).max() / np.abs(ref).max()
         assert err <= F32_BAR / MARGIN, (name, err)
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("l", [200, 512])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_emulated_split_matches_reference_backward(d, l, mask_kind):
+    """dQ, dK and dV with every product in 3xTF32 against the reference's
+    fp32 backward at D=64, 128 and 256 (there in the wide bodies' order,
+    as the online pair computes it), L_pad 256 and 512, padding masks or
+    segment ids 1-3 (both masks, one batch row masked entirely): within
+    F32_BAR / MARGIN of max |ref|."""
+    refs, args, shape = _backward_case(
+        d, l, mask_kind, 100 * d + l + (mask_kind == "segments"))
+    _check_grads(emulated_bwd(*args), refs, shape)
+
+
+# The wide bodies at D=256 (WidePlan in attention_f32_bwd.cu): rows of a
+# streamed tile (dQ: K/V tiles; dK/dV: Q/dO tiles) and the score products'
+# accumulators (k8 step k sums into accumulator k % 4).
+WIDE_DQ_TILE, WIDE_DKV_TILE, WIDE_NACC = 16, 8, 4
+
+
+def _wide_scores(a, b):
+    """a @ b^T over D as the wide bodies take it: in 3xTF32, k8 step k
+    (columns 8k..8k+7) into accumulator k % WIDE_NACC, each from zero, the
+    accumulators added as (0 + 1) + (2 + 3). The kernels split each k8
+    slice of the item's operand as they use it; the split is elementwise,
+    so splitting it whole is the same."""
+    d = a.shape[-1]
+    cols = torch.arange(d)
+    acc = [mm3(a[..., (cols // 8) % WIDE_NACC == i],
+               b[..., (cols // 8) % WIDE_NACC == i].transpose(1, 2))
+           for i in range(WIDE_NACC)]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def emulated_wide_bwd(qb, kb, vb, maskb, qmaskb, dob, lse, delta, scale):
+    """The D=256 online pair in the wide bodies' order of work, every
+    product in 3xTF32: dQ walks the K/V tiles of WIDE_DQ_TILE keys, dK/dV
+    the Q/dO tiles of WIDE_DKV_TILE queries; the two score tiles (S and
+    dP, or S^T and dP^T) as _wide_scores takes them; each tile's
+    contracting products from zero, added to the running sums in fp32.
+    (The warpgroups' halves of D split the outputs by columns, which the
+    emulation need not repeat.) Returns (dQ, dK, dV)."""
+    bh, l_pad, _ = qb.shape
+    bias = _bias(maskb, qmaskb, bh)
+    dq = torch.zeros(qb.shape)
+    for j in range(0, l_pad, WIDE_DQ_TILE):
+        t = slice(j, j + WIDE_DQ_TILE)
+        p = torch.exp(_wide_scores(qb, kb[:, t]) * scale + bias[:, :, t]
+                      - lse[..., None])
+        dp = _wide_scores(dob, vb[:, t])
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + mm3(ds, kb[:, t])
+    dk, dv = torch.zeros(kb.shape), torch.zeros(vb.shape)
+    for i in range(0, l_pad, WIDE_DKV_TILE):
+        t = slice(i, i + WIDE_DKV_TILE)
+        pt = torch.exp(_wide_scores(kb, qb[:, t]) * scale
+                       + bias[:, t].transpose(1, 2) - lse[:, None, t])
+        dpt = _wide_scores(vb, dob[:, t])
+        dst = pt * (dpt - delta[:, None, t]) * scale
+        dv = dv + mm3(pt, dob[:, t])
+        dk = dk + mm3(dst, qb[:, t])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("l", [200, 1024])
+def test_emulated_d256_backward_walk_matches_reference(l, mask_kind):
+    """The D=256 online pair in the wide bodies' order of work (their
+    streamed tiles, the per-k8 split of the item's A fragments, the four
+    score accumulators, each tile's partial product from zero) against
+    the reference's fp32 backward at L_pad 256 and 1024, padding masks or
+    segment ids 1-3: within F32_BAR / MARGIN of max |ref|."""
+    refs, args, shape = _backward_case(
+        256, l, mask_kind, 300 + l + (mask_kind == "segments"))
+    _check_grads(emulated_wide_bwd(*args), refs, shape)
 
 
 @pytest.mark.parametrize("mask_kind", ["padding", "segments"])
