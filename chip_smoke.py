@@ -7,23 +7,20 @@ exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA version;
 2. build: compile every kernel of the paths from ``lddl_tpu_torch/ops/csrc``
-   (five sources: ``attention_fwd.cu``, both bf16 forwards;
+   (four sources: ``attention_fwd.cu``, both bf16 forwards;
    ``online_attention_bwd.cu``, the bf16 backward of both regimes;
    ``attention_f32_fwd.cu`` and ``attention_f32_bwd.cu``, the fp32
    forwards and the fp32 backward of both regimes at D=64 and 128 and the
-   fp32 online backward pair at D=256, 3xTF32 wgmma;
-   ``attention_f32.cu``, the fp32 online forward at D=256, SIMT FFMA)
+   fp32 online trio at D=256, 3xTF32 wgmma)
    with nvcc for sm_90a, one
    nvcc per source not built yet, all started together, and the build's
    seconds; print ptxas's register/spill lines (kept beside each library,
    so a cached build has them), a register/spill summary of each of the
    six kernels at D=64 and D=128 and of the three online kernels at D=256
-   (which must spill 0 bytes in bf16, as must every 3xTF32 fp32 kernel)
-   and, from ``cuobjdump -sass``, the HGMMA (wgmma)
-   instructions of every bf16 kernel, none of which may be 0, the TF32
-   HGMMA of every 3xTF32 kernel, none of which may be 0, and the FFMA of
-   every SIMT fp32 kernel, none of which may be 0, with no tensor-core
-   instruction (HMMA, HGMMA) in the SIMT fp32 library;
+   (which must spill 0 bytes in bf16, as must every fp32 kernel at every
+   width) and, from ``cuobjdump -sass``, the HGMMA (wgmma)
+   instructions of every bf16 kernel, none of which may be 0, and the
+   TF32 HGMMA of every fp32 kernel, none of which may be 0;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    (forward O/LSE, backward dQ/dK/dV) at the main paths' shapes, and time
    kernel, plain version and, as a yardstick the port never calls,
@@ -47,7 +44,7 @@ exits non-zero):
    launches, and timed at the bf16 rows' shapes (D=64, and the online
    trio at D=256) against their plain versions and SDPA at fp32 under the
    additive mask, beside their FFMA and 3xTF32 bounds (each row bound by
-   its own kind: 3xTF32 at D=64 and 128, FFMA at D=256);
+   3xTF32, the products the kernels run);
    ``flash_attention`` at head dims it zero-pads (8, 32, 96 at L=512 on
    the single-block pair, 160 at L=1024 on the online kernels), forward
    and gradients against the plain versions at the true D; then the
@@ -100,13 +97,14 @@ exits non-zero):
    and of fsdp alone; a sharded eval step; a sharded checkpoint saved,
    restored into a model from another seed and a bit-identical next
    step; ``entry.dryrun_multichip(1)``;
-8. offline BERT data path, at the README Quickstart's phase-2 setting:
+8. offline BERT data path, at the README Quickstart's phase-2 setting
+   with half its corpus:
    the native engine built with g++ (its committed ``unicode_tables.h``
    must be calibrated for this Python's ``unicodedata``); the torch
    maskers on the card against the same maskers on the CPU at 4096 x 512
    (token and whole-word: masks and selections bit-identical, the
    counts, candidates, whole words and the 80/10/10 split held); a
-   128 MiB text corpus from a seed (64 files of documents of 5-60
+   64 MiB text corpus from a seed (64 files of documents of 5-60
    sentences over bert_large's 30522-token vocab) through the port's
    preprocess CLI (target length 512, bins of 64, static masking,
    duplicate factor 5, sample ratio 0.9, 64 blocks, schema v2, up to 16
@@ -271,8 +269,8 @@ exits non-zero):
    phase 17's (6 launches of each fp32 online kernel);
 19. bart_base at three heads in fp32: phase 18 with phase 16's widths
    (``num_heads=3``, head dim 256), BART_F32_STEPS steps, the encoder on
-   the fp32 online trio's D=256 builds (the 3xTF32 backward pair and the
-   SIMT forward; 6 launches of each a step, no other kernel), the same
+   the fp32 online trio's D=256 builds (6 launches of each a step, no
+   other kernel), the same
    flash-against-dense train step and a profiled step. No cut of width.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
@@ -285,8 +283,8 @@ rows are the fp32 builds, launched only in phases 17-19: the
 ``_f32_d256`` rows counted in phase 19 (``bart_f32_d256``) alone, the
 other ``_f32`` rows in every path but phase 19, with
 ``bound_ffma_ms`` and ``bound_3xtf32_ms`` beside
-``bound_ms``, which takes the FFMA peak for the SIMT kernels and the
-TF32 peak, three times over, for the 3xTF32 ones), the card line, and
+``bound_ms``, which takes the TF32 peak three times over), the card
+line, and
 last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
@@ -311,8 +309,8 @@ torch = None
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of each kernel.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# fp32 on the CUDA cores (FFMA), the fp32 kernels' bound; and TF32 on the
-# tensor cores, which a 3xTF32 split (three products a product) would use.
+# fp32 on the CUDA cores (FFMA); and TF32 on the tensor cores, which the
+# fp32 kernels' 3xTF32 split (three products a product) uses: their bound.
 PEAK_F32_FLOPS = 66.9e12
 PEAK_TF32_FLOPS = 494.7e12
 # The fp32 kernels against their plain versions: O and the gradients
@@ -353,8 +351,10 @@ DIST_PARAM_ATOL = 1e-6
 # The offline BERT data path (phase 8), at the README Quickstart's
 # phase-2 setting: a corpus of DATA_CORPUS_BYTES in DATA_FILES files ->
 # preprocess at target length 512, 64-token bins, static masking ->
-# DATA_SHARDS balanced shards a bin -> the loader -> bert_large.
-DATA_CORPUS_BYTES = 128 << 20
+# DATA_SHARDS balanced shards a bin -> the loader -> bert_large. The
+# corpus is half the Quickstart's 128 MiB, so that the script keeps its
+# time limit on a slow host (phases 8-9 took 296-412 s at 128 MiB).
+DATA_CORPUS_BYTES = 64 << 20
 DATA_FILES = 64
 DATA_TARGET, DATA_BIN = 512, 64
 DATA_BINS = [DATA_BIN * (i + 1) for i in range(DATA_TARGET // DATA_BIN)]
@@ -1003,10 +1003,9 @@ def time_f32_kernels(fa, shape, names, max_abs):
     masks: kernel and plain version in turns, and SDPA at fp32 under the
     kernels' additive mask (forward, and backward in two turns around
     the port's). Bound: bytes of fp32 operands at 3.35 TB/s against the
-    reference's products at the peak of the kernel's own operations, by
-    its source (``f32_source``): the TF32 peak three times over for the
-    3xTF32 kernels (D=64 and 128), the FFMA peak for the SIMT ones
-    (D=256); ``bound_ffma_ms`` and ``bound_3xtf32_ms`` give both. Rows at
+    reference's products at the peak of the kernels' own operations, the
+    TF32 peak three times over (3xTF32); ``bound_ffma_ms`` and
+    ``bound_3xtf32_ms`` give the FFMA and 3xTF32 bounds. Rows at
     D=256 are named with a ``_d256`` suffix and count phase 19's launches
     alone, the others every path's but phase 19's. Returns the JSON
     entries."""
@@ -1053,9 +1052,7 @@ def time_f32_kernels(fa, shape, names, max_abs):
     for name in names:
         nbytes, flops = work[name]
         source = fa.f32_source("lddl_{}_f32".format(name), d)
-        tf32 = source != fa.F32_SOURCE      # the 3xTF32 kernels
-        bms, by = (bound(nbytes, 3 * flops, PEAK_TF32_FLOPS) if tf32
-                   else bound(nbytes, flops, PEAK_F32_FLOPS))
+        bms, by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
         entries.append({
             "name": name + "_f32" + ("_d256" if d == 256 else ""),
             "route": "cuda", "source": CSRC.format(source),
@@ -4646,12 +4643,11 @@ def pipeline_path(fa, card):
         dist.destroy_process_group()
 
 
-# The fp32 kernels and the head dims each is built at, by source: the
-# SIMT FFMA library and the two 3xTF32 ones (fa.f32_source routes the
-# entry points between them).
+# The fp32 kernels and the head dims each is built at, by source: the two
+# 3xTF32 libraries (fa.f32_source routes the entry points between them).
 F32_KERNELS = {
-    "attention_f32": {"online_fwd": (256,)},
-    "attention_f32_fwd": {"onekv_fwd": (64, 128), "online_fwd": (64, 128)},
+    "attention_f32_fwd": {"onekv_fwd": (64, 128),
+                          "online_fwd": (64, 128, 256)},
     "attention_f32_bwd": {"onekv_bwd_dkv": (64, 128),
                           "onekv_bwd_dq": (64, 128),
                           "online_bwd_dq": (64, 128, 256),
@@ -4660,12 +4656,10 @@ F32_KERNELS = {
 
 
 def check_f32_builds(fa, libs):
-    """Phase 2's fp32 part: ptxas's summary of every fp32 kernel, which
-    must spill 0 bytes in the 3xTF32 libraries; the SIMT library's FFMA in
-    every kernel and no tensor-core instruction at all (HMMA, HGMMA: no
-    TF32 product); each 3xTF32 library's TF32 HGMMA in every kernel."""
+    """Phase 2's fp32 part: ptxas's summary of every fp32 kernel at every
+    width, which must spill 0 bytes, and each library's TF32 HGMMA in
+    every kernel at every width (the 3xTF32 products)."""
     from lddl_tpu_torch.ops import _build
-    simt = fa.F32_SOURCE
     for source, kernels in F32_KERNELS.items():
         regs = ptxas_summary(_build.build_logs.get(source, ""))
         for kernel, widths in kernels.items():
@@ -4674,37 +4668,18 @@ def check_f32_builds(fa, libs):
                                    "not reported")
                 print("ptxas summary {} {}_f32_kernel<{}>: {}".format(
                     source, kernel, d, summary), flush=True)
-                if source != simt and " 0 bytes spill stores, 0 bytes " \
-                        "spill loads" not in " " + summary:
+                if " 0 bytes spill stores, 0 bytes spill loads" \
+                        not in " " + summary:
                     raise AssertionError("{}_f32_kernel<{}> spills or was "
                                          "not reported: {}".format(
                                              kernel, d, summary))
-    ops = sass_opcodes(libs[simt])
-    ffma = {fn: c["FFMA"] for fn, c in ops.items()}
-    # Tensor-core products: HMMA, HGMMA, IMMA, DMMA, ... (any TF32 kind).
-    mma = {fn: sum(n for op, n in c.items() if op.endswith("MMA"))
-           for fn, c in ops.items()}
-    for fn, n in sorted(ffma.items()):
-        print("sass {}: {} FFMA, {} tensor-core MMA in {}".format(
-            simt, n, mma[fn], fn), flush=True)
-    for kernel, widths in F32_KERNELS[simt].items():
-        fns = [fn for fn in ffma if kernel + "_f32_kernel" in fn]
-        if len(fns) != len(widths) or not all(ffma[fn] for fn in fns):
-            raise AssertionError("{}_f32_kernel: FFMA in the SASS of {} "
-                                 "(want {} widths)".format(
-                                     kernel, {fn: ffma[fn] for fn in fns},
-                                     len(widths)))
-    if any(mma.values()):
-        raise AssertionError("a tensor-core instruction in the SIMT fp32 "
-                             "builds' SASS: {}".format(mma))
-    for tf32 in (s for s in F32_KERNELS if s != simt):
         hgmma = {fn: sum(n for op, n in c.items()
                          if op.startswith("HGMMA.") and ".TF32" in op)
-                 for fn, c in sass_opcodes(libs[tf32], full=True).items()}
+                 for fn, c in sass_opcodes(libs[source], full=True).items()}
         for fn, n in sorted(hgmma.items()):
-            print("sass {}: {} TF32 HGMMA in {}".format(tf32, n, fn),
+            print("sass {}: {} TF32 HGMMA in {}".format(source, n, fn),
                   flush=True)
-        for kernel, widths in F32_KERNELS[tf32].items():
+        for kernel, widths in kernels.items():
             fns = [fn for fn in hgmma if kernel + "_f32_kernel" in fn]
             if len(fns) != len(widths) or not all(hgmma[fn] for fn in fns):
                 raise AssertionError("{}_f32_kernel: TF32 HGMMA in the SASS "
@@ -4733,8 +4708,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build(["attention_fwd", "online_attention_bwd",
-                         fa.F32_SOURCE, fa.F32_FWD_SOURCE,
-                         fa.F32_BWD_SOURCE])
+                         fa.F32_FWD_SOURCE, fa.F32_BWD_SOURCE])
     print("build: {:.1f} s (one nvcc for each source not built yet, in "
           "parallel; with the D=256 instantiations of the three online "
           "kernels and the fp32 builds of all five)".format(

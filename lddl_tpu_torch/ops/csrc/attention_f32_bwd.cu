@@ -10,11 +10,10 @@
 //
 // (all in lddl_tpu/ops/flash_attention.py). Built at D=64 and 128, and
 // the online pair at D=256 (WidePlan: the reference's single-block regime
-// never takes D > 128). The fp32 forwards at D=64 and 128 are
-// attention_f32_fwd.cu; the online forward at D=256 is attention_f32.cu's
-// SIMT body.
+// never takes D > 128). The fp32 forwards are attention_f32_fwd.cu.
 //
-// What they compute: attention_f32.cu's backward, on fp32 operands:
+// What they compute: the bf16 backward's function (online_attention_bwd.cu)
+// on fp32 operands:
 //   S  = Q K^T * scale + bias, bias = 0 where kmask > 0 && kmask == qmask,
 //        else -1e9 (fp32, added to the scaled score; never -inf);
 //   P  = exp(S - LSE), dP = dO V^T, dS = P (dP - delta) scale;
@@ -114,6 +113,8 @@ struct WidePlan {
   static constexpr int NCH = 2;                     // chunks a warpgroup keeps
   static constexpr int ROPS = 2;                    // operands of an item
   static constexpr int NT = DKV ? 2 : 1;            // operands transposed
+  static constexpr int NAT0 = 0;                    // all kept natural too
+  static constexpr int SK = D / 8;                  // k8 steps a score tile
   static constexpr int G = 2;                       // k8 steps a score batch
   static constexpr int NACC = 4;                    // score accumulators
   static constexpr int SLICES = DKV ? 3 : 1;        // row slices a tile
@@ -126,6 +127,7 @@ struct WidePlan {
   static constexpr int LAND = 2 * DP * TILE_P;      // a stage: two tiles
   static constexpr int NAT = LAND;                  // their lo halves
   static constexpr int TPOSE = D * ROW_BYTES;       // the transposed panel
+  static constexpr int XCH = DP * TILE_P;           // an operand's lo half
   static constexpr size_t SMEM = RES + NAT + TPOSE + LS * LAND +
                                  (LS + 1) * SLICES * SLICE +
                                  (2 * LS + 2) * 8 + 1024;
@@ -447,7 +449,7 @@ __device__ __forceinline__ void dkv_body_wide(
 #pragma unroll
       for (int i = 0; i < 32; ++i) dkacc[cc][i] = dvacc[cc][i] = 0.0f;
     mbar_wait(sm.res_full, j & 1);
-    permute_item(sm, wg, wtid);
+    permute_item(sm, wg, 0, wtid);
     named_barrier(2 + wg, 128);
 
     for (int i = 0; i < ntiles; ++i, ++t) {
@@ -460,7 +462,7 @@ __device__ __forceinline__ void dkv_body_wide(
 
       // S^T (warpgroup 0) or dP^T (1), 64 keys x TR queries; the stage
       // is free once both are done.
-      item_scores(sm, wg, s, wtid, mine);
+      item_scores(sm, wg, wg, 0, s, wtid, mine);
       mbar_arrive(&sm.empty[s]);
       exchange_scores(sm, wg, wtid, mine, other);
 
@@ -575,7 +577,7 @@ __device__ __forceinline__ void dq_body_wide(
 #pragma unroll
       for (int i = 0; i < 32; ++i) dqacc[cc][i] = 0.0f;
     mbar_wait(sm.res_full, j & 1);
-    permute_item(sm, wg, wtid);
+    permute_item(sm, wg, 0, wtid);
     named_barrier(2 + wg, 128);
 
     for (int i = 0; i < ntiles; ++i, ++t) {
@@ -588,7 +590,7 @@ __device__ __forceinline__ void dq_body_wide(
 
       // S (warpgroup 0) or dP (1), 64 queries x TR keys; the stage is
       // free once both are done, and the next tile loads beside the rest.
-      item_scores(sm, wg, s, wtid, mine);
+      item_scores(sm, wg, wg, 0, s, wtid, mine);
       mbar_arrive(&sm.empty[s]);
       exchange_scores(sm, wg, wtid, mine, other);
 

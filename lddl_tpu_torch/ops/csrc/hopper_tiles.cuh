@@ -430,6 +430,18 @@ __device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8],
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " LDDL_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : LDDL_OUT16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db, int scale_d) {

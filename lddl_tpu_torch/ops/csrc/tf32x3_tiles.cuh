@@ -6,8 +6,8 @@
 // products (A from registers), a score tile's elements as A fragments, the
 // threads' fp32 sum of per-tile partial products, and the store of an
 // accumulator chunk; and the pieces of the wide (D=256) bodies of
-// attention_f32_bwd.cu, whose item is kept in fp32 alone (see "wide
-// bodies" below).
+// attention_f32_fwd.cu and attention_f32_bwd.cu, whose item is kept in
+// fp32 alone (see "wide bodies" below).
 //
 // 3xTF32: a TF32 product rounds each operand to a 10-bit mantissa, so
 // every operand x is split as hi = tf32(x), lo = tf32(x - hi) (cvt.rna;
@@ -432,20 +432,25 @@ __device__ __forceinline__ void store_chunk(float* out, size_t row,
 // operand into tf32 hi/lo register fragments right before its wgmma
 // (item_scores). A landed tile is split in place (hi over the fp32, lo at
 // the same place of the split tile's buffer, `nat`), beside its
-// transposed copy (`tpose`: one panel row a column of D, hi and lo
-// columns of up to two operands). The two consumer warpgroups each take
-// one score product (the item's operand wg against the tile's operand
-// wg) and hand it to the other through shared memory (exchange_scores),
-// then each keeps NCH 64-column chunks of D of the outputs. A wide plan
-// gives, beside Plan's sizes: ITEM_OP (the bytes of an item operand), G
-// (k8 steps a batch of item_scores), NACC (score accumulators), NT
-// (operands transposed).
+// transposed copy (`tpose`: a row a column of D, in one or two panel
+// rows, hi and lo columns of up to two operands). The two consumer warpgroups each take
+// one score product, or half of one's k8 steps, and hand it to the other
+// through shared memory (exchange_scores), then each keeps NCH 64-column
+// chunks of D of the outputs. A wide plan gives, beside Plan's sizes:
+// ITEM_OP (the bytes of an item operand), SK (k8 steps of a warpgroup's
+// score product: D / 8, or half of them), G (k8 steps a batch of
+// item_scores), NACC (score accumulators), NT (operands transposed: the
+// first NT of a tile), NAT0 (the first operand kept natural: hi in place,
+// lo at nat + (o - NAT0) DP TILE_P), XCH (bytes between the warpgroups'
+// exchange slots in nat).
 
-// Split task `task`'s chunk x of a landed tile in place: hi over the
-// landed fp32, lo at the same place of `nat`; for the first NT operands
-// also the transposed hi and lo (row n = column n of the tile; operand o
+// Split task `task`'s chunk x of a landed tile in place: for operands
+// from NAT0 on, hi over the landed fp32 and lo at the same place of
+// `nat` (less NAT0 operands); for the first NT operands the transposed
+// hi and lo (row n = column n of the tile; operand o
 // in K columns [2 TR o, 2 TR o + TR) hi and the next TR lo, each group of
-// 8 tile rows in the order 0 2 4 6 1 3 5 7).
+// 8 tile rows in the order 0 2 4 6 1 3 5 7; K column kc in panel row
+// kc / 32, the panel rows D ROW_BYTES apart).
 template <typename P>
 __device__ __forceinline__ void split_task_inplace(const Smem<P>& sm,
                                                    uint8_t* land, int task,
@@ -459,8 +464,12 @@ __device__ __forceinline__ void split_task_inplace(const Smem<P>& sm,
   split_tf32_bits(x.y, h[1], l[1]);
   split_tf32_bits(x.z, h[2], l[2]);
   split_tf32_bits(x.w, h[3], l[3]);
-  *reinterpret_cast<uint4*>(land + slot) = make_uint4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<uint4*>(sm.nat + slot) = make_uint4(l[0], l[1], l[2], l[3]);
+  if (P::NAT0 == 0 || o >= P::NAT0) {
+    *reinterpret_cast<uint4*>(land + slot) =
+        make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(sm.nat + slot - P::NAT0 * DP * P::TILE_P) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
   if (o < P::NT) {
     const int kl = 8 * (row / 8) + 4 * (row % 2) + (row % 8) / 2;
     const int chi = 2 * TR * o + kl, clo = chi + TR;
@@ -468,30 +477,49 @@ __device__ __forceinline__ void split_task_inplace(const Smem<P>& sm,
     for (int e = 0; e < 4; ++e) {
       const int n = p * PANEL_F32 + 4 * ch + e;
       uint8_t* tp = sm.tpose + n * ROW_BYTES;
-      *reinterpret_cast<uint32_t*>(tp + (((chi / 4) ^ (n % 8)) * 16) +
-                                   (chi % 4) * 4) = h[e];
-      *reinterpret_cast<uint32_t*>(tp + (((clo / 4) ^ (n % 8)) * 16) +
-                                   (clo % 4) * 4) = l[e];
+      if constexpr (2 * TR * P::NT <= PANEL_F32) {   // one panel row
+        *reinterpret_cast<uint32_t*>(tp + (((chi / 4) ^ (n % 8)) * 16) +
+                                     (chi % 4) * 4) = h[e];
+        *reinterpret_cast<uint32_t*>(tp + (((clo / 4) ^ (n % 8)) * 16) +
+                                     (clo % 4) * 4) = l[e];
+      } else {
+        constexpr int ROWS_P = P::D * ROW_BYTES;
+        *reinterpret_cast<uint32_t*>(
+            tp + (chi / PANEL_F32) * ROWS_P +
+            ((((chi % PANEL_F32) / 4) ^ (n % 8)) * 16) + (chi % 4) * 4) =
+            h[e];
+        *reinterpret_cast<uint32_t*>(
+            tp + (clo / PANEL_F32) * ROWS_P +
+            ((((clo % PANEL_F32) / 4) ^ (n % 8)) * 16) + (clo % 4) * 4) =
+            l[e];
+      }
     }
   }
 }
 
 // All consumers split the landed tile of stage `s` in place and copy its
-// row slices; a thread issues all its loads before its stores.
+// row slices; a thread issues its loads in batches of up to 8, each
+// before the batch's stores (a task stores only where it loaded, or
+// outside the landed tile).
 template <typename P>
 __device__ __forceinline__ void split_tile_inplace(const Smem<P>& sm, int s,
                                                    int ctid) {
   constexpr int NK = 2 * P::DP * 8 * P::TR / P::NC;   // tasks a thread
-  static_assert(NK * P::NC == 2 * P::DP * 8 * P::TR, "whole tasks");
+  constexpr int BATCH = NK < 8 ? NK : 8;
+  static_assert(NK * P::NC == 2 * P::DP * 8 * P::TR && NK % BATCH == 0,
+                "whole batches of tasks");
   uint8_t* land = sm.land + s * P::LAND;
-  float4 x[NK];
 #pragma unroll
-  for (int k = 0; k < NK; ++k)
-    x[k] = *reinterpret_cast<const float4*>(
-        land + task_slot<P>(ctid + k * P::NC));
+  for (int k0 = 0; k0 < NK; k0 += BATCH) {
+    float4 x[BATCH];
 #pragma unroll
-  for (int k = 0; k < NK; ++k) split_task_inplace(sm, land, ctid + k * P::NC,
-                                                  x[k]);
+    for (int k = 0; k < BATCH; ++k)
+      x[k] = *reinterpret_cast<const float4*>(
+          land + task_slot<P>(ctid + (k0 + k) * P::NC));
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k)
+      split_task_inplace(sm, land, ctid + (k0 + k) * P::NC, x[k]);
+  }
   copy_slices(sm, s, ctid);
 }
 
@@ -503,18 +531,19 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t d0, int k) {
   return d0 + (uint64_t)(((k / 4) * PANEL_BYTES + 32 * (k % 4)) >> 4);
 }
 
-// A warpgroup rewrites item operand `o` in place for item_scores' loads:
-// in each 16-column group of a row, the chunk of lane t holds columns t,
-// t + 4, t + 8 and t + 12 (the A fragment's columns t and t + 4 of the
-// group's two k8 steps), and odd rows keep their panel's two groups
-// swapped, so that a quarter-warp's 16-byte loads (two rows of four lanes)
-// meet eight distinct chunks. Only this warpgroup reads the operand.
+// A warpgroup rewrites the SK / 4 panels from p0 of item operand `o` in
+// place for item_scores' loads: in each 16-column group of a row, the
+// chunk of lane t holds columns t, t + 4, t + 8 and t + 12 (the A
+// fragment's columns t and t + 4 of the group's two k8 steps), and odd
+// rows keep their panel's two groups swapped, so that a quarter-warp's
+// 16-byte loads (two rows of four lanes) meet eight distinct chunks. Only
+// this warpgroup reads those panels.
 template <typename P>
 __device__ __forceinline__ void permute_item(const Smem<P>& sm, int o,
-                                             int wtid) {
-  uint8_t* base = sm.res + o * P::ITEM_OP;
+                                             int p0, int wtid) {
+  uint8_t* base = sm.res + o * P::ITEM_OP + p0 * P::RES_P;
 #pragma unroll 1
-  for (int u = wtid; u < P::IROWS * P::DP; u += 128) {
+  for (int u = wtid; u < P::IROWS * (P::SK / 4); u += 128) {
     const int row = u % P::IROWS, sw = row % 8, odd = row & 1;
     uint8_t* r = base + (u / P::IROWS) * P::RES_P + row * ROW_BYTES;
     float c[8][4];
@@ -536,21 +565,22 @@ __device__ __forceinline__ void permute_item(const Smem<P>& sm, int o,
   }
 }
 
-// sc[64 x TR] = A B^T over D in 3xTF32: A the item's 64 rows of operand
-// `o` (fp32, as permute_item left it), each k8 slice split into tf32
-// hi/lo register fragments right before its products (two k8 steps of a
-// row in one 16-byte load); B the tile of stage `s`, operand `o`, split
-// in place. k8 step k sums into accumulator k % NACC, each from zero, and
-// the threads add the NACC of them in a fixed order: each sums KS / NACC
+// sc[64 x TR] = A B^T over the SK k8 steps of D from k0 (a multiple of
+// 4) in 3xTF32: A the item's 64 rows of operand `oi` (fp32, as
+// permute_item left it), each k8 slice split into tf32 hi/lo register
+// fragments right before its products (two k8 steps of a row in one
+// 16-byte load); B the tile of stage `s`, operand `ot`, split in place.
+// The step k0 + k sums into accumulator k % NACC, each from zero, and the
+// threads add the NACC of them in a fixed order: each sums SK / NACC
 // steps (the tensor core's fp32 sums truncate). Batches of G k8 steps,
 // each batch's fragments in the register set that the batch before last
 // used, once its products are waited for; waits for all of them before
 // it returns.
 template <typename P>
-__device__ __forceinline__ void item_scores(const Smem<P>& sm, int o, int s,
-                                            int wtid,
+__device__ __forceinline__ void item_scores(const Smem<P>& sm, int oi,
+                                            int ot, int k0, int s, int wtid,
                                             float (&sc)[P::TR / 2]) {
-  constexpr int TR = P::TR, KS = P::D / 8, G = P::G, NACC = P::NACC;
+  constexpr int TR = P::TR, KS = P::SK, G = P::G, NACC = P::NACC;
   static_assert(KS % G == 0 && G % 2 == 0 && KS % NACC == 0 &&
                     NACC % 2 == 0,
                 "whole batches of step pairs, and accumulator pairs");
@@ -558,11 +588,12 @@ __device__ __forceinline__ void item_scores(const Smem<P>& sm, int o, int s,
   // The thread's chunk of the first group of a panel (the second's is
   // this ^ 4), for rows g and g + 8 alike.
   const int q0 = (4 * (g & 1) + wtid % 4) ^ (g % 8);
-  const uint8_t* row = sm.res + o * P::ITEM_OP + g * ROW_BYTES;
+  const uint8_t* row = sm.res + oi * P::ITEM_OP + (k0 / 4) * P::RES_P +
+                       g * ROW_BYTES;
   const uint64_t dhi = kmajor_desc_tf32(
-      sm.land + s * P::LAND + o * P::DP * P::TILE_P, P::TILE_P, 0);
-  const uint64_t dlo =
-      kmajor_desc_tf32(sm.nat + o * P::DP * P::TILE_P, P::TILE_P, 0);
+      sm.land + s * P::LAND + ot * P::DP * P::TILE_P, P::TILE_P, k0);
+  const uint64_t dlo = kmajor_desc_tf32(
+      sm.nat + (ot - P::NAT0) * P::DP * P::TILE_P, P::TILE_P, k0);
   float acc[NACC][TR / 2];
   uint32_t fh[2][G][4], fl[2][G][4];
 #pragma unroll
@@ -633,19 +664,20 @@ __device__ __forceinline__ void item_scores(const Smem<P>& sm, int o, int s,
 }
 
 // The two warpgroups swap their score tiles: warpgroup wg's goes where
-// only its own products read (the lo half of the tile's operand wg, once
-// its products are waited for), and the other's comes back into `other`
-// in the same accumulator layout (thread wtid of both holds the same
-// elements).
+// only its own products read (nat + wg XCH: the lo half of the tile's
+// operand wg, or of its panels of one operand, once its products are
+// waited for), and the other's comes back into `other` in the same
+// accumulator layout (thread wtid of both holds the same elements).
 template <typename P>
 __device__ __forceinline__ void exchange_scores(const Smem<P>& sm, int wg,
                                                 int wtid,
                                                 const float (&mine)[P::TR / 2],
                                                 float (&other)[P::TR / 2]) {
-  constexpr int N = P::TR / 2, OP = P::DP * P::TILE_P;
-  float* out = reinterpret_cast<float*>(sm.nat + wg * OP) + wtid * N;
+  constexpr int N = P::TR / 2;
+  static_assert(128 * N * 4 <= P::XCH, "a warpgroup's tile fits its slot");
+  float* out = reinterpret_cast<float*>(sm.nat + wg * P::XCH) + wtid * N;
   const float* in =
-      reinterpret_cast<const float*>(sm.nat + (1 - wg) * OP) + wtid * N;
+      reinterpret_cast<const float*>(sm.nat + (1 - wg) * P::XCH) + wtid * N;
 #pragma unroll
   for (int i = 0; i < N; i += 4)
     *reinterpret_cast<float4*>(out + i) =
@@ -662,30 +694,32 @@ __device__ __forceinline__ void exchange_scores(const Smem<P>& sm, int wg,
 }
 
 // part[c] = A X over the tile's rows in 3xTF32 for chunks c0 + c of D, c
-// < NCH: A (64 x TR) the register fragments ahi/alo, X the transposed
-// operand `u` (hi in K steps [2 KC u, 2 KC u + KC), lo in the next KC).
-// Issued, not waited for; each chunk's product starts from zero.
-template <typename P>
+// < NC (the plan's NCH, or fewer): A (64 x TR) the register fragments
+// ahi/alo, X the transposed
+// operand `u` (hi in K steps [2 KC u, 2 KC u + KC), lo in the next KC;
+// its panel rows D ROW_BYTES apart). Issued, not waited for; each chunk's
+// product starts from zero.
+template <typename P, int NC>
 __device__ __forceinline__ void contract_wide(
-    const Smem<P>& sm, int u, int c0, float (&part)[P::NCH][32],
+    const Smem<P>& sm, int u, int c0, float (&part)[NC][32],
     uint32_t (&ahi)[P::TR / 8][4], uint32_t (&alo)[P::TR / 8][4]) {
-  constexpr int KC = P::TR / 8;
+  constexpr int KC = P::TR / 8, ROWS_P = P::D * ROW_BYTES;
   const int khi = 2 * KC * u, klo = khi + KC;
 #pragma unroll
-  for (int c = 0; c < P::NCH; ++c) {
+  for (int c = 0; c < NC; ++c) {
     const uint8_t* x = sm.tpose + (c0 + c) * 64 * ROW_BYTES;
 #pragma unroll
     for (int k = 0; k < KC; ++k)
       wgmma_rs_tf32<64>(part[c], alo[k],
-                        kmajor_desc_tf32(x, P::TPOSE, khi + k), k > 0);
+                        kmajor_desc_tf32(x, ROWS_P, khi + k), k > 0);
 #pragma unroll
     for (int k = 0; k < KC; ++k)
       wgmma_rs_tf32<64>(part[c], ahi[k],
-                        kmajor_desc_tf32(x, P::TPOSE, klo + k), 1);
+                        kmajor_desc_tf32(x, ROWS_P, klo + k), 1);
 #pragma unroll
     for (int k = 0; k < KC; ++k)
       wgmma_rs_tf32<64>(part[c], ahi[k],
-                        kmajor_desc_tf32(x, P::TPOSE, khi + k), 1);
+                        kmajor_desc_tf32(x, ROWS_P, khi + k), 1);
   }
 }
 

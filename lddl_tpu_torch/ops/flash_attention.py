@@ -52,14 +52,13 @@ Dtypes: the reference's kernels take any float dtype, with fp32
 accumulation and fp32 softmax statistics. The port's kernels are built
 for bf16 (the files above) and fp32, the fp32 builds under the same
 regime names with an ``_f32`` suffix (``onekv_fwd_f32_kernel``, ...) in
-three sources (``f32_source`` picks one by entry point and head dim).
-The fp32 kernels run on the tensor cores, every product 3xTF32 (each
-operand split into two tf32 halves, three wgmma a product, fp32
-accuracy), on the shared ``csrc/tf32x3_tiles.cuh``:
-``csrc/attention_f32_fwd.cu`` holds both forwards at D=64 and 128,
-``csrc/attention_f32_bwd.cu`` the backward of both regimes at D=64 and
-128 and the online pair at D=256. The online forward at D=256 is still
-SIMT fp32 FFMA on the CUDA cores, in ``csrc/attention_f32.cu``. The
+two sources (``f32_source`` picks one by entry point, and raises at a
+head dim it is not built for). The fp32 kernels run on the tensor cores,
+every product 3xTF32 (each operand split into two tf32 halves, three
+wgmma a product, fp32 accuracy), on the shared ``csrc/tf32x3_tiles.cuh``:
+``csrc/attention_f32_fwd.cu`` holds both forwards at D=64 and 128 and
+the online forward at D=256, ``csrc/attention_f32_bwd.cu`` the backward
+of both regimes at D=64 and 128 and the online pair at D=256. The
 wrapper picks the build by the operands' dtype, never casts fp32 down to
 bf16 and never routes it elsewhere; any other dtype raises on a CUDA
 tensor. Launches of the fp32 builds count in ``<wrapper>.launches_f32``.
@@ -83,16 +82,14 @@ ONLINE_STEP = 64
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Operand dtypes the kernels are built for; each fp32 entry point is named
 # as its bf16 one with an _f32 suffix, in F32_FWD_SOURCE (the forwards) or
-# F32_BWD_SOURCE (the backward) at its head dims in F32_TF32_HEAD_DIMS
-# (3xTF32 wgmma), or else in F32_SOURCE (SIMT FFMA: the online forward at
-# D=256).
+# F32_BWD_SOURCE (the backward), built at its head dims in
+# F32_TF32_HEAD_DIMS (3xTF32 wgmma).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-F32_SOURCE = "attention_f32"
 F32_FWD_SOURCE = "attention_f32_fwd"
 F32_BWD_SOURCE = "attention_f32_bwd"
 F32_TF32_HEAD_DIMS = {
     "lddl_onekv_fwd_f32": (64, 128),
-    "lddl_online_fwd_f32": (64, 128),
+    "lddl_online_fwd_f32": (64, 128, 256),
     "lddl_onekv_bwd_f32": (64, 128),
     "lddl_online_bwd_dq_f32": (64, 128, 256),
     "lddl_online_bwd_dkv_f32": (64, 128, 256),
@@ -323,17 +320,16 @@ _ENTRY_POINTS.update({
           for entry, n_ptr in _ENTRY_POINTS[bf16].items()}
     for f32, bf16 in ((F32_FWD_SOURCE, "attention_fwd"),
                       (F32_BWD_SOURCE, "online_attention_bwd"))})
-_ENTRY_POINTS[F32_SOURCE] = {
-    "lddl_online_fwd_f32": _ENTRY_POINTS["attention_fwd"]["lddl_online_fwd"]}
 
 
 def f32_source(entry, d):
-    """The source of the fp32 entry point ``entry`` at head dim ``d``."""
-    if d in F32_TF32_HEAD_DIMS[entry]:
-        for source in (F32_FWD_SOURCE, F32_BWD_SOURCE):
-            if entry in _ENTRY_POINTS[source]:
-                return source
-    return F32_SOURCE
+    """The source of the fp32 entry point ``entry`` at head dim ``d``;
+    raises at a head dim ``entry`` is not built for."""
+    if d not in F32_TF32_HEAD_DIMS[entry]:
+        raise ValueError("{} is built at head_dim {}, not {}".format(
+            entry, ", ".join(map(str, F32_TF32_HEAD_DIMS[entry])), d))
+    return (F32_FWD_SOURCE if entry in _ENTRY_POINTS[F32_FWD_SOURCE]
+            else F32_BWD_SOURCE)
 
 
 def _lib(source):

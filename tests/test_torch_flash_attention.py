@@ -392,12 +392,12 @@ def test_entry_points_match_c_sources(source):
     """Each C entry point of the ctypes table is defined in its source with
     that many pointer operands, then (BH, L_pad, H, D, scale, stream); the
     two forwards share one source and the online backward pair has its
-    own with the single-block backward beside it; the three fp32 sources
+    own with the single-block backward beside it; the two fp32 sources
     hold all five under the bf16 names with an _f32 suffix, the forwards
-    in one 3xTF32 source (D=64, 128), the backward in the other (D=64,
-    128, and the online pair at 256), and the online forward alone in the
-    SIMT one, at the width the 3xTF32 forwards do not build (no nvcc
-    needed)."""
+    in one 3xTF32 source (D=64, 128, and the online forward at 256), the
+    backward in the other (D=64, 128, and the online pair at 256), and
+    f32_source routes every fp32 entry point at every built width to one
+    of them (no nvcc needed)."""
     import re
     from lddl_tpu_torch.ops import _build
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
@@ -409,7 +409,7 @@ def test_entry_points_match_c_sources(source):
         assert all("void*" in x for x in params[:n_ptr]), params
         assert params[n_ptr:] == ["int BH", "int L", "int H", "int D",
                                   "float scale", "void* stream"], params
-    f32_sources = (tfa.F32_SOURCE, tfa.F32_FWD_SOURCE, tfa.F32_BWD_SOURCE)
+    f32_sources = (tfa.F32_FWD_SOURCE, tfa.F32_BWD_SOURCE)
     f32 = source in f32_sources
     if f32:
         bf16 = {e + "_f32": n for s in ("attention_fwd", "online_attention_bwd")
@@ -421,16 +421,19 @@ def test_entry_points_match_c_sources(source):
         assert (source == tfa.F32_FWD_SOURCE) == (
             set(tfa._ENTRY_POINTS[source])
             == {"lddl_onekv_fwd_f32", "lddl_online_fwd_f32"})
-        assert (source == tfa.F32_SOURCE) == all(
-            e.startswith("lddl_online") for e in tfa._ENTRY_POINTS[source])
-        assert (source == tfa.F32_SOURCE) == (
-            set(tfa._ENTRY_POINTS[source]) == {"lddl_online_fwd_f32"})
-        # The routing by width: the pair at D=256 is 3xTF32, the online
-        # forward there SIMT.
+        # The routing by width: every fp32 entry point at every width it
+        # is built at lands in a 3xTF32 source, the online trio at D=256
+        # too.
         for entry in ("lddl_online_bwd_dq_f32", "lddl_online_bwd_dkv_f32"):
             assert tfa.f32_source(entry, 256) == tfa.F32_BWD_SOURCE
-        assert tfa.f32_source("lddl_online_fwd_f32", 256) == tfa.F32_SOURCE
+        assert tfa.f32_source("lddl_online_fwd_f32", 256) == \
+            tfa.F32_FWD_SOURCE
         assert set(tfa.F32_TF32_HEAD_DIMS) == set(bf16)
+        for entry, widths in tfa.F32_TF32_HEAD_DIMS.items():
+            assert widths == (tfa.KERNEL_HEAD_DIMS if "online" in entry
+                              else (64, 128)), entry
+            assert {tfa.f32_source(entry, w) for w in widths} <= \
+                set(f32_sources), entry
     else:
         assert (source == "online_attention_bwd") == any(
             e.startswith("lddl_online_bwd")
@@ -453,8 +456,21 @@ def test_entry_points_match_c_sources(source):
             want = tuple(w for w in want
                          if tfa.f32_source(entry, w) == source)
         assert widths == want, (entry, widths)
+        if entry == "lddl_online_fwd_f32":
+            assert widths == (64, 128, 256)
         for w in widths:
             assert "<{}>".format(w) in text[start:end], (entry, w)
+
+
+@pytest.mark.parametrize("entry, d", [("lddl_onekv_fwd_f32", 256),
+                                      ("lddl_online_bwd_dq_f32", 32)])
+def test_f32_source_raises_outside_built_widths(entry, d):
+    """An fp32 entry point at a head dim it is not built for routes
+    nowhere: f32_source raises, naming the built widths, where it once
+    fell through to the SIMT source (no nvcc needed)."""
+    with pytest.raises(ValueError, match=r"{} is built at head_dim "
+                       r"64, 128.*not {}".format(entry, d)):
+        tfa.f32_source(entry, d)
 
 
 def _code(name):
@@ -464,29 +480,6 @@ def _code(name):
     with open(os.path.join(_build._CSRC, name)) as f:
         text = f.read()
     return re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S).lower()
-
-
-def test_f32_source_has_no_tensor_core_or_atomic_ops():
-    """The SIMT fp32 kernel's code (comments stripped) names no
-    tensor-core product (wgmma, mma.sync, any tf32 kind or conversion) and
-    no atomic operation: every product is an fp32 FFMA, and each output
-    element is written once; it holds the online forward alone, at D=256:
-    not the online backward pair (3xTF32 since its wide bodies) and no
-    single-block kernel (no nvcc needed)."""
-    import re
-    code = _code(tfa.F32_SOURCE + ".cu")
-    for word in ("tf32", "wgmma", "mma", "atomic", "__expf", "__logf",
-                 "__fdividef", "use_fast_math"):
-        assert word not in code, word
-    for word in ("expf(", "logf(", "fmaf("):
-        assert word in code, word
-    # Its kernel is instantiated under its bf16 name + _f32.
-    for kernel in ("online_fwd",):
-        assert re.search(r"\b{}_f32_kernel\(".format(kernel), code), kernel
-    for kernel in ("onekv_fwd", "onekv_bwd_dq", "onekv_bwd_dkv",
-                   "online_bwd_dq", "online_bwd_dkv"):
-        assert "{}_f32_kernel".format(kernel) not in code, kernel
-    assert "lddl_online_bwd" not in code
 
 
 @pytest.mark.parametrize("source, kernels", [
@@ -502,17 +495,23 @@ def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics(source, kernels):
     tests/test_torch_tf32x3.py emulates that split), uses expf (and the
     forward logf) and no fast-math intrinsic, no atomic operation, and
     instantiates its kernels under their bf16 names + _f32 (no nvcc
-    needed). The backward's online pair is built at D=256 too, on the
+    needed). The online kernels of both are built at D=256 too, on the
     wide bodies: the item in fp32, its A fragments split at each product
     (``item_scores``), the tile split in place (``split_tile_inplace``)
-    and the two warpgroups' score tiles swapped (``exchange_scores``)."""
+    and the two warpgroups' score tiles swapped (``exchange_scores``).
+    No fp32 source is FFMA-only: these two are every fp32 source in
+    csrc/, and neither takes a product with fmaf."""
     import re
+    from lddl_tpu_torch.ops import _build
+    assert sorted(f for f in os.listdir(_build._CSRC)
+                  if f.startswith("attention_f32") and f.endswith(".cu")) \
+        == sorted((tfa.F32_FWD_SOURCE + ".cu", tfa.F32_BWD_SOURCE + ".cu"))
     own = _code(source + ".cu")
     assert '#include "tf32x3_tiles.cuh"' in own
     code = own + _code("tf32x3_tiles.cuh")
     header = _code("hopper_tiles.cuh")
     for word in ("atomic", "__expf", "__logf", "__fdividef",
-                 "use_fast_math", "bf16", "mma.sync"):
+                 "use_fast_math", "bf16", "mma.sync", "fmaf("):
         assert word not in code, word
     for word in ("wgmma_ss_tf32<", "wgmma_rs_tf32<", "split_tf32(", "expf("):
         assert word in code, word
@@ -522,11 +521,12 @@ def test_f32_bwd_source_is_3xtf32_wgmma_without_atomics(source, kernels):
     assert "cvt.rna.tf32.f32" in header
     for kernel in kernels:
         assert re.search(r"\b{}_f32_kernel\)".format(kernel), own), kernel
-    wide = ("item_scores(", "split_tile_inplace(", "exchange_scores(",
-            "contract_wide(")
-    for word in wide + ("online_bwd_dq_f32_kernel<256>",
-                        "online_bwd_dkv_f32_kernel<256>"):
-        assert (word in own) == (source == tfa.F32_BWD_SOURCE), word
+    for word in ("item_scores(", "split_tile_inplace(", "exchange_scores(",
+                 "contract_wide("):
+        assert word in own, word
+    for kernel in kernels:
+        assert ("{}_f32_kernel<256>".format(kernel) in own) == (
+            kernel.startswith("online")), kernel
 
 
 

@@ -1,7 +1,6 @@
 """The 3xTF32 arithmetic of the fp32 kernels at D=64 and 128, and of the
-online backward pair at D=256
-(``lddl_tpu_torch/ops/csrc/attention_f32_fwd.cu`` and
-``attention_f32_bwd.cu``), emulated on the CPU.
+online trio at D=256 (``lddl_tpu_torch/ops/csrc/attention_f32_fwd.cu``
+and ``attention_f32_bwd.cu``), emulated on the CPU.
 
 The kernels split every fp32 operand x into hi = tf32(x) and lo =
 tf32(x - hi), both rounded as ``cvt.rna.tf32.f32`` rounds (to nearest,
@@ -12,7 +11,8 @@ products are taken that way on the CPU: the forward's two (S, and P V
 tile by tile of the kernel's walk, each tile's product from zero and
 added to the rescaled O in fp32) and the backward's five (S, dP, dQ, dK,
 dV); at D=256 also in the wide bodies' order of work (their tiles, the
-score products' four accumulators, each tile's product from zero).
+score products' four accumulators, each tile's product from zero; the
+forward's two warpgroups' halves of S, two accumulators each).
 O and the LSE are held against the reference's fp32 forward
 (``lddl_tpu.ops.flash_attention.flash_attention_fwd``), the gradients
 against its fp32 backward (``flash_attention_bwd``) on its own forward,
@@ -208,22 +208,33 @@ def test_emulated_split_matches_reference_backward(d, l, mask_kind):
     _check_grads(emulated_bwd(*args), refs, shape)
 
 
-# The wide bodies at D=256 (WidePlan in attention_f32_bwd.cu): rows of a
-# streamed tile (dQ: K/V tiles; dK/dV: Q/dO tiles) and the score products'
-# accumulators (k8 step k sums into accumulator k % 4).
-WIDE_DQ_TILE, WIDE_DKV_TILE, WIDE_NACC = 16, 8, 4
+# The wide bodies at D=256 (WidePlan in attention_f32_bwd.cu, FwdWidePlan
+# in attention_f32_fwd.cu): rows of a streamed tile (dQ and the forward:
+# K/V tiles; dK/dV: Q/dO tiles) and the score products' four accumulators.
+WIDE_DQ_TILE, WIDE_DKV_TILE, WIDE_FWD_TILE, WIDE_NACC = 16, 8, 32, 4
 
 
-def _wide_scores(a, b):
+def _bwd_acc(k):
+    """The backward's accumulator of k8 step k: k % 4 (one warpgroup
+    takes all 32 steps of a score tile)."""
+    return k % WIDE_NACC
+
+
+def _fwd_acc(k):
+    """The forward's: warpgroup k // 16 takes steps [16 wg, 16 wg + 16)
+    into its two accumulators, k % 2; half 0 is accumulators 0 and 1."""
+    return 2 * (k // 16) + k % 2
+
+
+def _wide_scores(a, b, acc_of=_bwd_acc):
     """a @ b^T over D as the wide bodies take it: in 3xTF32, k8 step k
-    (columns 8k..8k+7) into accumulator k % WIDE_NACC, each from zero, the
+    (columns 8k..8k+7) into accumulator acc_of(k), each from zero, the
     accumulators added as (0 + 1) + (2 + 3). The kernels split each k8
     slice of the item's operand as they use it; the split is elementwise,
     so splitting it whole is the same."""
     d = a.shape[-1]
-    cols = torch.arange(d)
-    acc = [mm3(a[..., (cols // 8) % WIDE_NACC == i],
-               b[..., (cols // 8) % WIDE_NACC == i].transpose(1, 2))
+    acc_col = torch.tensor([acc_of(c // 8) for c in range(d)])
+    acc = [mm3(a[..., acc_col == i], b[..., acc_col == i].transpose(1, 2))
            for i in range(WIDE_NACC)]
     return (acc[0] + acc[1]) + (acc[2] + acc[3])
 
@@ -271,18 +282,13 @@ def test_emulated_d256_backward_walk_matches_reference(l, mask_kind):
     _check_grads(emulated_wide_bwd(*args), refs, shape)
 
 
-@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
-@pytest.mark.parametrize("d, l", [(64, 200), (64, 512), (128, 200),
-                                  (128, 512), (64, 1024)])
-def test_emulated_split_matches_reference_forward(d, l, mask_kind):
-    """O and the LSE of the forward with every product in 3xTF32, walked
-    over the kernel's tiles, against the reference's fp32 forward at D=64
-    and 128: L_pad 256 and 512 (the single-block regime) and 1024 at D=64
-    (the online one), padding masks or segment ids 1-3 (both masks, one
-    batch row masked entirely). O within F32_BAR / MARGIN of max |ref|,
-    the LSE within F32_BAR / MARGIN absolute."""
+def _forward_case(d, l, mask_kind, seed):
+    """Inputs from ``seed`` at B=2, H=2 (padding masks, or segment ids 1-3
+    on both sides with one batch row masked entirely), the reference's
+    fp32 forward, and the kernel-layout operands: ((O, LSE) of the
+    reference, args, (b, l, h, d))."""
     b, h = 2, 2
-    g = np.random.default_rng(200 * d + l + (mask_kind == "segments"))
+    g = np.random.default_rng(seed)
     q, k, v = (g.standard_normal((b, l, h, d)).astype(np.float32)
                for _ in range(3))
     mask = np.ones((b, l), np.int32)
@@ -293,18 +299,83 @@ def test_emulated_split_matches_reference_forward(d, l, mask_kind):
         mask[-1] = 0
         qmask = mask
     kw = {} if qmask is None else {"q_mask": jnp.asarray(qmask)}
-    j_out, j_lse = jfa.flash_attention_fwd(
+    refs = jfa.flash_attention_fwd(
         *(jnp.asarray(x) for x in (q, k, v, mask)), **kw)
-
-    qb, kb, vb, maskb, qmaskb, (_, _, _, _, l_pad) = tfa._prep(
+    qb, kb, vb, maskb, qmaskb, _ = tfa._prep(
         *(torch.from_numpy(x) for x in (q, k, v, mask)),
         None if qmask is None else torch.from_numpy(qmask))
-    assert tfa._use_onekv(l_pad, d) == (l_pad <= 512)
-    o, lse = emulated_fwd(qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5)
+    return refs, (qb, kb, vb, maskb, qmaskb, 1.0 / d ** 0.5), (b, l, h, d)
+
+
+def _check_fwd(got, refs, shape):
+    """O within F32_BAR / MARGIN of max |ref|, the LSE within F32_BAR /
+    MARGIN absolute."""
+    b, l, h, d = shape
+    (o, lse), (j_out, j_lse) = got, refs
     o = tfa._from_bh(o, b, l, h, d).numpy()
     ref = np.asarray(j_out)
     err = np.abs(o - ref).max() / np.abs(ref).max()
     assert err <= F32_BAR / MARGIN, ("O", err)
-    lse_ref = np.asarray(j_lse).reshape(b * h, l_pad)
+    lse_ref = np.asarray(j_lse).reshape(lse.shape)
     err = np.abs(lse.numpy() - lse_ref).max()
     assert err <= F32_BAR / MARGIN, ("LSE", err)
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("d, l", [(64, 200), (64, 512), (128, 200),
+                                  (128, 512), (64, 1024)])
+def test_emulated_split_matches_reference_forward(d, l, mask_kind):
+    """O and the LSE of the forward with every product in 3xTF32, walked
+    over the kernel's tiles, against the reference's fp32 forward at D=64
+    and 128: L_pad 256 and 512 (the single-block regime) and 1024 at D=64
+    (the online one), padding masks or segment ids 1-3 (both masks, one
+    batch row masked entirely). O within F32_BAR / MARGIN of max |ref|,
+    the LSE within F32_BAR / MARGIN absolute."""
+    refs, args, shape = _forward_case(
+        d, l, mask_kind, 200 * d + l + (mask_kind == "segments"))
+    l_pad = args[0].shape[1]
+    assert tfa._use_onekv(l_pad, d) == (l_pad <= 512)
+    _check_fwd(emulated_fwd(*args), refs, shape)
+
+
+def emulated_wide_fwd(qb, kb, vb, maskb, qmaskb, scale):
+    """The D=256 online forward in the wide body's order of work, every
+    product in 3xTF32: the K/V tiles of WIDE_FWD_TILE keys; each tile's S
+    as the two warpgroups take it (each half of D's k8 steps in its two
+    accumulators from zero, S = half 0 + half 1: _wide_scores with
+    _fwd_acc), scale and bias, the running max m and denominator l; each
+    tile's P V from zero, added to O rescaled by exp(m - m_new). (The
+    warpgroups' halves of D split O by columns, which the emulation need
+    not repeat.) Returns (O, LSE)."""
+    bh, l_pad, d = qb.shape
+    bias = _bias(maskb, qmaskb, bh)
+    m = torch.full((bh, l_pad, 1), -float("inf"))
+    l = torch.zeros((bh, l_pad, 1))
+    o = torch.zeros((bh, l_pad, d))
+    for j in range(0, l_pad, WIDE_FWD_TILE):
+        t = slice(j, j + WIDE_FWD_TILE)
+        s = _wide_scores(qb, kb[:, t], _fwd_acc) * scale + bias[:, :, t]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + mm3(p, vb[:, t])
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return o / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("mask_kind", ["padding", "segments"])
+@pytest.mark.parametrize("l", [200, 1024])
+def test_emulated_d256_forward_walk_matches_reference(l, mask_kind):
+    """The D=256 online forward in the wide body's order of work (32-key
+    tiles, each warpgroup's half of S's k8 steps in two accumulators, S =
+    half 0 + half 1, each tile's P V from zero added to the rescaled O)
+    against the reference's fp32 forward (its online Pallas kernel in
+    interpret mode) at L_pad 256 and 1024, padding masks or segment ids
+    1-3 (both masks, one batch row masked entirely): O within F32_BAR /
+    MARGIN of max |ref|, the LSE within F32_BAR / MARGIN absolute."""
+    refs, args, shape = _forward_case(
+        256, l, mask_kind, 500 + l + (mask_kind == "segments"))
+    assert not tfa._use_onekv(args[0].shape[1], 256)
+    _check_fwd(emulated_wide_fwd(*args), refs, shape)
