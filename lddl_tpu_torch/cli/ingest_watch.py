@@ -4,7 +4,8 @@ generation-structured shard directory (see lddl_tpu_torch/ingest/).
 
 Counterpart of ``lddl_tpu/cli/ingest_watch.py``; run as ``python -m
 lddl_tpu_torch.cli.ingest_watch --landing <dir> --sink <root>
---vocab-file <vocab.txt> [--once] ...``. ``--once`` diffs and ingests a
+--vocab-file <vocab.txt> [--once] ...`` (or ``--tokenizer <dir>``, with
+``--tokenizer-engine auto|hf|native`` as the BERT CLI's). ``--once`` diffs and ingests a
 single generation; the default is a polling watch loop. Safe to kill at
 any point and re-run: an in-flight generation resumes from its intake
 record, and the journal commit is atomic. ``--elastic`` runs each
@@ -68,11 +69,11 @@ def attach_args(parser=None):
                         help="process-pool size for the delta preprocess")
     parser.add_argument("--schema-version", type=int, choices=(1, 2),
                         default=2)
-    parser.add_argument("--tokenizer-engine", choices=("native",),
-                        default="native",
-                        help="sentence-split + tokenize backend (the C++ "
-                             "one-pass kernel; it enters the journal "
-                             "fingerprint)")
+    parser.add_argument("--tokenizer-engine",
+                        choices=("auto", "hf", "native"), default="auto",
+                        help="sentence-split + tokenize backend (native = "
+                             "the C++ one-pass kernel; it enters the "
+                             "journal fingerprint)")
     attach_bool_arg(parser, "once", default=False,
                     help_str="diff-and-ingest a single round, then exit "
                              "(default: poll forever)")

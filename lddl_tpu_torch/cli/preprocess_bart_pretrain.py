@@ -3,9 +3,10 @@
 Counterpart of ``lddl_tpu/cli/preprocess_bart_pretrain.py``; run as
 ``python -m lddl_tpu_torch.cli.preprocess_bart_pretrain --wikipedia
 <corpus> --sink <out> [--vocab-file <vocab.txt>] ...``. With
-``--vocab-file`` (or ``--tokenizer``, a local directory holding
-``vocab.txt``) the shards are schema v2, tokenized by the native engine;
-without, text-only schema v1. ``--elastic`` runs the lease-based
+``--vocab-file`` (or ``--tokenizer``, a local tokenizer directory) the
+shards are schema v2, tokenized by the native engine, or by the fast
+tokenizer's backend where the directory's normalizer is not the native
+engine's; without, text-only schema v1. ``--elastic`` runs the lease-based
 work-stealing schedule, as the BERT CLI's does; ``--fleet-telemetry``
 publishes per-host telemetry spools under ``<sink>/.telemetry/``.
 """
@@ -34,7 +35,7 @@ def attach_args(parser=None):
                              "this vocab; the loader must use the same "
                              "vocab (default: text-only v1 shards)")
     parser.add_argument("--tokenizer", default=None,
-                        help="a local directory holding vocab.txt "
+                        help="a local tokenizer directory "
                              "(alternative to --vocab-file) for schema-v2 "
                              "shards")
     parser.add_argument("--target-seq-length", type=int, default=128)

@@ -2,11 +2,15 @@
 
 Counterpart of ``lddl_tpu/cli/preprocess_bert_pretrain.py``; run as
 ``python -m lddl_tpu_torch.cli.preprocess_bert_pretrain --wikipedia
-<corpus> --sink <out> --vocab-file <vocab.txt> ...``. ``--engine`` picks
-the static-masking engine (``numpy``: the native Philox replay, the
+<corpus> --sink <out> --vocab-file <vocab.txt> ...`` (or ``--tokenizer
+<dir>``, a local ``save_pretrained`` tokenizer directory). ``--engine``
+picks the static-masking engine (``numpy``: the native Philox replay, the
 reference's shard bytes; ``torch``: the torch maskers on ``--device``,
-the card unless ``cpu``). Tokenization is the native engine's
-(``--tokenizer-engine native``). ``--elastic`` runs the lease-based
+the card unless ``cpu``). ``--tokenizer-engine`` picks the tokenizer
+engine: ``native`` (the C++ one-pass kernel), ``hf`` (the Python splitter
+plus the fast tokenizer's backend; needs the ``tokenizers`` package) or
+``auto`` (native when the tokenizer's semantics are the native engine's,
+else hf). ``--elastic`` runs the lease-based
 work-stealing schedule: launch the same command on several hosts sharing
 ``--sink`` (each with its own ``--elastic-host-id``); the shards equal a
 one-host static run's. ``--fleet-telemetry`` publishes per-host
@@ -32,7 +36,10 @@ def attach_args(parser=None):
     attach_storage_arg(parser)
     parser.add_argument("--sink", "--outdir", dest="sink", required=True,
                         help="output directory for the parquet shards")
-    parser.add_argument("--vocab-file", required=True)
+    parser.add_argument("--vocab-file", default=None)
+    parser.add_argument("--tokenizer", default=None,
+                        help="local tokenizer directory (alternative to "
+                             "--vocab-file; nothing is downloaded)")
     parser.add_argument("--target-seq-length", type=int, default=128)
     parser.add_argument("--short-seq-prob", type=float, default=0.1)
     attach_bool_arg(parser, "masking", default=False,
@@ -64,10 +71,10 @@ def attach_args(parser=None):
                              "maskers on --device)")
     parser.add_argument("--device", default=None,
                         help="device of --engine torch (default: the card)")
-    parser.add_argument("--tokenizer-engine", choices=("native",),
-                        default="native",
-                        help="sentence-split + tokenize backend (the C++ "
-                             "one-pass kernel)")
+    parser.add_argument("--tokenizer-engine",
+                        choices=("auto", "hf", "native"), default="auto",
+                        help="sentence-split + tokenize backend (native = "
+                             "the C++ one-pass kernel)")
     parser.add_argument("--splitter", choices=("rules", "learned"),
                         default="rules",
                         help="sentence splitter: rules = static rules; "
@@ -89,6 +96,8 @@ def attach_args(parser=None):
 
 def main(args=None):
     args = args if args is not None else attach_args().parse_args()
+    if args.vocab_file is None and args.tokenizer is None:
+        raise SystemExit("need --vocab-file or --tokenizer")
     apply_storage_backend(args)
     arm_fleet_if_requested(args, args.sink)
     elastic_kwargs = elastic_kwargs_of(args)
@@ -111,7 +120,8 @@ def main(args=None):
         run_bert_preprocess(
             corpus_paths_of(args),
             args.sink,
-            get_tokenizer(args.vocab_file),
+            get_tokenizer(vocab_file=args.vocab_file,
+                          pretrained_model_name=args.tokenizer),
             config=config,
             num_workers=args.local_workers or usable_cpu_count(),
             num_blocks=args.num_blocks,

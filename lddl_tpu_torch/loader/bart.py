@@ -6,8 +6,10 @@ Counterpart of ``lddl_tpu/loader/bart.py`` (``decode_record_batch``,
 store each chunk's per-sentence token ids (``sentence_ids``/
 ``sentence_lens``) and decode to int32 views; schema-v1 shards store the
 chunk text (``sentences``), which the collate splits into sentences
-(``preprocess.sentences.split_sentences``) and tokenizes with the native
-engine, every epoch, as the reference does with its tokenizer. The noise
+(``preprocess.sentences.split_sentences``) and tokenizes with
+``TokenizerInfo.sentence_ids`` (the native engine, or the fast tokenizer
+where the native engine's semantics differ), every epoch, as the
+reference does with its tokenizer. The noise
 draws from the per-(epoch, dp group, worker) stream that ``DataLoader``
 binds into the collate, in the reference's order, so batches are numpy
 int32 dicts byte for byte the reference loader's:
@@ -66,7 +68,7 @@ class BartCollate:
                  sequence_length_alignment=8, fixed_seq_length=None,
                  ignore_index=-1, decoder_start_token_id=None):
         self._tokenizer = tokenizer
-        self._native = None   # built at the first schema-v1 batch
+        self._tok_info = None   # built at the first schema-v1 batch
         self._max_seq_length = max_seq_length
         self._mask_ratio = mask_ratio
         self._poisson_lambda = poisson_lambda
@@ -84,23 +86,17 @@ class BartCollate:
 
     def __getstate__(self):
         state = self.__dict__.copy()
-        state["_native"] = None   # rebuilt where it is used
+        state["_tok_info"] = None   # rebuilt where it is used
         return state
 
     def _tokenize_sentences(self, sentences):
-        """Token ids of each sentence, as a vocab-file BertTokenizerFast
-        gives them without special tokens: ``native.tokenize_sentences``,
+        """Token ids of each sentence without special tokens, as the
+        reference's tokenizer gives them: ``TokenizerInfo.sentence_ids``,
         the function the BART preprocess stores schema-v2 ids with."""
-        from ..native import NativeTokenizer, tokenize_sentences
-        if self._native is None:
-            vocab = self._tokenizer.get_vocab()
-            id_to_token = [""] * (max(vocab.values()) + 1)
-            for tok, i in vocab.items():
-                id_to_token[i] = tok
-            self._native = NativeTokenizer(
-                id_to_token, self._tokenizer.convert_tokens_to_ids("[UNK]"),
-                getattr(self._tokenizer, "do_lower_case", True))
-        ids, lens = tokenize_sentences(self._native, sentences)
+        if self._tok_info is None:
+            from ..preprocess.bert import TokenizerInfo
+            self._tok_info = TokenizerInfo(self._tokenizer)
+        ids, lens = self._tok_info.sentence_ids(sentences)
         ends = np.cumsum(lens)
         return [ids[e - n:e] for n, e in zip(lens, ends)]
 

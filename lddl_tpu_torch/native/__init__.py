@@ -18,9 +18,12 @@ Unlike the reference there is no graceful degradation and no switch
 between rungs: the library builds at first use and any failure to build
 or load raises. The preprocess always takes the fused kernels; the
 staged rungs (``tokenize_docs`` + ``bert_pairs``, ``mask_batch``) are
-called directly by the tests that hold the rungs to each other. The one
-environment variable read is ``LDDL_TPU_NATIVE_THREADS``, the in-kernel
-thread budget the preprocess runner hands its spawned workers.
+called directly by the tests that hold the rungs to each other. The
+environment variables read are ``LDDL_TPU_NATIVE_THREADS``, the
+in-kernel thread budget the preprocess runner hands its spawned workers,
+and ``LDDL_TPU_NATIVE_SANITIZE``, the sanitizer modes of the build
+(``build.sanitize_modes``); a sanitized library that does not load
+because its runtime is not preloaded raises and names ``LD_PRELOAD``.
 
 The library is loaded from its own path with ctypes' default
 ``RTLD_LOCAL``, so it stays apart from the reference's library of the
@@ -114,8 +117,22 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        from .build import ensure_built
-        lib = ctypes.CDLL(ensure_built())
+        from .build import ensure_built, sanitize_modes
+        path = ensure_built()
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            modes = sanitize_modes()
+            if not modes:
+                raise
+            # A tsan/asan library loads into Python only with its
+            # sanitizer's runtime preloaded; never a missing engine.
+            raise RuntimeError(
+                "the native engine built with LDDL_TPU_NATIVE_SANITIZE={} "
+                "did not load ({}); run Python with the sanitizer runtime "
+                "in LD_PRELOAD (e.g. LD_PRELOAD=$(g++ "
+                "-print-file-name=libtsan.so))".format(
+                    ",".join(modes), e)) from e
         abi = lib.lddl_native_abi_version()
         if abi != 8:
             raise RuntimeError("native engine ABI {} != 8".format(abi))
@@ -313,6 +330,10 @@ class NativeTokenizer:
         # _args: a pool worker rebuilding the tokenizer sizes itself from
         # the env the runner set for it, not from the parent's budget.
         lib.lddl_tok_set_threads(self._handle, resolve_threads())
+
+    def set_threads(self, n):
+        """Resize the in-kernel thread pool (clamped to [1, 64])."""
+        self._lib.lddl_tok_set_threads(self._handle, int(n))
 
     def get_threads(self):
         """Configured pool width (a bucket with fewer docs runs narrower)."""

@@ -1,13 +1,24 @@
 """Build the native engine's shared library with g++ at first use.
 
-Counterpart of ``lddl_tpu/native/build.py``, without its sanitizer modes
-and its table regeneration: ``unicode_tables.h`` is committed and only
-regenerated by hand (see ``gen_tables``). The library goes to the
-git-ignored ``_build/`` directory under a name keyed by a digest of the
-sources, the compiler flags and the host's CPU flags (``-march=native``
-bakes the build host's ISA in), so a changed source or another host
-builds its own library and a stale one is never loaded. A failed build
-raises with the compiler's output: the port has no fallback engine.
+Counterpart of ``lddl_tpu/native/build.py``, without its table
+regeneration: ``unicode_tables.h`` is committed and only regenerated by
+hand (see ``gen_tables``). The library goes to the git-ignored
+``_build/`` directory under a name keyed by a digest of the sources, the
+compiler flags, the sanitizer modes and the host's CPU flags
+(``-march=native`` bakes the build host's ISA in), so a changed source,
+another host or another mode builds its own library and a stale one is
+never loaded. A failed build raises with the compiler's output: the port
+has no fallback engine.
+
+Sanitizer modes, as the reference's: ``LDDL_TPU_NATIVE_SANITIZE`` is a
+comma-separated subset of ``tsan``, ``asan`` and ``ubsan``
+(``sanitize_modes``). A sanitized build trades ``-O3`` for ``-O1 -g
+-fno-omit-frame-pointer`` plus each ``-fsanitize=`` flag
+(``compile_flags``) and lives under a name that shows its modes
+(``lddl_native.san-tsan-ubsan-<hash>.so``), so a sanitized and a normal
+library never stand in for each other. Loading a tsan or asan library
+into Python needs the sanitizer's runtime in ``LD_PRELOAD``
+(``tools/sanitize_smoke.py`` sets it up).
 """
 
 import contextlib
@@ -27,8 +38,51 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 # -march=native: the engine builds on the machine that runs it (2x on the
 # WordPiece/UTF-8 hot loops against plain -O3). -pthread: the engine runs
 # an in-kernel thread pool.
-FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-         "-pthread")
+_BASE_FLAGS = ("-march=native", "-std=c++17", "-shared", "-fPIC",
+               "-pthread")
+
+_SANITIZE_FLAGS = {
+    "tsan": ("-fsanitize=thread",),
+    "asan": ("-fsanitize=address",),
+    "ubsan": ("-fsanitize=undefined",),
+}
+
+
+def sanitize_modes():
+    """The sanitizer modes ``LDDL_TPU_NATIVE_SANITIZE`` asks for (a
+    comma-separated subset of tsan/asan/ubsan), as a sorted tuple; ()
+    means a normal build. An unknown mode raises, as does tsan with asan
+    (gcc cannot combine their runtimes): a typo must not build an
+    uninstrumented engine that a sanitizer check then passes."""
+    raw = os.environ.get("LDDL_TPU_NATIVE_SANITIZE", "").strip()
+    if not raw:
+        return ()
+    modes = sorted({m.strip() for m in raw.split(",") if m.strip()})
+    bad = [m for m in modes if m not in _SANITIZE_FLAGS]
+    if bad:
+        raise ValueError(
+            "LDDL_TPU_NATIVE_SANITIZE={!r}: unknown mode(s) {}; expected "
+            "a comma-separated subset of {}".format(
+                raw, bad, "/".join(sorted(_SANITIZE_FLAGS))))
+    if "tsan" in modes and "asan" in modes:
+        raise ValueError(
+            "LDDL_TPU_NATIVE_SANITIZE: tsan and asan are mutually "
+            "exclusive (gcc cannot combine their runtimes)")
+    return tuple(modes)
+
+
+def compile_flags(modes=None):
+    """The g++ flags of a build for ``modes`` (default: the
+    environment's). A sanitized build takes ``-O1 -g
+    -fno-omit-frame-pointer`` in place of ``-O3``, so reports carry
+    usable stacks and races are not optimized away."""
+    modes = sanitize_modes() if modes is None else tuple(modes)
+    if not modes:
+        return ["-O3", *_BASE_FLAGS]
+    flags = ["-O1", "-g", "-fno-omit-frame-pointer", *_BASE_FLAGS]
+    for m in modes:
+        flags.extend(_SANITIZE_FLAGS[m])
+    return flags
 
 
 def _cpu_flags():
@@ -44,17 +98,21 @@ def _cpu_flags():
     return ""
 
 
-def lib_path():
-    """Where the library for these sources, flags and host lives."""
+def lib_path(modes=None):
+    """Where the library for these sources, sanitizer modes (default:
+    the environment's), flags and host lives."""
+    modes = sanitize_modes() if modes is None else tuple(modes)
     h = hashlib.sha256()
     for path in (SRC, TABLES):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(compile_flags(modes)).encode())
+    h.update(("sanitize=" + ",".join(modes)).encode())
     h.update(platform.machine().encode())
     h.update(_cpu_flags().encode())
+    stem = ("lddl_native.san-" + "-".join(modes)) if modes else "lddl_native"
     return os.path.join(BUILD_DIR,
-                        "lddl_native-{}.so".format(h.hexdigest()[:16]))
+                        "{}-{}.so".format(stem, h.hexdigest()[:16]))
 
 
 @contextlib.contextmanager
@@ -71,9 +129,11 @@ def _build_lock():
 
 
 def ensure_built():
-    """Build the library if it is not there yet and return its path;
-    raises ``RuntimeError`` with the compiler's output when g++ fails."""
-    path = lib_path()
+    """Build the library for ``LDDL_TPU_NATIVE_SANITIZE``'s modes if it
+    is not there yet and return its path; raises ``RuntimeError`` with
+    the compiler's output when g++ fails."""
+    modes = sanitize_modes()
+    path = lib_path(modes)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -83,7 +143,8 @@ def ensure_built():
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
         try:
-            proc = subprocess.run(["g++", *FLAGS, SRC, "-o", tmp],
+            proc = subprocess.run(["g++", *compile_flags(modes), SRC,
+                                   "-o", tmp],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError("building the native engine failed "

@@ -26,7 +26,6 @@ each rank (the multi-rank tests and ``entry.dryrun_multichip`` use it).
 
 import os
 import queue
-import socket
 import threading
 import time
 import traceback
@@ -261,14 +260,22 @@ def init_distributed(device=None, init_method=None, world_size=None,
     return dev
 
 
-def _free_port():
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _world_store(world_size):
+    """The rendezvous store of a ``run_world`` world, served by the
+    parent on a port the kernel picks (``store.port``). The parent holds
+    it until every rank has ended, so no other process can take the port
+    between its choice and the ranks' connections."""
+    import torch.distributed as dist
+    return dist.TCPStore("127.0.0.1", 0, world_size, is_master=True,
+                         wait_for_workers=False)
 
 
 def _rank_main(rank, world_size, port, device, fn, args, results):
+    # With TORCHELASTIC_USE_AGENT_STORE every rank's env:// rendezvous
+    # is a client of the parent's store (as under torchrun's agent), so
+    # no rank binds a port of its own.
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      TORCHELASTIC_USE_AGENT_STORE="True",
                       RANK=str(rank), WORLD_SIZE=str(world_size),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world_size),
                       GROUP_RANK="0")
@@ -296,9 +303,9 @@ def run_world(world_size, fn, *args, device=None):
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    store = _world_store(world_size)
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world_size, port, device, fn, args,
+                         args=(r, world_size, store.port, device, fn, args,
                                results),
                          daemon=True) for r in range(world_size)]
     for p in procs:
@@ -329,4 +336,5 @@ def run_world(world_size, fn, *args, device=None):
             if p.is_alive():
                 p.terminate()
                 p.join()
+        del store
     return out

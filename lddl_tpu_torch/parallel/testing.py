@@ -228,12 +228,16 @@ def eval_meshes_world(meshes, cfg_kw, params, batch_path):
 
 def communicator_world():
     """A rank of the communicator checks: int64 sum and max past 2^31, a
-    barrier, and what ``get_communicator`` and ``node_info`` give."""
+    barrier, what ``get_communicator`` and ``node_info`` give, and the
+    rendezvous variables ``run_world`` set."""
+    import os
     from .distributed import TorchCommunicator, get_communicator, node_info
     comm = get_communicator()
     big = np.array([2**31 + comm.rank, -(2**40), comm.rank], np.int64)
     out = {"type": type(comm).__name__, "rank": comm.rank,
            "world": comm.world_size, "node": node_info(),
+           "master_port": os.environ.get("MASTER_PORT"),
+           "agent_store": os.environ.get("TORCHELASTIC_USE_AGENT_STORE"),
            "sum": comm.allreduce_sum(big), "max": comm.allreduce_max(big)}
     comm.barrier()
     out["is_torch"] = isinstance(comm, TorchCommunicator)

@@ -10,11 +10,12 @@ too (schema v2). No masking and no binning here: BART's noising (text
 infilling, sentence permutation) is applied at load time
 (``loader.bart``).
 
-The schema-v2 ids come from the port's native WordPiece engine
-(``native.tokenize_sentences``), the same function the BART loader's
-collate tokenizes schema-v1 chunk text with, so the stored ids are by
-construction what the v1 collate derives; a vocab-file
-``BertTokenizerFast`` (the reference's tokenizer) gives the same ids.
+The schema-v2 ids come from ``TokenizerInfo.sentence_ids``: the port's
+native WordPiece engine where the tokenizer's semantics are the native
+engine's (a vocab table always), else the fast tokenizer's backend. The
+BART loader's collate tokenizes schema-v1 chunk text with the same
+function, so the stored ids are by construction what the v1 collate
+derives; the reference's tokenizer gives the same ids.
 """
 
 import dataclasses
@@ -132,13 +133,14 @@ class BartBucketProcessor:
         """(sentence_ids, sentence_lens) ListArrays for the chunk strings,
         what ``loader.bart.BartCollate`` derives from the chunk text every
         epoch: the rules sentence split of the CHUNK (the collate never
-        sees the learned splitter), then the native WordPiece."""
-        from ..native import segment_sums, tokenize_sentences
+        sees the learned splitter), then ``TokenizerInfo.sentence_ids``
+        (the native WordPiece, or the fast tokenizer where the native
+        engine's semantics differ)."""
+        from ..native import segment_sums
         from .arrowcols import int32_list_array
         per_chunk = [split_sentences(r) for r in rows]
         flat = [s for sents in per_chunk for s in sents]
-        flat_ids, sent_lens = tokenize_sentences(
-            self.tok_info.native_tokenizer(), flat)
+        flat_ids, sent_lens = self.tok_info.sentence_ids(flat)
         counts = np.fromiter(map(len, per_chunk), dtype=np.int64,
                              count=len(per_chunk))
         chunk_tokens = segment_sums(sent_lens, counts)

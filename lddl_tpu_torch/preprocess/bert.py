@@ -4,10 +4,26 @@ Counterpart of ``lddl_tpu/preprocess/bert.py``: the same pair creation
 (Google BERT's ``create_pretraining_data`` distribution on the frozen
 ``utils.rng.CounterRNG`` streams), the same static masking and the same
 columns, so with ``engine="numpy"`` the port writes the reference's shard
-bytes. The pipeline is token-id based: sentences tokenize straight to ids
-in the native engine (the port's only tokenizer engine), pair creation
-concatenates ids, and static masking runs as one batched kernel per
-bucket:
+bytes. The pipeline is token-id based: sentences tokenize straight to
+ids, pair creation concatenates ids, and static masking runs as one
+batched kernel per bucket.
+
+Tokenizer engines (``tokenizer_engine``, as in the reference):
+
+- ``"native"``: the C++ one-pass kernel (split + WordPiece + NSP pairs,
+  and on the masked path the masking replay too);
+- ``"hf"``: the Python sentence splitter plus one batched call of the
+  fast tokenizer's ``tokenizers`` backend (``preprocess.tokenizer``);
+- ``"auto"`` (the default): native when the tokenizer's semantics are
+  the native engine's (``tokenizer.native_semantics_match``; a vocab
+  table always is), else hf.
+
+Unlike the reference, ``auto`` chooses by the tokenizer's semantics and
+never by a build failure: a native engine that does not build raises
+(``native/build.py``). The two engines give the same bytes wherever both
+apply, so this loses nothing of the reference's results.
+
+Masking engines:
 
 - ``engine="numpy"``: the native engine's fused masked kernel, a bit-exact
   C++ replay of ``ops.masking.mask_batch_numpy`` on the Philox stream
@@ -30,6 +46,7 @@ masked_lm_positions_ids, masked_lm_label_ids.
 
 import dataclasses
 import hashlib
+import itertools
 import json
 
 import numpy as np
@@ -42,6 +59,8 @@ from ..ops.masking import (
     plan_num_to_predict,
 )
 from ..utils import rng as lrng
+from .sentences import split_sentences, split_sentences_learned
+from .tokenizer import FastBertTokenizer, native_semantics_match
 
 
 @dataclasses.dataclass
@@ -57,9 +76,11 @@ class BertPretrainConfig:
     # bytes equal the reference's) or "torch" (the torch maskers on
     # ``device``; the counterpart of the reference's "jax").
     engine: str = "numpy"
-    # Sentence-split + tokenize engine: the native C++ one-pass kernel is
-    # the port's only one.
-    tokenizer_engine: str = "native"
+    # Sentence-split + tokenize engine: "native" = the C++ one-pass
+    # kernel, "hf" = Python splitter + the fast tokenizer's backend,
+    # "auto" = native when the tokenizer's semantics are the native
+    # engine's, else hf.
+    tokenizer_engine: str = "auto"
     # Sentence splitter: "rules" (static rules) or "learned" (corpus-
     # trained punkt parameters; training needs nltk).
     splitter: str = "rules"
@@ -75,9 +96,8 @@ class BertPretrainConfig:
             raise ValueError("max_seq_length too small")
         if self.engine not in ("numpy", "torch"):
             raise ValueError("engine must be numpy|torch")
-        if self.tokenizer_engine != "native":
-            raise ValueError("tokenizer_engine must be native (the port "
-                             "has no HF tokenizer engine)")
+        if self.tokenizer_engine not in ("auto", "hf", "native"):
+            raise ValueError("tokenizer_engine must be auto|hf|native")
         if self.splitter not in ("rules", "learned"):
             raise ValueError("splitter must be rules|learned")
         if self.schema_version not in (1, 2):
@@ -98,11 +118,9 @@ class _TokenByteTable:
 
 
 class TokenizerInfo:
-    """Pre-extracted tables the id-based pipeline needs, from a vocab
-    table (``preprocess.tokenizer.get_tokenizer``: ``get_vocab()`` and
-    ``do_lower_case``). A vocab-file tokenizer has exactly the semantics
-    the native engine implements, so unlike the reference there is no
-    probe of an HF backend."""
+    """Pre-extracted tables the id-based pipeline needs, from a tokenizer
+    of ``preprocess.tokenizer.get_tokenizer`` (a vocab table or a
+    ``FastBertTokenizer``: ``get_vocab()`` and ``do_lower_case``)."""
 
     def __init__(self, tokenizer):
         self.tokenizer = tokenizer
@@ -121,6 +139,7 @@ class TokenizerInfo:
         self.do_lower_case = bool(getattr(tokenizer, "do_lower_case", True))
         self.vocab_size = size
         self._native = None
+        self._hf = None
         self._token_bytes = None
         # Random-replacement masking draws from the full vocab; the
         # subword table supports whole-word masking.
@@ -159,16 +178,53 @@ class TokenizerInfo:
         return self._token_bytes
 
     def native_tokenizer(self):
-        """The cached native engine (built at first use; raises when it
-        cannot be built or loaded)."""
+        """The cached native engine, or None when the tokenizer's backend
+        is not the pipeline the native engine implements
+        (``native_semantics_match``; a vocab table always is). Built at
+        first use; raises when it cannot be built or loaded."""
         if self._native is None:
-            from .. import native
-            unk = getattr(self.tokenizer, "unk_token", "[UNK]")
-            self._native = native.NativeTokenizer(
-                self.token_list,
-                unk_id=self.tokenizer.get_vocab().get(unk, self.unk_id),
-                do_lower_case=self.do_lower_case)
-        return self._native
+            backend = getattr(self.tokenizer, "_tokenizer", None)
+            if backend is not None and not native_semantics_match(
+                    backend, self.do_lower_case):
+                self._native = False
+            else:
+                from .. import native
+                unk = (getattr(backend.model, "unk_token", "[UNK]")
+                       if backend is not None
+                       else getattr(self.tokenizer, "unk_token", "[UNK]"))
+                self._native = native.NativeTokenizer(
+                    self.token_list,
+                    unk_id=self.tokenizer.get_vocab().get(unk, self.unk_id),
+                    do_lower_case=self.do_lower_case)
+        return self._native or None
+
+    def sentence_ids(self, sentences):
+        """Token ids of sentences without special tokens, ``(flat_ids,
+        sentence_lens)`` int32: ``native.tokenize_sentences`` where the
+        native engine applies, else the fast tokenizer's; what calling
+        the reference's tokenizer on them gives either way."""
+        nat = self.native_tokenizer()
+        if nat is not None:
+            from ..native import tokenize_sentences
+            return tokenize_sentences(nat, sentences)
+        enc = self.hf_tokenizer().encode_texts(sentences)
+        lens = np.fromiter(map(len, enc), dtype=np.int32, count=len(enc))
+        flat = np.fromiter(itertools.chain.from_iterable(enc),
+                           dtype=np.int32, count=int(lens.sum()))
+        return flat, lens
+
+    def hf_tokenizer(self):
+        """The fast tokenizer of the hf engine: the tokenizer itself when
+        it has a backend, else the one ``BertTokenizerFast`` builds from
+        the same vocab with the same ``do_lower_case`` (built at first
+        use; needs ``tokenizers``)."""
+        if self._hf is None:
+            if getattr(self.tokenizer, "_tokenizer", None) is not None:
+                self._hf = self.tokenizer
+            else:
+                self._hf = FastBertTokenizer.from_vocab(
+                    self.tokenizer.get_vocab(), self.do_lower_case)
+        return self._hf
 
 
 def _tok_info(tokenizer):
@@ -184,13 +240,55 @@ def _apply_splitter_params(nat, splitter_params):
         nat.set_splitter(blob)
 
 
-def documents_from_texts(texts, tokenizer, splitter_params=None):
+def documents_from_texts(texts, tokenizer, engine="auto",
+                         splitter_params=None):
     """Raw document texts -> documents as lists of per-sentence id
     sequences (zero-copy int32 views of the native engine's flat id
-    buffer; they iterate and slice like the reference's lists).
-    ``splitter_params`` (sentences.SplitterParams) switches to the
-    corpus-learned punkt splitter."""
-    nat = _tok_info(tokenizer).native_tokenizer()
+    buffer, or Python lists on the hf engine; both iterate and slice
+    alike). ``engine`` is a ``tokenizer_engine``; ``splitter_params``
+    (sentences.SplitterParams) switches to the corpus-learned punkt
+    splitter."""
+    tok_info = _tok_info(tokenizer)
+    if engine in ("auto", "native"):
+        nat = tok_info.native_tokenizer()
+        if nat is not None:
+            return _documents_from_texts_native(texts, nat, splitter_params)
+        if engine == "native":
+            raise RuntimeError("the native tokenizer engine does not "
+                               "implement this tokenizer's semantics")
+    # The pipeline hands document text as raw bytes
+    # (readers.read_block_lines); decode here, as the reference does.
+    texts = [t.decode("utf-8", errors="replace") if isinstance(t, bytes)
+             else t for t in texts]
+    if splitter_params is not None:
+        doc_sentences = [split_sentences_learned(t, splitter_params)
+                         for t in texts]
+    else:
+        doc_sentences = [split_sentences(t) for t in texts]
+    flat = [s for sents in doc_sentences for s in sents]
+    if not flat:
+        return []
+    backend = tok_info.hf_tokenizer().backend_tokenizer
+    try:
+        encs = backend.encode_batch_fast(flat, add_special_tokens=False)
+    except AttributeError:  # tokenizers before 0.21
+        encs = backend.encode_batch(flat, add_special_tokens=False)
+    all_ids = [e.ids for e in encs]
+    documents = []
+    k = 0
+    for sents in doc_sentences:
+        doc = []
+        for _ in sents:
+            ids = all_ids[k]
+            k += 1
+            if ids:
+                doc.append(ids)
+        if doc:
+            documents.append(doc)
+    return documents
+
+
+def _documents_from_texts_native(texts, nat, splitter_params):
     _apply_splitter_params(nat, splitter_params)
     ids, sent_lens, doc_counts = nat.tokenize_docs(texts)
     splits = np.split(ids, np.cumsum(sent_lens)[:-1])
@@ -238,13 +336,26 @@ def _emit_native_thread_metrics(nat):
 
 def instances_from_texts(texts, tok_info, config, seed, bucket,
                          splitter_params=None):
-    """Texts -> InstanceBatch in ONE native pass (split + WordPiece + NSP
-    pair creation + in-bucket shuffle), bit-identical to the staged
-    ``documents_from_texts`` + ``pairs_from_documents``. On the unmasked
-    path the kernel also hands back the flat A/B id segments."""
+    """Texts -> InstanceBatch by ``config.tokenizer_engine``. Native: ONE
+    pass (split + WordPiece + NSP pair creation + in-bucket shuffle),
+    bit-identical to the staged ``documents_from_texts`` +
+    ``pairs_from_documents``; on the unmasked path the kernel also hands
+    back the flat A/B id segments. Hf: those two stages in Python on the
+    fast tokenizer's ids."""
     tok_info = _tok_info(tok_info)
     _check_splitter(config, splitter_params)
-    nat = tok_info.native_tokenizer()
+    engine = config.tokenizer_engine
+    nat = (tok_info.native_tokenizer()
+           if engine in ("auto", "native") else None)
+    if engine == "native" and nat is None:
+        raise RuntimeError("the native tokenizer engine does not "
+                           "implement this tokenizer's semantics")
+    if nat is None:
+        documents = documents_from_texts(texts, tok_info, engine="hf",
+                                         splitter_params=splitter_params)
+        instances = pairs_from_documents(documents, config, seed, bucket)
+        return InstanceBatch.from_pairs(instances, tok_info.cls_id,
+                                        tok_info.sep_id)
     _apply_splitter_params(nat, splitter_params)
     seq_ids, seq_lens, a_lens, rn, a_ids, b_ids = nat.bert_instances(
         texts, config.max_seq_length, config.short_seq_prob,
@@ -409,16 +520,20 @@ def masked_instances_from_texts(texts, tok_info, config, seed, bucket,
 
     Returns a MaskedInstanceBatch, or None outside the replay contract:
     the numpy engine without whole-word masking, vocab size in
-    [2, 2^32). The caller then takes ``instances_from_texts`` and
-    ``apply_static_masking``."""
+    [2, 2^32), the native tokenizer engine. The caller then takes
+    ``instances_from_texts`` and ``apply_static_masking``."""
     if not config.masking or config.whole_word_masking:
         return None
     if config.engine != "numpy":
         return None
     if not (2 <= tok_info.vocab_size < 0xFFFFFFFF):
         return None
+    if config.tokenizer_engine not in ("auto", "native"):
+        return None
     _check_splitter(config, splitter_params)
     nat = tok_info.native_tokenizer()
+    if nat is None:
+        return None
     _apply_splitter_params(nat, splitter_params)
     res = nat.bert_instances_masked(
         texts, config.max_seq_length, config.short_seq_prob,

@@ -18,6 +18,11 @@
 #
 # Extra arguments after the mode flag pass through to
 # lddl_tpu_torch.tools.lddl_check.
+#
+# LDDL_TPU_CI_SMOKE_SANITIZE=1 adds the opt-in sanitizer smoke
+# (python -m lddl_tpu_torch.tools.sanitize_smoke): the native engine
+# rebuilt under TSan+UBSan and the 1-vs-N thread identity suite run
+# against it.
 set -euo pipefail
 cd "$(dirname "$0")/../.."
 
@@ -39,5 +44,19 @@ if python -c "import pyflakes" >/dev/null 2>&1; then
     python -m pyflakes lddl_tpu_torch
 else
     python -m compileall -q lddl_tpu_torch
+fi
+# Opt-in sanitizer smoke: rebuilds the native engine under TSan+UBSan
+# (its own library, so the normal build is untouched) and runs the 1-vs-N
+# thread identity suite against it. It fails on any sanitizer report, a
+# failed instrumented build, or a sanitized engine that does not load.
+# Opt-in because the instrumented build and the slowed suite take about a
+# minute; the static gate itself stays within seconds.
+if [ "${LDDL_TPU_CI_SMOKE_SANITIZE:-0}" = "1" ]; then
+    if python -m lddl_tpu_torch.tools.sanitize_smoke; then
+        echo "ci_check: sanitize smoke passed (TSan+UBSan, zero reports)"
+    else
+        echo "ci_check: sanitize smoke FAILED: a sanitizer report or an instrumented build/load failure" >&2
+        exit 1
+    fi
 fi
 echo "ci_check: OK"

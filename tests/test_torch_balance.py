@@ -212,21 +212,22 @@ def test_cli_chain_feeds_the_loader_reference_batches(tmp_path, tiny_corpus):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
 
 
-def _free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _cli_world(module, args, world=2):
     """``python -m lddl_tpu_torch.cli.<module> --multihost`` on ``world``
-    local processes joined in a gloo group; raises on a failed rank."""
+    local processes joined in a gloo group; raises on a failed rank. The
+    test serves the rendezvous store itself, on a port the kernel picks,
+    and holds it until every rank has ended; with
+    ``TORCHELASTIC_USE_AGENT_STORE`` each rank's ``tcp://`` rendezvous is
+    a client of it, so no rank binds the coordinator's port."""
     import subprocess
     import sys
+    import torch.distributed as dist
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
-    addr = "127.0.0.1:{}".format(_free_port())
+    env = dict(os.environ, PYTHONPATH=root,
+               TORCHELASTIC_USE_AGENT_STORE="True")
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                          wait_for_workers=False)
+    addr = "127.0.0.1:{}".format(store.port)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "lddl_tpu_torch.cli." + module, *args,
          "--multihost", "--coordinator-address", addr, "--num-processes",
@@ -234,6 +235,7 @@ def _cli_world(module, args, world=2):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
     outs = [p.communicate(timeout=300)[0] for p in procs]
+    del store
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
 

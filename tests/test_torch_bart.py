@@ -311,3 +311,40 @@ def test_batch_loss_and_ignore_index_are_exclusive():
         make_train_step(model, opt, ignore_index=0,
                         batch_loss=functools.partial(bart_batch_loss,
                                                      ignore_index=0))
+
+
+def test_v1_collate_on_a_keep_accents_dir_matches_reference(tmp_path):
+    """A schema-v1 BART collate batch (chunk text, tokenized every
+    epoch) from a tokenizer directory whose normalizer keeps accents:
+    the port tokenizes with the fast tokenizer, as the reference's
+    BertTokenizerFast does, and the noised batch is the reference's."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_tokenizers as toks
+    from lddl_tpu.loader.bart import BartCollate as RefCollate
+    from lddl_tpu.preprocess import get_tokenizer as ref_tokenizer
+    from lddl_tpu_torch.loader.bart import BartCollate
+    from lddl_tpu_torch.preprocess import build_wordpiece_vocab, get_tokenizer
+    words = ("alpha beta gamma Café naïve café Dr. U.S. 3.14 e.g. "
+             "delta epsilon").split()
+    g = np.random.default_rng(4)
+    chunks = [" ".join(" ".join(words[int(i)] for i in
+                                g.integers(0, len(words), 9)).capitalize()
+                       + "." for _ in range(3)) for _ in range(6)]
+    vocab = build_wordpiece_vocab(chunks, str(tmp_path / "vocab.txt"),
+                                  vocab_size=80)
+    path = toks.keep_accents_dir(str(tmp_path / "tok"), vocab)
+    ref = RefCollate(ref_tokenizer(pretrained_model_name=path),
+                     max_seq_length=64)
+    port_tok = get_tokenizer(pretrained_model_name=path)
+    port = BartCollate(port_tok, max_seq_length=64)
+    want = ref(chunks, np.random.Generator(np.random.Philox(key=[0, 9])))
+    got = port(chunks, np.random.Generator(np.random.Philox(key=[0, 9])))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]))
+    assert port_tok.convert_tokens_to_ids("café") in np.asarray(
+        want["labels"])

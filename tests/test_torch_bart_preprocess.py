@@ -20,6 +20,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import _torch_loader_shards as shards  # noqa: E402
+import _torch_tokenizers as toks  # noqa: E402
 
 import lddl_tpu.preprocess as R  # noqa: E402
 from lddl_tpu_torch import preprocess as T  # noqa: E402
@@ -161,6 +162,56 @@ def test_v2_ids_are_what_the_v1_collate_derives(corpus, tmp_path):
             assert [i for s in sents for i in s] == ids
             n += 1
     assert n > 0
+
+
+def test_keep_accents_dir_is_byte_equal(corpus, tmp_path):
+    """A tokenizer directory whose normalizer keeps accents: both
+    packages tokenize the schema-v2 ids with the fast tokenizer (the
+    port does not take its native engine there), and the shards, the
+    manifests and the resume fingerprints are byte-equal; the v1 collate
+    derives the same ids from the chunk text."""
+    import pyarrow.parquet as pq
+    from lddl_tpu_torch.loader.bart import BartCollate
+    from lddl_tpu_torch.preprocess.bart import BartBucketProcessor
+    root, vocab = corpus
+    path = toks.keep_accents_dir(str(tmp_path / "tok"), vocab)
+    outs = {}
+    for pkg in (R, T):
+        out = str(tmp_path / pkg.__name__)
+        pkg.run_bart_preprocess(
+            {"w": root}, out,
+            config=pkg.BartPretrainConfig(target_seq_length=24),
+            tokenizer=pkg.get_tokenizer(pretrained_model_name=path),
+            **RUN_KW)
+        outs[pkg] = out
+    _assert_same_bytes(outs[T], outs[R])
+    ids = set()
+    for name in os.listdir(outs[T]):
+        if ".parquet" in name:
+            t = pq.read_table(os.path.join(outs[T], name)).to_pydict()
+            ids.update(i for row in t["sentence_ids"] for i in row)
+    port_tok = T.get_tokenizer(pretrained_model_name=path)
+    assert port_tok.convert_tokens_to_ids("café") in ids
+    fps = [_bart_of(pkg).BartBucketProcessor(
+        pkg.BartPretrainConfig(target_seq_length=40), 5, "/out", "parquet",
+        tokenizer=pkg.get_tokenizer(pretrained_model_name=path)
+    ).fingerprint() for pkg in (R, T)]
+    assert fps[0] == fps[1]
+    assert BartBucketProcessor(
+        T.BartPretrainConfig(), 5, "/out", "parquet",
+        tokenizer=port_tok).tok_info.native_tokenizer() is None
+    collate = BartCollate(port_tok)
+    for name in sorted(os.listdir(outs[T])):
+        if ".parquet" in name:
+            t = pq.read_table(os.path.join(outs[T], name)).to_pydict()
+            derived = collate._sentence_ids(t["sentences"])
+            for want, sents in zip(t["sentence_ids"], derived):
+                assert [int(i) for s in sents for i in s] == want
+
+
+def _bart_of(pkg):
+    from importlib import import_module
+    return import_module(pkg.__name__ + ".bart")
 
 
 def _cli(module, corpus, out, extra=()):

@@ -85,8 +85,6 @@ def _config(pkg, schema, **kw):
     pre = importlib.import_module(pkg + ".preprocess")
     kw.setdefault("max_seq_length", 32)
     kw.setdefault("masking", True)
-    if pkg == "lddl_tpu":
-        kw["tokenizer_engine"] = "native"
     return pre, pre.BertPretrainConfig(schema_version=schema, **kw)
 
 

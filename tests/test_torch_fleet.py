@@ -563,8 +563,6 @@ def _bert_processor(pkg, vocab, out_dir):
     pre = importlib.import_module(pkg + ".preprocess")
     runner = importlib.import_module(pkg + ".preprocess.runner")
     kw = dict(max_seq_length=32, masking=True, schema_version=1)
-    if pkg == "lddl_tpu":
-        kw["tokenizer_engine"] = "native"
     return runner.BertBucketProcessor(
         pre.get_tokenizer(vocab_file=vocab), pre.BertPretrainConfig(**kw),
         4242, out_dir, 8, "parquet")
@@ -670,8 +668,8 @@ def test_ingest_with_fleet_is_byte_inert_and_logs_lifecycle(
     root_ref = str(tmp_path / "ref")
     ref_ingest.ingest_once(
         root_ref, ref_pre.get_tokenizer(vocab_file=vocab), landing=landing,
-        config=ref_pre.BertPretrainConfig(max_seq_length=32, masking=False,
-                                          tokenizer_engine="native"), **kw)
+        config=ref_pre.BertPretrainConfig(max_seq_length=32, masking=False),
+        **kw)
 
     # The reference's loader reads the same environment: it runs before
     # the port's fleet is armed.

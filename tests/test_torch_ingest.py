@@ -59,10 +59,6 @@ class Pkg:
     def config(self, **kw):
         kw.setdefault("max_seq_length", 32)
         kw.setdefault("masking", False)
-        if self.name == "lddl_tpu":
-            # The port tokenizes natively; the engine enters the journal
-            # fingerprint.
-            kw.setdefault("tokenizer_engine", "native")
         return self.pre.BertPretrainConfig(**kw)
 
     def tok(self, vocab):
@@ -705,8 +701,7 @@ def test_ingest_watch_elastic_and_join_pending(corpus, tmp_path, capsys):
     from lddl_tpu_torch.cli import ingest_watch as port_cli
     base = ["--vocab-file", corpus[1], "--target-seq-length", "32",
             "--num-shards", "4", "--seed", "7", "--once"]
-    for cli, s, extra in ((ref_cli, "ref", ["--tokenizer-engine",
-                                            "native"]),
+    for cli, s, extra in ((ref_cli, "ref", []),
                           (port_cli, "port", ["--elastic", "--lease-ttl",
                                               "5", "--elastic-host-id",
                                               "h0"])):
@@ -832,3 +827,23 @@ def test_bert_and_balance_clis_refuse_fleet_telemetry(corpus, tmp_path, cli):
     snaps = [n for n in os.listdir(spool) if n.startswith("snapshot-pid")]
     with open(os.path.join(spool, snaps[0])) as f:
         assert counter in json.load(f)["metrics"]
+
+
+@pytest.mark.parametrize("engine", ["auto", "hf", "native"])
+def test_ingest_watch_passes_the_tokenizer_on(engine):
+    """``--tokenizer <dir>`` and ``--tokenizer-engine auto|hf|native``
+    reach a ``--join-pending`` helper's argv as the reference's do (the
+    engine stays in the journal fingerprint through the config)."""
+    from lddl_tpu.cli import ingest_watch as ref_cli
+    from lddl_tpu_torch.cli import ingest_watch as port_cli
+    argv = ["--landing", "/land", "--sink", "/sink", "--tokenizer", "/tok",
+            "--tokenizer-engine", engine, "--elastic", "--masking"]
+    want = ref_cli._helper_argv(ref_cli.attach_args().parse_args(argv))
+    got = port_cli._helper_argv(port_cli.attach_args().parse_args(argv))
+    assert got[1:] == [("lddl_tpu_torch.cli.ingest_watch"
+                        if a == "lddl_tpu.cli.ingest_watch" else a)
+                       for a in want[1:]]
+    assert got[got.index("--tokenizer-engine") + 1] == engine
+    assert got[got.index("--tokenizer") + 1] == "/tok"
+    assert port_cli.attach_args().parse_args(
+        ["--landing", "l", "--sink", "s"]).tokenizer_engine == "auto"

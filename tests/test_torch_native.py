@@ -8,10 +8,16 @@ of 100+ characters). Exact equality throughout: integer outputs.
 
 Also: the committed unicode_tables.h equals a fresh regeneration (skips
 only without the HF tokenizers package), the two libraries are separate
-files loaded side by side, and a failed build raises.
+files loaded side by side, a failed build raises, and the sanitizer
+modes (LDDL_TPU_NATIVE_SANITIZE) parse, flag and key their libraries as
+the reference's do; a ubsan build tokenizes as the normal one, and a
+tsan build loaded without its runtime raises by name.
 """
 
 import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -224,3 +230,121 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ exit"):
         tbuild.ensure_built()
     assert not any(n.endswith(".so") for n in os.listdir(tmp_path / "_build"))
+
+
+SANITIZE_VALUES = ["", "tsan", "ubsan,tsan", " asan , ubsan ", "tsan,tsan",
+                   "ubsan,,", "msan", "tsan,asan", "TSAN"]
+
+
+@pytest.mark.parametrize("value", SANITIZE_VALUES)
+def test_sanitize_modes_and_flags_match_reference(monkeypatch, value):
+    """The same modes, flags and errors as the reference's build for each
+    value of LDDL_TPU_NATIVE_SANITIZE, the bad ones included."""
+    from lddl_tpu.native import build as rbuild
+    monkeypatch.delenv("LDDL_TPU_NATIVE_MARCH", raising=False)
+    monkeypatch.setenv("LDDL_TPU_NATIVE_SANITIZE", value)
+    try:
+        want = rbuild.sanitize_modes()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            tbuild.sanitize_modes()
+        assert str(got.value) == str(e)
+        with pytest.raises(ValueError):
+            tbuild.lib_path()
+        return
+    assert tbuild.sanitize_modes() == want
+    assert tbuild.compile_flags() == rbuild.compile_flags()
+    assert tbuild.compile_flags(want) == rbuild.compile_flags(want)
+    assert tbuild.lib_path() == tbuild.lib_path(want)
+
+
+def test_lib_path_is_keyed_by_the_modes(monkeypatch):
+    """Each mode set has its own library, named after its modes, beside
+    the normal one in the git-ignored build directory."""
+    monkeypatch.delenv("LDDL_TPU_NATIVE_SANITIZE", raising=False)
+    paths = {modes: tbuild.lib_path(modes) for modes in
+             [(), ("tsan",), ("ubsan",), ("tsan", "ubsan"),
+              ("asan", "ubsan")]}
+    assert len(set(paths.values())) == len(paths)
+    assert paths[()] == tbuild.lib_path()
+    for modes, path in paths.items():
+        assert os.path.dirname(path) == tbuild.BUILD_DIR
+        name = os.path.basename(path)
+        if modes:
+            assert name.startswith("lddl_native.san-{}-".format(
+                "-".join(modes)))
+        else:
+            assert name.startswith("lddl_native-") and ".san-" not in name
+    assert tbuild.compile_flags(())[0] == "-O3"
+    assert tbuild.compile_flags(("tsan", "ubsan"))[:3] == [
+        "-O1", "-g", "-fno-omit-frame-pointer"]
+    assert tbuild.compile_flags(("tsan", "ubsan"))[-2:] == [
+        "-fsanitize=thread", "-fsanitize=undefined"]
+
+
+def _run_py(code, **env):
+    full = dict(os.environ, **env)
+    full.pop("LD_PRELOAD", None)
+    return subprocess.run([sys.executable, "-c", code], env=full,
+                          cwd=os.path.dirname(os.path.dirname(tbuild._DIR)),
+                          capture_output=True, text=True, timeout=600)
+
+
+UBSAN_RUN = """
+import json, sys, time
+t = time.monotonic()
+from lddl_tpu_torch.native import build
+path = build.ensure_built()
+built = time.monotonic() - t
+from lddl_tpu_torch import native
+from lddl_tpu_torch.preprocess import get_tokenizer
+from lddl_tpu_torch.preprocess.bert import TokenizerInfo
+assert native._load()._name == path
+with open({docs!r}) as f:
+    docs = json.load(f)
+t = time.monotonic()
+nat = TokenizerInfo(get_tokenizer({vocab!r})).native_tokenizer()
+out = nat.tokenize_docs(docs)
+print(json.dumps({{"path": path, "build_s": built,
+                  "run_s": time.monotonic() - t,
+                  "out": [a.tolist() for a in out]}}))
+"""
+
+
+def test_ubsan_build_tokenizes_as_the_normal_one(engines, vocab_file,
+                                                 tmp_path):
+    """A ubsan build (its own library) run in a subprocess with
+    UBSAN_OPTIONS=halt_on_error=1 gives the normal engine's ids; the
+    build and the run are timed."""
+    import json
+    port, _ = engines
+    docs = DOCS[:20]
+    want = port.native_tokenizer().tokenize_docs(docs)
+    (tmp_path / "docs.json").write_text(json.dumps(docs))
+    t = time.monotonic()
+    proc = _run_py(UBSAN_RUN.format(docs=str(tmp_path / "docs.json"),
+                                    vocab=vocab_file),
+                   LDDL_TPU_NATIVE_SANITIZE="ubsan",
+                   UBSAN_OPTIONS="halt_on_error=1 print_stacktrace=1",
+                   JAX_PLATFORMS="cpu")
+    wall = time.monotonic() - t
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("ubsan build {:.1f} s, tokenize {:.2f} s, subprocess {:.1f} s"
+          .format(res["build_s"], res["run_s"], wall))
+    assert os.path.basename(res["path"]).startswith("lddl_native.san-ubsan-")
+    assert res["path"] != tbuild.lib_path(())
+    for a, b in zip(res["out"], want):
+        assert a == b.tolist()
+    assert "runtime error" not in proc.stderr
+
+
+def test_tsan_library_without_its_runtime_raises():
+    """A tsan library loaded without LD_PRELOAD raises and names the mode
+    and LD_PRELOAD: never a missing engine."""
+    proc = _run_py("from lddl_tpu_torch import native\nnative._load()\n",
+                   LDDL_TPU_NATIVE_SANITIZE="tsan", JAX_PLATFORMS="cpu")
+    assert proc.returncode != 0
+    last = proc.stderr.strip().splitlines()[-1]
+    assert last.startswith("RuntimeError"), proc.stderr[-2000:]
+    assert "LDDL_TPU_NATIVE_SANITIZE=tsan" in last and "LD_PRELOAD" in last

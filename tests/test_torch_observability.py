@@ -340,8 +340,6 @@ def _run_pipeline(pkg, corpus, out_root, bin_size=None):
     pre = os.path.join(str(out_root), "pre")
     bal = os.path.join(str(out_root), "bal")
     cfg = dict(max_seq_length=64, duplicate_factor=2, masking=True)
-    if pkg == "lddl_tpu":
-        cfg["tokenizer_engine"] = "native"
     pre_mod.run_bert_preprocess(
         {"wiki": corpus["corpus"]}, pre,
         pre_mod.get_tokenizer(vocab_file=corpus["vocab"]),
@@ -485,8 +483,6 @@ def test_packed_fill_counters_equal_reference(corpus, tmp_path):
         pre_mod = importlib.import_module(pkg.pkg + ".preprocess")
         pkg.obs.configure(dir=str(tmp_path / pkg.pkg / "metrics"))
         cfg = dict(max_seq_length=64, duplicate_factor=2, masking=True)
-        if pkg is REF:
-            cfg["tokenizer_engine"] = "native"
         pre_mod.run_bert_preprocess(
             {"wiki": corpus["corpus"]}, str(tmp_path / pkg.pkg / "pre"),
             pre_mod.get_tokenizer(vocab_file=corpus["vocab"]),

@@ -8,6 +8,8 @@ int64 collectives past 2^31, make_mesh's -1 rule and errors, the rank
 rule and the batch placement on a real DeviceMesh, the 8-rank dryrun).
 Everything here is exact: integers, shapes and placements."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -132,9 +134,29 @@ def test_make_mesh_needs_the_group():
         make_mesh({"dp": 1})
 
 
+class _World(list):
+    def __init__(self, results, store_ports):
+        super().__init__(results)
+        self.store_ports = store_ports
+
+
 @pytest.fixture(scope="module")
 def comm_world():
-    return run_world(2, ptest.communicator_world, device="cpu")
+    """The world's results, and the port of the store the parent served
+    its rendezvous on."""
+    from lddl_tpu_torch.parallel import distributed
+    ports = []
+    make = distributed._world_store
+
+    def recording(world_size):
+        store = make(world_size)
+        ports.append(store.port)
+        return store
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(distributed, "_world_store", recording)
+        out = run_world(2, ptest.communicator_world, device="cpu")
+    return _World(out, ports)
 
 
 def test_torch_communicator_int64_beyond_2_31(comm_world):
@@ -145,6 +167,25 @@ def test_torch_communicator_int64_beyond_2_31(comm_world):
         np.testing.assert_array_equal(
             out["sum"], [2 * 2**31 + 1, -2 * 2**40, 1])
         np.testing.assert_array_equal(out["max"], [2**31 + 1, -(2**40), 1])
+
+
+def test_ranks_join_the_parents_store(comm_world):
+    """No window in which the rendezvous port is free: every rank is a
+    client of the store the parent holds (``TORCHELASTIC_USE_AGENT_STORE``),
+    and no helper that picks a port and lets it go is left in the port."""
+    assert len(comm_world.store_ports) == 1
+    port = comm_world.store_ports[0]
+    assert port > 0
+    for out in comm_world:
+        assert out["master_port"] == str(port)
+        assert out["agent_store"] == "True"
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "lddl_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith((".py", ".sh")):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "_free_port" not in f.read(), name
 
 
 def test_node_info_reads_the_launcher(comm_world):

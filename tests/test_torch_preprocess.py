@@ -8,6 +8,11 @@ the same file names, parquet tables equal column by column and the same
   splitter; txt output;
 - the reference tokenizing with its native engine and with its HF
   engine (BertTokenizerFast on the vocab file);
+- the port's "hf" engine against the reference's; a saved tokenizer
+  directory whose normalizer keeps accents, where "auto" takes the HF
+  engine in both packages (and, before the port honoured such a
+  directory, gave other ids); the directories' backends against
+  BertTokenizerFast.from_pretrained's; the CLI's --tokenizer <dir>;
 - 2 spawned workers, and a worker that dies mid-unit (the pool is
   rebuilt and the unit redone); a 2-rank ThreadGroupCommunicator run;
 - a run stopped after some units and resumed, equal to an uninterrupted
@@ -20,6 +25,7 @@ labels put back the same id sequences. Exact equality throughout.
 
 import glob
 import os
+import sys
 
 import numpy as np
 import pyarrow.parquet as pq
@@ -29,6 +35,10 @@ import torch
 import lddl_tpu.preprocess as R
 from lddl_tpu_torch import preprocess as T
 from lddl_tpu_torch.parallel import ThreadGroupCommunicator
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import _torch_tokenizers as toks  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -324,9 +334,8 @@ def _pkg_runner(pkg, corpus, out):
     runner = importlib.import_module(pkg + ".preprocess.runner")
     pre = importlib.import_module(pkg + ".preprocess")
     _, vocab = corpus
-    kw = {"tokenizer_engine": "native"} if pkg == "lddl_tpu" else {}
     cfg = pre.BertPretrainConfig(max_seq_length=64, duplicate_factor=2,
-                                 masking=True, **kw)
+                                 masking=True)
     tok = pre.get_tokenizer(vocab_file=vocab)
     return runner, runner.BertBucketProcessor(tok, cfg, 3, out, 16,
                                               "parquet")
@@ -428,3 +437,177 @@ def test_gather_reads_only_accepted_spool_files(tmp_path, pkg):
     # Files are read in sorted name order: the stray one first.
     assert texts(None) == {0: [b"stray", b"doc one", b"doc two"],
                            2: [b"doc three", b"doc four"]}
+
+
+# ---------------------------------------------------------------------------
+# Tokenizer directories and the HF engine
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def keep_accents_dir(corpus, tmp_path_factory):
+    _, vocab = corpus
+    return toks.keep_accents_dir(str(tmp_path_factory.mktemp("keep")), vocab)
+
+
+def _corpus_texts(corpus):
+    root, _ = corpus
+    texts = []
+    for name in sorted(os.listdir(os.path.join(root, "source"))):
+        with open(os.path.join(root, "source", name), "rb") as f:
+            texts.extend(f.read().splitlines())
+    return texts
+
+
+def _as_lists(documents):
+    return [[[int(i) for i in s] for s in doc] for doc in documents]
+
+
+def test_tokenizer_dir_keeps_its_normalizer(corpus, keep_accents_dir):
+    """``auto`` on a directory whose normalizer keeps accents: the
+    reference routes to its HF engine and keeps "café" whole; the port
+    gives the same ids (it used to read only vocab.txt and tokenize
+    natively, stripping the accents)."""
+    from lddl_tpu.preprocess.bert import (
+        documents_from_texts as ref_documents)
+    from lddl_tpu_torch.preprocess.bert import (
+        documents_from_texts as port_documents)
+    texts = _corpus_texts(corpus)
+    ref_tok = R.get_tokenizer(pretrained_model_name=keep_accents_dir)
+    port_tok = T.get_tokenizer(pretrained_model_name=keep_accents_dir)
+    want = _as_lists(ref_documents(texts, ref_tok))
+    got = _as_lists(port_documents(texts, port_tok))
+    cafe = ref_tok.convert_tokens_to_ids("café")
+    assert any(cafe in s for doc in want for s in doc)
+    assert got == want
+
+
+def _run_both(corpus, tmp_path, run_kw, cfg_kw, ref_tok, port_tok):
+    root, _ = corpus
+    want, got = str(tmp_path / "ref"), str(tmp_path / "port")
+    for pkg, tok, out in ((R, ref_tok, want), (T, port_tok, got)):
+        pkg.run_bert_preprocess(
+            {"w": root}, out, tok,
+            config=pkg.BertPretrainConfig(max_seq_length=64,
+                                          duplicate_factor=2, **cfg_kw),
+            num_blocks=6, sample_ratio=0.9, seed=3, **run_kw)
+    _assert_same_output(got, want)
+
+
+@pytest.mark.parametrize("case", ["unbinned", "binned_masked",
+                                  "whole_word"])
+def test_hf_engine_matches_reference_hf_engine(corpus, tmp_path, case):
+    """The port's "hf" engine (the fast tokenizer built from the vocab
+    table) against the reference's "hf" engine on the same vocab file."""
+    _, vocab = corpus
+    run_kw, cfg_kw = CASES[case]
+    cfg_kw = dict(cfg_kw, tokenizer_engine="hf")
+    _run_both(corpus, tmp_path, run_kw, cfg_kw,
+              R.get_tokenizer(vocab_file=vocab), T.get_tokenizer(vocab))
+
+
+@pytest.mark.parametrize("case", ["unbinned", "binned_masked"])
+def test_auto_on_a_keep_accents_dir_matches_reference(corpus, tmp_path,
+                                                      keep_accents_dir,
+                                                      case):
+    """``auto`` on the directory whose normalizer keeps accents: both
+    packages take their HF engine, and write the same shards."""
+    run_kw, cfg_kw = CASES[case]
+    ref_tok = R.get_tokenizer(pretrained_model_name=keep_accents_dir)
+    port_tok = T.get_tokenizer(pretrained_model_name=keep_accents_dir)
+    from lddl_tpu_torch.preprocess.bert import TokenizerInfo
+    assert TokenizerInfo(port_tok).native_tokenizer() is None
+    _run_both(corpus, tmp_path, run_kw, cfg_kw, ref_tok, port_tok)
+
+
+@pytest.mark.parametrize("kw", [
+    {"do_lower_case": True, "strip_accents": False},
+    {"do_lower_case": True},
+    {"do_lower_case": False},
+    {"do_lower_case": True, "tokenize_chinese_chars": False},
+], ids=["keep_accents", "default", "cased", "no_chinese"])
+def test_tokenizer_dir_backend_equals_reference(corpus, tmp_path, kw):
+    """``get_tokenizer`` on a ``save_pretrained`` directory gives the
+    backend ``BertTokenizerFast.from_pretrained`` gives (the same
+    serialized pipeline, vocab, length, ids and special tokens), with the
+    normalizer override applied for either ``do_lower_case``; and the
+    native engine is taken exactly where the reference takes it."""
+    from lddl_tpu.preprocess.bert import TokenizerInfo as RInfo
+    from lddl_tpu_torch.preprocess.bert import TokenizerInfo as PInfo
+    _, vocab = corpus
+    path = toks.save_tokenizer_dir(str(tmp_path / "tok"), vocab,
+                                   accented=True, **kw)
+    texts = ["The Café naïve [MASK] 中文 Dr. x\x00y", "NAÏVE\tcafe [mask]"]
+    for lower in (True, False):
+        ref = R.get_tokenizer(pretrained_model_name=path,
+                              do_lower_case=lower)
+        port = T.get_tokenizer(pretrained_model_name=path,
+                               do_lower_case=lower)
+        assert (port.backend_tokenizer.to_str()
+                == ref.backend_tokenizer.to_str())
+        assert port.get_vocab() == ref.get_vocab()
+        assert len(port) == len(ref)
+        assert port.do_lower_case == ref.do_lower_case == lower
+        assert port.encode_texts(texts) == ref(
+            texts, add_special_tokens=False)["input_ids"]
+        for tok in ("[CLS]", "[SEP]", "[PAD]", "[MASK]", "[UNK]", "zzz"):
+            assert (port.convert_tokens_to_ids(tok)
+                    == ref.convert_tokens_to_ids(tok))
+        assert ((PInfo(port).native_tokenizer() is None)
+                == (RInfo(ref).native_tokenizer() is None))
+
+
+def test_vocab_only_dir_and_vocab_file_give_the_table(corpus, tmp_path):
+    """A vocab file, and a directory holding only ``vocab.txt``, give the
+    vocab table (no fast tokenizer); ``hf`` on it builds the backend a
+    vocab-file ``BertTokenizerFast`` has."""
+    from lddl_tpu_torch.preprocess.bert import TokenizerInfo
+    from lddl_tpu_torch.utils.vocab import Vocab
+    _, vocab = corpus
+    (tmp_path / "d").mkdir()
+    with open(vocab, "rb") as f:
+        (tmp_path / "d" / "vocab.txt").write_bytes(f.read())
+    for tok in (T.get_tokenizer(vocab),
+                T.get_tokenizer(pretrained_model_name=str(tmp_path / "d"))):
+        assert type(tok) is Vocab
+        hf = TokenizerInfo(tok).hf_tokenizer()
+        ref = R.get_tokenizer(vocab_file=vocab)
+        assert hf.backend_tokenizer.to_str() == \
+            ref.backend_tokenizer.to_str()
+
+
+def test_tokenizer_engine_choices():
+    assert T.BertPretrainConfig().tokenizer_engine == "auto"
+    for engine in ("auto", "hf", "native"):
+        T.BertPretrainConfig(tokenizer_engine=engine)
+    with pytest.raises(ValueError, match="auto|hf|native"):
+        T.BertPretrainConfig(tokenizer_engine="spacy")
+
+
+def test_native_engine_refuses_a_foreign_normalizer(corpus,
+                                                    keep_accents_dir):
+    from lddl_tpu_torch.preprocess.bert import instances_from_texts
+    texts = _corpus_texts(corpus)[:4]
+    tok = T.get_tokenizer(pretrained_model_name=keep_accents_dir)
+    with pytest.raises(RuntimeError, match="native tokenizer engine"):
+        instances_from_texts(texts, tok, T.BertPretrainConfig(
+            max_seq_length=64, tokenizer_engine="native"), 3, 0)
+
+
+def test_cli_takes_a_tokenizer_dir(corpus, tmp_path, keep_accents_dir):
+    """``--tokenizer <dir>`` with no ``--vocab-file`` (engine ``auto``)
+    writes what the reference's CLI writes from the same directory."""
+    from lddl_tpu.cli import preprocess_bert_pretrain as ref_cli
+    from lddl_tpu_torch.cli import preprocess_bert_pretrain as port_cli
+    root, _ = corpus
+    args = ["--wikipedia", root, "--tokenizer", keep_accents_dir,
+            "--target-seq-length", "64", "--bin-size", "16", "--masking",
+            "--duplicate-factor", "1", "--num-blocks", "4",
+            "--local-workers", "1"]
+    ref_cli.main(ref_cli.attach_args().parse_args(
+        args + ["--sink", str(tmp_path / "ref")]))
+    port_cli.main(port_cli.attach_args().parse_args(
+        args + ["--sink", str(tmp_path / "port")]))
+    _assert_same_output(str(tmp_path / "port"), str(tmp_path / "ref"))
+    with pytest.raises(SystemExit, match="--vocab-file or --tokenizer"):
+        port_cli.main(port_cli.attach_args().parse_args(
+            ["--wikipedia", root, "--sink", str(tmp_path / "none")]))
