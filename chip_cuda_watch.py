@@ -7,7 +7,8 @@ maps CUDA's ``libcuda.so`` in a fresh process. Then it
 writes an 8 MiB corpus from seed 0 (phase 8's generator, bert_large's
 30522-token vocab) and runs the port's BART preprocess CLI on it, schema
 v2 and then v1, ``RUNS`` times each, with 8 spawned workers. That CLI
-imports torch and opens no CUDA context. Each run is polled every 2 ms.
+opens no CUDA context (and, one-host, imports no torch, so a sighting
+there needs a process that maps libcuda). Each run is polled every 2 ms.
 A poll counts a child of the CLI in two ways:
 
 - ``sightings``: any child whose ``/proc/<pid>/maps`` shows libcuda;

@@ -271,7 +271,20 @@ exits non-zero):
    (``num_heads=3``, head dim 256), BART_F32_STEPS steps, the encoder on
    the fp32 online trio's D=256 builds (6 launches of each a step, no
    other kernel), the same
-   flash-against-dense train step and a profiled step. No cut of width.
+   flash-against-dense train step and a profiled step. No cut of width;
+20. the CI identity smokes on the card's host: (1) the six smokes of
+   ``lddl_tpu_torch/tools`` (sink, elastic, backend, thread, status,
+   cache), each ``python -m lddl_tpu_torch.tools.<name>_smoke`` in a
+   process of its own at its default corpus size, each exiting 0 with
+   ``identical: true`` (the status smoke with its alert fired and
+   resolved), no process of any smoke mapping the CUDA driver (the
+   ``DeviceWatch`` rule); (2) the cache smoke's balanced shards, built on
+   the mock store with 10 ms a data op, loaded onto the card through
+   ``prefetch_to_device`` under its sync leg and its prefetch+cache leg
+   (batches of 8 padded to L=256): the device batches equal bit for bit;
+   then two bert_large train steps (phase 4's model, full width) on them
+   with finite losses, ``onekv_fwd`` and ``onekv_bwd`` 24 launches each
+   a step. Each part's seconds.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
@@ -460,6 +473,18 @@ DOWNLOAD_STEPS_PER_BIN = 2
 PIPE_MICRO = 4
 PIPE_BAR = 5e-2
 PIPE_REPEATS = 3     # timed forward + backward of each, after a warm-up
+# The CI identity smokes (phase 20): (1) the six, each at its default
+# corpus size, in processes of their own; (2) the cache smoke's balanced
+# shards on the latency-injected mock store loaded onto the card twice,
+# then SMOKE_STEPS bert_large steps on batches of SMOKE_BATCH padded to
+# SMOKE_L (the data's samples are at most 128 tokens; L_pad 256 is the
+# first length "auto" sends to the single-block kernels).
+SMOKES = ("sink", "elastic", "backend", "thread", "status", "cache")
+SMOKE_TIMEOUT = 600
+SMOKE_LATENCY_MS = "10"
+SMOKE_BATCH = 8
+SMOKE_L = 256
+SMOKE_STEPS = 2
 
 
 
@@ -2307,9 +2332,10 @@ class DeviceWatch:
     at the start) and the command's processes that have mapped the CUDA
     driver library (``/proc/<pid>/maps``), i.e. that opened a CUDA
     context. One poll that sees libcuda mapped counts a process, unless
-    it has not exec'd yet (``not_yet_execed``): the port's CLIs import
-    torch, which maps libcuda on a CUDA build, and a worker they spawn
-    shows their maps for the few ms before its exec.
+    it has not exec'd yet (``not_yet_execed``): a process that imports
+    torch maps libcuda on a CUDA build (a CLI under ``--multihost``, a
+    preprocess with ``--engine torch``, this script), and a worker it
+    spawns shows its maps for the few ms before its exec.
     ``chip_cuda_watch.py`` holds this rule to a 2 ms poll of the BART
     CLI."""
 
@@ -2362,9 +2388,10 @@ def preprocess_cli(corpus, vocab, out, engine, workers, card):
                    "preprocess --engine " + engine)
 
 
-def run_cli(cmd, label):
-    """One of the port's CLIs in a process of its own, watched by a
-    ``DeviceWatch``; returns (seconds, what the watch saw)."""
+def watched(cmd, timeout=900):
+    """``cmd`` in a process of its own from the repository root (first
+    on ``PYTHONPATH``), watched by a ``DeviceWatch``: (seconds, exit
+    code, stdout, stderr, what the watch saw, the watch)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -2374,18 +2401,25 @@ def run_cli(cmd, label):
                             env=env)
     watch = DeviceWatch(proc.pid)
     try:
-        stdout, stderr = proc.communicate(timeout=900)
+        stdout, stderr = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
         seen = watch.stop()
-    secs = time.perf_counter() - t0
+    return (time.perf_counter() - t0, proc.returncode, stdout, stderr,
+            seen, watch)
+
+
+def run_cli(cmd, label):
+    """One of the port's CLIs in a process of its own, watched by a
+    ``DeviceWatch``; returns (seconds, what the watch saw)."""
+    secs, rc, stdout, stderr, seen, _ = watched(cmd)
     for line in stdout.splitlines()[-4:]:
         print("{}: {}".format(label, line), flush=True)
-    if proc.returncode != 0:
+    if rc != 0:
         raise AssertionError("{} failed ({}):\n{}".format(
-            label, proc.returncode, stderr[-4000:]))
+            label, rc, stderr[-4000:]))
     return secs, seen
 
 
@@ -4643,6 +4677,174 @@ def pipeline_path(fa, card):
         dist.destroy_process_group()
 
 
+def run_smoke(name):
+    """One CI smoke (``python -m lddl_tpu_torch.tools.<name>_smoke``) at
+    its default size through ``watched``: (seconds, exit code, its JSON
+    report or None, the pids of its processes that mapped the CUDA
+    driver, the smoke process itself included, every pid seen, stderr's
+    tail)."""
+    secs, rc, stdout, stderr, _, watch = watched(
+        [sys.executable, "-m", "lddl_tpu_torch.tools.{}_smoke".format(name)],
+        timeout=SMOKE_TIMEOUT)
+    lines = stdout.strip().splitlines()
+    try:
+        report = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        report = None
+    return (secs, rc, report, sorted(watch.cuda_pids), watch.procs,
+            stderr[-4000:])
+
+
+def smoke_contract(name, rc, report):
+    """None when a smoke's result holds its contract, else what broke it:
+    exit 0 and ``identical: true``, or for the status smoke (which
+    compares no bytes) exit 0 and its alert fired and resolved."""
+    if rc != 0 or report is None:
+        return "exit {}, report {}".format(rc, report)
+    key = "alert_fire_resolve" if name == "status" else "identical"
+    if report.get(key) is not True:
+        return "{} is {!r}".format(key, report.get(key))
+    if name == "backend" and report.get("loader_identical") is not True:
+        return "loader_identical is {!r}".format(
+            report.get("loader_identical"))
+    return None
+
+
+def smoke_device_batches(fa, card):
+    """Phase 20 part (2): the cache smoke's dataset (``cache_smoke.build``
+    at its default size) published on the mock store with
+    LDDL_TPU_MOCK_LATENCY_MS, loaded onto the card through
+    ``prefetch_to_device`` under the smoke's sync leg and its default
+    (prefetch + cache) leg; the two legs' device batches must be equal
+    bit for bit. Then SMOKE_STEPS bert_large train steps (phase 4's model)
+    on the default leg's batches, each with a finite loss. Returns the
+    launch counts of those steps."""
+    from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                       prefetch_to_device)
+    from lddl_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       make_optimizer, make_train_step)
+    from lddl_tpu_torch.resilience import backend
+    from lddl_tpu_torch.tools import cache_smoke
+
+    knobs = {"LDDL_TPU_STORAGE_BACKEND": "mock",
+             "LDDL_TPU_MOCK_LATENCY_MS": SMOKE_LATENCY_MS}
+    saved = {k: os.environ.get(k) for k in knobs}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ci_")
+    os.environ.update(knobs)
+    # The store reads its latency when it is made: make it under the knob.
+    backend._instances.pop("mock", None)
+    try:
+        t0 = time.perf_counter()
+        bal, vocab = cache_smoke.build(
+            tmp, float(os.environ.get("LDDL_TPU_CACHE_SMOKE_MB", "0.5")))
+        build_s = time.perf_counter() - t0
+        legs, secs = {}, {}
+        for name, env in cache_smoke.LEGS[:2]:
+            with cache_smoke.leg_env(env):
+                loader = get_bert_pretrain_data_loader(
+                    bal, vocab_file=vocab, batch_size=SMOKE_BATCH,
+                    num_workers=0, fixed_seq_lengths=SMOKE_L)
+                t0 = time.perf_counter()
+                it = iter(prefetch_to_device(loader))
+                try:
+                    legs[name] = list(it)
+                finally:
+                    it.close()
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+        sync, cold = (legs[n] for n, _ in cache_smoke.LEGS[:2])
+        if not sync or len(sync) != len(cold):
+            raise AssertionError("device batches: {} against {}".format(
+                len(sync), len(cold)))
+        differ = [i for i, (a, b) in enumerate(zip(sync, cold))
+                  if a.keys() != b.keys()
+                  or not all(a[k].is_cuda and torch.equal(a[k], b[k])
+                             for k in a)]
+        if differ:
+            raise AssertionError("device batches differ between the sync "
+                                 "and the prefetch+cache legs at {}".format(
+                                     differ[:8]))
+        print("ci smokes (2): the cache smoke's {} shards on the mock store "
+              "({} ms a data op) built in {:.1f} s; {} device batches of "
+              "{} x {} equal bit for bit across the sync leg ({:.2f} s) and "
+              "the prefetch+cache leg ({:.2f} s) ({})".format(
+                  cache_smoke.SHARDS, SMOKE_LATENCY_MS, build_s, len(sync),
+                  SMOKE_BATCH, SMOKE_L, secs["sync"],
+                  secs["prefetch_cold"], card), flush=True)
+
+        torch.manual_seed(0)
+        cfg = BertConfig.bert_large(attention_dropout=0.0,
+                                    attention_impl="auto")
+        if max(int(b["input_ids"].max()) for b in cold) >= cfg.vocab_size:
+            raise AssertionError("a token id beyond bert_large's vocab")
+        with torch.device("cuda"):
+            model = BertForPreTraining(cfg)
+        opt = make_optimizer(model.parameters(), learning_rate=1e-4,
+                             warmup_steps=4, total_steps=100)
+        step = make_train_step(model, opt)
+        zero_launches(fa)
+        for i, batch in enumerate(cold[:SMOKE_STEPS]):
+            t0 = time.perf_counter()
+            loss = float(step(batch)["loss"])   # syncs the device
+            ms = 1e3 * (time.perf_counter() - t0)
+            if not math.isfinite(loss):
+                raise AssertionError("non-finite loss {} at step {}".format(
+                    loss, i))
+            print("ci smokes (2): bert_large step {} L={} loss={:.4f} "
+                  "{:.1f} ms (host clock; the first a warm-up) ({})".format(
+                      i, batch["input_ids"].shape[1], loss, ms, card),
+                  flush=True)
+        launches = read_launches(fa)
+        want = cfg.num_layers * SMOKE_STEPS
+        if launches != dict.fromkeys(KERNELS, 0) | {"onekv_fwd": want,
+                                                    "onekv_bwd": want}:
+            raise AssertionError("launch counts {} != {} of onekv_fwd and "
+                                 "onekv_bwd".format(launches, want))
+        print("ci smokes (2): launches over {} steps: {}".format(
+            SMOKE_STEPS, launches), flush=True)
+        return launches
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        backend._instances.pop("mock", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def smokes_path(fa, card):
+    """Phase 20: (1) the six CI identity smokes in processes of their own
+    at their default sizes, each holding its contract with no process
+    that mapped the CUDA driver; (2) ``smoke_device_batches``. Returns
+    part (2)'s launch counts."""
+    t_all = time.perf_counter()
+    for name in SMOKES:
+        secs, rc, report, holders, procs, stderr = run_smoke(name)
+        broken = smoke_contract(name, rc, report)
+        if broken:
+            raise AssertionError("{} smoke: {}:\n{}".format(name, broken,
+                                                           stderr))
+        if holders:
+            raise AssertionError("{} smoke: processes {} mapped the CUDA "
+                                 "driver".format(name, holders))
+        _, left = cuda_holders()
+        if set(left) & procs:
+            raise AssertionError("{} smoke: processes {} still hold the "
+                                 "CUDA driver".format(name,
+                                                      set(left) & procs))
+        print("ci smokes (1): {} {:.1f} s, exit {}, {} processes, none "
+              "with the CUDA driver mapped: {} ({})".format(
+                  name, secs, rc, len(procs),
+                  json.dumps(report, sort_keys=True), card), flush=True)
+    part1 = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    launches = smoke_device_batches(fa, card)
+    print("ci smokes: part (1) {:.1f} s, part (2) {:.1f} s ({})".format(
+        part1, time.perf_counter() - t0, card), flush=True)
+    return launches
+
+
 # The fp32 kernels and the head dims each is built at, by source: the two
 # 3xTF32 libraries (fa.f32_source routes the entry points between them).
 F32_KERNELS = {
@@ -4788,7 +4990,8 @@ def main():
                lambda: bart_path(fa, card, shared, dtype=torch.float32)),
               ("19", F32_D256_PATH,
                lambda: bart_path(fa, card, shared, BART_D256_HEADS,
-                                 dtype=torch.float32))]
+                                 dtype=torch.float32)),
+              ("20", "ci_smokes", lambda: smokes_path(fa, card))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

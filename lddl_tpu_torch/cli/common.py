@@ -153,11 +153,14 @@ def arm_fleet_if_requested(args, sink):
 def communicator_of(args):
     """The run's communicator: a gloo group's ``TorchCommunicator`` under
     ``--multihost`` (the group is destroyed on exit), else a
-    ``LocalCommunicator``."""
-    from ..parallel.distributed import get_communicator, init_distributed
+    ``LocalCommunicator``. Only ``--multihost`` imports torch: a
+    one-host CLI process (and the workers it spawns) loads none, and so
+    never maps the CUDA driver."""
     if not getattr(args, "multihost", False):
-        yield get_communicator()
+        from ..utils.comm import LocalCommunicator
+        yield LocalCommunicator()
         return
+    from ..parallel.distributed import get_communicator, init_distributed
     wiring = (args.coordinator_address, args.num_processes, args.process_id)
     if any(v is not None for v in wiring) and None in wiring:
         raise SystemExit(

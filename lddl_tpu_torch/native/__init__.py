@@ -14,16 +14,31 @@ surface:
     join_tokens(...) -> space-joined token strings as Arrow buffers
     split_docs(texts) -> list[list[str]]   (sentence split only)
 
-Unlike the reference there is no graceful degradation and no switch
-between rungs: the library builds at first use and any failure to build
-or load raises. The preprocess always takes the fused kernels; the
-staged rungs (``tokenize_docs`` + ``bert_pairs``, ``mask_batch``) are
-called directly by the tests that hold the rungs to each other. The
+Rungs, chosen by the reference's environment variables, each read per
+call (spawned pool workers inherit them):
+
+    fused-masked   ``bert_instances_masked``: split + WordPiece + NSP +
+                   shuffle + the masking replay in one call (the default
+                   on the masked path)
+    fused          ``bert_instances`` (+ ``mask_batch`` when masking):
+                   ``LDDL_TPU_NATIVE_FUSED_MASK=0`` or
+                   ``LDDL_TPU_NATIVE_MASK=0`` (``fused_mask_enabled``)
+    staged         ``tokenize_docs`` + ``bert_pairs``:
+                   ``LDDL_TPU_NATIVE_FUSED=0`` (``fused_enabled``)
+    numpy masking  ``LDDL_TPU_NATIVE_MASK=0``: ``mask_batch`` returns None
+                   and the caller masks with ``ops.masking.mask_batch_numpy``
+
+Every rung gives the same bytes. Unlike the reference, these are
+explicit choices and nothing else: the library builds at first use under
+every setting, any failure to build or load raises, and the preprocess
+never moves to another rung, or to the hf engine, on its own. The other
 environment variables read are ``LDDL_TPU_NATIVE_THREADS``, the
 in-kernel thread budget the preprocess runner hands its spawned workers,
-and ``LDDL_TPU_NATIVE_SANITIZE``, the sanitizer modes of the build
-(``build.sanitize_modes``); a sanitized library that does not load
-because its runtime is not preloaded raises and names ``LD_PRELOAD``.
+``LDDL_TPU_NATIVE_SANITIZE``, the sanitizer modes of the build
+(``build.sanitize_modes``; a sanitized library that does not load
+because its runtime is not preloaded raises and names ``LD_PRELOAD``),
+and ``LDDL_TPU_NATIVE_MARCH``, the build's ``-march``
+(``build.compile_flags``).
 
 The library is loaded from its own path with ctypes' default
 ``RTLD_LOCAL``, so it stays apart from the reference's library of the
@@ -208,6 +223,29 @@ def _load():
             ctypes.POINTER(_MaskedInstResult)]
         _lib = lib
         return _lib
+
+
+def fused_enabled():
+    """False under ``LDDL_TPU_NATIVE_FUSED=0``: the preprocess then takes
+    the staged rung (``tokenize_docs`` + ``bert_pairs``, two calls)."""
+    return os.environ.get("LDDL_TPU_NATIVE_FUSED", "1") != "0"
+
+
+def mask_enabled():
+    """False under ``LDDL_TPU_NATIVE_MASK=0``: no C++ masking anywhere
+    (``mask_batch`` returns None, and the fused-masked rung is off)."""
+    return os.environ.get("LDDL_TPU_NATIVE_MASK") != "0"
+
+
+def fused_mask_enabled():
+    """True when the fused-masked rung may run: the fused rung is on and
+    neither ``LDDL_TPU_NATIVE_FUSED_MASK=0`` nor
+    ``LDDL_TPU_NATIVE_MASK=0`` is set (the latter must give numpy
+    masking, not the fused replay of it). Otherwise the masked path
+    takes fused-unmasked + ``mask_batch``."""
+    return (fused_enabled()
+            and os.environ.get("LDDL_TPU_NATIVE_FUSED_MASK", "1") != "0"
+            and mask_enabled())
 
 
 _MAX_THREADS = 64  # kMaxThreads in lddl_native.cpp
@@ -591,11 +629,15 @@ def mask_batch(key_bytes, ids, candidate, num_to_predict, mask_id,
     ops.masking.mask_batch_numpy on the numpy-Philox stream keyed by
     ``key_bytes`` (utils.rng.sample_key_bytes). Returns (masked_ids,
     selected), or None when the parameters fall outside the frozen
-    replay contract (vocab size must be in [2, 2^32))."""
+    replay contract (vocab size must be in [2, 2^32)) or
+    ``LDDL_TPU_NATIVE_MASK=0`` turns C++ masking off (the caller masks
+    with ``mask_batch_numpy`` then)."""
+    lib = _load()
+    if not mask_enabled():
+        return None
     vocab_size = int(vocab_size)
     if not (2 <= vocab_size < 0xFFFFFFFF):
         return None
-    lib = _load()
     ids = np.ascontiguousarray(ids, dtype=np.int32)
     candidate = np.ascontiguousarray(candidate, dtype=np.uint8)
     num_to_predict = np.ascontiguousarray(num_to_predict, dtype=np.int64)

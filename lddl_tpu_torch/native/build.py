@@ -4,11 +4,12 @@ Counterpart of ``lddl_tpu/native/build.py``, without its table
 regeneration: ``unicode_tables.h`` is committed and only regenerated by
 hand (see ``gen_tables``). The library goes to the git-ignored
 ``_build/`` directory under a name keyed by a digest of the sources, the
-compiler flags, the sanitizer modes and the host's CPU flags
+compiler flags (``-march`` among them: ``LDDL_TPU_NATIVE_MARCH``,
+default ``native``), the sanitizer modes and the host's CPU flags
 (``-march=native`` bakes the build host's ISA in), so a changed source,
-another host or another mode builds its own library and a stale one is
-never loaded. A failed build raises with the compiler's output: the port
-has no fallback engine.
+another host, another ``-march`` or another mode builds its own library
+beside the others and a stale one is never loaded. A failed build raises
+with the compiler's output: the port has no fallback engine.
 
 Sanitizer modes, as the reference's: ``LDDL_TPU_NATIVE_SANITIZE`` is a
 comma-separated subset of ``tsan``, ``asan`` and ``ubsan``
@@ -35,11 +36,8 @@ SRC = os.path.join(_DIR, "lddl_native.cpp")
 TABLES = os.path.join(_DIR, "unicode_tables.h")
 BUILD_DIR = os.path.join(_DIR, "_build")
 
-# -march=native: the engine builds on the machine that runs it (2x on the
-# WordPiece/UTF-8 hot loops against plain -O3). -pthread: the engine runs
-# an in-kernel thread pool.
-_BASE_FLAGS = ("-march=native", "-std=c++17", "-shared", "-fPIC",
-               "-pthread")
+# -pthread: the engine runs an in-kernel thread pool.
+_BASE_FLAGS = ("-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _SANITIZE_FLAGS = {
     "tsan": ("-fsanitize=thread",),
@@ -71,15 +69,24 @@ def sanitize_modes():
     return tuple(modes)
 
 
+def march():
+    """The build's ``-march``: ``LDDL_TPU_NATIVE_MARCH``, default
+    ``native`` (the engine builds on the machine that runs it, 2x on the
+    WordPiece/UTF-8 hot loops against plain -O3). A fleet of mixed hosts
+    that shares one prebuilt tree pins it, e.g. ``x86-64-v3``."""
+    return os.environ.get("LDDL_TPU_NATIVE_MARCH", "native")
+
+
 def compile_flags(modes=None):
     """The g++ flags of a build for ``modes`` (default: the
-    environment's). A sanitized build takes ``-O1 -g
+    environment's) at ``march()``. A sanitized build takes ``-O1 -g
     -fno-omit-frame-pointer`` in place of ``-O3``, so reports carry
     usable stacks and races are not optimized away."""
     modes = sanitize_modes() if modes is None else tuple(modes)
+    base = ["-march=" + march(), *_BASE_FLAGS]
     if not modes:
-        return ["-O3", *_BASE_FLAGS]
-    flags = ["-O1", "-g", "-fno-omit-frame-pointer", *_BASE_FLAGS]
+        return ["-O3", *base]
+    flags = ["-O1", "-g", "-fno-omit-frame-pointer", *base]
     for m in modes:
         flags.extend(_SANITIZE_FLAGS[m])
     return flags

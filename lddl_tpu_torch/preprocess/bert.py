@@ -27,7 +27,10 @@ Masking engines:
 
 - ``engine="numpy"``: the native engine's fused masked kernel, a bit-exact
   C++ replay of ``ops.masking.mask_batch_numpy`` on the Philox stream
-  (whole-word masking runs ``mask_whole_word_batch_numpy``);
+  (whole-word masking runs ``mask_whole_word_batch_numpy``); the
+  reference's ``LDDL_TPU_NATIVE_FUSED``, ``LDDL_TPU_NATIVE_FUSED_MASK``
+  and ``LDDL_TPU_NATIVE_MASK`` pick the staged rungs, with the same bytes
+  (``native/__init__.py``);
 - ``engine="torch"``: the torch maskers of ``ops.masking`` on
   ``config.device`` (the card unless ``"cpu"``), the counterpart of the
   reference's ``"jax"`` engine: the same pairs, other masks.
@@ -340,8 +343,10 @@ def instances_from_texts(texts, tok_info, config, seed, bucket,
     pass (split + WordPiece + NSP pair creation + in-bucket shuffle),
     bit-identical to the staged ``documents_from_texts`` +
     ``pairs_from_documents``; on the unmasked path the kernel also hands
-    back the flat A/B id segments. Hf: those two stages in Python on the
-    fast tokenizer's ids."""
+    back the flat A/B id segments. Under ``LDDL_TPU_NATIVE_FUSED=0`` the
+    staged native rung (``tokenize_docs`` + ``bert_pairs``) gives the
+    same instances. Hf: those two stages in Python on the fast
+    tokenizer's ids."""
     tok_info = _tok_info(tok_info)
     _check_splitter(config, splitter_params)
     engine = config.tokenizer_engine
@@ -356,7 +361,18 @@ def instances_from_texts(texts, tok_info, config, seed, bucket,
         instances = pairs_from_documents(documents, config, seed, bucket)
         return InstanceBatch.from_pairs(instances, tok_info.cls_id,
                                         tok_info.sep_id)
+    from .. import native
     _apply_splitter_params(nat, splitter_params)
+    if not native.fused_enabled():
+        # The staged rung (LDDL_TPU_NATIVE_FUSED=0): two native calls,
+        # the same instances.
+        ids, sent_lens, doc_counts = nat.tokenize_docs(texts)
+        seq_ids, seq_lens, a_lens, rn = native.bert_pairs(
+            ids, sent_lens, doc_counts, config.max_seq_length,
+            config.short_seq_prob, config.duplicate_factor, seed, bucket,
+            tok_info.cls_id, tok_info.sep_id)
+        _emit_native_thread_metrics(nat)
+        return InstanceBatch(seq_ids, seq_lens, a_lens, rn)
     seq_ids, seq_lens, a_lens, rn, a_ids, b_ids = nat.bert_instances(
         texts, config.max_seq_length, config.short_seq_prob,
         config.duplicate_factor, seed, bucket, tok_info.cls_id,
@@ -520,8 +536,11 @@ def masked_instances_from_texts(texts, tok_info, config, seed, bucket,
 
     Returns a MaskedInstanceBatch, or None outside the replay contract:
     the numpy engine without whole-word masking, vocab size in
-    [2, 2^32), the native tokenizer engine. The caller then takes
-    ``instances_from_texts`` and ``apply_static_masking``."""
+    [2, 2^32), the native tokenizer engine; and None when
+    ``native.fused_mask_enabled()`` is false (``LDDL_TPU_NATIVE_FUSED=0``,
+    ``LDDL_TPU_NATIVE_FUSED_MASK=0`` or ``LDDL_TPU_NATIVE_MASK=0``). The
+    caller then takes ``instances_from_texts`` and
+    ``apply_static_masking``: the same bytes."""
     if not config.masking or config.whole_word_masking:
         return None
     if config.engine != "numpy":
@@ -529,6 +548,9 @@ def masked_instances_from_texts(texts, tok_info, config, seed, bucket,
     if not (2 <= tok_info.vocab_size < 0xFFFFFFFF):
         return None
     if config.tokenizer_engine not in ("auto", "native"):
+        return None
+    from .. import native
+    if not native.fused_mask_enabled():
         return None
     _check_splitter(config, splitter_params)
     nat = tok_info.native_tokenizer()
@@ -644,7 +666,8 @@ def apply_static_masking(batch, config, tok_info, seed, scope):
         masked_selected = native.mask_batch(
             lrng.sample_key_bytes(seed, *scope), ids, candidate,
             num_to_predict, tok_info.mask_id, tok_info.vocab_size)
-        if masked_selected is None:  # vocab size outside the replay
+        # None: vocab size outside the replay, or LDDL_TPU_NATIVE_MASK=0.
+        if masked_selected is None:
             from ..ops.masking import mask_batch_numpy
             masked_selected = mask_batch_numpy(
                 ids, candidate, num_to_predict,

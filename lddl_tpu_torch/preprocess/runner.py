@@ -755,9 +755,43 @@ def _write_txt_shard(rows, out_dir, part_id, masking, bin_size,
 _POOL = {}
 
 
+def _pin_worker_core(spec):
+    """Worker-to-core pinning under ``LDDL_TPU_PIN_CORES=1``: each pool
+    worker claims the next slot of ``native.resolve_threads()``
+    contiguous cores of the process's affinity set, so one worker's
+    in-kernel thread pool does not migrate onto another's cores. Slots
+    are handed out through a flock-appended ``.pin_slots`` file under
+    ``out_dir`` (spawned workers share no other state). Best effort: any
+    failure leaves the affinity as it was, and no byte changes."""
+    if os.environ.get("LDDL_TPU_PIN_CORES") != "1":
+        return
+    try:
+        cores = sorted(os.sched_getaffinity(0))
+        if len(cores) < 2:
+            return
+        import fcntl
+        from .. import native
+        path = os.path.join(spec.get("out_dir") or ".", ".pin_slots")
+        # Coordination scratch, not shard data: a torn line at worst skews
+        # one slot.
+        with open(path, "a+") as f:  # lddl: disable=atomic-publish
+            fcntl.flock(f, fcntl.LOCK_EX)
+            f.seek(0)
+            slot = len(f.read().splitlines())
+            f.write("{}\n".format(os.getpid()))
+            f.flush()
+        width = native.resolve_threads()
+        lo = (slot * width) % len(cores)
+        os.sched_setaffinity(
+            0, {cores[(lo + i) % len(cores)] for i in range(width)})
+    except Exception:  # lddl: disable=swallowed-error (best effort)
+        pass
+
+
 def _pool_init(process_bucket, spec):
     _POOL["process_bucket"] = process_bucket
     _POOL["spec"] = spec
+    _pin_worker_core(spec)
 
 
 def _run_block_bucket(spec, process_bucket, bucket, fence=None, writer=None):
@@ -976,6 +1010,22 @@ def run_sharded_pipeline(
             obs.flush()
 
 
+def _elastic_run_started(out_dir, manifest_path):
+    """True when an elastic run is in progress in ``out_dir``: its ledger
+    manifest exists, or lands within 10 s of its ``_done``/``_leases``
+    dirs being there. Simultaneous elastic starts race the first host's
+    manifest publish, whose dirs can exist for a moment before
+    manifest.json lands; a stale directory still refuses, 10 s later."""
+    from ..resilience.leases import LEASE_DIR
+    if not any(os.path.isdir(os.path.join(out_dir, d))
+               for d in (_LEDGER_DIR, LEASE_DIR)):
+        return os.path.exists(manifest_path)
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline and not os.path.exists(manifest_path):
+        time.sleep(0.1)
+    return os.path.exists(manifest_path)
+
+
 def _run_pipeline_body(corpus_paths, out_dir, process_bucket, num_blocks,
                        sample_ratio, seed, global_shuffle, comm, log,
                        num_workers, spool_groups, resume, progress_interval,
@@ -990,25 +1040,18 @@ def _run_pipeline_body(corpus_paths, out_dir, process_bucket, num_blocks,
     manifest_path = os.path.join(out_dir, _LEDGER_DIR, "manifest.json")
     joining = elastic and os.path.exists(manifest_path)
     if elastic and not joining and os.path.isdir(out_dir):
-        # Simultaneous elastic starts race the first host's manifest
-        # publish: its _done/_leases dirs can exist for a moment before
-        # manifest.json lands. Wait briefly before judging the directory
-        # dirty; a stale dir still refuses, 10 s later.
-        from ..resilience.leases import LEASE_DIR
-        if any(os.path.isdir(os.path.join(out_dir, d))
-               for d in (_LEDGER_DIR, LEASE_DIR)):
-            deadline = time.monotonic() + 10.0
-            while time.monotonic() < deadline \
-                    and not os.path.exists(manifest_path):
-                time.sleep(0.1)
-            joining = os.path.exists(manifest_path)
+        joining = _elastic_run_started(out_dir, manifest_path)
     if os.path.isdir(out_dir) and not resume and not joining:
         stale = [
             n for n in sorted(os.listdir(out_dir))
             if ".parquet" in n or (".txt" in n and not n.startswith("."))
             or n in (_SPOOL_DIR, _LEDGER_DIR)
         ]
-        if stale:
+        if stale and elastic:
+            # Another host made its ledger dir between the wait above and
+            # this listing: wait for its manifest as above.
+            joining = _elastic_run_started(out_dir, manifest_path)
+        if stale and not joining:
             raise ValueError(
                 "output dir {} already contains {} shard files (e.g. {}); "
                 "remove them, choose a fresh directory, or pass "

@@ -1,12 +1,12 @@
 """Asynchronous durable shard sink: the double-buffered writer thread.
 
 Counterpart of ``lddl_tpu/preprocess/sink.py``. A
-:class:`ShardWriter` owns ONE writer thread and a bounded queue (depth 2:
-double buffering), and the producer hands it *deferred publish closures*
-instead of writing inline. While the writer encodes, fsyncs and publishes
-bucket N, the producer tokenizes and masks bucket N+1; parquet encode,
-lz4, fsync and the file writes release the GIL, so the overlap is real
-in one process.
+:class:`ShardWriter` owns ONE writer thread and a bounded queue (depth 2
+by default: double buffering), and the producer hands it *deferred
+publish closures* instead of writing inline. While the writer encodes,
+fsyncs and publishes bucket N, the producer tokenizes and masks bucket
+N+1; parquet encode, lz4, fsync and the file writes release the GIL, so
+the overlap is real in one process.
 
 Invariants (the writer only defers the publish path; what is written
 does not change):
@@ -27,8 +27,11 @@ does not change):
   that into a fence reject). The ``sink-write`` fault site fires just
   before that check.
 
-Telemetry, as the reference's::
+Knob and telemetry, as the reference's::
 
+    LDDL_TPU_SINK_DEPTH   queue depth (default 2; 0 runs no thread: the
+                          closures run inline, in submit order, with the
+                          same bytes)
     preprocess_sink_queue_depth          gauge: queued tasks high-water
     preprocess_sink_stall_seconds_total  counter: producer seconds blocked
                                          on a full queue or final drain
@@ -36,6 +39,7 @@ Telemetry, as the reference's::
                                          deferred publish closures
 """
 
+import os
 import queue
 import threading
 import time
@@ -45,8 +49,41 @@ from ..resilience import faults
 
 _END = object()  # end-of-unit marker
 
-# Queue depth: two deferred publishes in flight (double buffering).
-DEPTH = 2
+DEFAULT_DEPTH = 2
+
+# Process-cumulative stats (monotonic-clock seconds and counts, never
+# shard bytes), kept whether or not the metrics registry is armed: the
+# sink smoke reports the writer's and the producer's seconds from them.
+_STATS_LOCK = threading.Lock()
+_STATS = {"write_s": 0.0, "stall_s": 0.0, "tasks": 0, "units": 0,
+          "failed_units": 0}
+
+
+def stats_snapshot():
+    """A copy of the process-cumulative sink stats, with the storage
+    backend the deferred publishes go through."""
+    from ..resilience import backend as storage
+    with _STATS_LOCK:
+        snap = dict(_STATS)
+    snap["storage_backend"] = storage.active_name()
+    return snap
+
+
+def _stats_add(**deltas):
+    with _STATS_LOCK:
+        for k, v in deltas.items():
+            _STATS[k] += v
+
+
+def sink_depth():
+    """The queue depth ``LDDL_TPU_SINK_DEPTH`` asks for (default 2; an
+    unparsable value gives the default); 0 means no writer thread: the
+    closures run inline, the serial behaviour."""
+    try:
+        return max(0, int(os.environ.get("LDDL_TPU_SINK_DEPTH",
+                                         DEFAULT_DEPTH)))
+    except ValueError:
+        return DEFAULT_DEPTH
 
 
 class DeferredUnit:
@@ -74,22 +111,32 @@ class ShardWriter:
         ``close()``  stop the thread (idempotent; call from ``finally``).
     """
 
-    def __init__(self, name="shard-sink"):
+    def __init__(self, depth=None, name="shard-sink"):
+        self.depth = sink_depth() if depth is None else max(0, int(depth))
+        self._inline = self.depth == 0
         self._lock = threading.Lock()
         self._open = {}   # unit -> {"written": dict, "exc": Exception|None}
         self._done = []   # [(unit, written, exc)] awaiting collection
-        self._queue = queue.Queue(maxsize=DEPTH)
-        self._thread = threading.Thread(target=self._run, name=name,
-                                        daemon=True)
-        self._thread.start()
+        self._queue = self._thread = None
+        if not self._inline:
+            self._queue = queue.Queue(maxsize=self.depth)
+            self._thread = threading.Thread(target=self._run, name=name,
+                                            daemon=True)
+            self._thread.start()
 
     def submit(self, unit, fn, fence=None):
-        self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._put((unit, fn, fence))
+        state = self._open.setdefault(unit, {"written": {}, "exc": None})
+        if self._inline:
+            self._execute(state, unit, fn, fence)
+        else:
+            self._put((unit, fn, fence))
 
     def end_unit(self, unit):
-        self._open.setdefault(unit, {"written": {}, "exc": None})
-        self._put((unit, _END, None))
+        state = self._open.setdefault(unit, {"written": {}, "exc": None})
+        if self._inline:
+            self._finish(unit, state)
+        else:
+            self._put((unit, _END, None))
 
     def _put(self, task):
         q = self._queue
@@ -106,7 +153,10 @@ class ShardWriter:
 
     @staticmethod
     def _note_stall(seconds):
-        if seconds > 0 and obs.enabled():
+        if seconds <= 0:
+            return
+        _stats_add(stall_s=seconds)
+        if obs.enabled():
             obs.inc("preprocess_sink_stall_seconds_total", seconds)
 
     def completed(self):
@@ -120,9 +170,10 @@ class ShardWriter:
         """Block until every enqueued task ran; return ``completed()``.
         The producer's wait (the tail the overlap could not hide) counts
         into ``preprocess_sink_stall_seconds_total``."""
-        t0 = time.monotonic()
-        self._queue.join()
-        self._note_stall(time.monotonic() - t0)
+        if not self._inline:
+            t0 = time.monotonic()
+            self._queue.join()
+            self._note_stall(time.monotonic() - t0)
         return self.completed()
 
     def close(self):
@@ -140,39 +191,47 @@ class ShardWriter:
                 return
             unit, fn, fence = task
             state = self._open.get(unit)
-            t0 = time.monotonic()
+            # The writer thread must never die with tasks queued (drain
+            # would deadlock): anything _execute and _finish do not keep
+            # as the unit's error becomes a failed unit here.
             try:
                 if fn is _END:
                     self._finish(unit, state)
-                elif state["exc"] is None:
-                    faults.fault_point("sink-write", str(unit))
-                    if fence is not None and not fence():
-                        from ..resilience.leases import LeaseLost
-                        raise LeaseLost(
-                            "unit {} was stolen before its deferred "
-                            "publish; self-terminating".format(unit))
-                    res = fn()
-                    if res:
-                        state["written"].update(res)
-            # The writer thread must never die with tasks queued (drain
-            # would deadlock): a failure becomes the unit's error.
-            except Exception as e:  # noqa: BLE001 - surfaces at drain
-                if state is not None:
-                    state["exc"] = e
                 else:
-                    with self._lock:
-                        self._done.append((unit, {}, e))
+                    self._execute(state, unit, fn, fence)
+            except Exception as e:  # noqa: BLE001 - surfaces at drain
+                with self._lock:
+                    self._done.append((unit, {}, e))
             finally:
-                if fn is not _END and obs.enabled():
-                    obs.inc("preprocess_sink_write_seconds_total",
-                            time.monotonic() - t0)
                 self._queue.task_done()
+
+    def _execute(self, state, unit, fn, fence):
+        if state["exc"] is not None:
+            return  # the unit already failed: skip its other publishes
+        t0 = time.monotonic()
+        try:
+            faults.fault_point("sink-write", str(unit))
+            if fence is not None and not fence():
+                from ..resilience.leases import LeaseLost
+                raise LeaseLost("unit {} was stolen before its deferred "
+                                "publish; self-terminating".format(unit))
+            res = fn()
+            if res:
+                state["written"].update(res)
+        except Exception as e:  # noqa: BLE001 - surfaces at drain
+            state["exc"] = e
+        finally:
+            _stats_add(write_s=time.monotonic() - t0, tasks=1)
+            if obs.enabled():
+                obs.inc("preprocess_sink_write_seconds_total",
+                        time.monotonic() - t0)
 
     def _finish(self, unit, state):
         if state is None:
             state = {"written": {}, "exc": RuntimeError(
                 "unmatched end_unit for {!r} (no open unit)".format(unit))}
         self._open.pop(unit, None)
+        _stats_add(units=1, failed_units=int(state["exc"] is not None))
         with self._lock:
             self._done.append((unit, state["written"], state["exc"]))
 

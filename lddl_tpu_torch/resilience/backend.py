@@ -35,6 +35,11 @@ Selection is the ``LDDL_TPU_STORAGE_BACKEND`` environment variable
 ``backend_cas_conflicts_total``. ``is_cas`` tells the lease protocol
 which shape to take: conditional puts on the mock store, atomic rename
 and read-back on POSIX.
+
+Mock store knobs, read once when the instance is made (one per process):
+``LDDL_TPU_MOCK_PART_BYTES`` (multipart part size, default 256 KiB) and
+``LDDL_TPU_MOCK_LATENCY_MS`` (a sleep before every get, put, list and
+delete, never head; default 0).
 """
 
 import errno
@@ -42,6 +47,7 @@ import json
 import os
 import shutil
 import threading
+import time
 
 from . import faults
 from ..observability import inc as obs_inc
@@ -212,13 +218,34 @@ class MockObjectStore:
     # parts; older ones are collected.
     _KEEP_GENS = 2
 
-    # Bytes a multipart-upload part holds.
+    # Bytes a multipart-upload part holds, unless LDDL_TPU_MOCK_PART_BYTES
+    # says otherwise.
     _PART_BYTES = 1 << 18
 
     def __init__(self):
         self._lock = threading.Lock()
         self._upload_seq = 0
         self._list_cache = {}
+        # Both knobs are read once, here; an unparsable value gives the
+        # default.
+        try:
+            part = int(os.environ.get("LDDL_TPU_MOCK_PART_BYTES",
+                                      self._PART_BYTES))
+        except ValueError:
+            part = self._PART_BYTES
+        self._part_bytes = max(1, part)
+        # LDDL_TPU_MOCK_LATENCY_MS: a remote store's round trip on every
+        # data op (get, put, list, delete), never on head, whose metadata
+        # probe costs far less than a GET on a real store.
+        try:
+            self._latency_s = max(0.0, float(os.environ.get(
+                "LDDL_TPU_MOCK_LATENCY_MS", 0)) / 1e3)
+        except ValueError:
+            self._latency_s = 0.0
+
+    def _lat(self):
+        if self._latency_s > 0.0:
+            time.sleep(self._latency_s)
 
     @staticmethod
     def _obj_dir(path):
@@ -259,8 +286,8 @@ class MockObjectStore:
             return "{}-{}".format(os.getpid(), self._upload_seq)
 
     def _chunks_of(self, data):
-        for off in range(0, len(data), self._PART_BYTES):
-            yield data[off:off + self._PART_BYTES]
+        for off in range(0, len(data), self._part_bytes):
+            yield data[off:off + self._part_bytes]
 
     def _upload_parts(self, odir, chunks):
         """Phase 1 of multipart-upload-then-commit: parts that no commit
@@ -368,6 +395,7 @@ class MockObjectStore:
         rio._fsync_dir(path)
 
     def _put_once(self, path, chunks, expected_gen):
+        self._lat()
         if faults.fault_point("cas-put", path) == "conflict":
             _conflict(self.name, path, "cas-put")
         odir = self._obj_dir(path)
@@ -410,7 +438,7 @@ class MockObjectStore:
         def chunks():
             with open(src, "rb") as f:
                 while True:
-                    c = f.read(self._PART_BYTES)
+                    c = f.read(self._part_bytes)
                     if not c:
                         return
                     yield c
@@ -433,6 +461,7 @@ class MockObjectStore:
     def get(self, path, start=None, length=None):
         """The newest committed generation (ranged with start/length);
         paths never written through the store read as plain files."""
+        self._lat()
         faults.fault_point("open", path)
         odir = self._obj_dir(path)
         cur = self._current_gen(odir)
@@ -455,6 +484,7 @@ class MockObjectStore:
     def get_versioned(self, path):
         """(bytes, generation) of the current committed object, or
         (None, None) when the path was never committed."""
+        self._lat()
         faults.fault_point("open", path)
         odir = self._obj_dir(path)
         cur = self._current_gen(odir)
@@ -488,6 +518,7 @@ class MockObjectStore:
     def delete(self, path):
         """Unconditional delete: the commit records (authoritative), then
         the materialized view."""
+        self._lat()
         shutil.rmtree(self._obj_dir(path), ignore_errors=True)
         try:
             os.remove(path)
@@ -511,6 +542,7 @@ class MockObjectStore:
         """Sorted object names (committed objects and plain files, hidden
         names and publish scratch excluded); the ``stale`` fault serves
         this process's previous listing."""
+        self._lat()
         try:
             names = sorted(os.listdir(dirpath))
         except (FileNotFoundError, NotADirectoryError):

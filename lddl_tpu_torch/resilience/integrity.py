@@ -3,9 +3,8 @@ the producers and verified by the loader at startup.
 
 Counterpart of ``build_manifest``, ``read_manifest``, ``shard_checksum``,
 ``verify_shards`` and ``_check_one_shard`` of
-``lddl_tpu/resilience/integrity.py`` (the manifest in its default
-``full`` mode). The preprocess and the balancer publish a
-``.manifest.json`` next to ``.num_samples.json`` in every shard
+``lddl_tpu/resilience/integrity.py``. The preprocess and the balancer
+publish a ``.manifest.json`` next to ``.num_samples.json`` in every shard
 directory: ``{basename: {"bytes": n, "crc32": c}}`` plus a reserved
 ``__meta__`` entry with the shards' schema version and, for a directory
 of offline-packed shards of one row shape, that shape. The loader
@@ -17,8 +16,16 @@ Construction and verification are SPMD: ranks work on a strided subset
 of shards and one sum-allreduce merges (each entry is computed by exactly
 one rank, so the sum IS the value).
 
-Env knob: ``LDDL_TPU_VERIFY_CRC=1`` makes the startup check re-hash every
-shard instead of checking byte lengths only.
+Env knobs, as the reference's:
+
+- ``LDDL_TPU_MANIFEST``: ``full`` (the default; also ``1`` and any
+  unknown value) as above; ``size`` stats the sizes and reads nothing,
+  so its entries carry no ``crc32`` (and it writes no ``__meta__`` but
+  ``extra_meta``): the loader then checks lengths only and misses a
+  same-length corruption; ``0`` writes no manifest, and the loader trusts
+  every shard;
+- ``LDDL_TPU_VERIFY_CRC=1`` makes the startup check re-hash every shard
+  whose entry has a ``crc32`` instead of checking byte lengths only.
 """
 
 import json
@@ -89,15 +96,26 @@ def _shard_schema_info(path):
     return schema_version_of_names(schema.names), pack_shape_of_schema(schema)
 
 
+def manifest_mode():
+    """``LDDL_TPU_MANIFEST``'s mode: ``"full"``, ``"size"`` or ``"0"``
+    (``1`` and any unknown value give ``"full"``)."""
+    mode = os.environ.get("LDDL_TPU_MANIFEST", "full")
+    return mode if mode in ("size", "0") else "full"
+
+
 def build_manifest(dir_path, comm=None, log=None, extra_meta=None):
     """Checksum every parquet shard directly in ``dir_path`` (rank-strided)
     and publish the manifest from rank 0; returns it (None when the
-    directory holds no shard and no ``extra_meta`` is given).
+    directory holds no shard and no ``extra_meta`` is given, and under
+    ``LDDL_TPU_MANIFEST=0``). ``manifest_mode`` says what is written.
 
     ``extra_meta`` merges keys into the reserved ``__meta__`` entry: the
     ingest publisher records the latest generation and each generation's
     shard list there (the loader's generation-pickup gate). It must be
     deterministic content: manifest bytes are compared on resume."""
+    mode = manifest_mode()
+    if mode == "0":
+        return None
     if comm is None:
         from ..utils.comm import LocalCommunicator
         comm = LocalCommunicator()
@@ -117,6 +135,11 @@ def build_manifest(dir_path, comm=None, log=None, extra_meta=None):
     pstats = [0, 0, 0, 0, 0, 0]
     for i in range(comm.rank, len(names), comm.world_size):
         path = os.path.join(dir_path, names[i])
+        if mode == "size":
+            # Stat only: no CRC pass and no footer read.
+            sizes[i] = with_retries(lambda p=path: os.stat(p).st_size,
+                                    desc="stat " + path)
+            continue
         sizes[i], crcs[i] = shard_checksum(path)
         v, pack_shape = _shard_schema_info(path)
         if v is None:
@@ -132,7 +155,8 @@ def build_manifest(dir_path, comm=None, log=None, extra_meta=None):
     crcs = comm.allreduce_sum(crcs)
     vflags = comm.allreduce_sum(vflags)
     pstats = [int(x) for x in comm.allreduce_sum(pstats)]
-    manifest = {n: {"bytes": int(s), "crc32": int(c)}
+    manifest = {n: ({"bytes": int(s)} if mode == "size"
+                    else {"bytes": int(s), "crc32": int(c)})
                 for n, s, c in zip(names, sizes, crcs)}
     versions = [v for v, flag in zip((1, 2), vflags) if flag]
     if len(versions) == 1:

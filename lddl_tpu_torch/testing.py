@@ -20,6 +20,10 @@
 - ``write_text_corpus``: a raw text corpus in the downloaders' contract
   (``source/<i>.txt``, one ``<doc-id> <text>`` document per line) made
   from a seed over a vocab's words: the input of the preprocess.
+- ``make_corpus`` (with ``make_lexicon``): the same contract over a
+  procedural Zipf lexicon with accents, digits and CJK, the corpus of
+  the CI smokes (``tools/*_smoke.py``); a seed gives the bytes the
+  repository's root ``bench.py`` writes for it.
 """
 
 import json
@@ -394,3 +398,81 @@ def write_text_corpus(root, tokens, total_bytes, num_files=64, seed=0,
             fh.write("".join(lines))
         written += size
     return written
+
+
+# make_corpus's letters (English frequencies), accents and CJK characters.
+_ACCENTS = list("éàüñöçåèêôîûáíóúäß")
+_CJK = [chr(c) for c in range(0x4E00, 0x4E60)]
+_LETTERS = "etaoinshrdlucmfwypvbgkqjxz"
+_LETTER_P = np.array([
+    12.7, 9.1, 8.2, 7.5, 7.0, 6.7, 6.3, 6.1, 6.0, 4.3, 4.0, 2.8, 2.8, 2.4,
+    2.4, 2.4, 2.0, 2.0, 1.9, 1.5, 1.0, 0.8, 0.15, 0.15, 0.15, 0.07])
+_LETTER_P = _LETTER_P / _LETTER_P.sum()
+
+
+def make_lexicon(g, n_types=30000):
+    """Procedural word types drawn from generator ``g``:
+    letter-frequency-weighted latin strings, some accented, some with
+    digits, some CJK runs, so a vocab trained on a sample must split the
+    tail into several pieces."""
+    lengths = g.integers(2, 13, size=n_types)
+    letters = np.array(list(_LETTERS))
+    words = []
+    for i in range(n_types):
+        n = int(lengths[i])
+        w = "".join(letters[g.choice(26, size=n, p=_LETTER_P)])
+        r = g.random()
+        if r < 0.05:  # accented
+            pos = int(g.integers(0, n))
+            w = (w[:pos] + _ACCENTS[int(g.integers(0, len(_ACCENTS)))]
+                 + w[pos + 1:])
+        elif r < 0.07:  # digits (years, measures)
+            w = str(int(g.integers(0, 10000))) if g.random() < 0.5 else (
+                w + str(int(g.integers(0, 100))))
+        elif r < 0.075:  # a CJK run
+            w = "".join(_CJK[int(g.integers(0, len(_CJK)))]
+                        for _ in range(int(g.integers(1, 4))))
+        words.append(w)
+    return words
+
+
+def make_corpus(out_root, target_mb, shards=4, seed=0, n_types=30000,
+                zipf_a=1.07):
+    """Write about ``target_mb`` MiB of Wikipedia-like text under
+    ``out_root/source/<i>.txt`` (``shards`` files, one ``wiki-<n> <text>``
+    document per line, words Zipf(``zipf_a``)-distributed over
+    ``make_lexicon``'s types). Returns (bytes written, distinct types)."""
+    source = os.path.join(out_root, "source")
+    os.makedirs(source)
+    g = np.random.default_rng(seed)
+    lexicon = np.asarray(make_lexicon(g, n_types=n_types), dtype=object)
+    ranks = np.arange(1, n_types + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks ** zipf_a)
+    cdf /= cdf[-1]
+    punct = np.array([".", ".", ".", ".", "!", "?"], dtype=object)
+    target_bytes = int(target_mb * 1024 * 1024)
+    written = 0
+    doc_id = 0
+    files = [open(os.path.join(source, "{}.txt".format(i)), "w",
+                  encoding="utf-8") for i in range(shards)]
+    try:
+        while written < target_bytes:
+            n_sents = int(g.integers(8, 40))
+            sent_lens = g.integers(6, 32, size=n_sents)
+            total = int(sent_lens.sum())
+            doc_words = lexicon[np.searchsorted(cdf, g.random(total))]
+            sents = []
+            pos = 0
+            for sl in sent_lens:
+                s = " ".join(doc_words[pos:pos + int(sl)])
+                pos += int(sl)
+                sents.append(s.capitalize()
+                             + str(punct[int(g.integers(0, len(punct)))]))
+            line = "wiki-{} {}\n".format(doc_id, " ".join(sents))
+            files[doc_id % shards].write(line)
+            written += len(line.encode("utf-8"))
+            doc_id += 1
+    finally:
+        for f in files:
+            f.close()
+    return written, len(set(lexicon.tolist()))

@@ -19,10 +19,18 @@
 # Extra arguments after the mode flag pass through to
 # lddl_tpu_torch.tools.lddl_check.
 #
-# LDDL_TPU_CI_SMOKE_SANITIZE=1 adds the opt-in sanitizer smoke
-# (python -m lddl_tpu_torch.tools.sanitize_smoke): the native engine
-# rebuilt under TSan+UBSan and the 1-vs-N thread identity suite run
-# against it.
+# Opt-in blocks, in the reference's order, each gating when asked for:
+#   LDDL_TPU_CI_SMOKE_BENCH=1     the six identity smokes
+#                                 (python -m lddl_tpu_torch.tools.<name>_smoke
+#                                 for sink, elastic, backend, thread, status,
+#                                 cache)
+#   LDDL_TPU_CI_SMOKE_NATIVE=1    build the native engine, then the
+#                                 fused/staged/hf shard identity test
+#   LDDL_TPU_CI_SMOKE_SANITIZE=1  the sanitizer smoke
+#                                 (python -m lddl_tpu_torch.tools.sanitize_smoke):
+#                                 the native engine rebuilt under TSan+UBSan
+#                                 and the 1-vs-N thread identity suite run
+#                                 against it
 set -euo pipefail
 cd "$(dirname "$0")/../.."
 
@@ -45,6 +53,33 @@ if python -c "import pyflakes" >/dev/null 2>&1; then
 else
     python -m compileall -q lddl_tpu_torch
 fi
+# Opt-in identity smokes: each runs one small corpus through two settings
+# that must give the same bytes (serial/async sink, legacy/batched elastic
+# coordination, local/mock store, 1/N native threads, sync/prefetch+cache
+# loader on a latency-injected store) or holds pipeline_status's exit-code
+# contract, and exits nonzero on a divergence or a crash. The timings they
+# print are informational. Opt-in because together they take minutes.
+if [ "${LDDL_TPU_CI_SMOKE_BENCH:-0}" = "1" ]; then
+    for smoke in sink elastic backend thread status cache; do
+        if python -m "lddl_tpu_torch.tools.${smoke}_smoke"; then
+            echo "ci_check: ${smoke} smoke OK (timings non-gating)"
+        else
+            echo "ci_check: ${smoke} smoke FAILED: a divergence, a broken contract or a crash" >&2
+            exit 1
+        fi
+    done
+fi
+
+# Opt-in native-engine smoke: builds the C++ engine from its sources, then
+# holds the masked, binned, schema-v2 shards of the fused, staged and hf
+# rungs byte-equal. A failed build fails the block: the port never falls to another engine on its own.
+if [ "${LDDL_TPU_CI_SMOKE_NATIVE:-0}" = "1" ]; then
+    python -m lddl_tpu_torch.native.build
+    python -m pytest tests/test_torch_smokes_preprocess.py -q \
+        -k "identity_smoke" -p no:cacheprovider
+    echo "ci_check: native fused identity smoke passed"
+fi
+
 # Opt-in sanitizer smoke: rebuilds the native engine under TSan+UBSan
 # (its own library, so the normal build is untouched) and runs the 1-vs-N
 # thread identity suite against it. It fails on any sanitizer report, a

@@ -220,6 +220,48 @@ def test_two_elastic_hosts_split_work(fixture_dirs, reference, tmp_path,
     assert sum(1 for line in logs if "elastic summary" in line) == 2
 
 
+def test_host_whose_listing_sees_the_ledger_dir_appear_joins(
+        fixture_dirs, reference, tmp_path, monkeypatch):
+    """A host that passed the start guard's wait before another host made
+    its ``_done`` dir, and whose dirty-directory listing then sees it,
+    joins that run (waiting for its manifest) instead of refusing the
+    directory as stale: hosts started together hit that window."""
+    td, corpus, vocab = fixture_dirs
+    out = str(tmp_path / "out")
+    os.makedirs(out)
+    results, errors = {}, {}
+
+    def host(hid):
+        try:
+            results[hid] = _run_elastic(corpus, out, _processor(vocab, out),
+                                        hid)
+        except Exception as e:  # noqa: BLE001 - surfaced by the assert
+            errors[hid] = e
+
+    other = threading.Thread(target=host, args=("hostA",))
+    main = threading.current_thread()
+    real_listdir = os.listdir
+
+    def listdir(path="."):
+        # hostB's first listing of ``out`` (the guard's stale check):
+        # start hostA there and return once its ledger dir exists.
+        if path == out and threading.current_thread() is main \
+                and not other.is_alive() and other.ident is None:
+            other.start()
+            deadline = time.monotonic() + 60
+            while not os.path.isdir(os.path.join(out, "_done")):
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+        return real_listdir(path)
+
+    monkeypatch.setattr(os, "listdir", listdir)
+    host("hostB")
+    other.join()
+    assert not errors, errors
+    _assert_reference_bytes(out, reference[2])
+    assert results["hostA"] == results["hostB"]
+
+
 def test_elastic_on_mock_store(fixture_dirs, reference, tmp_path,
                                monkeypatch):
     """Two hosts on the mock object store (CAS leases, multipart

@@ -1,10 +1,11 @@
 """The port stands alone: no module of lddl_tpu_torch (nor the chip_*.py
-scripts at the root) imports JAX, flax, optax, orbax, transformers or lddl_tpu, importing the
-package loads no JAX and no HF package (``tokenizers`` is imported only
-lazily, by ``native/gen_tables.py`` when the tables are regenerated by
-hand), the preprocess workers, the downloaders (CLIs and spawned sharding
-workers), the analyzer and the loader's process workers import no
-torch, and entry points refuse to fall back to the CPU when CUDA is asked
+scripts at the root) imports JAX, flax, optax, orbax, transformers,
+lddl_tpu or the root bench.py, importing the package loads no JAX and no
+HF package (``tokenizers`` is imported only lazily, by
+``native/gen_tables.py`` when the tables are regenerated by hand), the
+preprocess workers, the downloaders (CLIs and spawned sharding workers),
+the analyzer, the loader's process workers and a one-host preprocess or
+balance CLI run import no torch, and entry points refuse to fall back to the CPU when CUDA is asked
 for (explicitly or by default) and absent."""
 
 import ast
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lddl_tpu", "transformers")
+# ``bench`` is the reference's root benchmark script (its corpus maker is
+# copied into ``lddl_tpu_torch.testing``).
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lddl_tpu", "transformers",
+             "bench")
 
 
 def _port_sources():
@@ -60,6 +64,7 @@ def test_no_forbidden_imports():
     # The prefix check itself: the port's own name is not forbidden.
     assert not _forbidden("lddl_tpu_torch.ops")
     assert _forbidden("lddl_tpu.ops") and _forbidden("jax.numpy")
+    assert _forbidden("bench") and not _forbidden("benchmarks")
 
 
 def test_import_leaves_jax_unloaded():
@@ -224,6 +229,42 @@ def test_loader_worker_modules_import_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_one_host_clis_import_no_torch(tmp_path):
+    """A one-host preprocess CLI run (elastic, fleet-armed) and a balance
+    CLI run load no torch, so they never map the CUDA driver: only
+    ``--multihost`` needs torch's process group."""
+    code = ("import runpy, sys; "
+            "sys.argv = [sys.argv[1]] + sys.argv[2:]; "
+            "runpy.run_module(sys.argv[0], run_name='__main__'); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lddl_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    prep = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from lddl_tpu_torch.testing import make_corpus; "
+            "from lddl_tpu_torch.preprocess import build_wordpiece_vocab; "
+            "make_corpus(sys.argv[2], 0.02); "
+            "build_wordpiece_vocab([l.split(None, 1)[1] for l in "
+            "open(sys.argv[2] + '/source/0.txt')], sys.argv[3], "
+            "vocab_size=500)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    corpus, vocab = str(tmp_path / "corpus"), str(tmp_path / "vocab.txt")
+    subprocess.run([sys.executable, "-c", prep, ROOT, corpus, vocab],
+                   check=True, env=env, timeout=120)
+    pre, bal = str(tmp_path / "pre"), str(tmp_path / "bal")
+    for argv in (["lddl_tpu_torch.cli.preprocess_bert_pretrain",
+                  "--wikipedia", corpus, "--sink", pre, "--vocab-file",
+                  vocab, "--masking", "--num-blocks",
+                  "4", "--local-workers", "1", "--elastic",
+                  "--elastic-host-id", "h0", "--fleet-telemetry"],
+                 ["lddl_tpu_torch.cli.balance_shards", "--indir", pre,
+                  "--outdir", bal, "--num-shards", "2"]):
+        proc = subprocess.run([sys.executable, "-c", code] + argv, cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert proc.stdout.strip().endswith("[]"), proc.stdout
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
