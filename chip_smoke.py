@@ -98,13 +98,13 @@ exits non-zero):
    restored into a model from another seed and a bit-identical next
    step; ``entry.dryrun_multichip(1)``;
 8. offline BERT data path, at the README Quickstart's phase-2 setting
-   with half its corpus:
+   with a quarter of its corpus:
    the native engine built with g++ (its committed ``unicode_tables.h``
    must be calibrated for this Python's ``unicodedata``); the torch
    maskers on the card against the same maskers on the CPU at 4096 x 512
    (token and whole-word: masks and selections bit-identical, the
    counts, candidates, whole words and the 80/10/10 split held); a
-   64 MiB text corpus from a seed (64 files of documents of 5-60
+   32 MiB text corpus from a seed (64 files of documents of 5-60
    sentences over bert_large's 30522-token vocab) through the port's
    preprocess CLI (target length 512, bins of 64, static masking,
    duplicate factor 5, sample ratio 0.9, 64 blocks, schema v2, up to 16
@@ -285,10 +285,27 @@ exits non-zero):
    then two bert_large train steps (phase 4's model, full width) on them
    with finite losses, ``onekv_fwd`` and ``onekv_bwd`` 24 launches each
    a step. Each part's seconds.
+21. the loader harness: (1) ``lddl_tpu_torch/examples/local_example.sh``
+   at its defaults on the card's host (DATA in a temporary directory):
+   its eight stages exit 0, ``validate_seqlen`` prints PASS, and no
+   process of the recipe maps the CUDA driver (the ``DeviceWatch``
+   rule); (2) ``lddl_tpu_torch.tools.mock_train.run`` with ``--with-model
+   base --attention-impl flash --epochs 1`` on the card (the presets'
+   attention dropout 0.1 pins "auto" to dense): bert_base on binned
+   shards (``testing.write_balanced_shards``, 4 bins of 128, 2 shards of
+   64 a bin) at batch 16 in the bins 128-512, bert_base
+   (``BertForPreTrainingPacked``) on ``testing.write_unbinned_shards``'s
+   512 samples packed at load time into 16 rows of 512, and bart_base at
+   batch 8, L=1024 on ``testing.write_bart_shards``: finite last losses,
+   ``onekv_fwd`` and ``onekv_bwd`` 12 times a BERT step each (one a
+   layer), the online trio 6 times a BART step each, no other kernel;
+   the binned run's dump through ``validate_seqlen``. Printed: each
+   run's ``train step`` ms, ``loader sustained`` rate and launches.
 
 Each phase from 4 prints its seconds. Prints a ``{"kernels": [...]}``
 line (``launches`` summed over the paths, ``launches_by_path`` per path:
 ``download`` is phase 14's, ``pipeline`` phase 15's pipelined run,
+``harness`` phase 21's three runs,
 ``bart_d256`` phase 16's; the ``_d256`` rows are the online kernels'
 D=256 builds, timed at phase 16's shape and counted in phase 16 alone,
 and the other online rows count every path but phase 16; the ``_f32``
@@ -365,9 +382,12 @@ DIST_PARAM_ATOL = 1e-6
 # phase-2 setting: a corpus of DATA_CORPUS_BYTES in DATA_FILES files ->
 # preprocess at target length 512, 64-token bins, static masking ->
 # DATA_SHARDS balanced shards a bin -> the loader -> bert_large. The
-# corpus is half the Quickstart's 128 MiB, so that the script keeps its
-# time limit on a slow host (phases 8-9 took 296-412 s at 128 MiB).
-DATA_CORPUS_BYTES = 64 << 20
+# corpus is a quarter of the Quickstart's 128 MiB, so that the script
+# keeps its time limit on a slow host (phases 8-9 took 296-412 s at 128
+# MiB and 297-353 s at 64 MiB; the whole script with phase 21 ~1100 s
+# at 64 MiB on a slow host). Block 0 of 64 still holds 2227 rows for
+# time_bucket_masking (4347 at 64 MiB).
+DATA_CORPUS_BYTES = 32 << 20
 DATA_FILES = 64
 DATA_TARGET, DATA_BIN = 512, 64
 DATA_BINS = [DATA_BIN * (i + 1) for i in range(DATA_TARGET // DATA_BIN)]
@@ -486,6 +506,19 @@ SMOKE_BATCH = 8
 SMOKE_L = 256
 SMOKE_STEPS = 2
 
+# The loader harness (phase 21): (1) the recipe at its defaults in a
+# temporary DATA; (2) ``mock_train.run --with-model base`` on the card,
+# one epoch of each run's synthetic shards (HARNESS_* are the shard
+# makers' arguments) with flash attention: bert_base binned at batch 16 in
+# the bins of HARNESS_BINS, on load-time packed rows of 512, and bart_base
+# at batch 8, L=1024.
+HARNESS_RECIPE = "lddl_tpu_torch/examples/local_example.sh"
+HARNESS_TIMEOUT = 600
+HARNESS_BINS = ["128", "256", "384", "512"]
+HARNESS_BINNED = dict(num_bins=4, bin_size=128, shards_per_bin=2,
+                      samples_per_shard=64)
+HARNESS_UNBINNED = dict(num_shards=2, samples_per_shard=256)
+HARNESS_BART = dict(num_shards=2, samples_per_shard=32)
 
 
 def card_line():
@@ -2388,12 +2421,13 @@ def preprocess_cli(corpus, vocab, out, engine, workers, card):
                    "preprocess --engine " + engine)
 
 
-def watched(cmd, timeout=900):
+def watched(cmd, timeout=900, env=None):
     """``cmd`` in a process of its own from the repository root (first
-    on ``PYTHONPATH``), watched by a ``DeviceWatch``: (seconds, exit
-    code, stdout, stderr, what the watch saw, the watch)."""
+    on ``PYTHONPATH``; ``env`` adds variables), watched by a
+    ``DeviceWatch``: (seconds, exit code, stdout, stderr, what the watch
+    saw, the watch)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -4845,6 +4879,147 @@ def smokes_path(fa, card):
     return launches
 
 
+def harness_recipe(card):
+    """Phase 21 part (1): ``lddl_tpu_torch/examples/local_example.sh`` at
+    its defaults (DATA in a temporary directory) through ``watched``:
+    every stage exits 0 (the recipe stops at the first that fails), the
+    eight banners, ``validate_seqlen``'s PASS, and no process of the
+    recipe with the CUDA driver mapped."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        data = os.path.join(tmp, "data")
+        secs, rc, stdout, stderr, _, watch = watched(
+            ["bash", HARNESS_RECIPE], timeout=HARNESS_TIMEOUT,
+            env={"DATA": data})
+        if rc != 0:
+            raise AssertionError("the recipe failed ({}):\n{}\n{}".format(
+                rc, stdout[-3000:], stderr[-3000:]))
+        banners = [ln.split(".")[0][3:] for ln in stdout.splitlines()
+                   if ln.startswith("== ")]
+        if banners != [str(i) for i in range(1, 9)] or \
+                stdout.splitlines()[-1] != "example complete: " + data:
+            raise AssertionError("the recipe's stages: {}".format(banners))
+        verdict = stdout.split("== 6.")[1].split("== 7.")[0].strip()
+        if verdict.splitlines()[-1] != "PASS":
+            raise AssertionError("validate_seqlen: {}".format(verdict))
+        if watch.cuda_pids:
+            raise AssertionError("recipe processes {} mapped the CUDA "
+                                 "driver".format(sorted(watch.cuda_pids)))
+        for line in stdout.splitlines():
+            if line.startswith(("loader sustained", "padded-zero",
+                                "packed:", "preprocess done",
+                                "balanced ", "corpus bytes")):
+                print("harness (1): {}".format(line), flush=True)
+        print("harness (1): the recipe's 8 stages in {:.1f} s, {} "
+              "processes, none with the CUDA driver mapped; "
+              "validate_seqlen PASS ({})".format(
+                  secs, len(watch.procs), card), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def median_by_len(lens, ms, skip=2):
+    """{L: the median of ``ms`` over the steps at L}, the first ``skip``
+    steps left out."""
+    out = {}
+    for n, (length, t) in enumerate(zip(lens, ms)):
+        if n >= skip:
+            out.setdefault(length, []).append(t)
+    return {k: round(sorted(v)[len(v) // 2], 2)
+            for k, v in sorted(out.items())}
+
+
+def harness_run(fa, card, label, argv, want):
+    """One ``mock_train.run`` on ``argv``, the launch counters zeroed just
+    before and read just after: the last loss must be finite and the
+    counts ``want(summary)`` (counter: launches), every other counter 0.
+    Returns the counts."""
+    from lddl_tpu_torch.tools import mock_train
+    args = mock_train.attach_args().parse_args(argv)
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    summary = mock_train.run(args)
+    secs = time.perf_counter() - t0
+    launches = read_launches(fa)
+    losses = summary["losses"]
+    if not losses or not math.isfinite(losses[-1]):
+        raise AssertionError("harness {}: losses {}".format(label,
+                                                            losses[-4:]))
+    expected = dict.fromkeys(KERNELS, 0) | want(summary)
+    if launches != expected:
+        raise AssertionError("harness {}: launch counts {} != {}".format(
+            label, launches, expected))
+    print("harness (2) {}: {} steps, train step {:.2f} ms avg (host "
+          "clock, the first two excluded; median by L {}), loader "
+          "sustained {:.1f} samples/s, losses {:.4f} -> {:.4f}, launches "
+          "{}, {:.1f} s ({})".format(
+              label, len(losses), summary["step_ms"],
+              median_by_len(summary["batch_lens"],
+                            summary["step_ms_each"]),
+              summary["sustained"], losses[0], losses[-1],
+              {k: v for k, v in launches.items() if v}, secs, card),
+          flush=True)
+    return launches
+
+
+def harness_path(fa, card):
+    """Phase 21: (1) ``harness_recipe``; (2) ``mock_train --with-model
+    base`` on the card: bert_base binned (the single-block pair 12 times
+    each a step, one a layer), on load-time packed rows (the same), and
+    bart_base at L=1024 (the online trio 6 times each a step, one an
+    encoder layer). The presets keep attention dropout 0.1, which pins
+    "auto" to dense in both packages, so the runs ask for flash. Returns
+    the launches summed over the three runs."""
+    from lddl_tpu_torch.testing import (write_balanced_shards,
+                                        write_bart_shards,
+                                        write_unbinned_shards, write_vocab)
+    t0 = time.perf_counter()
+    harness_recipe(card)
+    part1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        vocab = os.path.join(tmp, "vocab.txt")
+        tokens = write_vocab(vocab, 30522, seed=0)
+        write_balanced_shards(os.path.join(tmp, "bal"), tokens, seed=1,
+                              **HARNESS_BINNED)
+        write_unbinned_shards(os.path.join(tmp, "unb"), tokens, seed=2,
+                              **HARNESS_UNBINNED)
+        write_bart_shards(os.path.join(tmp, "bart"), len(tokens), seed=3,
+                          **HARNESS_BART)
+        common = ["--vocab-file", vocab, "--epochs", "1", "--with-model",
+                  "base", "--attention-impl", "flash"]
+        single = ("onekv_fwd", "onekv_bwd")
+        runs = [
+            ("bert_base binned",
+             ["--path", os.path.join(tmp, "bal"), "--batch-size", "16",
+              "--fixed-seq-lengths"] + HARNESS_BINS + [
+                  "--seq-len-dir", os.path.join(tmp, "lens")],
+             lambda s: dict.fromkeys(single, 12 * len(s["losses"]))),
+            ("bert_base packed",
+             ["--path", os.path.join(tmp, "unb"), "--batch-size", "16",
+              "--pack-seq-length", "512", "--pack-rows", "16"],
+             lambda s: dict.fromkeys(single, 12 * len(s["losses"]))),
+            ("bart_base",
+             ["--family", "bart", "--path", os.path.join(tmp, "bart"),
+              "--batch-size", "8", "--fixed-seq-lengths", "1024"],
+             lambda s: dict.fromkeys(ONLINE_KERNELS, 6 * len(s["losses"]))),
+        ]
+        total = dict.fromkeys(KERNELS, 0)
+        for label, argv, want in runs:
+            for k, v in harness_run(fa, card, label, argv + common,
+                                    want).items():
+                total[k] += v
+        from lddl_tpu_torch.tools import validate_seqlen
+        validate_seqlen.main(["--seq-len-dir", os.path.join(tmp, "lens"),
+                              "--bin-size", "128"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("harness: part (1) {:.1f} s, part (2) {:.1f} s ({})".format(
+        part1, time.perf_counter() - t0, card), flush=True)
+    return total
+
+
 # The fp32 kernels and the head dims each is built at, by source: the two
 # 3xTF32 libraries (fa.f32_source routes the entry points between them).
 F32_KERNELS = {
@@ -4991,7 +5166,8 @@ def main():
               ("19", F32_D256_PATH,
                lambda: bart_path(fa, card, shared, BART_D256_HEADS,
                                  dtype=torch.float32)),
-              ("20", "ci_smokes", lambda: smokes_path(fa, card))]
+              ("20", "ci_smokes", lambda: smokes_path(fa, card)),
+              ("21", "harness", lambda: harness_path(fa, card))]
     try:
         for number, path, run in phases:
             t0 = time.perf_counter()

@@ -23,7 +23,9 @@ Spec grammar: comma-separated clauses of colon-separated fields::
           lease sites in ``leases.py``, ``sink-write`` on the shard
           writer's thread right before each deferred publish)
     kind  eio | estale | truncate | slow | stall | kill | conflict | stale
-    p     per-call injection probability (seeded per process)
+    p     per-call injection probability: the n-th call of an op on a
+          path draws ``draw(seed, op, path, n)``, the same in every
+          process and under any thread interleaving
     nth   inject on exactly the Nth matching call of this process
     max   cap on injections per process (default: 1 for nth, unlimited
           for p)
@@ -43,8 +45,8 @@ it once per batch, before the batch is sent.
 """
 
 import errno
+import hashlib
 import os
-import random
 import threading
 import time
 
@@ -118,7 +120,7 @@ def _refresh():
             for c in _state["clauses"]:
                 c["_calls"] = 0
                 c["_injected"] = 0
-                c["_rng"] = random.Random(c["seed"] * 1000003 + os.getpid())
+                c["_seen"] = {}
         return _state["clauses"]
 
 
@@ -140,11 +142,27 @@ def armed():
     return bool(_refresh())
 
 
+def draw(seed, op, path, n):
+    """The uniform draw in [0, 1) of a ``p=`` clause seeded ``seed`` at
+    the ``n``-th call (from 1) of ``op`` on ``path`` in a process: a hash
+    of the four, so which calls fault depends on no pid and on no order
+    in which threads reach their fault points."""
+    key = "{}\0{}\0{}\0{}".format(seed, op, path or "", n).encode()
+    digest = hashlib.blake2b(key, digest_size=8).digest()
+    return int.from_bytes(digest, "big") / 2.0 ** 64
+
+
 def _should_inject(clause, op, path):
     if clause["op"] not in ("*", op):
         return False
     if clause["path"] is not None and clause["path"] not in (path or ""):
         return False
+    n = None
+    if clause["p"] is not None:
+        # Every matching call counts, capped or not, so the n-th call on
+        # a path draws the same number whatever came before elsewhere.
+        key = (op, path or "")
+        n = clause["_seen"][key] = clause["_seen"].get(key, 0) + 1
     if clause["flag"] is not None and os.path.exists(clause["flag"]):
         return False
     if clause["max"] is not None and clause["_injected"] >= clause["max"]:
@@ -152,7 +170,7 @@ def _should_inject(clause, op, path):
     clause["_calls"] += 1
     if clause["nth"] is not None:
         return clause["_calls"] == clause["nth"]
-    return clause["_rng"].random() < clause["p"]
+    return draw(clause["seed"], op, path, n) < clause["p"]
 
 
 def _latch(clause, op):

@@ -27,6 +27,7 @@ class Vocab:
             for index, line in enumerate(f):
                 vocab[line.rstrip("\n")] = index
         self._vocab = vocab
+        self._tokens = None   # id -> token, made at first use
         self.unk_token = unk_token
         self.do_lower_case = bool(do_lower_case)
 
@@ -41,3 +42,12 @@ class Vocab:
         if token in self._vocab:
             return self._vocab[token]
         return self._vocab[self.unk_token]
+
+    def convert_ids_to_tokens(self, ids):
+        """The tokens of a list of ids (an id is its token's line)."""
+        if self._tokens is None:
+            self._tokens = [None] * (max(self._vocab.values(), default=-1)
+                                     + 1)
+            for token, index in self._vocab.items():
+                self._tokens[index] = token
+        return [self._tokens[i] for i in ids]

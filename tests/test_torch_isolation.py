@@ -10,6 +10,7 @@ for (explicitly or by default) and absent."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -103,6 +104,8 @@ def test_import_leaves_jax_unloaded():
             "lddl_tpu_torch.tools, lddl_tpu_torch.tools.pipeline_status, "
             "lddl_tpu_torch.tools.trace_summary, "
             "lddl_tpu_torch.tools.lddl_check, lddl_tpu_torch.download, "
+            "lddl_tpu_torch.tools.mock_train, "
+            "lddl_tpu_torch.tools.validate_seqlen, "
             "lddl_tpu_torch.download.utils, "
             "lddl_tpu_torch.download.wikipedia, "
             "lddl_tpu_torch.download.books, "
@@ -356,3 +359,63 @@ def test_online_wrappers_refuse_what_the_kernels_do_not_take():
                  lambda: fa.online_bwd_dkv(q, q, q, mm, mm, q, r, r, 0.125)):
         with pytest.raises(TypeError, match="CUDA tensors"):
             call()
+
+
+def test_recipe_runs_the_port_alone():
+    """The port's recipe runs only the port: no ``lddl_tpu.`` module (the
+    port's own ``lddl_tpu_torch.`` aside), no script of ``benchmarks/``,
+    no root ``bench``; its inline Python imports nothing forbidden."""
+    path = os.path.join(ROOT, "lddl_tpu_torch", "examples",
+                        "local_example.sh")
+    with open(path) as f:
+        text = f.read()
+    assert "python -m lddl_tpu_torch.tools.mock_train" in text
+    bad = [ln for ln in text.splitlines()
+           if re.search(r"\blddl_tpu\.|\blddl_tpu\b(?!_torch)", ln)
+           or "benchmarks/" in ln
+           or re.search(r"\bimport\b.*\bbench\b|\bbench\.", ln)]
+    assert not bad, bad
+    snippets = re.findall(r"<<'PY'\n(.*?)\nPY\n", text, re.S)
+    assert len(snippets) == 3
+    for code in snippets:
+        for node in ast.walk(ast.parse(code)):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            assert not [m for m in mods if _forbidden(m)], mods
+
+
+def test_model_less_harness_maps_no_cuda_driver(tmp_path):
+    """``mock_train`` without ``--with-model`` imports no torch, so it
+    never maps the CUDA driver (nor JAX, nor the reference), and
+    ``validate_seqlen`` reads its dumps likewise."""
+    from lddl_tpu_torch import testing
+    tokens = testing.write_vocab(str(tmp_path / "vocab.txt"), 256, seed=1)
+    testing.write_balanced_shards(str(tmp_path / "bal"), tokens,
+                                  num_bins=2, bin_size=32, shards_per_bin=2,
+                                  samples_per_shard=16, seed=1)
+    code = ("import runpy, sys; "
+            "sys.argv = [sys.argv[1]] + sys.argv[2:]; "
+            "runpy.run_module(sys.argv[0], run_name='__main__'); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lddl_tpu', 'benchmarks', 'bench')); "
+            "maps = open('/proc/self/maps').read(); "
+            "bad += [n for n in ('libcuda.so', 'libtorch') if n in maps]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    lens = str(tmp_path / "lens")
+    for argv in (["lddl_tpu_torch.tools.mock_train", "--path",
+                  str(tmp_path / "bal"), "--vocab-file",
+                  str(tmp_path / "vocab.txt"), "--batch-size", "4",
+                  "--epochs", "1", "--fixed-seq-lengths", "32", "64",
+                  "--seq-len-dir", lens],
+                 ["lddl_tpu_torch.tools.validate_seqlen", "--seq-len-dir",
+                  lens, "--bin-size", "32"]):
+        proc = subprocess.run([sys.executable, "-c", code] + argv, cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert proc.stdout.strip().endswith("[]"), proc.stdout

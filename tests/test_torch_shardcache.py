@@ -206,15 +206,113 @@ def test_truncate_fault_surfaces_through_pipeline(tmp_path, monkeypatch,
         list(shardcache.shard_tables(files))
 
 
+def _attempts_to_heal(path, attempts, clauses):
+    """The attempt at which the retry layer's read of ``path`` gets
+    through (an ``open`` then a ``read`` fault point an attempt, the
+    ``read`` only once the ``open`` passed), or None when every one of
+    ``attempts`` draws a fault; ``clauses`` maps op -> (seed, p)."""
+    calls = {"open": 0, "read": 0}
+    for attempt in range(1, attempts + 1):
+        for op in ("open", "read"):
+            calls[op] += 1
+            seed, p = clauses[op]
+            if faults.draw(seed, op, path, calls[op]) < p:
+                break
+        else:
+            return attempt
+    return None
+
+
 def test_transient_eio_heals_through_pipeline(tmp_path, monkeypatch):
+    """The draws are a function of (seed, op, path, call), so with paths
+    relative to a fixed directory the same reads fault in every run; the
+    premise (no shard draws a fault in all 5 attempts) is checked before
+    the digest."""
     monkeypatch.delenv(storage.ENV_VAR, raising=False)
     monkeypatch.setenv("LDDL_TPU_RETRY_BASE_DELAY_S", "0.001")
-    files = _write_shards(tmp_path, 4)
+    monkeypatch.chdir(tmp_path)
+    files = _write_shards(".", 4)
+    heal = [_attempts_to_heal(f.path, 5, {"read": (5, 0.3),
+                                          "open": (6, 0.2)})
+            for f in files]
+    assert None not in heal, heal
+    assert max(heal) > 1, heal   # some read does fault and heal
     _pipeline_env(monkeypatch, 0, 0)
     clean = _tables_digest(files)
     _pipeline_env(monkeypatch, 2, 0)
     faults.arm("read:eio:p=0.3:seed=5,open:eio:p=0.2:seed=6")
     assert _tables_digest(files) == clean
+
+
+_DRAW_SPEC = "read:eio:p=0.4:seed=11,open:eio:p=0.25:seed=3"
+_DRAW_CALLS = 12   # calls of each op on each of the paths below
+_DRAW_PATHS = ("a/shard-0.parquet", "a/shard-1.parquet", "b/shard-0.parquet")
+
+
+def _faulted_calls(path, calls=_DRAW_CALLS):
+    """Which of ``calls`` open and read fault points on ``path`` fault,
+    under the armed spec: [(op, n)]."""
+    hit = []
+    for n in range(1, calls + 1):
+        for op in ("open", "read"):
+            try:
+                faults.fault_point(op, path)
+            except OSError:
+                hit.append((op, n))
+    return hit
+
+
+def test_fault_draws_ignore_process_and_thread_order():
+    """A p= clause's draws are a function of (seed, op, path, call): the
+    same faults in this process with the paths taken in turn, in two
+    threads that interleave in opposite orders, and in another process."""
+    import json
+    import subprocess
+    faults.arm(_DRAW_SPEC)
+    serial = {p: _faulted_calls(p) for p in _DRAW_PATHS}
+    assert all(serial.values()) and any(
+        len(v) < 2 * _DRAW_CALLS for v in serial.values())
+    for order in (_DRAW_PATHS, _DRAW_PATHS[::-1]):
+        faults.arm(_DRAW_SPEC)   # resets the call counters
+        got, turn = {}, threading.Condition()
+        state = {"next": 0}
+
+        def run(path, slot):
+            # One call of each op at a time, the threads taking turns in
+            # ``order``: every path's calls interleave with the others'.
+            hit = []
+            for n in range(1, _DRAW_CALLS + 1):
+                with turn:
+                    turn.wait_for(lambda: state["next"] % len(order) == slot)
+                    for op in ("open", "read"):
+                        try:
+                            faults.fault_point(op, path)
+                        except OSError:
+                            hit.append((op, n))
+                    state["next"] += 1
+                    turn.notify_all()
+            got[path] = hit
+
+        threads = [threading.Thread(target=run, args=(p, i))
+                   for i, p in enumerate(order)]
+        for t in threads[::-1]:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert got == serial, order
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_shardcache as t; "
+            "t.faults.arm(t._DRAW_SPEC); "
+            "print(json.dumps({p: t._faulted_calls(p) "
+            "for p in t._DRAW_PATHS}))")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", code, here], check=True,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                             here))).stdout
+    other = {p: [tuple(h) for h in v]
+             for p, v in json.loads(out.strip().splitlines()[-1]).items()}
+    assert other == serial
 
 
 def test_early_consumer_exit_leaks_no_threads(tmp_path, monkeypatch):
